@@ -1,0 +1,64 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel reads its inputs as 16-byte vectors and does its
+// arithmetic in float32; T is the storage type (float or bfloat16).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Finite -inf stand-in, as in the reference: a masked score never makes
+// (-inf) - (-inf) = NaN in an online softmax or in the split combine.
+#define REPRO_NEG_INF (-1e30f)
+
+// dtype codes passed from Python (repro_torch/kernels/build.py)
+#define REPRO_DTYPE_F32 0
+#define REPRO_DTYPE_BF16 1
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) {
+    return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_float<__nv_bfloat16>(float x) {
+    return __float2bfloat16(x);
+}
+
+// elements of T in one 16-byte vector
+template <typename T> struct Vec16 {
+    static constexpr int N = 16 / sizeof(T);
+};
+
+// Widen one 16-byte vector (Vec16<T>::N elements of T) to float.
+template <typename T>
+__device__ __forceinline__ void widen16(const uint4& raw, float* out) {
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < Vec16<T>::N; ++i) out[i] = to_float(e[i]);
+}
+
+// Load 16 bytes (Vec16<T>::N elements) and widen them to float.
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float* out) {
+    widen16<T>(*reinterpret_cast<const uint4*>(p), out);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+        x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+}

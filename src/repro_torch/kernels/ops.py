@@ -1,0 +1,96 @@
+"""Dispatch wrappers around the attention kernels.
+
+Counterpart of ``repro.kernels.ops`` (the ``pallas`` branches).  There is
+no implementation knob: a CUDA tensor launches the hand-written kernels
+and a CPU tensor runs their plain PyTorch versions, inside each kernel's
+wrapper.
+
+``decode_attention`` is the op the paper targets.  Its split count comes
+from a frozen :class:`~repro_torch.plan.LaunchPlan`; with no frozen plan
+the policy runs inside the call (the paper's internal-heuristic path),
+which :func:`policy_eval_count` counts.  A frozen plan's ``bucket`` cuts
+the cache to ``k[:, :bucket]`` before the split, so the splits partition
+the resident-length bucket rather than the cache's whole capacity.  Rows
+at or past ``kv_len`` are masked either way, so it is the same function.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_combine import flash_combine
+from repro_torch.kernels.flash_decode import flash_decode_partials
+from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.plan import AttentionSpec, LaunchPlan, Planner
+
+# How many times the split policy ran inside a decode-attention call.
+# The metadata-enabled serving path passes frozen plans and must leave
+# it at zero; tests and chip_smoke.py assert exactly that.
+_POLICY_EVALS: int = 0
+
+
+def policy_eval_count() -> int:
+    return _POLICY_EVALS
+
+
+def reset_policy_eval_count() -> None:
+    global _POLICY_EVALS
+    _POLICY_EVALS = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches by kernel name, since the last reset."""
+    return {name: build.LAUNCHES[name] for name in build.KERNELS}
+
+
+def reset_launch_counts() -> None:
+    build.LAUNCHES.clear()
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """Full (prefill) attention: q (B, Lq, Hq, D), k / v (B, Lk, Hkv, D).
+
+    q is scaled by ``D ** -0.5`` in f32 and rounded to its dtype before
+    the kernel, as the reference's Pallas path does."""
+    qs = (q.float() * q.shape[-1] ** -0.5).to(q.dtype)
+    return flash_prefill(qs, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
+
+
+def decode_attention(
+    q: torch.Tensor,         # (B, Hq, D): one new token per sequence
+    k: torch.Tensor,         # (B, Lk, Hkv, D) KV cache (may be a view)
+    v: torch.Tensor,
+    kv_len: torch.Tensor,    # (B,) valid lengths
+    *,
+    plan: Optional[LaunchPlan] = None,
+) -> torch.Tensor:
+    """Split-KV decode attention; the split count comes from ``plan``.
+
+    Returns (B, Hq, D) in q's dtype.  The partials kernel runs exactly the
+    plan's ``num_splits`` splits over ``k[:, :plan.bucket]``; the combine
+    kernel merges them in a fixed order.  A context-only plan (or none,
+    meaning ``paper`` at 132 SMs) has the policy decide here, over the
+    whole cache length.
+    """
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
+    if plan is None or not plan.frozen:
+        global _POLICY_EVALS
+        _POLICY_EVALS += 1
+        ctx = plan if plan is not None else LaunchPlan()
+        spec = AttentionSpec.decode(B, k.shape[1], Hq, Hkv, D)
+        plan = Planner(policy=ctx.policy,
+                       num_cores=ctx.num_cores).plan(spec)
+    if plan.bucket is not None:
+        k = k[:, :plan.bucket]
+        v = v[:, :plan.bucket]
+    s = max(1, min(plan.num_splits, k.shape[1]))
+    qp = (q.float() * D ** -0.5).to(k.dtype).reshape(B, Hkv, Hq // Hkv, D)
+    acc, l, m = flash_decode_partials(qp, k, v, kv_len, num_splits=s)
+    out = flash_combine(acc, l, m, out_dtype=k.dtype)
+    return out.reshape(B, Hq, D).to(q.dtype)
