@@ -13,18 +13,24 @@ Phases, each fatal on failure:
    source, in parallel) with ptxas's registers, shared memory and spills.
 2. Kernel parity: each kernel against its plain PyTorch version on the
    same CUDA tensors, at the main path's shapes, in bf16 (decode 2e-2,
-   prefill 3e-2), plus a same-split-same-bits check.
+   prefill 3e-2), plus a same-split-same-bits check; the quantized
+   decode kernel over int8 and fp8 caches with poisoned tails (2e-2,
+   ``AB_ATOL``), same split same bits.
 3. Serving at full width: qwen2.5-3b (36 layers, d_model 2048, 16 query
    heads over 2 KV heads, bf16, seeded random weights) through
-   ``ServingEngine`` submit/step/drain: 4 greedy requests, 2 slots.
-   Launch counts are zeroed just before and read just after; logits must
-   be finite.
+   ``ServingEngine`` submit/step/drain: 4 greedy requests, 2 slots, with
+   a bf16 cache, then under ``kv_quant="int8"`` and ``"fp8"``.  Launch
+   counts are zeroed just before each run and read just after; logits
+   must be finite.
 4. The paper's cell: one 420-token prompt decoding 64 tokens (every step
    in the 512 bucket) under ``paper`` and ``fa3_baseline``, in turns
-   (three runs each), plus the decode kernel alone at that shape; then a
-   torch.profiler window over its decode steps (device busy and idle).
+   (three runs each), plus the decode kernel alone at that shape, for
+   the bf16 cache and again under int8; then a torch.profiler window
+   over its decode steps, bf16 and int8 (device busy and idle, device
+   operations per step).
 5. One JSON ``kernels`` line: per kernel its error, launches on the main
-   path, its time (CUDA events, L2 flushed before each launch), the plain
+   path (the bf16 run's; the quantized decode kernel's from the int8
+   run), its time (CUDA events, L2 flushed before each launch), the plain
    version's time, the yardstick library call's time, and its bound.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -60,12 +66,22 @@ from repro_torch.kernels.flash_decode import (  # noqa: E402
     decode_partials_plain,
     flash_decode_partials,
 )
+from repro_torch.kernels.flash_decode_quant import (  # noqa: E402
+    decode_quant_partials_plain,
+    flash_decode_quant_partials,
+)
 from repro_torch.kernels.flash_prefill import (  # noqa: E402
     flash_prefill,
     prefill_plain,
 )
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.plan import AttentionSpec, Planner  # noqa: E402
+from repro_torch.quant import (  # noqa: E402
+    AB_ATOL,
+    QUANT_DTYPES,
+    QuantizedKV,
+    Quantizer,
+)
 from repro_torch.serving import (  # noqa: E402
     TOKEN,
     GreedySampler,
@@ -75,12 +91,17 @@ from repro_torch.serving import (  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12         # dense int8 / fp8 tensor-core peak
 DECODE_TOL, PREFILL_TOL = 2e-2, 3e-2
+QUANT_TOL = AB_ATOL["int8"]      # == AB_ATOL["fp8"]
 REPLACES = {
     "flash_decode": "src/repro/kernels/flash_decode.py:42",
     "flash_combine": "src/repro/kernels/flash_combine.py:28",
     "flash_prefill": "src/repro/kernels/flash_prefill.py:31",
+    "flash_decode_quant": "src/repro/kernels/flash_decode.py:186",
 }
+TOLS = {"flash_decode": DECODE_TOL, "flash_combine": DECODE_TOL,
+        "flash_prefill": PREFILL_TOL, "flash_decode_quant": QUANT_TOL}
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 DEVICE = "cuda"
 
@@ -130,9 +151,9 @@ def time_ms(fn, iters: int, flush) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, peak: float = BF16_FLOPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -177,6 +198,67 @@ def rand(gen, shape, dtype=torch.bfloat16):
     return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
 
 
+def poisoned_cache(gen, b, cap, hkv, d, lens, kv_dtype):
+    """A quantized cache whose rows past kv_len hold data 127 and -127
+    and scales 1e4 (the reference's poisoned-tail oracle): a kernel that
+    read one tail row would be off by orders of magnitude."""
+    art = Quantizer.from_kv_dtype(kv_dtype).quantized_kv(
+        rand(gen, (b, cap, hkv, d), torch.float32),
+        rand(gen, (b, cap, hkv, d), torch.float32))
+    tail = torch.arange(cap, device=DEVICE)[None] >= lens[:, None]
+    k, v, ks, vs = (t.clone() for t in art)
+    for x, val in ((k, 127.0), (v, -127.0)):     # through the raw bytes
+        x.view(torch.uint8)[tail] = torch.tensor(
+            val, device=DEVICE).to(x.dtype).view(torch.uint8)
+    ks[tail] = 1e4
+    vs[tail] = 1e4
+    return QuantizedKV(k, v, ks, vs)
+
+
+def parity_quant(gen, sms: int, kv_dtype: str) -> float:
+    """K4 against its plain version at the main path's shapes; returns
+    the max abs error of the combined outputs."""
+    err = 0.0
+    hkv, g, d, cap = 2, 8, 128, 2048
+    qz = Quantizer.from_kv_dtype(kv_dtype)
+    for b in (1, 2):
+        q = rand(gen, (b, hkv * g, d))
+        for bucket in (128, 512, 2048):
+            lens = torch.tensor([bucket - 17, bucket // 2 + 5][:b],
+                                device=DEVICE, dtype=torch.int32)
+            art = poisoned_cache(gen, b, cap, hkv, d, lens, kv_dtype)
+            view = QuantizedKV(*(t[:, :bucket] for t in art))
+            plan = Planner(policy="paper", num_cores=sms).plan(
+                AttentionSpec.decode(b, bucket, hkv * g, hkv, d,
+                                     kv_dtype=kv_dtype), bucket=bucket)
+            qp = (q.float() * d ** -0.5).to(q.dtype).reshape(b, hkv, g, d)
+            for s in sorted({1, 3, plan.num_splits}):
+                got = flash_decode_quant_partials(qp, *view, lens,
+                                                  num_splits=s)
+                want = decode_quant_partials_plain(qp, *view, lens,
+                                                   num_splits=s)
+                err = max(err, max_err(
+                    combine_plain(*got, out_dtype=torch.float32),
+                    combine_plain(*want, out_dtype=torch.float32),
+                    QUANT_TOL))
+                again = flash_decode_quant_partials(qp, *view, lens,
+                                                    num_splits=s)
+                check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                      f"{kv_dtype} decode B{b} L{bucket} S{s}: same split, "
+                      f"other bits")
+                full = ops.decode_attention_quant(
+                    q, art, lens, plan=Planner(num_splits_override=s).plan(
+                        AttentionSpec.decode(b, bucket, hkv * g, hkv, d,
+                                             kv_dtype=kv_dtype),
+                        bucket=bucket))
+                max_err(full, ref.naive_decode_attention(
+                    q, qz.dequantize(view.k, view.k_scale),
+                    qz.dequantize(view.v, view.v_scale), lens), QUANT_TOL)
+                print(f"parity decode_quant {kv_dtype} B{b} view{bucket} of "
+                      f"{cap} S{s} kv_len {lens.tolist()} tails poisoned: ok")
+    return err
+
+
 def phase_parity(gen, sms: int):
     errs = {name: 0.0 for name in REPLACES}
     hkv, g, d, cap = 2, 8, 128, 2048
@@ -216,6 +298,9 @@ def phase_parity(gen, sms: int):
                         DECODE_TOL)
                 print(f"parity decode B{b} view{bucket} of {cap} S{s} "
                       f"kv_len {lens.tolist()}: ok")
+    for kv_dtype in ("int8", "fp8"):
+        errs["flash_decode_quant"] = max(errs["flash_decode_quant"],
+                                         parity_quant(gen, sms, kv_dtype))
     hq = 16
     for lq, lk, window, off in ((128, 128, None, 0), (200, 200, None, 0),
                                 (1024, 1024, None, 0), (512, 512, 128, 0),
@@ -255,15 +340,20 @@ class CheckedGreedy(GreedySampler):
         return super().sample(logits)
 
 
-def drive(engine, requests):
+def drive(engine, requests, sampler=None):
     """Submit everything, then step to completion.  Returns per-request
-    TTFT ms, the ms of steps that only decoded, and the wall seconds."""
+    TTFT ms, the ms of steps that only decoded, the wall seconds, the
+    completions and, given the engine's CheckedGreedy ``sampler``, the
+    top-2 logit margin behind each emitted token, keyed (request index,
+    token index) (a device scalar, or None where it cannot be told)."""
     t0 = time.perf_counter()
     submitted = {engine.submit(r): r.request_id for r in requests}
-    first, decode_ms = {}, []
+    first, decode_ms, margins = {}, [], {}
     while engine.has_work():
         prefills = sum(v for k, v in engine.stats.launches.items()
                        if isinstance(k, tuple))
+        live = {st.handle: i for i, st in engine.sched.live()}
+        calls = len(sampler.margins) if sampler is not None else 0
         ts = time.perf_counter()
         events = engine.step()       # ends in a host copy of the tokens
         te = time.perf_counter()
@@ -273,9 +363,24 @@ def drive(engine, requests):
         for ev in events:
             if ev.kind == TOKEN and ev.handle not in first:
                 first[ev.handle] = (te - t0) * 1e3
+        if sampler is not None:
+            # one sampler call per admission (one row), in order, then one
+            # decode call over all slots
+            now = {st.handle: i for i, st in engine.sched.live()}
+            admitted = 0
+            for ev in events:
+                if ev.kind != TOKEN:
+                    continue
+                if ev.index == 0 and ev.handle not in live:
+                    m = sampler.margins[calls + admitted][0]
+                    admitted += 1
+                else:
+                    slot = live.get(ev.handle, now.get(ev.handle))
+                    m = None if slot is None else sampler.margins[-1][slot]
+                margins[(submitted[ev.handle], ev.index)] = m
     wall = time.perf_counter() - t0
     return ([first[h] for h in submitted], decode_ms, wall,
-            engine.drain())
+            engine.drain(), margins)
 
 
 def median(xs):
@@ -283,28 +388,34 @@ def median(xs):
     return xs[len(xs) // 2] if xs else float("nan")
 
 
-def phase_serving(model, params, cfg, seed: int):
+def phase_serving(model, params, cfg, seed: int, kv_quant=None,
+                  bf16=None):
+    """The main path: 4 requests through 2 slots, with a bf16 cache or
+    under ``kv_quant``.  Returns the launch counts, the JSON-safe metrics
+    and the streams with their margins; ``bf16`` is the bf16 run's
+    streams, which a quantized run's are printed against (never
+    checked)."""
+    label = kv_quant or "bf16"
     rng = np.random.default_rng(seed)
     lens = (37, 300, 450, 1000)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).tolist(),
                     max_new_tokens=32) for i, n in enumerate(lens)]
+    scfg = ServeConfig(model=cfg, seed=seed, kv_quant=kv_quant)
     # warm-up on a throwaway engine: the same prompt buckets, 2 tokens
     # each, so one-time library set-up stays out of the measured run
-    warm = ServingEngine(model, ServeConfig(model=cfg, seed=seed),
-                         max_len=2048, batch_slots=2, policy="paper",
-                         device=DEVICE)
+    warm = ServingEngine(model, scfg, max_len=2048, batch_slots=2,
+                         policy="paper", device=DEVICE)
     warm.load(params)
     drive(warm, [Request(r.request_id, r.prompt, max_new_tokens=2)
                  for r in reqs])
     del warm
     sampler = CheckedGreedy()
-    engine = ServingEngine(model, ServeConfig(model=cfg, seed=seed),
-                           max_len=2048, batch_slots=2, policy="paper",
-                           sampler=sampler, device=DEVICE)
+    engine = ServingEngine(model, scfg, max_len=2048, batch_slots=2,
+                           policy="paper", sampler=sampler, device=DEVICE)
     engine.load(params)
     ops.reset_launch_counts()
     ops.reset_policy_eval_count()
-    ttft, decode_ms, wall, done = drive(engine, reqs)
+    ttft, decode_ms, wall, done, margins = drive(engine, reqs, sampler)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     st = engine.stats
@@ -312,43 +423,81 @@ def phase_serving(model, params, cfg, seed: int):
                      if isinstance(k, tuple))
     steps = sum(v for k, v in st.launches.items() if isinstance(k, int))
     layers = cfg.num_layers
-    print(f"serving launches {json.dumps(counts)} admissions {admissions} "
-          f"decode steps {steps} plan misses {st.misses} distinct buckets "
-          f"{st.distinct_buckets} policy evals {ops.policy_eval_count()}")
-    check(bool(sampler.finite.item()), "non-finite logits at full width")
+    decode = "flash_decode_quant" if kv_quant else "flash_decode"
+    other = "flash_decode" if kv_quant else "flash_decode_quant"
+    print(f"serving {label} launches {json.dumps(counts)} admissions "
+          f"{admissions} decode steps {steps} plan misses {st.misses} "
+          f"distinct buckets {st.distinct_buckets} policy evals "
+          f"{ops.policy_eval_count()}")
+    check(engine._caches["k"].dtype == (
+        QUANT_DTYPES[kv_quant].torch_dtype if kv_quant else torch.bfloat16),
+        f"{label}: cache dtype")
+    check(bool(sampler.finite.item()),
+          f"{label}: non-finite logits at full width")
     check(counts["flash_prefill"] == layers * admissions == layers * 4,
-          "prefill launches != layers x admissions")
-    check(counts["flash_decode"] == layers * steps,
-          "decode launches != layers x decode steps")
+          f"{label}: prefill launches != layers x admissions")
+    check(counts[decode] == layers * steps,
+          f"{label}: {decode} launches != layers x decode steps")
+    check(counts[other] == 0, f"{label}: {other} launched")
     check(counts["flash_combine"] == layers * steps,
-          "combine launches != layers x decode steps")
-    check(ops.policy_eval_count() == 0, "policy evaluated inside a launch")
-    check(st.misses == st.distinct_buckets, "plan misses != buckets")
-    check([len(c.tokens) for c in done] == [32] * 4, "wrong token counts")
-    check(all(c.finish_reason == "length" for c in done), "finish reasons")
+          f"{label}: combine launches != layers x decode steps")
+    check(ops.policy_eval_count() == 0,
+          f"{label}: policy evaluated inside a launch")
+    check(st.misses == st.distinct_buckets, f"{label}: plan misses != "
+          f"buckets")
+    check([len(c.tokens) for c in done] == [32] * 4,
+          f"{label}: wrong token counts")
+    check(all(c.finish_reason == "length" for c in done),
+          f"{label}: finish reasons")
     tokens = sum(len(c.tokens) for c in done)
-    print(f"serving planned splits {engine.planned_splits()} prefill "
-          f"buckets {engine.planned_prefill_buckets()}")
-    print(f"serving ttft ms {[round(x, 3) for x in ttft]} median decode "
-          f"step ms {median(decode_ms):.3f} over {len(decode_ms)} steps, "
-          f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.3f} tokens/s")
-    return counts, {"ttft_ms": ttft, "decode_step_ms": median(decode_ms),
-                    "tokens_per_s": tokens / wall}
+    print(f"serving {label} planned splits {engine.planned_splits()} "
+          f"prefill buckets {engine.planned_prefill_buckets()}")
+    print(f"serving {label} ttft ms {[round(x, 3) for x in ttft]} median "
+          f"decode step ms {median(decode_ms):.3f} over {len(decode_ms)} "
+          f"steps, {tokens} tokens in {wall:.3f} s = {tokens / wall:.3f} "
+          f"tokens/s")
+    out = {"ttft_ms": ttft, "decode_step_ms": median(decode_ms),
+           "tokens_per_s": tokens / wall}
+    trace = {"streams": [c.tokens for c in done], "margins": margins}
+    if bf16 is not None:
+        out["leaves_bf16_at"] = leaves_at(bf16, trace, label)
+    return counts, out, trace
 
 
-def phase_paper_cell(model, params, cfg, seed: int, flush, sms: int):
+def leaves_at(base, run, label):
+    """Per request, the first token index where ``run``'s stream leaves
+    ``base``'s, printed with both runs' top-2 logit margins there."""
+    where = []
+    for r, (a, b) in enumerate(zip(base["streams"], run["streams"])):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        where.append(i)
+        if i is None:
+            print(f"serving {label} request {r}: stream equals bf16's")
+            continue
+        ma, mb = (m.get((r, i)) for m in (base["margins"], run["margins"]))
+        ma, mb = (None if m is None else round(float(m), 4)
+                  for m in (ma, mb))
+        print(f"serving {label} request {r}: leaves bf16's stream at token "
+              f"{i}; top-2 logit margin there {ma} (bf16) {mb} ({label})")
+    return where
+
+
+def phase_paper_cell(model, params, cfg, seed: int, flush, sms: int,
+                     kv_quant=None, runs_per_policy: int = 3):
+    label = kv_quant or "bf16"
     rng = np.random.default_rng(seed + 1)
     prompt = rng.integers(0, cfg.vocab_size, 420).tolist()
     runs = {"paper": [], "fa3_baseline": []}
-    for policy in ("paper", "fa3_baseline") * 3:
+    for policy in ("paper", "fa3_baseline") * runs_per_policy:
         sampler = CheckedGreedy()
-        engine = ServingEngine(model, ServeConfig(model=cfg), max_len=2048,
-                               batch_slots=1, policy=policy, sampler=sampler,
-                               device=DEVICE)
+        engine = ServingEngine(model, ServeConfig(model=cfg,
+                                                  kv_quant=kv_quant),
+                               max_len=2048, batch_slots=1, policy=policy,
+                               sampler=sampler, device=DEVICE)
         engine.load(params)
-        _, decode_ms, _, done = drive(
+        _, decode_ms, _, done, _ = drive(
             engine, [Request(0, prompt, max_new_tokens=64)])
-        check(bool(sampler.finite.item()), "non-finite logits")
+        check(bool(sampler.finite.item()), f"{label}: non-finite logits")
         runs[policy].append((engine.planned_splits(), decode_ms,
                              done[0].tokens,
                              torch.cat(sampler.margins).tolist()))
@@ -357,39 +506,66 @@ def phase_paper_cell(model, params, cfg, seed: int, flush, sms: int):
         splits = rs[0][0]
         per_run = [median(r[1]) for r in rs]
         ms = median([m for r in rs for m in r[1]])
-        print(f"paper cell {policy}: planned splits {splits} median decode "
-              f"step ms {ms:.3f} (per run {[round(x, 3) for x in per_run]})")
+        print(f"paper cell {label} {policy}: planned splits {splits} median "
+              f"decode step ms {ms:.3f} (per run "
+              f"{[round(x, 3) for x in per_run]})")
         out[policy] = {"splits": splits, "decode_step_ms": ms,
                        "per_run_ms": per_run}
+    if kv_quant:
+        # the policies read no dtype_bytes: a quantized cache plans as bf16
+        check(out["paper"]["splits"] == {512: 3}
+              and out["fa3_baseline"]["splits"] == {512: 1},
+              f"{label}: paper cell splits {out['paper']['splits']} / "
+              f"{out['fa3_baseline']['splits']}")
     a, b = runs["paper"][0], runs["fa3_baseline"][0]
     if a[2] == b[2]:
-        print("paper cell: token streams match")
+        print(f"paper cell {label}: token streams match")
     else:
         i = next(j for j, (x, y) in enumerate(zip(a[2], b[2])) if x != y)
-        print(f"paper cell: streams differ at token {i}; top-2 logit margin "
-              f"there {a[3][i]:.4g} (paper) {b[3][i]:.4g} (fa3_baseline)")
+        print(f"paper cell {label}: streams differ at token {i}; top-2 logit "
+              f"margin there {a[3][i]:.4g} (paper) {b[3][i]:.4g} "
+              f"(fa3_baseline)")
     # the decode kernel alone at this cell's shape: B=1, 512 view
-    k = torch.randn((1, 2048, 2, 128), device=DEVICE).to(torch.bfloat16)
-    qp = torch.randn((1, 2, 8, 128), device=DEVICE).to(torch.bfloat16)
     lens = torch.tensor([484], device=DEVICE, dtype=torch.int32)
+    qp = torch.randn((1, 2, 8, 128), device=DEVICE).to(torch.bfloat16)
+    if kv_quant:
+        art = Quantizer.from_kv_dtype(kv_quant).quantized_kv(
+            torch.randn((1, 2048, 2, 128), device=DEVICE),
+            torch.randn((1, 2048, 2, 128), device=DEVICE))
+        view = [t[:, :512] for t in art]
+        name = "decode_quant"
+
+        def kernel(s):
+            return flash_decode_quant_partials(qp, *view, lens, num_splits=s)
+    else:
+        k = torch.randn((1, 2048, 2, 128), device=DEVICE).to(torch.bfloat16)
+        name = "decode"
+
+        def kernel(s):
+            return flash_decode_partials(qp, k[:, :512], k[:, :512], lens,
+                                         num_splits=s)
     for s in (1, 3):
-        ms = time_ms(lambda: flash_decode_partials(
-            qp, k[:, :512], k[:, :512], lens, num_splits=s), 200, flush)
-        print(f"paper cell decode kernel B1 view512 kv_len 484 S{s}: "
-              f"{ms:.5f} ms")
+        ms = time_ms(lambda: kernel(s), 200, flush)
+        print(f"paper cell {label} {name} kernel B1 view512 kv_len 484 "
+              f"S{s}: {ms:.5f} ms")
         out[f"kernel_ms_s{s}"] = ms
     return out
 
 
-def phase_profile(model, params, cfg, seed: int, steps: int = 8):
+def phase_profile(model, params, cfg, seed: int, steps: int = 8,
+                  kv_quant=None):
     """Where a decode step's time goes: torch.profiler over ``steps``
-    decode steps of the paper cell (B=1, 512 bucket, ``paper``).  Reports
-    the step's wall ms, the device's busy ms (sum of kernel durations),
-    the idle share, and the kernels with the most device time."""
+    decode steps of the paper cell (B=1, 512 bucket, ``paper``), with a
+    bf16 cache or under ``kv_quant``.  Reports the step's wall ms, the
+    device's busy ms (sum of kernel durations), the idle share, the
+    kernels launched per step, and the kernels with the most device
+    time."""
     from torch.autograd import DeviceType
+    label = kv_quant or "bf16"
     rng = np.random.default_rng(seed + 1)
-    engine = ServingEngine(model, ServeConfig(model=cfg), max_len=2048,
-                           batch_slots=1, policy="paper", device=DEVICE)
+    engine = ServingEngine(model, ServeConfig(model=cfg, kv_quant=kv_quant),
+                           max_len=2048, batch_slots=1, policy="paper",
+                           device=DEVICE)
     engine.load(params)
     engine.submit(Request(0, rng.integers(0, cfg.vocab_size, 420).tolist(),
                           max_new_tokens=steps + 4))
@@ -402,19 +578,22 @@ def phase_profile(model, params, cfg, seed: int, steps: int = 8):
         for _ in range(steps):
             engine.step()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = {}
+    kernels, launches = {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            launches += 1
             kernels[e.name] = kernels.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
     busy_ms = sum(kernels.values()) / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     out = {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
            "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
+           "device_ops_per_step": launches / steps,
            "top_kernels_ms_per_step": {k[:80]: v / steps for k, v in top}}
-    print(f"profile decode step B1 bucket512 paper: wall {wall_ms:.3f} ms, "
-          f"device busy {busy_ms:.3f} ms, idle share "
-          f"{out['idle_share']:.3f} (profiler on)")
+    print(f"profile {label} decode step B1 bucket512 paper: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+          f"{out['idle_share']:.3f}, {launches / steps:.1f} device ops per "
+          f"step (profiler on)")
     for name, ms in out["top_kernels_ms_per_step"].items():
         print(f"  {ms:.4f} ms/step  {name}")
     engine.drain()
@@ -473,19 +652,33 @@ def phase_kernels_line(gen, sms: int, errs, counts, flush):
                     enable_gqa=True),
                 2 * (pq.numel() + pk.numel() + pv.numel() + pq.numel()),
                 4 * hq * d * lq * lq / 2))
+    # K4 at K1's shape, over the int8 cache the quantized main path holds
+    art = Quantizer.from_kv_dtype("int8").quantized_kv(
+        rand(gen, (b, cap, hkv, d), torch.float32),
+        rand(gen, (b, cap, hkv, d), torch.float32))
+    qview = [t[:, :bucket] for t in art]
+    quant_bytes = (2 * rows * hkv * (d * 1 + 4) + qp.numel() * 2
+                   + part_bytes)
+    out.append(("flash_decode_quant", f"B{b} view{bucket} of {cap} kv_len "
+                f"{lens.tolist()} S{s} int8",
+                lambda: flash_decode_quant_partials(qp, *qview, lens,
+                                                    num_splits=s),
+                lambda: decode_quant_partials_plain(qp, *qview, lens,
+                                                    num_splits=s),
+                None, quant_bytes, dec_flops + 2 * rows * hkv * d,
+                INT8_OPS_PER_S))
     kernels = []
-    for name, shape, fn, plain, lib, nbytes, flops in out:
+    for name, shape, fn, plain, lib, nbytes, flops, *peak in out:
         ms = time_ms(fn, 100, flush)
         plain_ms = time_ms(plain, 10, flush)
         lib_ms = time_ms(lib, 100, flush) if lib is not None else None
-        bms, by = bound(nbytes, flops)
+        bms, by = bound(nbytes, flops, *peak)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "shape": shape,
             "launches": counts[name], "max_abs_err": errs[name],
-            "tol": PREFILL_TOL if name == "flash_prefill" else DECODE_TOL,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms})
+            "tol": TOLS[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
     return kernels
 
 
@@ -514,15 +707,26 @@ def main(argv=None) -> int:
           f"{cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size} "
           f"{cfg.param_dtype}: {n_params} params, init "
           f"{time.perf_counter() - t0:.1f} s")
-    counts, serving = phase_serving(model, params, cfg, args.seed)
+    counts, serving, bf16 = phase_serving(model, params, cfg, args.seed)
+    qcounts, qserving, _ = phase_serving(model, params, cfg, args.seed,
+                                         kv_quant="int8", bf16=bf16)
+    _, fserving, _ = phase_serving(model, params, cfg, args.seed,
+                                   kv_quant="fp8", bf16=bf16)
+    # K1-K3 launches from the bf16 run, K4's from the int8 run
+    counts["flash_decode_quant"] = qcounts["flash_decode_quant"]
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     paper = phase_paper_cell(model, params, cfg, args.seed, flush, sms)
+    qpaper = phase_paper_cell(model, params, cfg, args.seed, flush, sms,
+                              kv_quant="int8")
     profile = phase_profile(model, params, cfg, args.seed)
+    qprofile = phase_profile(model, params, cfg, args.seed, kv_quant="int8")
     del params, model
     torch.cuda.empty_cache()
     kernels = phase_kernels_line(gen, sms, errs, counts, flush)
-    print(json.dumps({"serving": serving, "paper_cell": paper,
-                      "profile": profile, "card": card}))
+    print(json.dumps({"serving": serving, "serving_int8": qserving,
+                      "serving_fp8": fserving, "paper_cell": paper,
+                      "paper_cell_int8": qpaper, "profile": profile,
+                      "profile_int8": qprofile, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@ so they hash, print and diff cleanly and a config file is only data.
 ``ModelConfig`` keeps the reference's dense-family fields; the attention
 implementation is not a config knob here, because the kernel follows the
 tensor's device (see ``repro_torch.kernels.ops``).  ``ServeConfig``
-carries the dense-path serving fields only.
+carries the dense-path serving fields and the KV-cache format.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     max_seq_len: int = 524_288
-    dtype: str = "bfloat16"            # activations and the KV cache
+    dtype: str = "bfloat16"            # activations (the cache: ServeConfig)
     param_dtype: str = "bfloat16"
 
     @property
@@ -69,6 +69,15 @@ class ServeConfig:
     # metadata path).  False: the policy runs inside every launch on the
     # padded cache length (the internal-heuristic baseline).
     use_scheduler_metadata: bool = True
+    # storage dtype of the K/V cache, independent of the model's
+    # activation dtype (a KV_DTYPES name)
+    kv_cache_dtype: str = "bfloat16"
+    # quantized KV serving: a QUANT_DTYPES name ("int8" | "fp8") that
+    # wins over kv_cache_dtype.  The cache holds the storage dtype plus
+    # f32 per-(row, head) scales, decode plans are keyed on it, and
+    # decode attends through the fused-dequant kernel.  None =
+    # kv_cache_dtype rules.
+    kv_quant: Optional[str] = None
     seed: int = 0
 
 

@@ -1,10 +1,12 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
 // Every kernel reads its inputs as 16-byte vectors and does its
-// arithmetic in float32; T is the storage type (float or bfloat16).
+// arithmetic in float32; T is the storage type (float or bfloat16, and
+// int8 or fp8 e4m3 for a quantized KV cache).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -15,10 +17,18 @@
 // dtype codes passed from Python (repro_torch/kernels/build.py)
 #define REPRO_DTYPE_F32 0
 #define REPRO_DTYPE_BF16 1
+#define REPRO_DTYPE_INT8 2   // quantized KV storage, f32 scales beside it
+#define REPRO_DTYPE_FP8 3    // float8_e4m3fn, f32 scales beside it
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
     return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+    return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
+    return static_cast<float>(x);     // exact: every e4m3 value is an f32
 }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);

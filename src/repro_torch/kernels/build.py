@@ -29,13 +29,16 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
-KERNELS = ("flash_decode", "flash_combine", "flash_prefill")
+KERNELS = ("flash_decode", "flash_combine", "flash_prefill",
+           "flash_decode_quant")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# dtype codes of the C entry points (csrc/common.cuh)
+# dtype codes of the C entry points (csrc/common.cuh): the compute
+# dtypes, and the storage dtypes of a quantized KV cache
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+QUANT_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
 # Kernel launches by kernel name.  A wrapper adds one where it launches
 # its kernel and nowhere else (the CPU path launches nothing).

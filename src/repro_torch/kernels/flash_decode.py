@@ -68,7 +68,8 @@ def decode_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _entry():
     fn = build.load("flash_decode").flash_decode_partials
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -77,10 +78,11 @@ def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_len: torch.Tensor, *, num_splits: int):
     """Split-KV partials over ``num_splits`` splits.
 
-    q: (B, Hkv, G, D), pre-scaled, in the cache dtype; k, v: (B, L, Hkv,
-    D), possibly a strided view of a longer cache (``cache[:, :bucket]``
-    is read in place, never copied); kv_len: (B,) valid lengths, clamped
-    to L.  Returns acc (S, B, Hkv, G, D) and l, m (S, B, Hkv, G) in f32.
+    q: (B, Hkv, G, D), pre-scaled, f32 or bf16; k, v: (B, L, Hkv, D), f32
+    or bf16 (not necessarily q's dtype), possibly a strided view of a
+    longer cache (``cache[:, :bucket]`` is read in place, never copied);
+    kv_len: (B,) valid lengths, clamped to L.  Returns acc (S, B, Hkv, G,
+    D) and l, m (S, B, Hkv, G) in f32.
     """
     if not q.is_cuda:
         return decode_partials_plain(q, k, v, kv_len, num_splits=num_splits)
@@ -92,11 +94,11 @@ def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if G > MAX_GROUP:
         raise ValueError(f"flash_decode kernel takes at most {MAX_GROUP} "
                          f"query heads per KV head, got {G}")
-    if q.dtype not in build.DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise ValueError(f"flash_decode kernel needs q, k, v of one dtype "
-                         f"in {list(build.DTYPE_CODES)}, got {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}")
+    codes = build.DTYPE_CODES
+    if q.dtype not in codes or k.dtype not in codes or v.dtype != k.dtype:
+        raise ValueError(f"flash_decode kernel needs q in, and k, v of one "
+                         f"dtype in, {list(build.DTYPE_CODES)}; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if k.shape != (B, L, Hkv, D) or v.shape != k.shape:
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} "
                          f"does not match q {tuple(q.shape)}")
@@ -115,7 +117,8 @@ def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
                    acc.data_ptr(), l.data_ptr(), m.data_ptr(), B, Hkv, G, L,
                    S, D, k.stride(0), k.stride(1),
-                   build.DTYPE_CODES[q.dtype], build.stream_ptr())
+                   build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype],
+                   build.stream_ptr())
     build.check(err, "flash_decode")
     build.LAUNCHES["flash_decode"] += 1
     return acc, l, m

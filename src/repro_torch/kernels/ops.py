@@ -5,7 +5,10 @@ no implementation knob: a CUDA tensor launches the hand-written kernels
 and a CPU tensor runs their plain PyTorch versions, inside each kernel's
 wrapper.
 
-``decode_attention`` is the op the paper targets.  Its split count comes
+``decode_attention`` is the op the paper targets.  Given per-row scales
+it reads a quantized (int8 / fp8) cache through the fused-dequant kernel
+instead; ``decode_attention_quant`` takes the scales as a
+:class:`~repro_torch.quant.QuantizedKV`.  Its split count comes
 from a frozen :class:`~repro_torch.plan.LaunchPlan`; with no frozen plan
 the policy runs inside the call (the paper's internal-heuristic path),
 which :func:`policy_eval_count` counts.  A frozen plan's ``bucket`` cuts
@@ -22,6 +25,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_combine import flash_combine
 from repro_torch.kernels.flash_decode import flash_decode_partials
+from repro_torch.kernels.flash_decode_quant import \
+    flash_decode_quant_partials
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.plan import AttentionSpec, LaunchPlan, Planner
 
@@ -67,13 +72,17 @@ def decode_attention(
     v: torch.Tensor,
     kv_len: torch.Tensor,    # (B,) valid lengths
     *,
+    k_scale: Optional[torch.Tensor] = None,   # (B, Lk, Hkv) f32
+    v_scale: Optional[torch.Tensor] = None,
     plan: Optional[LaunchPlan] = None,
 ) -> torch.Tensor:
     """Split-KV decode attention; the split count comes from ``plan``.
 
     Returns (B, Hq, D) in q's dtype.  The partials kernel runs exactly the
     plan's ``num_splits`` splits over ``k[:, :plan.bucket]``; the combine
-    kernel merges them in a fixed order.  A context-only plan (or none,
+    kernel merges them in a fixed order.  With ``k_scale`` / ``v_scale``
+    the cache is quantized and the fused-dequant partials kernel reads
+    it, scales cut to the same bucket.  A context-only plan (or none,
     meaning ``paper`` at 132 SMs) has the policy decide here, over the
     whole cache length.
     """
@@ -89,8 +98,24 @@ def decode_attention(
     if plan.bucket is not None:
         k = k[:, :plan.bucket]
         v = v[:, :plan.bucket]
+        if k_scale is not None:
+            k_scale = k_scale[:, :plan.bucket]
+            v_scale = v_scale[:, :plan.bucket]
     s = max(1, min(plan.num_splits, k.shape[1]))
-    qp = (q.float() * D ** -0.5).to(k.dtype).reshape(B, Hkv, Hq // Hkv, D)
-    acc, l, m = flash_decode_partials(qp, k, v, kv_len, num_splits=s)
-    out = flash_combine(acc, l, m, out_dtype=k.dtype)
-    return out.reshape(B, Hq, D).to(q.dtype)
+    qp = (q.float() * D ** -0.5).to(q.dtype).reshape(B, Hkv, Hq // Hkv, D)
+    if k_scale is not None:
+        acc, l, m = flash_decode_quant_partials(qp, k, v, k_scale, v_scale,
+                                                kv_len, num_splits=s)
+    else:
+        acc, l, m = flash_decode_partials(qp, k, v, kv_len, num_splits=s)
+    return flash_combine(acc, l, m, out_dtype=q.dtype).reshape(B, Hq, D)
+
+
+def decode_attention_quant(q: torch.Tensor, qkv, kv_len: torch.Tensor,
+                           **kw) -> torch.Tensor:
+    """Split-KV decode over a quantized cache: ``qkv`` is a
+    :class:`~repro_torch.quant.QuantizedKV` (or any ``(k, v, k_scale,
+    v_scale)``), planned exactly as :func:`decode_attention`."""
+    k, v, k_scale, v_scale = qkv
+    return decode_attention(q, k, v, kv_len, k_scale=k_scale,
+                            v_scale=v_scale, **kw)

@@ -3,7 +3,9 @@
 Counterpart of the dense path of ``repro.models.lm``.  Layers are an
 ``nn.ModuleList`` walked by a Python loop (the reference scans a
 layer-stacked pytree).  Caches are the engine's static dense buffers
-``{"k", "v"}`` of shape (layers, B, max_len, Hkv, D), updated in place.
+``{"k", "v"}`` of shape (layers, B, max_len, Hkv, D), plus ``{"k_s",
+"v_s"}`` f32 scales of shape (layers, B, max_len, Hkv) for a quantized
+cache, updated in place.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from repro_torch.models.common import (
     unembed,
 )
 from repro_torch.plan import LaunchPlan
+from repro_torch.quant import Quantizer
 
 Caches = Dict[str, torch.Tensor]
 
@@ -60,23 +63,31 @@ def _ffn(block: Block, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def block_prefill(block: Block, cfg: ModelConfig, x: torch.Tensor,
-                  rope: Rope
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One block over a whole prompt: (x, the block's K rows, V rows)."""
+                  rope: Rope, kv_dtype: str
+                  ) -> Tuple[torch.Tensor, attn_mod.LayerCache]:
+    """One block over a whole prompt: (x, the block's cache rows)."""
     h = rms_norm(x, block.ln1.scale, cfg.norm_eps)
-    mix, k, v = attn_mod.attention_prefill(block.mix, cfg, h, rope)
-    return _ffn(block, cfg, x + mix), k, v
+    mix, rows = attn_mod.attention_prefill(block.mix, cfg, h, rope,
+                                           kv_dtype=kv_dtype)
+    return _ffn(block, cfg, x + mix), rows
 
 
 def block_decode(block: Block, cfg: ModelConfig, x: torch.Tensor,
-                 cache_k: torch.Tensor, cache_v: torch.Tensor,
-                 t: torch.Tensor, rope: Rope, *,
+                 cache: attn_mod.LayerCache, t: torch.Tensor, rope: Rope, *,
                  plan: LaunchPlan = None) -> torch.Tensor:
     """One block, one token per slot; x: (B, 1, d)."""
     h = rms_norm(x, block.ln1.scale, cfg.norm_eps)
-    mix = attn_mod.attention_decode(block.mix, cfg, h, cache_k, cache_v, t,
-                                    rope, plan=plan)
+    mix = attn_mod.attention_decode(block.mix, cfg, h, cache, t, rope,
+                                    plan=plan)
     return _ffn(block, cfg, x + mix)
+
+
+def cache_kv_dtype(caches: Caches) -> str:
+    """The KV_DTYPES name a cache dict was allocated for."""
+    qz = Quantizer.for_cache(caches)
+    if qz is not None:
+        return qz.spec.kv_dtype
+    return str(caches["k"].dtype).removeprefix("torch.")
 
 
 def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -86,25 +97,26 @@ def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def lm_prefill_view(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
-                    length: int, *, plan: Optional[LaunchPlan] = None
-                    ) -> Tuple[torch.Tensor,
-                               List[Tuple[torch.Tensor, torch.Tensor]]]:
+                    length: int, *, plan: Optional[LaunchPlan] = None,
+                    kv_dtype: str = "bfloat16"
+                    ) -> Tuple[torch.Tensor, List[attn_mod.LayerCache]]:
     """Prefill one bucket-padded prompt ``tokens`` (Lb,) in one pass.
 
     Returns (the logits at row ``length - 1`` (vocab,) f32, each layer's
-    (K, V) rows (1, Lb, Hkv, D)).  Rows at or past ``length`` hold the
-    padding's K/V: causal attention keeps them out of every real row, and
-    decode masks and then overwrites them.  ``plan`` is the prefill-kind
-    plan of the bucket; prefill never splits, so nothing in it changes
-    the math.
+    cache rows: ``k`` / ``v`` (1, Lb, Hkv, D), and ``k_s`` / ``v_s`` (1,
+    Lb, Hkv) when ``kv_dtype`` is quantized).  Rows at or past ``length``
+    hold the padding's K/V: causal attention keeps them out of every real
+    row, and decode masks and then overwrites them.  ``plan`` is the
+    prefill-kind plan of the bucket; prefill never splits, so nothing in
+    it changes the math.
     """
     x = embed_tokens(params.embed, tokens[None])
     rope = rope_angles(torch.arange(x.shape[1], device=x.device)[None],
                        cfg.resolved_head_dim, cfg.rope_theta)
     kv = []
     for block in params.layers:
-        x, k, v = block_prefill(block, cfg, x, rope)
-        kv.append((k, v))
+        x, rows = block_prefill(block, cfg, x, rope, kv_dtype)
+        kv.append(rows)
     return _logits(params, cfg, x[:, length - 1:length])[0, 0], kv
 
 
@@ -113,13 +125,14 @@ def lm_prefill_slot(params: LM, cfg: ModelConfig, caches: Caches,
                     tokens: torch.Tensor, slot: int, length: int, *,
                     plan: Optional[LaunchPlan] = None) -> torch.Tensor:
     """Prefill one prompt into slot ``slot`` of the dense cache, in place:
-    rows [0, Lb) of every layer.  Returns the logits at the last real
-    prompt row, (vocab,) f32."""
-    logits, kv = lm_prefill_view(params, cfg, tokens, length, plan=plan)
+    rows [0, Lb) of every layer, quantized if the cache is.  Returns the
+    logits at the last real prompt row, (vocab,) f32."""
+    logits, kv = lm_prefill_view(params, cfg, tokens, length, plan=plan,
+                                 kv_dtype=cache_kv_dtype(caches))
     lb = tokens.shape[0]
-    for li, (k, v) in enumerate(kv):
-        caches["k"][li, slot, :lb] = k[0]
-        caches["v"][li, slot, :lb] = v[0]
+    for li, rows in enumerate(kv):
+        for name, val in rows.items():
+            caches[name][li, slot, :lb] = val[0]
     return logits
 
 
@@ -134,6 +147,7 @@ def lm_decode_step(params: LM, cfg: ModelConfig, caches: Caches,
     x = embed_tokens(params.embed, token[:, None])
     rope = rope_angles(t[:, None], cfg.resolved_head_dim, cfg.rope_theta)
     for li, block in enumerate(params.layers):
-        x = block_decode(block, cfg, x, caches["k"][li], caches["v"][li], t,
+        x = block_decode(block, cfg, x,
+                         {name: c[li] for name, c in caches.items()}, t,
                          rope, plan=plan)
     return _logits(params, cfg, x)[:, 0]

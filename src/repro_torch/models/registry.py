@@ -14,6 +14,7 @@ from repro_torch.configs.base import ModelConfig, get_arch
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.common import init_params
 from repro_torch.plan import LaunchPlan
+from repro_torch.quant import QUANT_DTYPES
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -48,14 +49,27 @@ class Model:
             gen.manual_seed(int(seed))
         return init_params(lm_mod.LM(self.cfg, self.device), gen)
 
-    def init_cache(self, batch: int, max_len: int) -> lm_mod.Caches:
-        """Dense K and V caches, (layers, batch, max_len, Hkv, D), zeroed."""
+    def init_cache(self, batch: int, max_len: int,
+                   kv_dtype: str = "bfloat16") -> lm_mod.Caches:
+        """Dense K and V caches, (layers, batch, max_len, Hkv, D), zeroed,
+        in ``kv_dtype`` (a KV_DTYPES name).  A quantized ``kv_dtype``
+        ("int8" | "fp8") stores its storage dtype plus ``k_s`` / ``v_s``
+        f32 scales of shape (layers, batch, max_len, Hkv), as the
+        reference's ``kv_cache_specs``."""
         cfg = self.cfg
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
-        dt = getattr(torch, cfg.dtype)
+        if kv_dtype in QUANT_DTYPES:
+            dt = QUANT_DTYPES[kv_dtype].torch_dtype
+            scales = {name: torch.zeros(shape[:4], dtype=torch.float32,
+                                        device=self.device)
+                      for name in ("k_s", "v_s")}
+        else:
+            dt = getattr(torch, kv_dtype)
+            scales = {}
         return {"k": torch.zeros(shape, dtype=dt, device=self.device),
-                "v": torch.zeros(shape, dtype=dt, device=self.device)}
+                "v": torch.zeros(shape, dtype=dt, device=self.device),
+                **scales}
 
     @property
     def supports_fused_prefill(self) -> bool:

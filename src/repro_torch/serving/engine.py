@@ -38,6 +38,7 @@ import torch
 from repro_torch.configs.base import ServeConfig
 from repro_torch.models.registry import DeviceLike, Model, resolve_device
 from repro_torch.plan import LaunchPlan, PlanCacheStats
+from repro_torch.quant import QUANT_DTYPES
 from repro_torch.serving.events import (
     FINISH_CACHE_CAPACITY,
     FINISH_EOS,
@@ -89,6 +90,11 @@ class ServingEngine:
                 "path; set use_scheduler_metadata=True or "
                 "prefill_mode='loop'")
         self.prefill_mode = mode
+        if scfg.kv_quant is not None and scfg.kv_quant not in QUANT_DTYPES:
+            raise ValueError(f"unknown kv_quant {scfg.kv_quant!r}; "
+                             f"known: {sorted(QUANT_DTYPES)}")
+        # the cache's storage dtype (a KV_DTYPES name); kv_quant wins
+        self.kv_dtype = scfg.kv_quant or scfg.kv_cache_dtype
 
         num_cores = None
         if self.device.type == "cuda":
@@ -101,7 +107,7 @@ class ServingEngine:
             bucket_width=scfg.seqlen_bucket,
             prefill_bucket=scfg.prefill_bucket,
             plan_capacity=scfg.plan_cache_capacity,
-            kv_dtype=self.cfg.dtype)
+            kv_dtype=self.kv_dtype)
         # the internal-heuristic baseline: one context-only plan for every
         # length, so the policy runs inside each launch on max_len
         self._fallback_plan = self.sched.planner.context()
@@ -141,7 +147,8 @@ class ServingEngine:
             raise ValueError(f"params live on {dev}, engine on "
                              f"{self.device}")
         self._params = params
-        self._caches = self.model.init_cache(self.B, self.max_len)
+        self._caches = self.model.init_cache(self.B, self.max_len,
+                                             kv_dtype=self.kv_dtype)
 
     # --- bound steps --------------------------------------------------------
 
@@ -245,9 +252,10 @@ class ServingEngine:
             self._admit_fused(i, st, events)
             return
         # loop admission teacher-forces the prompt through decode steps;
-        # the slot's rows are zeroed first, as the reference does
-        self._caches["k"][:, i].zero_()
-        self._caches["v"][:, i].zero_()
+        # the slot's rows (data and scales) are zeroed first, as the
+        # reference does
+        for c in self._caches.values():
+            c[:, i].zero_()
         st.prompt_left = list(st.request.prompt)
         self._pos[i] = 0
         self._next_token[i] = st.prompt_left.pop(0)

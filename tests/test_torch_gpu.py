@@ -9,7 +9,8 @@ decided inside the ``cuda`` fixture, never at import or collection, so
 every pytest worker collects the same tests.
 
 Tolerances: bf16 2e-2 for decode and 3e-2 for prefill, float32 2e-5 for
-the combine (one fixed-order sum against another order).
+the combine (one fixed-order sum against another order), ``AB_ATOL``
+(2e-2) for the quantized decode.
 """
 import pytest
 import torch
@@ -22,8 +23,13 @@ from repro_torch.kernels.flash_decode import (
     decode_partials_plain,
     flash_decode_partials,
 )
+from repro_torch.kernels.flash_decode_quant import (
+    decode_quant_partials_plain,
+    flash_decode_quant_partials,
+)
 from repro_torch.kernels.flash_prefill import flash_prefill, prefill_plain
 from repro_torch.models import build_model
+from repro_torch.quant import AB_ATOL, QuantizedKV, Quantizer
 from repro_torch.serving import Request, ServingEngine
 
 pytestmark = pytest.mark.gpu
@@ -89,6 +95,68 @@ def test_prefill_matches_plain(cuda, lq, lk, hq, hkv, d, window, offset):
                                atol=3e-2)
 
 
+def test_decode_takes_f32_queries_over_a_bf16_cache(cuda):
+    """An f32 model over the default bf16 cache: q and the cache differ."""
+    k = _rand(cuda, (2, 640, 2, 128))
+    v = _rand(cuda, (2, 640, 2, 128))
+    q = _rand(cuda, (2, 2, 8, 128), torch.float32)
+    lens = torch.tensor([600, 33], device="cuda", dtype=torch.int32)
+    got = flash_decode_partials(q, k, v, lens, num_splits=5)
+    want = decode_partials_plain(q, k, v, lens, num_splits=5)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=2e-5, atol=2e-5)
+
+
+def _poisoned_cache(gen, b, cap, hkv, d, lens, kv_dtype):
+    """A quantized cache whose rows past kv_len hold data 127 and scales
+    1e4, as the reference's poisoned-tail oracle."""
+    art = Quantizer.from_kv_dtype(kv_dtype).quantized_kv(
+        _rand(gen, (b, cap, hkv, d), torch.float32),
+        _rand(gen, (b, cap, hkv, d), torch.float32))
+    tail = torch.arange(cap, device="cuda")[None] >= lens[:, None]
+    k, v, ks, vs = (t.clone() for t in art)
+    for x, val in ((k, 127.0), (v, -127.0)):     # through the raw bytes
+        x.view(torch.uint8)[tail] = torch.tensor(
+            val, device="cuda").to(x.dtype).view(torch.uint8)
+    ks[tail] = 1e4
+    vs[tail] = 1e4
+    return QuantizedKV(k, v, ks, vs)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("b,hkv,g,d,cap,bucket,s,qdt", [
+    (1, 2, 8, 128, 2048, 512, 3, torch.bfloat16),
+    (2, 2, 8, 128, 2048, 2048, 16, torch.bfloat16),
+    (2, 1, 4, 64, 256, 256, 2, torch.float32),
+    (3, 4, 2, 128, 640, 640, 5, torch.float32),
+])
+def test_decode_quant_matches_plain(cuda, kv_dtype, b, hkv, g, d, cap,
+                                    bucket, s, qdt):
+    lens = torch.randint(1, bucket + 1, (b,), device="cuda",
+                         generator=cuda, dtype=torch.int32)
+    art = _poisoned_cache(cuda, b, cap, hkv, d, lens, kv_dtype)
+    view = QuantizedKV(*(t[:, :bucket] for t in art))    # strided views
+    q = _rand(cuda, (b, hkv, g, d), qdt)
+    got = flash_decode_quant_partials(q, *view, lens, num_splits=s)
+    want = decode_quant_partials_plain(q, *view, lens, num_splits=s)
+    tol = AB_ATOL[kv_dtype]
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, w, rtol=tol, atol=tol)
+    out = flash_combine(*got, out_dtype=torch.float32)
+    qz = Quantizer.from_kv_dtype(kv_dtype)
+    torch.testing.assert_close(
+        out.reshape(b, hkv * g, d),
+        ref.naive_decode_attention(
+            q.float().reshape(b, hkv * g, d),
+            qz.dequantize(view.k, view.k_scale),
+            qz.dequantize(view.v, view.v_scale), lens, scale=1.0),
+        rtol=tol, atol=tol)
+    again = flash_combine(*flash_decode_quant_partials(
+        q, *view, lens, num_splits=s), out_dtype=torch.float32)
+    assert torch.equal(again, out)          # same split, same bits
+
+
 def test_cuda_tensors_never_take_the_plain_path(cuda):
     q = _rand(cuda, (1, 2, 8, 96))                 # head_dim 96: no kernel
     k = _rand(cuda, (1, 128, 2, 96))
@@ -110,8 +178,9 @@ def test_engine_smoke_on_the_card(cuda):
     tokens = {}
     for dev in ("cpu", "cuda"):
         model = build_model(cfg, device=dev)
-        eng = ServingEngine(model, ServeConfig(model=cfg), max_len=256,
-                            batch_slots=2, device=dev)
+        eng = ServingEngine(model, ServeConfig(model=cfg,
+                                               kv_cache_dtype="float32"),
+                            max_len=256, batch_slots=2, device=dev)
         eng.load(params.to(dev))
         ops.reset_launch_counts()
         for r in reqs:
@@ -124,3 +193,27 @@ def test_engine_smoke_on_the_card(cuda):
     assert counts["flash_decode"] == counts["flash_combine"] \
         == cfg.num_layers * steps
     assert tokens["cuda"] == tokens["cpu"]
+
+
+@pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
+def test_quantized_engine_on_the_card(cuda, kv_quant):
+    """The same model served under kv_quant: the fused-dequant kernel
+    carries every decode launch, the bf16 decode kernel none."""
+    cfg = reduced_config("qwen2.5-3b", num_layers=2, d_model=256)
+    model = build_model(cfg, device="cuda")
+    eng = ServingEngine(model, ServeConfig(model=cfg, kv_quant=kv_quant),
+                        max_len=256, batch_slots=2, device="cuda")
+    eng.load(model.init_params(0))
+    ops.reset_launch_counts()
+    for i, n in enumerate((3, 140, 9)):
+        eng.submit(Request(i, [(5 * i + j) % 250 + 1 for j in range(n)],
+                           max_new_tokens=6))
+    done = eng.drain()
+    counts = ops.launch_counts()
+    steps = sum(v for k, v in eng.stats.launches.items()
+                if isinstance(k, int))
+    assert [len(c.tokens) for c in done] == [6, 6, 6]
+    assert counts["flash_decode"] == 0
+    assert counts["flash_decode_quant"] == counts["flash_combine"] \
+        == cfg.num_layers * steps
+    assert counts["flash_prefill"] == cfg.num_layers * 3

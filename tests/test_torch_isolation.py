@@ -36,7 +36,9 @@ def test_no_module_imports_jax_or_repro():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for want in ("repro_torch.kernels.ops", "repro_torch.serving.engine",
-                 "repro_torch.interop", "repro_torch.kernels.build"):
+                 "repro_torch.interop", "repro_torch.kernels.build",
+                 "repro_torch.quant.quantizer",
+                 "repro_torch.kernels.flash_decode_quant"):
         assert want in res["modules"]
 
 

@@ -72,7 +72,7 @@ def test_prefill_and_decode_logits_match_jax(pair):
     jcfg, jmodel, jparams, cfg, model, params = pair
     prompts = _prompts()
     jcaches = jmodel.init_cache(len(LENS), MAX_LEN, kv_dtype="float32")
-    caches = model.init_cache(len(LENS), MAX_LEN)
+    caches = model.init_cache(len(LENS), MAX_LEN, kv_dtype="float32")
     next_tok = []
     for slot, p in enumerate(prompts):
         lb = bucket_seqlen(len(p), 16)
