@@ -5,23 +5,30 @@ Run from the repository root, on a machine with the card and nvcc:
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phase kernels # build + kernel parity only
+    python3 chip_smoke.py --phase admission  # build + admission steps
 
 Phases, each fatal on failure:
 
 1. Environment and build: the card's name and power limit, CUDA version,
    SM count; all kernels built from ``src/repro_torch/csrc`` (one nvcc per
-   source, in parallel) with ptxas's registers, shared memory and spills.
+   source, in parallel) with ptxas's registers, shared memory, spills
+   and warnings; any spill fails the run.
 2. Kernel parity: each kernel against its plain PyTorch version on the
    same CUDA tensors, at the main path's shapes, in bf16 (decode 2e-2,
    prefill 3e-2), plus a same-split-same-bits check; the quantized
    decode kernel over int8 and fp8 caches with poisoned tails (2e-2,
-   ``AB_ATOL``), same split same bits.
+   ``AB_ATOL``), same split same bits; the prefill kernel at the shapes
+   its tiling cares about (``PREFILL_CASES``: the main path's buckets,
+   ragged prompts, B=2, MHA, D=64 with a window, ``q_offset``, one
+   non-causal case), bf16 at 3e-2 and f32 at 2e-5, same inputs same
+   bits.
 3. Serving at full width: qwen2.5-3b (36 layers, d_model 2048, 16 query
    heads over 2 KV heads, bf16, seeded random weights) through
    ``ServingEngine`` submit/step/drain: 4 greedy requests, 2 slots, with
    a bf16 cache, then under ``kv_quant="int8"`` and ``"fp8"``.  Launch
    counts are zeroed just before each run and read just after; logits
-   must be finite.
+   must be finite.  Each admission step's wall ms is printed with its
+   prompt buckets.
 4. The paper's cell: one 420-token prompt decoding 64 tokens (every step
    in the 512 bucket) under ``paper`` and ``fa3_baseline``, in turns
    (three runs each), plus the decode kernel alone at that shape, for
@@ -32,6 +39,14 @@ Phases, each fatal on failure:
    path (the bf16 run's; the quantized decode kernel's from the int8
    run), its time (CUDA events, L2 flushed before each launch), the plain
    version's time, the yardstick library call's time, and its bound.
+   The prefill kernel has a row per main-path bucket (bf16, tensor
+   cores) and one for its f32 instantiation (CUDA cores) at 1024, each
+   with the launches its wrapper counted at that dtype and length.
+
+``--phase admission`` times the serving cell's admission
+steps alone, five runs on one engine; it uses only engine calls every
+slice of the port has, so a copy of this script in an older checkout
+times that checkout's kernels.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 The script exits non-zero, printing no result, without a CUDA device or
@@ -40,6 +55,8 @@ outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -92,7 +109,8 @@ from repro_torch.serving import (  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12         # dense int8 / fp8 tensor-core peak
-DECODE_TOL, PREFILL_TOL = 2e-2, 3e-2
+F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
+DECODE_TOL, PREFILL_TOL, F32_TOL = 2e-2, 3e-2, 2e-5
 QUANT_TOL = AB_ATOL["int8"]      # == AB_ATOL["fp8"]
 REPLACES = {
     "flash_decode": "src/repro/kernels/flash_decode.py:42",
@@ -104,6 +122,28 @@ TOLS = {"flash_decode": DECODE_TOL, "flash_combine": DECODE_TOL,
         "flash_prefill": PREFILL_TOL, "flash_decode_quant": QUANT_TOL}
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 DEVICE = "cuda"
+PREFILL_BUCKETS = (128, 384, 512, 1024)   # the serving cell's admissions
+# the prefill kernel's parity shapes (tests/test_torch_gpu.py has the
+# same list): b, lq, lk, hq, hkv, d, window, q_offset, causal
+PREFILL_CASES = [(1, L, L, 16, 2, 128, None, 0, True)
+                 for L in PREFILL_BUCKETS] + [
+    (1, 37, 37, 16, 2, 128, None, 0, True),       # ragged real prompts
+    (1, 1000, 1000, 16, 2, 128, None, 0, True),
+    (2, 200, 200, 16, 2, 128, None, 0, True),     # B=2
+    (1, 200, 200, 16, 2, 128, None, 0, True),
+    (1, 256, 256, 8, 8, 128, None, 0, True),      # MHA
+    (1, 256, 256, 4, 1, 64, 100, 0, True),        # D=64, window off-tile
+    (1, 256, 256, 4, 1, 64, 64, 0, True),         # D=64, window on-tile
+    (1, 512, 512, 16, 2, 128, 128, 0, True),
+    (1, 64, 320, 16, 2, 128, None, 256, True),    # q_offset = Lk - Lq
+    (1, 64, 320, 2, 1, 64, None, 256, True),      # D=64, group of 2
+    (1, 100, 1124, 16, 2, 128, None, 1024, True),
+    (1, 300, 300, 16, 2, 128, None, 0, False),    # not causal
+]
+# f32 inputs take the CUDA-core instantiation
+PREFILL_F32_CASES = [(1, 200, 200, 16, 2, 128, None, 0, True),
+                     (1, 256, 256, 4, 1, 64, 100, 0, True)]
+SERVING_PROMPTS = (37, 300, 450, 1000)    # buckets 128, 384, 512, 1024
 
 
 class SmokeFailure(Exception):
@@ -183,10 +223,20 @@ def phase_env_build():
           f"{len(results)} kernels in parallel")
     for name, res in results.items():
         print(f"build {name}: {res.seconds:.1f} s -> {res.path.name}")
-        for line in res.log.splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling")):
-                print(f"  ptxas {line.strip()}")
+        print_ptxas(name, res.log)
     return card, props.multi_processor_count
+
+
+def print_ptxas(name: str, log: str) -> None:
+    """Prints ptxas's registers, shared memory, spills and warnings for
+    each kernel of a build; fails on any spill."""
+    for line in log.splitlines():
+        if any(w in line for w in ("registers", "spill", "Compiling",
+                                   "arning")):
+            print(f"  ptxas {line.strip()}")
+        if "spill" in line:
+            check("0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"{name}: ptxas spills: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +246,13 @@ def phase_env_build():
 
 def rand(gen, shape, dtype=torch.bfloat16):
     return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+
+def prefill_case(gen, b, lq, lk, hq, hkv, d, dtype=torch.bfloat16):
+    """Pre-scaled q (b, lq, hq, d) and k, v (b, lk, hkv, d) in ``dtype``."""
+    q = (rand(gen, (b, lq, hq, d), torch.float32) * d ** -0.5).to(dtype)
+    return q, rand(gen, (b, lk, hkv, d), dtype), rand(gen, (b, lk, hkv, d),
+                                                      dtype)
 
 
 def poisoned_cache(gen, b, cap, hkv, d, lens, kv_dtype):
@@ -301,20 +358,22 @@ def phase_parity(gen, sms: int):
     for kv_dtype in ("int8", "fp8"):
         errs["flash_decode_quant"] = max(errs["flash_decode_quant"],
                                          parity_quant(gen, sms, kv_dtype))
-    hq = 16
-    for lq, lk, window, off in ((128, 128, None, 0), (200, 200, None, 0),
-                                (1024, 1024, None, 0), (512, 512, 128, 0),
-                                (64, 320, None, 256)):
-        q = (rand(gen, (1, lq, hq, d)).float() * d ** -0.5).to(torch.bfloat16)
-        k = rand(gen, (1, lk, hkv, d))
-        v = rand(gen, (1, lk, hkv, d))
-        got = flash_prefill(q, k, v, causal=True, window=window, q_offset=off)
-        want = prefill_plain(q, k, v, causal=True, window=window,
-                             q_offset=off)
-        errs["flash_prefill"] = max(errs["flash_prefill"],
-                                    max_err(got, want, PREFILL_TOL))
-        print(f"parity prefill Lq{lq} Lk{lk} window {window} q_offset {off}:"
-              f" ok")
+    errs["flash_prefill_f32"] = 0.0
+    for cases, dtype, tol, key in (
+            (PREFILL_CASES, torch.bfloat16, PREFILL_TOL, "flash_prefill"),
+            (PREFILL_F32_CASES, torch.float32, F32_TOL, "flash_prefill_f32")):
+        for b, lq, lk, hq, hkv, d, window, off, causal in cases:
+            q, k, v = prefill_case(gen, b, lq, lk, hq, hkv, d, dtype)
+            kw = dict(causal=causal, window=window, q_offset=off)
+            got = flash_prefill(q, k, v, **kw)
+            errs[key] = max(errs[key], max_err(
+                got, prefill_plain(q, k, v, **kw), tol))
+            check(torch.equal(got, flash_prefill(q, k, v, **kw)),
+                  f"prefill {dtype} B{b} Lq{lq} Lk{lk}: same inputs, other "
+                  f"bits")
+            print(f"parity prefill {str(dtype)[6:]} B{b} Lq{lq} Lk{lk} "
+                  f"heads {hq}/{hkv} D{d} window {window} q_offset {off} "
+                  f"causal {causal}: ok")
     torch.cuda.synchronize()
     print(f"parity max abs errors: {json.dumps(errs)}")
     return errs
@@ -343,22 +402,27 @@ class CheckedGreedy(GreedySampler):
 def drive(engine, requests, sampler=None):
     """Submit everything, then step to completion.  Returns per-request
     TTFT ms, the ms of steps that only decoded, the wall seconds, the
-    completions and, given the engine's CheckedGreedy ``sampler``, the
-    top-2 logit margin behind each emitted token, keyed (request index,
-    token index) (a device scalar, or None where it cannot be told)."""
+    completions, given the engine's CheckedGreedy ``sampler`` the top-2
+    logit margin behind each emitted token, keyed (request index, token
+    index) (a device scalar, or None where it cannot be told), and each
+    admission step as (prompt buckets admitted, wall ms)."""
     t0 = time.perf_counter()
     submitted = {engine.submit(r): r.request_id for r in requests}
-    first, decode_ms, margins = {}, [], {}
+    first, decode_ms, margins, admits = {}, [], {}, []
     while engine.has_work():
-        prefills = sum(v for k, v in engine.stats.launches.items()
-                       if isinstance(k, tuple))
+        prefills = {k: v for k, v in engine.stats.launches.items()
+                    if isinstance(k, tuple)}
         live = {st.handle: i for i, st in engine.sched.live()}
         calls = len(sampler.margins) if sampler is not None else 0
         ts = time.perf_counter()
         events = engine.step()       # ends in a host copy of the tokens
         te = time.perf_counter()
-        if sum(v for k, v in engine.stats.launches.items()
-               if isinstance(k, tuple)) == prefills:
+        buckets = sorted(k[1] for k, v in engine.stats.launches.items()
+                         if isinstance(k, tuple)
+                         for _ in range(v - prefills.get(k, 0)))
+        if buckets:
+            admits.append((buckets, (te - ts) * 1e3))
+        else:
             decode_ms.append((te - ts) * 1e3)
         for ev in events:
             if ev.kind == TOKEN and ev.handle not in first:
@@ -380,7 +444,7 @@ def drive(engine, requests, sampler=None):
                 margins[(submitted[ev.handle], ev.index)] = m
     wall = time.perf_counter() - t0
     return ([first[h] for h in submitted], decode_ms, wall,
-            engine.drain(), margins)
+            engine.drain(), margins, admits)
 
 
 def median(xs):
@@ -397,9 +461,8 @@ def phase_serving(model, params, cfg, seed: int, kv_quant=None,
     checked)."""
     label = kv_quant or "bf16"
     rng = np.random.default_rng(seed)
-    lens = (37, 300, 450, 1000)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).tolist(),
-                    max_new_tokens=32) for i, n in enumerate(lens)]
+                    max_new_tokens=32) for i, n in enumerate(SERVING_PROMPTS)]
     scfg = ServeConfig(model=cfg, seed=seed, kv_quant=kv_quant)
     # warm-up on a throwaway engine: the same prompt buckets, 2 tokens
     # each, so one-time library set-up stays out of the measured run
@@ -415,9 +478,11 @@ def phase_serving(model, params, cfg, seed: int, kv_quant=None,
     engine.load(params)
     ops.reset_launch_counts()
     ops.reset_policy_eval_count()
-    ttft, decode_ms, wall, done, margins = drive(engine, reqs, sampler)
+    ttft, decode_ms, wall, done, margins, admits = drive(engine, reqs,
+                                                         sampler)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    by_shape = ops.launch_counts_by_key("flash_prefill")
     st = engine.stats
     admissions = sum(v for k, v in st.launches.items()
                      if isinstance(k, tuple))
@@ -436,6 +501,11 @@ def phase_serving(model, params, cfg, seed: int, kv_quant=None,
           f"{label}: non-finite logits at full width")
     check(counts["flash_prefill"] == layers * admissions == layers * 4,
           f"{label}: prefill launches != layers x admissions")
+    check(by_shape == {("bfloat16", k[1]): layers * v
+                       for k, v in st.launches.items()
+                       if isinstance(k, tuple)},
+          f"{label}: prefill launches by (dtype, Lq) {by_shape} != layers "
+          f"x admissions by bucket")
     check(counts[decode] == layers * steps,
           f"{label}: {decode} launches != layers x decode steps")
     check(counts[other] == 0, f"{label}: {other} launched")
@@ -456,8 +526,15 @@ def phase_serving(model, params, cfg, seed: int, kv_quant=None,
           f"decode step ms {median(decode_ms):.3f} over {len(decode_ms)} "
           f"steps, {tokens} tokens in {wall:.3f} s = {tokens / wall:.3f} "
           f"tokens/s")
+    for buckets, ms in admits:
+        print(f"serving {label} admission step, prompt buckets {buckets}: "
+              f"{ms:.3f} ms wall")
     out = {"ttft_ms": ttft, "decode_step_ms": median(decode_ms),
-           "tokens_per_s": tokens / wall}
+           "tokens_per_s": tokens / wall,
+           "admission_steps": [{"buckets": bk, "ms": ms}
+                               for bk, ms in admits],
+           "prefill_launches": {f"{dt} {lq}": n
+                                for (dt, lq), n in by_shape.items()}}
     trace = {"streams": [c.tokens for c in done], "margins": margins}
     if bf16 is not None:
         out["leaves_bf16_at"] = leaves_at(bf16, trace, label)
@@ -482,6 +559,48 @@ def leaves_at(base, run, label):
     return where
 
 
+def phase_admission(model, params, cfg, seed: int, rounds: int = 5):
+    """The serving cell's admission steps alone: its four prompts with 2
+    new tokens each through 2 slots, so one step admits buckets [128,
+    384] and decodes them once, and the next does the same for [512,
+    1024].  ``rounds`` runs on one engine after a warm-up run, then one
+    run under the profiler; returns each pair's step ms by run and the
+    profiled run's wall, device busy and prefill-kernel ms.  Uses only
+    engine calls that every slice of the port has, so it can time an
+    older checkout's package too."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SERVING_PROMPTS]
+    engine = ServingEngine(model, ServeConfig(model=cfg, seed=seed),
+                           max_len=2048, batch_slots=2, policy="paper",
+                           device=DEVICE)
+    engine.load(params)
+    by_pair = {}
+    for run in range(rounds + 1):
+        *_, admits = drive(engine, [Request(i, p, max_new_tokens=2)
+                                    for i, p in enumerate(prompts)])
+        for buckets, ms in admits if run else ():
+            by_pair.setdefault(str(buckets), []).append(ms)
+    for pair, ms in by_pair.items():
+        print(f"admission step {pair}: median {median(ms):.3f} ms, runs "
+              f"{[round(x, 3) for x in ms]}")
+    # one more run under the profiler: the device's share of those steps
+    with profiled() as (prof, wall):
+        drive(engine, [Request(i, p, max_new_tokens=2)
+                       for i, p in enumerate(prompts)])
+    kernels, launches = device_kernels(prof)
+    busy = sum(kernels.values())
+    prefill = sum(v for k, v in kernels.items() if "prefill_kernel" in k)
+    print(f"admission profile, both steps: wall {wall[0]:.3f} ms (profiler "
+          f"on), device busy {busy:.3f} ms, prefill kernel {prefill:.3f} "
+          f"ms, {launches} device operations")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"  {ms:.4f} ms  {name[:80]}")
+    return {"step_ms": by_pair, "profile": {
+        "wall_ms": wall[0], "device_busy_ms": busy,
+        "prefill_kernel_ms": prefill, "device_ops": launches}}
+
+
 def phase_paper_cell(model, params, cfg, seed: int, flush, sms: int,
                      kv_quant=None, runs_per_policy: int = 3):
     label = kv_quant or "bf16"
@@ -495,7 +614,7 @@ def phase_paper_cell(model, params, cfg, seed: int, flush, sms: int,
                                max_len=2048, batch_slots=1, policy=policy,
                                sampler=sampler, device=DEVICE)
         engine.load(params)
-        _, decode_ms, _, done, _ = drive(
+        _, decode_ms, _, done, _, _ = drive(
             engine, [Request(0, prompt, max_new_tokens=64)])
         check(bool(sampler.finite.item()), f"{label}: non-finite logits")
         runs[policy].append((engine.planned_splits(), decode_ms,
@@ -552,6 +671,32 @@ def phase_paper_cell(model, params, cfg, seed: int, flush, sms: int,
     return out
 
 
+@contextlib.contextmanager
+def profiled():
+    """torch.profiler over the block, CPU and CUDA; yields the profiler
+    and a list that holds the block's wall ms once it ends."""
+    wall = []
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        yield prof, wall
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+
+def device_kernels(prof):
+    """Device ms by kernel name, and the number of device operations."""
+    from torch.autograd import DeviceType
+    kernels, launches = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            launches += 1
+            kernels[e.name] = kernels.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    return kernels, launches
+
+
 def phase_profile(model, params, cfg, seed: int, steps: int = 8,
                   kv_quant=None):
     """Where a decode step's time goes: torch.profiler over ``steps``
@@ -560,7 +705,6 @@ def phase_profile(model, params, cfg, seed: int, steps: int = 8,
     device's busy ms (sum of kernel durations), the idle share, the
     kernels launched per step, and the kernels with the most device
     time."""
-    from torch.autograd import DeviceType
     label = kv_quant or "bf16"
     rng = np.random.default_rng(seed + 1)
     engine = ServingEngine(model, ServeConfig(model=cfg, kv_quant=kv_quant),
@@ -571,19 +715,11 @@ def phase_profile(model, params, cfg, seed: int, steps: int = 8,
                           max_new_tokens=steps + 4))
     engine.step()
     engine.step()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+    with profiled() as (prof, wall):
         for _ in range(steps):
             engine.step()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels, launches = {}, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            launches += 1
-            kernels[e.name] = kernels.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
+    wall_ms = wall[0] / steps
+    kernels, launches = device_kernels(prof)
     busy_ms = sum(kernels.values()) / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     out = {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
@@ -605,7 +741,11 @@ def phase_profile(model, params, cfg, seed: int, steps: int = 8,
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels_line(gen, sms: int, errs, counts, flush):
+def phase_kernels_line(gen, sms: int, errs, counts, flush,
+                       prefill_launches):
+    """``counts``: the main path's launches by kernel name;
+    ``prefill_launches``: the bf16 serving run's prefill launches by
+    "dtype Lq", each prefill row's ``launches``."""
     hkv, g, d, b, cap, bucket = 2, 8, 128, 2, 2048, 1024
     hq = hkv * g
     k = rand(gen, (b, cap, hkv, d))
@@ -626,32 +766,41 @@ def phase_kernels_line(gen, sms: int, errs, counts, flush):
 
     dec_bytes = 2 * rows * hkv * d * 2 + qp.numel() * 2 + part_bytes
     dec_flops = 4 * rows * hkv * g * d
-    out.append(("flash_decode", f"B{b} view{bucket} of {cap} kv_len "
-                f"{lens.tolist()} S{s}",
-                lambda: flash_decode_partials(qp, kv, vv, lens,
-                                              num_splits=s),
-                lambda: decode_partials_plain(qp, kv, vv, lens,
-                                              num_splits=s),
-                lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, attn_mask=mask, enable_gqa=True),
-                dec_bytes, dec_flops))
-    out.append(("flash_combine", f"S{s} B{b} Hkv{hkv} G{g} D{d}",
-                lambda: flash_combine(*parts, out_dtype=torch.bfloat16),
-                lambda: combine_plain(*parts, out_dtype=torch.bfloat16),
-                None, part_bytes + b * hq * d * 2, 6 * s * b * hq * d))
-    lq = 1024
-    pq = (rand(gen, (1, lq, hq, d)).float() * d ** -0.5).to(torch.bfloat16)
-    pk = rand(gen, (1, lq, hkv, d))
-    pv = rand(gen, (1, lq, hkv, d))
-    pqs, pks, pvs = (t.transpose(1, 2) for t in (pq, pk, pv))
-    out.append(("flash_prefill", f"B1 Lq=Lk={lq} Hq{hq} Hkv{hkv} D{d} causal",
-                lambda: flash_prefill(pq, pk, pv, causal=True),
-                lambda: prefill_plain(pq, pk, pv, causal=True),
-                lambda: F.scaled_dot_product_attention(
-                    pqs, pks, pvs, is_causal=True, scale=1.0,
-                    enable_gqa=True),
-                2 * (pq.numel() + pk.numel() + pv.numel() + pq.numel()),
-                4 * hq * d * lq * lq / 2))
+    out.append(dict(
+        name="flash_decode",
+        shape=f"B{b} view{bucket} of {cap} kv_len {lens.tolist()} S{s}",
+        fn=lambda: flash_decode_partials(qp, kv, vv, lens, num_splits=s),
+        plain=lambda: decode_partials_plain(qp, kv, vv, lens, num_splits=s),
+        lib=lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True),
+        nbytes=dec_bytes, flops=dec_flops))
+    out.append(dict(
+        name="flash_combine", shape=f"S{s} B{b} Hkv{hkv} G{g} D{d}",
+        fn=lambda: flash_combine(*parts, out_dtype=torch.bfloat16),
+        plain=lambda: combine_plain(*parts, out_dtype=torch.bfloat16),
+        lib=None, nbytes=part_bytes + b * hq * d * 2,
+        flops=6 * s * b * hq * d))
+    for lq, dtype in [(L, torch.bfloat16) for L in PREFILL_BUCKETS] + [
+            (1024, torch.float32)]:
+        pq, pk, pv = prefill_case(gen, 1, lq, lq, hq, hkv, d, dtype)
+        pqs, pks, pvs = (t.transpose(1, 2) for t in (pq, pk, pv))
+        f32 = dtype == torch.float32
+        out.append(dict(
+            name="flash_prefill",
+            shape=f"B1 Lq=Lk={lq} Hq{hq} Hkv{hkv} D{d} causal "
+                  f"{'f32, CUDA cores' if f32 else 'bf16, tensor cores'}",
+            fn=functools.partial(flash_prefill, pq, pk, pv, causal=True),
+            plain=functools.partial(prefill_plain, pq, pk, pv, causal=True),
+            lib=functools.partial(F.scaled_dot_product_attention, pqs, pks,
+                                  pvs, is_causal=True, scale=1.0,
+                                  enable_gqa=True),
+            nbytes=pq.element_size() * (2 * pq.numel() + pk.numel()
+                                        + pv.numel()),
+            flops=4 * hq * d * lq * (lq + 1) / 2,
+            peak=F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S,
+            err=errs["flash_prefill_f32" if f32 else "flash_prefill"],
+            tol=F32_TOL if f32 else PREFILL_TOL,
+            launches=prefill_launches.get(f"{str(dtype)[6:]} {lq}", 0)))
     # K4 at K1's shape, over the int8 cache the quantized main path holds
     art = Quantizer.from_kv_dtype("int8").quantized_kv(
         rand(gen, (b, cap, hkv, d), torch.float32),
@@ -659,38 +808,55 @@ def phase_kernels_line(gen, sms: int, errs, counts, flush):
     qview = [t[:, :bucket] for t in art]
     quant_bytes = (2 * rows * hkv * (d * 1 + 4) + qp.numel() * 2
                    + part_bytes)
-    out.append(("flash_decode_quant", f"B{b} view{bucket} of {cap} kv_len "
-                f"{lens.tolist()} S{s} int8",
-                lambda: flash_decode_quant_partials(qp, *qview, lens,
-                                                    num_splits=s),
-                lambda: decode_quant_partials_plain(qp, *qview, lens,
-                                                    num_splits=s),
-                None, quant_bytes, dec_flops + 2 * rows * hkv * d,
-                INT8_OPS_PER_S))
+    out.append(dict(
+        name="flash_decode_quant",
+        shape=f"B{b} view{bucket} of {cap} kv_len {lens.tolist()} S{s} int8",
+        fn=lambda: flash_decode_quant_partials(qp, *qview, lens,
+                                               num_splits=s),
+        plain=lambda: decode_quant_partials_plain(qp, *qview, lens,
+                                                  num_splits=s),
+        lib=None, nbytes=quant_bytes, flops=dec_flops + 2 * rows * hkv * d,
+        peak=INT8_OPS_PER_S))
     kernels = []
-    for name, shape, fn, plain, lib, nbytes, flops, *peak in out:
-        ms = time_ms(fn, 100, flush)
-        plain_ms = time_ms(plain, 10, flush)
-        lib_ms = time_ms(lib, 100, flush) if lib is not None else None
-        bms, by = bound(nbytes, flops, *peak)
+    for row in out:
+        name, lib = row["name"], row["lib"]
+        bms, by = bound(row["nbytes"], row["flops"],
+                        row.get("peak", BF16_FLOPS_PER_S))
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "shape": shape,
-            "launches": counts[name], "max_abs_err": errs[name],
-            "tol": TOLS[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+            "replaces": REPLACES[name], "shape": row["shape"],
+            "launches": row.get("launches", counts[name]),
+            "max_abs_err": row.get("err", errs[name]),
+            "tol": row.get("tol", TOLS[name]),
+            "ms": time_ms(row["fn"], 100, flush),
+            "plain_ms": time_ms(row["plain"], 10, flush),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": time_ms(lib, 100, flush) if lib else None})
+        print(f"kernel {name} {row['shape']}: {kernels[-1]['ms']:.6f} ms, "
+              f"bound {bms:.6f} ms ({by}), library "
+              f"{kernels[-1]['library_ms']}")
     return kernels
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels"), default="all",
-                    help="'kernels' stops after build and kernel parity")
+    ap.add_argument("--phase", choices=("all", "kernels", "admission"),
+                    default="all",
+                    help="'kernels' stops after build and kernel parity; "
+                         "'admission' builds, then times the serving "
+                         "cell's admission steps alone")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     card, sms = phase_env_build()
     gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
+    if args.phase == "admission":
+        cfg = get_arch("qwen2.5-3b")
+        model = build_model(cfg, device=DEVICE)
+        params = model.init_params(args.seed)
+        print(json.dumps({"admission": phase_admission(
+            model, params, cfg, args.seed), "card": card}))
+        return 0
     errs = phase_parity(gen, sms)
     if args.phase == "kernels":
         print("phase kernels: done")
@@ -722,7 +888,8 @@ def main(argv=None) -> int:
     qprofile = phase_profile(model, params, cfg, args.seed, kv_quant="int8")
     del params, model
     torch.cuda.empty_cache()
-    kernels = phase_kernels_line(gen, sms, errs, counts, flush)
+    kernels = phase_kernels_line(gen, sms, errs, counts, flush,
+                                 serving["prefill_launches"])
     print(json.dumps({"serving": serving, "serving_int8": qserving,
                       "serving_fp8": fserving, "paper_cell": paper,
                       "paper_cell_int8": qpaper, "profile": profile,

@@ -31,7 +31,7 @@ ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
 KERNELS = ("flash_decode", "flash_combine", "flash_prefill",
            "flash_decode_quant")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,7 +41,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 QUANT_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
 # Kernel launches by kernel name.  A wrapper adds one where it launches
-# its kernel and nowhere else (the CPU path launches nothing).
+# its kernel and nowhere else (the CPU path launches nothing); it may
+# also count the launch, at the same place, under a tuple key that starts
+# with the name and tells its instantiations and shapes apart.
 LAUNCHES: Counter = Counter()
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,10 @@
 """Causal flash-attention forward for prefill.
 
 Counterpart of ``repro.kernels.flash_prefill.flash_prefill``.  On a CUDA
-tensor :func:`flash_prefill` launches ``csrc/flash_prefill.cu``, whose KV
+tensor :func:`flash_prefill` launches ``csrc/flash_prefill.cu``: bf16 on
+the tensor cores (wgmma fed by TMA), float32 on the CUDA cores.  Its KV
 loop stops at the causal limit (and starts at the window, when one is
-given) and whose ``q_offset`` is a runtime int; on a CPU tensor it runs
+given) and its ``q_offset`` is a runtime int.  On a CPU tensor it runs
 :func:`prefill_plain`.  Both take q already scaled by ``D ** -0.5``.
 """
 from __future__ import annotations
@@ -40,7 +41,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
                   q_offset: int = 0) -> torch.Tensor:
     """q: (B, Lq, Hq, D) pre-scaled; k, v: (B, Lk, Hkv, D) -> (B, Lq, Hq, D)
-    in q's dtype.  ``q_offset`` is the absolute position of ``q[:, 0]``."""
+    in q's dtype.  ``q_offset`` is the absolute position of ``q[:, 0]``.
+    A launch counts under the kernel's name and under ``(name, dtype
+    name, Lq)``: bf16 and float32 take different kernels."""
     if not q.is_cuda:
         return prefill_plain(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
@@ -69,4 +72,5 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    build.stream_ptr())
     build.check(err, "flash_prefill")
     build.LAUNCHES["flash_prefill"] += 1
+    build.LAUNCHES["flash_prefill", str(q.dtype)[6:], Lq] += 1
     return out

@@ -50,6 +50,13 @@ def launch_counts() -> Dict[str, int]:
     return {name: build.LAUNCHES[name] for name in build.KERNELS}
 
 
+def launch_counts_by_key(name: str) -> Dict[tuple, int]:
+    """Launches of kernel ``name`` by the key its wrapper also counts them
+    under (the prefill kernel's: dtype name, Lq), since the last reset."""
+    return {key[1:]: n for key, n in build.LAUNCHES.items()
+            if isinstance(key, tuple) and key[0] == name}
+
+
 def reset_launch_counts() -> None:
     build.LAUNCHES.clear()
 

@@ -8,9 +8,10 @@ Elsewhere every test skips, with the reason from
 decided inside the ``cuda`` fixture, never at import or collection, so
 every pytest worker collects the same tests.
 
-Tolerances: bf16 2e-2 for decode and 3e-2 for prefill, float32 2e-5 for
-the combine (one fixed-order sum against another order), ``AB_ATOL``
-(2e-2) for the quantized decode.
+Tolerances: bf16 2e-2 for decode and 3e-2 for prefill (the prefill
+kernel also rounds P to bf16 before P V, as FA3 does), float32 2e-5 for
+the combine and the f32 prefill (one fixed-order sum against another
+order), ``AB_ATOL`` (2e-2) for the quantized decode.
 """
 import pytest
 import torch
@@ -78,21 +79,58 @@ def test_decode_and_combine_match_plain(cuda, b, hkv, g, d, cap, bucket, s):
     assert torch.equal(again, out)          # same split, same bits
 
 
-@pytest.mark.parametrize("lq,lk,hq,hkv,d,window,offset", [
-    (128, 128, 16, 2, 128, None, 0),
-    (200, 200, 16, 2, 128, None, 0),
-    (256, 256, 4, 1, 64, 64, 0),
-    (64, 320, 2, 1, 64, None, 256),
-])
-def test_prefill_matches_plain(cuda, lq, lk, hq, hkv, d, window, offset):
-    q = _rand(cuda, (1, lq, hq, d))
-    k = _rand(cuda, (1, lk, hkv, d))
-    v = _rand(cuda, (1, lk, hkv, d))
-    got = flash_prefill(q, k, v, causal=True, window=window, q_offset=offset)
-    want = prefill_plain(q, k, v, causal=True, window=window,
-                         q_offset=offset)
+# The shapes the prefill kernel's tiling (64 query rows x 64 keys) cares
+# about; chip_smoke.py's PREFILL_CASES is the same list.
+PREFILL_CASES = [(1, L, L, 16, 2, 128, None, 0, True)
+                 for L in (128, 384, 512, 1024)] + [   # main-path buckets
+    (1, 37, 37, 16, 2, 128, None, 0, True),       # ragged real prompts
+    (1, 1000, 1000, 16, 2, 128, None, 0, True),
+    (2, 200, 200, 16, 2, 128, None, 0, True),     # B=2
+    (1, 200, 200, 16, 2, 128, None, 0, True),
+    (1, 256, 256, 8, 8, 128, None, 0, True),      # MHA
+    (1, 256, 256, 4, 1, 64, 100, 0, True),        # D=64, window off-tile
+    (1, 256, 256, 4, 1, 64, 64, 0, True),         # D=64, window on-tile
+    (1, 512, 512, 16, 2, 128, 128, 0, True),
+    (1, 64, 320, 16, 2, 128, None, 256, True),    # q_offset = Lk - Lq
+    (1, 64, 320, 2, 1, 64, None, 256, True),      # D=64, group of 2
+    (1, 100, 1124, 16, 2, 128, None, 1024, True),
+    (1, 300, 300, 16, 2, 128, None, 0, False),    # not causal
+]
+
+
+def _prefill_inputs(gen, b, lq, lk, hq, hkv, d, dtype):
+    q = (_rand(gen, (b, lq, hq, d), torch.float32) * d ** -0.5).to(dtype)
+    return q, _rand(gen, (b, lk, hkv, d), dtype), _rand(gen, (b, lk, hkv, d),
+                                                        dtype)
+
+
+@pytest.mark.parametrize("b,lq,lk,hq,hkv,d,window,offset,causal",
+                         PREFILL_CASES)
+def test_prefill_matches_plain(cuda, b, lq, lk, hq, hkv, d, window, offset,
+                               causal):
+    """The bf16 (tensor-core) kernel against the plain version; the same
+    inputs give the same bits."""
+    q, k, v = _prefill_inputs(cuda, b, lq, lk, hq, hkv, d, torch.bfloat16)
+    kw = dict(causal=causal, window=window, q_offset=offset)
+    got = flash_prefill(q, k, v, **kw)
+    want = prefill_plain(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
                                atol=3e-2)
+    assert torch.equal(flash_prefill(q, k, v, **kw), got)
+
+
+@pytest.mark.parametrize("b,lq,lk,hq,hkv,d,window,offset,causal", [
+    (1, 200, 200, 16, 2, 128, None, 0, True),
+    (1, 256, 256, 4, 1, 64, 100, 0, True),
+])
+def test_prefill_f32_matches_plain(cuda, b, lq, lk, hq, hkv, d, window,
+                                   offset, causal):
+    """f32 inputs take the CUDA-core instantiation, exact to 2e-5."""
+    q, k, v = _prefill_inputs(cuda, b, lq, lk, hq, hkv, d, torch.float32)
+    kw = dict(causal=causal, window=window, q_offset=offset)
+    torch.testing.assert_close(flash_prefill(q, k, v, **kw),
+                               prefill_plain(q, k, v, **kw), rtol=2e-5,
+                               atol=2e-5)
 
 
 def test_decode_takes_f32_queries_over_a_bf16_cache(cuda):
@@ -187,9 +225,14 @@ def test_engine_smoke_on_the_card(cuda):
             eng.submit(r)
         tokens[dev] = [c.tokens for c in eng.drain()]
         counts = ops.launch_counts()
+        by_shape = ops.launch_counts_by_key("flash_prefill")
         steps = sum(v for k, v in eng.stats.launches.items()
                     if isinstance(k, int))
     assert counts["flash_prefill"] == cfg.num_layers * len(reqs)
+    # f32 prompts take the CUDA-core kernel, counted by padded length
+    assert by_shape == {("float32", k[1]): cfg.num_layers * v
+                        for k, v in eng.stats.launches.items()
+                        if isinstance(k, tuple)}
     assert counts["flash_decode"] == counts["flash_combine"] \
         == cfg.num_layers * steps
     assert tokens["cuda"] == tokens["cpu"]
@@ -217,3 +260,5 @@ def test_quantized_engine_on_the_card(cuda, kv_quant):
     assert counts["flash_decode_quant"] == counts["flash_combine"] \
         == cfg.num_layers * steps
     assert counts["flash_prefill"] == cfg.num_layers * 3
+    assert {dt for dt, _ in ops.launch_counts_by_key("flash_prefill")} \
+        == {"bfloat16"}

@@ -157,6 +157,7 @@ def test_inline_policy_is_counted():
     (1, 8, 8, 128, 128, None, 0),          # MHA
     (1, 4, 1, 200, 200, None, 0),          # non-multiple of block
     (1, 4, 1, 256, 256, 64, 0),            # local window
+    (1, 4, 1, 256, 256, 100, 0),           # window edge inside a tile
     (1, 2, 1, 64, 320, None, 256),         # chunked prefill offset
 ])
 def test_prefill_matches_pallas_kernel(b, hq, hkv, lq, lk, window, offset,
@@ -170,6 +171,29 @@ def test_prefill_matches_pallas_kernel(b, hq, hkv, lq, lk, window, offset,
                      q_offset=offset, interpret=True)
     got = ops.attention(tq, tk, tv, causal=True, window=window,
                         q_offset=offset)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, 3e-2 if dtype == "bfloat16" else 2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lq,lk,offset,causal", [
+    (130, 130, 0, True),                   # ragged against 64-row tiles
+    (100, 356, 256, True),                 # q_offset = Lk - Lq, Lk > Lq
+    (130, 130, 0, False),                  # not causal
+])
+def test_prefill_matches_pallas_kernel_main_widths(lq, lk, offset, causal,
+                                                   dtype):
+    """qwen2.5-3b's attention widths (16 query heads over 2 KV heads,
+    head_dim 128): narrower twins of the shapes the card holds the
+    prefill kernel to."""
+    rng = np.random.default_rng(lq * 3 + lk)
+    b, hq, hkv, d = 1, 16, 2, 128
+    jq, tq = _both(rng.standard_normal((b, lq, hq, d), np.float32), dtype)
+    jk, tk = _both(rng.standard_normal((b, lk, hkv, d), np.float32), dtype)
+    jv, tv = _both(rng.standard_normal((b, lk, hkv, d), np.float32), dtype)
+    want = j_prefill(jq, jk, jv, causal=causal, q_offset=offset,
+                     interpret=True)
+    got = ops.attention(tq, tk, tv, causal=causal, q_offset=offset)
     assert got.dtype == tq.dtype and got.shape == tq.shape
     _close(got, want, 3e-2 if dtype == "bfloat16" else 2e-5)
 
