@@ -6,6 +6,7 @@ Run from the repository root, on a machine with the card and nvcc:
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phase kernels # build + kernel parity only
     python3 chip_smoke.py --phase admission  # build + admission steps
+    python3 chip_smoke.py --phase times   # build + decode and prefill times
 
 Phases, each fatal on failure:
 
@@ -15,8 +16,18 @@ Phases, each fatal on failure:
    and warnings; any spill fails the run.
 2. Kernel parity: each kernel against its plain PyTorch version on the
    same CUDA tensors, at the main path's shapes, in bf16 (decode 2e-2,
-   prefill 3e-2), plus a same-split-same-bits check; the quantized
-   decode kernel over int8 and fp8 caches with poisoned tails (2e-2,
+   prefill 3e-2), plus a same-split-same-bits check.  The decode kernel
+   (partials and combine in one launch) reads caches whose rows past
+   kv_len hold NaN and Inf, against ``decode_plain`` on the clean cache:
+   at buckets 128, 512 and 2048 with S 1, 3 and the plan's, at every
+   shape of ``DECODE_SHAPES``, and at S > 32 (``WIDE_SPLIT_SHAPES``,
+   where the merge finds m* before it reads the partials in chunks), and
+   with the full-width model's large V entries and few dominant keys
+   (``SHARP_SHAPES``); at
+   the bucket grid its partials-only epilogue is held the same way, and
+   the combine kernel against its plain version on those partials; a
+   rerun of every decode case, in turns of S and B, gives the first
+   run's bits.  The quantized decode kernel over int8 and fp8 caches with poisoned tails (2e-2,
    ``AB_ATOL``), same split same bits; the prefill kernel at the shapes
    its tiling cares about (``PREFILL_CASES``: the main path's buckets,
    ragged prompts, B=2, MHA, D=64 with a window, ``q_offset``, one
@@ -26,27 +37,48 @@ Phases, each fatal on failure:
    heads over 2 KV heads, bf16, seeded random weights) through
    ``ServingEngine`` submit/step/drain: 4 greedy requests, 2 slots, with
    a bf16 cache, then under ``kv_quant="int8"`` and ``"fp8"``.  Launch
-   counts are zeroed just before each run and read just after; logits
-   must be finite.  Each admission step's wall ms is printed with its
-   prompt buckets.
+   counts are zeroed just before each run and read just after: the decode
+   kernel 36 per decode step and the combine kernel none with a bf16
+   cache, the quantized decode and the combine kernel 36 each under int8
+   and fp8; logits must be finite.  Each admission step's wall ms is
+   printed with its prompt buckets.  Then the logits check: the model's
+   first ``LOGITS_STEPS`` decode steps, teacher-forced, at the main
+   path's decode shape (B=2, bucket 1024) and the paper's cell (B=1,
+   bucket 512).  Every layer's prefill attention of the prompts must be
+   within 3e-2 of ``prefill_plain`` on the same inputs.  The decode
+   attention runs through the tensor-core kernel, through its CUDA-core
+   body (f32 q over the same bf16 cache) and through ``decode_plain``
+   (f32 math on the card); on the tensor-core route each layer's output
+   must be within 2e-2 of ``decode_plain`` on the same inputs; the
+   routes' logits are printed side by side.
 4. The paper's cell: one 420-token prompt decoding 64 tokens (every step
    in the 512 bucket) under ``paper`` and ``fa3_baseline``, in turns
    (three runs each), plus the decode kernel alone at that shape, for
    the bf16 cache and again under int8; then a torch.profiler window
    over its decode steps, bf16 and int8 (device busy and idle, device
    operations per step).
-5. One JSON ``kernels`` line: per kernel its error, launches on the main
-   path (the bf16 run's; the quantized decode kernel's from the int8
-   run), its time (CUDA events, L2 flushed before each launch), the plain
-   version's time, the yardstick library call's time, and its bound.
-   The prefill kernel has a row per main-path bucket (bf16, tensor
-   cores) and one for its f32 instantiation (CUDA cores) at 1024, each
-   with the launches its wrapper counted at that dtype and length.
+5. One JSON ``kernels`` line: per kernel its error (a decode row's at
+   that row's own inputs, over NaN/Inf tails), launches on the main
+   path (the bf16 run's; the quantized decode and combine kernels' from
+   the int8 run), its time (CUDA events, L2 flushed before each launch),
+   the plain version's time, the yardstick library call's time, its
+   bound, and ``floor_ms``, the time the same method gives one
+   one-element ``fill_``.  The decode kernel has a row per decode shape
+   of the serving run (buckets 384, 1024, 1152 at B=2) and of the paper's
+   cell (B=1, 512, S=1 and S=3), each with the launches its wrapper
+   counted at that view length and split count; the prefill kernel a row
+   per main-path bucket (bf16, tensor cores) and one for its f32
+   instantiation (CUDA cores) at 1024, each with the launches its wrapper
+   counted at that dtype and length.
 
 ``--phase admission`` times the serving cell's admission
-steps alone, five runs on one engine; it uses only engine calls every
-slice of the port has, so a copy of this script in an older checkout
-times that checkout's kernels.
+steps alone, five runs on one engine; ``--phase times`` times the
+decode op (``ops.decode_attention``, as the model calls it) and the
+partials kernel followed by the combine kernel (the route of every
+slice before the fused kernel) at the decode shapes of phase 5, and the
+bf16 prefill kernel at the main path's buckets, beside SDPA and the
+timing floor.  These two use only calls every slice of the port has, so a copy of this script in an older checkout runs that
+checkout's kernels.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 The script exits non-zero, printing no result, without a CUDA device or
@@ -75,12 +107,12 @@ if str(SRC) not in sys.path:
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import ServeConfig  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_decode as fdec  # noqa: E402
 from repro_torch.kernels.flash_combine import (  # noqa: E402
     combine_plain,
     flash_combine,
 )
 from repro_torch.kernels.flash_decode import (  # noqa: E402
-    decode_partials_plain,
     flash_decode_partials,
 )
 from repro_torch.kernels.flash_decode_quant import (  # noqa: E402
@@ -144,6 +176,35 @@ PREFILL_CASES = [(1, L, L, 16, 2, 128, None, 0, True)
 PREFILL_F32_CASES = [(1, 200, 200, 16, 2, 128, None, 0, True),
                      (1, 256, 256, 4, 1, 64, 100, 0, True)]
 SERVING_PROMPTS = (37, 300, 450, 1000)    # buckets 128, 384, 512, 1024
+# the decode kernel's timed shapes: the serving run's decode buckets at
+# B=2 (the main path's 1024 first) and the paper's cell, B=1 in the 512
+# bucket at S=1 and S=3: batch, bucket, kv_len, S (None: the paper
+# policy's at 132 SMs)
+DECODE_SHAPES = [(2, 1024, (1000, 450), None), (2, 384, (60, 320), None),
+                 (2, 1152, (1030, 480), None), (1, 512, (484,), 1),
+                 (1, 512, (484,), 3)]
+# S > 32, which the policy reaches past 4096 rows: an 8192-row view of
+# 64 blocks, kv_len 5000 leaving splits with no valid row, S = 33 and 40
+# leaving splits past the view's end
+WIDE_SPLIT_SHAPES = [(1, 8192, (5000,), 40), (1, 8192, (5000,), 64),
+                     (2, 8192, (5000, 8192), 33)]
+# the full-width model's regime (V entries up to ~150, a few keys
+# sharing most of the softmax, with seeded weights) at the main path's
+# decode shapes: K times 10 and V times 100 (SHARP_MUL: q, K, V), so the
+# top scores lie a few units apart and an output is a short sum of large
+# V entries.  P rounded to one bf16 term misses 2e-2 there.
+SHARP_SHAPES = [(2, 1024, (1000, 450), 8), (2, 384, (60, 320), 1),
+                (1, 512, (484,), 3)]
+SHARP_MUL = (1.0, 10.0, 100.0)
+# the prefill kernel in that regime: the main path's largest bucket, a
+# ragged prompt at B=2, a q_offset
+PREFILL_SHARP_CASES = [(1, 1024, 1024, 16, 2, 128, None, 0, True),
+                       (2, 200, 200, 16, 2, 128, None, 0, True),
+                       (1, 64, 320, 16, 2, 128, None, 256, True)]
+# the logits check: each cell's prompt lengths and decode bucket (the
+# main path's decode shape, then the paper's cell), and its steps
+LOGITS_CELLS = [((1000, 450), 1024), ((420,), 512)]
+LOGITS_STEPS = 8
 
 
 class SmokeFailure(Exception):
@@ -248,11 +309,15 @@ def rand(gen, shape, dtype=torch.bfloat16):
     return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
 
 
-def prefill_case(gen, b, lq, lk, hq, hkv, d, dtype=torch.bfloat16):
-    """Pre-scaled q (b, lq, hq, d) and k, v (b, lk, hkv, d) in ``dtype``."""
-    q = (rand(gen, (b, lq, hq, d), torch.float32) * d ** -0.5).to(dtype)
-    return q, rand(gen, (b, lk, hkv, d), dtype), rand(gen, (b, lk, hkv, d),
-                                                      dtype)
+def prefill_case(gen, b, lq, lk, hq, hkv, d, dtype=torch.bfloat16,
+                 mul=(1.0, 1.0, 1.0)):
+    """Pre-scaled q (b, lq, hq, d) and k, v (b, lk, hkv, d) in ``dtype``,
+    from normals of standard deviations ``mul`` (q's before the scaling
+    by d ** -0.5)."""
+    q = (rand(gen, (b, lq, hq, d), torch.float32) * (mul[0] * d ** -0.5)
+         ).to(dtype)
+    return q, (rand(gen, (b, lk, hkv, d), torch.float32) * mul[1]).to(
+        dtype), (rand(gen, (b, lk, hkv, d), torch.float32) * mul[2]).to(dtype)
 
 
 def poisoned_cache(gen, b, cap, hkv, d, lens, kv_dtype):
@@ -316,54 +381,145 @@ def parity_quant(gen, sms: int, kv_dtype: str) -> float:
     return err
 
 
+def poison_tail(x, lens, value: float):
+    """A copy of cache ``x`` whose rows at or past kv_len hold ``value``
+    (NaN, Inf): a kernel that read one of them would return non-finite
+    values."""
+    y = x.clone()
+    y[torch.arange(x.shape[1], device=DEVICE)[None] >= lens[:, None]] = value
+    return y
+
+
+def decode_case(q, k, v, bucket: int, kv_len, s: int):
+    """One decode case over the cache ``k``, ``v`` (>= b, cap, hkv, d)
+    and queries ``q`` (>= b, hq, d), b = len(kv_len): a dict with the
+    label, b, bucket, S, kv_len, q, the cache rows k / v, their bucket
+    views kv / vv, copies kp / vp whose rows past kv_len hold NaN / Inf,
+    the pre-scaled qp (b, hkv, g, d) and SDPA on the clean views."""
+    b = len(kv_len)
+    hkv, d = k.shape[2:]
+    lens = torch.tensor(kv_len, device=DEVICE, dtype=torch.int32)
+    kv, vv = k[:b, :bucket], v[:b, :bucket]
+    mask = (torch.arange(bucket, device=DEVICE)[None]
+            < lens[:, None])[:, None, None]
+    return dict(
+        label=f"B{b} view{bucket} of {k.shape[1]} kv_len {list(kv_len)} "
+              f"S{s}",
+        b=b, bucket=bucket, s=s, lens=lens, q=q[:b], k=k[:b], v=v[:b],
+        kv=kv, vv=vv, kp=poison_tail(k[:b], lens, float("nan")),
+        vp=poison_tail(v[:b], lens, float("inf")),
+        qp=(q[:b].float() * d ** -0.5).to(q.dtype).reshape(b, hkv, -1, d),
+        sdpa=functools.partial(
+            F.scaled_dot_product_attention, q[:b, :, None],
+            kv.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True))
+
+
+def decode_shapes(gen, sms: int, shapes=DECODE_SHAPES, cap: int = 2048,
+                  mul=(1.0, 1.0, 1.0)):
+    """decode_case of each of ``shapes`` (batch, bucket, kv_len, S or
+    None for the paper policy's at ``sms`` SMs) over one random bf16
+    cache of 2 x ``cap`` rows, 16/2 heads, D=128, q, K and V drawn from
+    normals of standard deviations ``mul``."""
+    hkv, g, d = 2, 8, 128
+    k = rand(gen, (2, cap, hkv, d)) * mul[1]
+    v = rand(gen, (2, cap, hkv, d)) * mul[2]
+    q = rand(gen, (2, hkv * g, d)) * mul[0]
+    return [decode_case(q, k, v, bucket, kv_len, s or Planner(
+        policy="paper", num_cores=sms).plan(AttentionSpec.decode(
+            b, bucket, hkv * g, hkv, d)).num_splits)
+            for b, bucket, kv_len, s in shapes]
+
+
+def check_decode(c):
+    """The fused decode kernel at case ``c`` over its NaN/Inf-tailed
+    cache against ``decode_plain`` over the clean one (DECODE_TOL), then
+    again for the same bits.  Returns the max abs error and (a call that
+    reruns the kernel, its first output, the label)."""
+    bucket, s = c["bucket"], c["s"]
+    run = functools.partial(fdec.flash_decode, c["qp"],
+                            c["kp"][:, :bucket], c["vp"][:, :bucket],
+                            c["lens"], num_splits=s)
+    got = run()
+    err = max_err(got, fdec.decode_plain(c["qp"], c["kv"], c["vv"],
+                                         c["lens"], num_splits=s),
+                  DECODE_TOL)
+    check(torch.equal(got, run()),
+          f"decode {c['label']}: same split, other bits")
+    return err, (run, got, c["label"])
+
+
 def phase_parity(gen, sms: int):
     errs = {name: 0.0 for name in REPLACES}
     hkv, g, d, cap = 2, 8, 128, 2048
+    reruns = []
     for b in (1, 2):
         k = rand(gen, (b, cap, hkv, d))
         v = rand(gen, (b, cap, hkv, d))
         q = rand(gen, (b, hkv * g, d))
         for bucket in (128, 512, 2048):
-            lens = torch.tensor([bucket - 17, bucket // 2 + 5][:b],
-                                device=DEVICE, dtype=torch.int32)
+            lens = [bucket - 17, bucket // 2 + 5][:b]
             plan = Planner(policy="paper", num_cores=sms).plan(
                 AttentionSpec.decode(b, bucket, hkv * g, hkv, d),
                 bucket=bucket)
-            kv, vv = k[:, :bucket], v[:, :bucket]       # strided views
-            qp = (q.float() * d ** -0.5).to(q.dtype).reshape(b, hkv, g, d)
             for s in sorted({1, 3, plan.num_splits}):
-                got = flash_decode_partials(qp, kv, vv, lens, num_splits=s)
-                want = decode_partials_plain(qp, kv, vv, lens, num_splits=s)
-                e = max_err(combine_plain(*got, out_dtype=q.dtype),
-                            combine_plain(*want, out_dtype=q.dtype),
-                            DECODE_TOL)
-                errs["flash_decode"] = max(errs["flash_decode"], e)
-                e = max_err(flash_combine(*got, out_dtype=q.dtype),
-                            combine_plain(*got, out_dtype=q.dtype),
+                c = decode_case(q, k, v, bucket, lens, s)
+                err, rerun = check_decode(c)
+                errs["flash_decode"] = max(errs["flash_decode"], err)
+                reruns.append(rerun)
+                qp, kpv, vpv = (c["qp"], c["kp"][:, :bucket],
+                                c["vp"][:, :bucket])
+                parts = flash_decode_partials(qp, kpv, vpv, c["lens"],
+                                              num_splits=s)
+                max_err(combine_plain(*parts, out_dtype=q.dtype),
+                        fdec.decode_plain(qp, c["kv"], c["vv"], c["lens"],
+                                          num_splits=s), DECODE_TOL)
+                e = max_err(flash_combine(*parts, out_dtype=q.dtype),
+                            combine_plain(*parts, out_dtype=q.dtype),
                             DECODE_TOL)
                 errs["flash_combine"] = max(errs["flash_combine"], e)
                 again = flash_combine(*flash_decode_partials(
-                    qp, kv, vv, lens, num_splits=s), out_dtype=q.dtype)
-                check(torch.equal(again, flash_combine(*got,
+                    qp, kpv, vpv, c["lens"], num_splits=s),
+                    out_dtype=q.dtype)
+                check(torch.equal(again, flash_combine(*parts,
                                                        out_dtype=q.dtype)),
-                      f"decode B{b} L{bucket} S{s}: same split, other bits")
+                      f"partials {c['label']}: same split, other bits")
                 full = ops.decode_attention(
-                    q, k, v, lens, plan=Planner(num_splits_override=s).plan(
+                    q, c["kp"], c["vp"], c["lens"],
+                    plan=Planner(num_splits_override=s).plan(
                         AttentionSpec.decode(b, bucket, hkv * g, hkv, d),
                         bucket=bucket))
-                max_err(full, ref.naive_decode_attention(q, kv, vv, lens),
-                        DECODE_TOL)
-                print(f"parity decode B{b} view{bucket} of {cap} S{s} "
-                      f"kv_len {lens.tolist()}: ok")
+                max_err(full, ref.naive_decode_attention(
+                    q, c["kv"], c["vv"], c["lens"]), DECODE_TOL)
+                print(f"parity decode {c['label']} tails NaN/Inf: ok")
+    # the serving run's and the paper cell's decode shapes, S > 32, and
+    # the model's regime
+    for c in decode_shapes(gen, sms) + decode_shapes(
+            gen, sms, WIDE_SPLIT_SHAPES, 8192) + decode_shapes(
+            gen, sms, SHARP_SHAPES, mul=SHARP_MUL):
+        err, rerun = check_decode(c)
+        errs["flash_decode"] = max(errs["flash_decode"], err)
+        reruns.append(rerun)
+        print(f"parity decode {c['label']} tails NaN/Inf: ok")
+    # every case again, in turns of S and B: each launch must have left
+    # the arrival counters at zero
+    for fn, first, label in reruns:
+        check(torch.equal(fn(), first), f"decode {label}: other bits after "
+                                        f"calls of other S and B")
+    print(f"parity decode: {len(reruns)} cases rerun in turns, same bits")
     for kv_dtype in ("int8", "fp8"):
         errs["flash_decode_quant"] = max(errs["flash_decode_quant"],
                                          parity_quant(gen, sms, kv_dtype))
     errs["flash_prefill_f32"] = 0.0
-    for cases, dtype, tol, key in (
-            (PREFILL_CASES, torch.bfloat16, PREFILL_TOL, "flash_prefill"),
-            (PREFILL_F32_CASES, torch.float32, F32_TOL, "flash_prefill_f32")):
+    for cases, dtype, tol, key, mul in (
+            (PREFILL_CASES, torch.bfloat16, PREFILL_TOL, "flash_prefill",
+             (1.0, 1.0, 1.0)),
+            (PREFILL_SHARP_CASES, torch.bfloat16, PREFILL_TOL,
+             "flash_prefill", SHARP_MUL),
+            (PREFILL_F32_CASES, torch.float32, F32_TOL, "flash_prefill_f32",
+             (1.0, 1.0, 1.0))):
         for b, lq, lk, hq, hkv, d, window, off, causal in cases:
-            q, k, v = prefill_case(gen, b, lq, lk, hq, hkv, d, dtype)
+            q, k, v = prefill_case(gen, b, lq, lk, hq, hkv, d, dtype, mul)
             kw = dict(causal=causal, window=window, q_offset=off)
             got = flash_prefill(q, k, v, **kw)
             errs[key] = max(errs[key], max_err(
@@ -373,7 +529,7 @@ def phase_parity(gen, sms: int):
                   f"bits")
             print(f"parity prefill {str(dtype)[6:]} B{b} Lq{lq} Lk{lk} "
                   f"heads {hq}/{hkv} D{d} window {window} q_offset {off} "
-                  f"causal {causal}: ok")
+                  f"causal {causal} q, K, V x {mul}: ok")
     torch.cuda.synchronize()
     print(f"parity max abs errors: {json.dumps(errs)}")
     return errs
@@ -483,6 +639,8 @@ def phase_serving(model, params, cfg, seed: int, kv_quant=None,
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     by_shape = ops.launch_counts_by_key("flash_prefill")
+    decode_by_shape = {f"{L} S{s}": n for (L, s), n in sorted(
+        ops.launch_counts_by_key("flash_decode").items())}
     st = engine.stats
     admissions = sum(v for k, v in st.launches.items()
                      if isinstance(k, tuple))
@@ -509,8 +667,12 @@ def phase_serving(model, params, cfg, seed: int, kv_quant=None,
     check(counts[decode] == layers * steps,
           f"{label}: {decode} launches != layers x decode steps")
     check(counts[other] == 0, f"{label}: {other} launched")
-    check(counts["flash_combine"] == layers * steps,
-          f"{label}: combine launches != layers x decode steps")
+    # a bf16 cache's decode kernel merges its own splits; the quantized
+    # decode kernel's partials go through the combine kernel
+    combines = layers * steps if kv_quant else 0
+    check(counts["flash_combine"] == combines,
+          f"{label}: {counts['flash_combine']} combine launches, expected "
+          f"{combines}")
     check(ops.policy_eval_count() == 0,
           f"{label}: policy evaluated inside a launch")
     check(st.misses == st.distinct_buckets, f"{label}: plan misses != "
@@ -521,7 +683,8 @@ def phase_serving(model, params, cfg, seed: int, kv_quant=None,
           f"{label}: finish reasons")
     tokens = sum(len(c.tokens) for c in done)
     print(f"serving {label} planned splits {engine.planned_splits()} "
-          f"prefill buckets {engine.planned_prefill_buckets()}")
+          f"prefill buckets {engine.planned_prefill_buckets()} decode "
+          f"launches by (view, S) {decode_by_shape}")
     print(f"serving {label} ttft ms {[round(x, 3) for x in ttft]} median "
           f"decode step ms {median(decode_ms):.3f} over {len(decode_ms)} "
           f"steps, {tokens} tokens in {wall:.3f} s = {tokens / wall:.3f} "
@@ -534,7 +697,8 @@ def phase_serving(model, params, cfg, seed: int, kv_quant=None,
            "admission_steps": [{"buckets": bk, "ms": ms}
                                for bk, ms in admits],
            "prefill_launches": {f"{dt} {lq}": n
-                                for (dt, lq), n in by_shape.items()}}
+                                for (dt, lq), n in by_shape.items()},
+           "decode_launches": decode_by_shape}
     trace = {"streams": [c.tokens for c in done], "margins": margins}
     if bf16 is not None:
         out["leaves_bf16_at"] = leaves_at(bf16, trace, label)
@@ -601,6 +765,140 @@ def phase_admission(model, params, cfg, seed: int, rounds: int = 5):
         "prefill_kernel_ms": prefill, "device_ops": launches}}
 
 
+@contextlib.contextmanager
+def ops_route(name: str, fn):
+    """Within the block, ``ops`` calls ``fn`` in place of its kernel
+    wrapper ``name`` (same signature): ``flash_decode`` for a bf16 or f32
+    cache's decode, ``flash_prefill`` for prefill."""
+    saved = getattr(ops, name)
+    setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        setattr(ops, name, saved)
+
+
+def cuda_core_decode(q, k, v, kv_len, *, num_splits, out_dtype):
+    """The decode kernel's CUDA-core body with the same fused epilogue:
+    the bf16 query widened to f32 (exactly) over the same bf16 cache."""
+    return fdec.flash_decode(q.float(), k, v, kv_len, num_splits=num_splits,
+                             out_dtype=out_dtype)
+
+
+def phase_logits(model, params, cfg, seed: int, sms: int,
+                 steps: int = LOGITS_STEPS):
+    """The full-width model's first ``steps`` decode steps at each of
+    LOGITS_CELLS, teacher-forced: the prompts are prefilled once
+    (bucket-padded, as the engine does; every layer's prefill attention
+    held against ``prefill_plain`` on the same inputs at PREFILL_TOL) and
+    each route decodes from a copy of that cache with the cell's frozen
+    ``paper`` plan, fed the tensor-core route's greedy tokens.  Routes:
+    the tensor-core kernel (the main path), its CUDA-core body,
+    ``decode_plain`` with one element of one layer's output moved by one
+    bf16 step (a control), and ``decode_plain``.  On the tensor-core
+    route every layer's attention output is held against
+    ``decode_plain`` on the same inputs (the model's own q and cache) at
+    DECODE_TOL.  Per step, each kernel route's logits are compared with the plain route's
+    (relative L2, max abs, argmax): printed, not checked, since a change
+    of one bf16 step in one layer's attention can move this random-weight
+    model's logits by their own size (see PERF.md)."""
+    rng = np.random.default_rng(seed + 2)
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    out = {}
+    for lens, bucket in LOGITS_CELLS:
+        b = len(lens)
+        caches = model.init_cache(b, 2048)
+        first = []
+        pre = {"max_abs_err": 0.0, "launches": 0}
+
+        def checked_prefill(q, k, v, **kw):
+            got = flash_prefill(q, k, v, **kw)
+            pre["max_abs_err"] = max(pre["max_abs_err"], max_err(
+                got, prefill_plain(q, k, v, **kw), PREFILL_TOL))
+            pre["launches"] += 1
+            return got
+
+        with ops_route("flash_prefill", checked_prefill):
+            for slot, n in enumerate(lens):
+                toks = torch.tensor(rng.integers(0, cfg.vocab_size, n),
+                                    device=DEVICE)
+                padded = torch.zeros(-(-n // 128) * 128, dtype=toks.dtype,
+                                     device=DEVICE)
+                padded[:n] = toks
+                first.append(model.prefill_slot(params, caches, padded,
+                                                slot, n).argmax())
+        plan = Planner(policy="paper", num_cores=sms).plan(
+            AttentionSpec.decode(b, bucket, hq, hkv, d), bucket=bucket)
+        cell = f"B{b} bucket{bucket} S{plan.num_splits}"
+        check(pre["launches"] == cfg.num_layers * b,
+              f"logits {cell}: {pre['launches']} prefill checks")
+        print(f"logits {cell}: prefill attention of {pre['launches']} "
+              f"layer prompts against prefill_plain on the model's inputs: "
+              f"max abs err {pre['max_abs_err']:.4g}")
+        attn = {"max_abs_err": 0.0, "launches": 0}
+
+        def checked(q, k, v, kv_len, *, num_splits, out_dtype):
+            got = fdec.flash_decode(q, k, v, kv_len, num_splits=num_splits,
+                                    out_dtype=out_dtype)
+            want = fdec.decode_plain(q, k, v, kv_len, num_splits=num_splits,
+                                     out_dtype=out_dtype)
+            attn["max_abs_err"] = max(attn["max_abs_err"],
+                                      max_err(got, want, DECODE_TOL))
+            attn["launches"] += 1
+            return got
+
+        nudged = []
+
+        def plain_nudged(q, k, v, kv_len, *, num_splits, out_dtype):
+            """decode_plain, with one element of the first layer's first
+            output moved by one bf16 step: how far one rounding moves
+            the logits."""
+            o = fdec.decode_plain(q, k, v, kv_len, num_splits=num_splits,
+                                  out_dtype=out_dtype)
+            if not nudged:
+                nudged.append(o.flatten()[0].item())
+                o.view(torch.int16).flatten()[0] += 1
+            return o
+
+        routes = {"tensor_cores": checked, "cuda_cores": cuda_core_decode,
+                  "plain_nudged": plain_nudged, "plain": fdec.decode_plain}
+        pos = torch.tensor(lens, device=DEVICE)
+        logits, fed = {}, [torch.stack(first)]
+        for name, fn in routes.items():
+            cache = {key: x.clone() for key, x in caches.items()}
+            logits[name] = []
+            with ops_route("flash_decode", fn):
+                for i in range(steps):
+                    x = model.decode_step(params, cache, fed[i], pos + i,
+                                          plan=plan)
+                    check(bool(torch.isfinite(x).all()),
+                          f"logits {cell} {name}: non-finite")
+                    logits[name].append(x.float())
+                    if name == "tensor_cores":
+                        fed.append(x.argmax(-1))
+        check(attn["launches"] == cfg.num_layers * steps,
+              f"logits {cell}: {attn['launches']} attention checks")
+        print(f"logits {cell}: attention of {attn['launches']} layer steps "
+              f"against decode_plain on the model's inputs: max abs err "
+              f"{attn['max_abs_err']:.4g}")
+        res = {"prefill_attention": pre, "attention": attn,
+               "logit_rms": logits["plain"][0].pow(
+            2).mean().sqrt().item()}
+        for name in ("tensor_cores", "cuda_cores", "plain_nudged"):
+            rel, mx, agree = [], [], []
+            for got, want in zip(logits[name], logits["plain"]):
+                rel.append(((got - want).norm() / want.norm()).item())
+                mx.append((got - want).abs().max().item())
+                agree.append(bool((got.argmax(-1)
+                                   == want.argmax(-1)).all()))
+            res[name] = {"rel_l2": rel, "max_abs": mx, "argmax_agrees": agree}
+            print(f"logits {cell} {name} vs plain, steps 0..{steps - 1}: "
+                  f"rel L2 {[f'{x:.3e}' for x in rel]} max abs "
+                  f"{[round(x, 4) for x in mx]} argmax agrees {agree}")
+        out[cell] = res
+    return out
+
+
 def phase_paper_cell(model, params, cfg, seed: int, flush, sms: int,
                      kv_quant=None, runs_per_policy: int = 3):
     label = kv_quant or "bf16"
@@ -661,8 +959,8 @@ def phase_paper_cell(model, params, cfg, seed: int, flush, sms: int,
         name = "decode"
 
         def kernel(s):
-            return flash_decode_partials(qp, k[:, :512], k[:, :512], lens,
-                                         num_splits=s)
+            return fdec.flash_decode(qp, k[:, :512], k[:, :512], lens,
+                                     num_splits=s)
     for s in (1, 3):
         ms = time_ms(lambda: kernel(s), 200, flush)
         print(f"paper cell {label} {name} kernel B1 view512 kv_len 484 "
@@ -742,38 +1040,37 @@ def phase_profile(model, params, cfg, seed: int, steps: int = 8,
 
 
 def phase_kernels_line(gen, sms: int, errs, counts, flush,
-                       prefill_launches):
+                       prefill_launches, decode_launches):
     """``counts``: the main path's launches by kernel name;
-    ``prefill_launches``: the bf16 serving run's prefill launches by
-    "dtype Lq", each prefill row's ``launches``."""
+    ``prefill_launches`` / ``decode_launches``: the bf16 serving run's
+    prefill launches by "dtype Lq" and decode launches by "view S", each
+    row's ``launches``."""
     hkv, g, d, b, cap, bucket = 2, 8, 128, 2, 2048, 1024
     hq = hkv * g
-    k = rand(gen, (b, cap, hkv, d))
-    v = rand(gen, (b, cap, hkv, d))
-    q = rand(gen, (b, hq, d))
-    lens = torch.tensor([1000, 450], device=DEVICE, dtype=torch.int32)
-    s = Planner(policy="paper", num_cores=sms).plan(
-        AttentionSpec.decode(b, bucket, hq, hkv, d)).num_splits
-    kv, vv = k[:, :bucket], v[:, :bucket]
-    qp = (q.float() * d ** -0.5).to(q.dtype).reshape(b, hkv, g, d)
-    parts = flash_decode_partials(qp, kv, vv, lens, num_splits=s)
-    rows = int(lens.sum())
-    part_bytes = s * b * hkv * g * (d + 2) * 4
-    mask = (torch.arange(bucket, device=DEVICE)[None]
-            < lens[:, None])[:, None, None]
-    qs, ks, vs = q[:, :, None], kv.transpose(1, 2), vv.transpose(1, 2)
     out = []
-
-    dec_bytes = 2 * rows * hkv * d * 2 + qp.numel() * 2 + part_bytes
+    cases = decode_shapes(gen, sms)
+    for c in cases:
+        rows = int(c["lens"].sum())
+        qp, kv, vv, lens, s = c["qp"], c["kv"], c["vv"], c["lens"], c["s"]
+        flops = 4 * rows * hkv * g * d
+        err, _ = check_decode(c)
+        out.append(dict(
+            name="flash_decode", shape=c["label"] + " fused combine",
+            fn=functools.partial(fdec.flash_decode, qp, kv, vv, lens,
+                                 num_splits=s),
+            plain=functools.partial(fdec.decode_plain, qp, kv, vv, lens,
+                                    num_splits=s),
+            lib=c["sdpa"],
+            # K and V rows below kv_len, q, and the output
+            nbytes=2 * rows * hkv * d * 2 + 2 * qp.numel() * 2, flops=flops,
+            err=err, launches=decode_launches.get(f"{c['bucket']} S{s}", 0)))
+    # K2 and K4 at the main path's shape, DECODE_SHAPES' first
+    qp, kv, vv, lens, s = (cases[0][key] for key in ("qp", "kv", "vv",
+                                                     "lens", "s"))
+    rows = int(lens.sum())
     dec_flops = 4 * rows * hkv * g * d
-    out.append(dict(
-        name="flash_decode",
-        shape=f"B{b} view{bucket} of {cap} kv_len {lens.tolist()} S{s}",
-        fn=lambda: flash_decode_partials(qp, kv, vv, lens, num_splits=s),
-        plain=lambda: decode_partials_plain(qp, kv, vv, lens, num_splits=s),
-        lib=lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True),
-        nbytes=dec_bytes, flops=dec_flops))
+    parts = flash_decode_partials(qp, kv, vv, lens, num_splits=s)
+    part_bytes = s * b * hkv * g * (d + 2) * 4
     out.append(dict(
         name="flash_combine", shape=f"S{s} B{b} Hkv{hkv} G{g} D{d}",
         fn=lambda: flash_combine(*parts, out_dtype=torch.bfloat16),
@@ -817,6 +1114,10 @@ def phase_kernels_line(gen, sms: int, errs, counts, flush,
                                                   num_splits=s),
         lib=None, nbytes=quant_bytes, flops=dec_flops + 2 * rows * hkv * d,
         peak=INT8_OPS_PER_S))
+    # the method's floor: one one-element fill_, timed the same way
+    tiny = torch.empty(1, device=DEVICE)
+    floor_ms = time_ms(lambda: tiny.fill_(1.0), 100, flush)
+    print(f"timing floor (one one-element fill_): {floor_ms:.6f} ms")
     kernels = []
     for row in out:
         name, lib = row["name"], row["lib"]
@@ -831,20 +1132,70 @@ def phase_kernels_line(gen, sms: int, errs, counts, flush,
             "ms": time_ms(row["fn"], 100, flush),
             "plain_ms": time_ms(row["plain"], 10, flush),
             "bound_ms": bms, "bound_by": by,
-            "library_ms": time_ms(lib, 100, flush) if lib else None})
+            "library_ms": time_ms(lib, 100, flush) if lib else None,
+            "floor_ms": floor_ms})
         print(f"kernel {name} {row['shape']}: {kernels[-1]['ms']:.6f} ms, "
               f"bound {bms:.6f} ms ({by}), library "
-              f"{kernels[-1]['library_ms']}")
+              f"{kernels[-1]['library_ms']}, launches "
+              f"{kernels[-1]['launches']}")
     return kernels
+
+
+def phase_times(gen, sms: int, flush, iters: int = 200):
+    """At each of DECODE_SHAPES: the decode op as the model calls it
+    (``ops.decode_attention`` under a frozen plan of that S and bucket,
+    q's scaling included), the partials kernel followed by the combine
+    kernel, and SDPA; at each of PREFILL_BUCKETS the bf16 prefill kernel
+    (B=1, 16/2 heads, D=128, causal) and SDPA; and the timing floor (one
+    one-element ``fill_``), all by ``time_ms``.  Uses only calls every
+    slice of the port has."""
+    tiny = torch.empty(1, device=DEVICE)
+    out = {"floor_ms": time_ms(lambda: tiny.fill_(1.0), iters, flush)}
+    print(f"decode timing floor: {out['floor_ms']:.6f} ms")
+    for c in decode_shapes(gen, sms):
+        b, bucket, s = c["b"], c["bucket"], c["s"]
+        hkv, g, d = c["qp"].shape[1:]
+        plan = Planner(num_splits_override=s).plan(
+            AttentionSpec.decode(b, bucket, hkv * g, hkv, d), bucket=bucket)
+        pair = functools.partial(flash_decode_partials, c["qp"], c["kv"],
+                                 c["vv"], c["lens"], num_splits=s)
+        res = {
+            "op_ms": time_ms(functools.partial(
+                ops.decode_attention, c["q"], c["k"], c["v"], c["lens"],
+                plan=plan), iters, flush),
+            "partials_then_combine_ms": time_ms(
+                lambda: flash_combine(*pair(), out_dtype=torch.bfloat16),
+                iters, flush),
+            "sdpa_ms": time_ms(c["sdpa"], iters, flush)}
+        print(f"decode {c['label']}: op {res['op_ms']:.6f} ms, partials "
+              f"then combine {res['partials_then_combine_ms']:.6f} ms, "
+              f"SDPA {res['sdpa_ms']:.6f} ms")
+        out[c["label"]] = res
+    for lq in PREFILL_BUCKETS:
+        q, k, v = prefill_case(gen, 1, lq, lq, 16, 2, 128)
+        res = {"kernel_ms": time_ms(functools.partial(
+                   flash_prefill, q, k, v, causal=True), iters, flush),
+               "sdpa_ms": time_ms(functools.partial(
+                   F.scaled_dot_product_attention, *(
+                       t.transpose(1, 2) for t in (q, k, v)),
+                   is_causal=True, scale=1.0, enable_gqa=True), iters,
+                   flush)}
+        print(f"prefill bf16 B1 Lq=Lk={lq}: kernel {res['kernel_ms']:.6f} "
+              f"ms, SDPA {res['sdpa_ms']:.6f} ms")
+        out[f"prefill {lq}"] = res
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "admission"),
+    ap.add_argument("--phase",
+                    choices=("all", "kernels", "admission", "times"),
                     default="all",
                     help="'kernels' stops after build and kernel parity; "
                          "'admission' builds, then times the serving "
-                         "cell's admission steps alone")
+                         "cell's admission steps alone; 'times' builds, "
+                         "then times the decode op at the decode shapes "
+                         "and the prefill kernel at the buckets")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -854,8 +1205,14 @@ def main(argv=None) -> int:
         cfg = get_arch("qwen2.5-3b")
         model = build_model(cfg, device=DEVICE)
         params = model.init_params(args.seed)
-        print(json.dumps({"admission": phase_admission(
-            model, params, cfg, args.seed), "card": card}))
+        print(json.dumps({"admission": phase_admission(model, params, cfg,
+                                                       args.seed),
+                          "card": card}))
+        return 0
+    if args.phase == "times":
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+        print(json.dumps({"times": phase_times(gen, sms, flush),
+                          "card": card}))
         return 0
     errs = phase_parity(gen, sms)
     if args.phase == "kernels":
@@ -878,8 +1235,11 @@ def main(argv=None) -> int:
                                          kv_quant="int8", bf16=bf16)
     _, fserving, _ = phase_serving(model, params, cfg, args.seed,
                                    kv_quant="fp8", bf16=bf16)
-    # K1-K3 launches from the bf16 run, K4's from the int8 run
+    logits = phase_logits(model, params, cfg, args.seed, sms)
+    # K1 and K3 launches from the bf16 run, K2's and K4's from the int8
+    # run (a bf16 cache's decode kernel merges its own splits)
     counts["flash_decode_quant"] = qcounts["flash_decode_quant"]
+    counts["flash_combine"] = qcounts["flash_combine"]
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     paper = phase_paper_cell(model, params, cfg, args.seed, flush, sms)
     qpaper = phase_paper_cell(model, params, cfg, args.seed, flush, sms,
@@ -889,9 +1249,11 @@ def main(argv=None) -> int:
     del params, model
     torch.cuda.empty_cache()
     kernels = phase_kernels_line(gen, sms, errs, counts, flush,
-                                 serving["prefill_launches"])
+                                 serving["prefill_launches"],
+                                 serving["decode_launches"])
     print(json.dumps({"serving": serving, "serving_int8": qserving,
-                      "serving_fp8": fserving, "paper_cell": paper,
+                      "serving_fp8": fserving, "logits": logits,
+                      "paper_cell": paper,
                       "paper_cell_int8": qpaper, "profile": profile,
                       "profile_int8": qprofile, "card": card}))
     print(card)

@@ -31,6 +31,23 @@ __device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
     return static_cast<float>(x);     // exact: every e4m3 value is an f32
 }
 
+// Two probabilities as two bf16 terms each, packed in pairs for a
+// tensor-core product's bf16 operand: hi = bf16(p), lo = bf16(p - hi).
+// hi + lo carries p to about 16 significant bits; hi alone is off by up
+// to 2^-9 p.  Where a model's top scores lie a few units apart over V
+// entries in the hundreds (qwen2.5-3b at full width with seeded weights),
+// that one term moves small attention outputs by several bf16 steps,
+// past the 2e-2 / 3e-2 tolerances, so both attention kernels multiply V
+// by hi and by lo.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 f = __bfloat1622float2(h);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(a - f.x, b - f.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
     return x;

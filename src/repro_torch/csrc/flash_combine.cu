@@ -13,8 +13,9 @@
 // atomics, so the same split gives the same bits on every run (FA3's
 // combine uses atomics and semaphores instead).  m* = max_s m_s,
 // w_s = exp(m_s - m*), out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30),
-// written in the cache dtype.  Fusing the combine into the decode
-// kernel's epilogue is later work.
+// written in the output dtype.  A bf16 or f32 cache no longer runs it:
+// flash_decode.cu merges its own splits in its epilogue with the same
+// formula.  It merges the quantized decode kernel's partials.
 #include "common.cuh"
 
 namespace {

@@ -1,5 +1,6 @@
 // Inline-PTX wrappers for Hopper (sm_90a): mbarriers, TMA tensor loads,
-// and wgmma with bf16 operands and float32 accumulators.
+// and wgmma with bf16 operands and float32 accumulators (the prefill
+// kernel); cp.async, ldmatrix and mma.sync m16n8k16 (the decode kernel).
 //
 // Shared-memory tiles read by wgmma here are 64 rows of 128 bytes in the
 // 128-byte swizzle that TMA writes under CU_TENSOR_MAP_SWIZZLE_128B: the
@@ -171,5 +172,60 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
 
 #undef REPRO_WGMMA_OUT32
 #undef REPRO_WGMMA_D32
+
+// ---- cp.async -----------------------------------------------------------
+
+// 16 bytes from global to shared memory, past L1.  With `src_bytes` 0
+// nothing is read and the 16 bytes are written as zeros.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            int src_bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---- ldmatrix and mma.sync m16n8k16 ---------------------------------------
+
+// Four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i, and r[i] holds its element (lane / 4, 2 (lane % 4) .. + 1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// The same, transposed: r[i] holds element (2 (lane % 4) .. + 1, lane / 4).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+        "{%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// C (16 x 8, f32) += A (16 x 16, bf16, row-major) * B (16 x 8, bf16,
+// column-major).  With g = lane / 4 and q = lane % 4: a[0] holds A row g,
+// columns 2q..2q+1; a[1] row g + 8; a[2] columns + 8; a[3] both.  b0
+// holds B rows 2q..2q+1 of column g, b1 rows + 8.  c[0..1] hold C row g,
+// columns 2q..2q+1, c[2..3] row g + 8.
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&c)[4],
+                                                  const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 }  // namespace hopper

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_combine import flash_combine
-from repro_torch.kernels.flash_decode import flash_decode_partials
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_decode_quant import \
     flash_decode_quant_partials
 from repro_torch.kernels.flash_prefill import flash_prefill
@@ -52,7 +52,8 @@ def launch_counts() -> Dict[str, int]:
 
 def launch_counts_by_key(name: str) -> Dict[tuple, int]:
     """Launches of kernel ``name`` by the key its wrapper also counts them
-    under (the prefill kernel's: dtype name, Lq), since the last reset."""
+    under (the prefill kernel's: dtype name, Lq; the decode kernel's: view
+    length, splits), since the last reset."""
     return {key[1:]: n for key, n in build.LAUNCHES.items()
             if isinstance(key, tuple) and key[0] == name}
 
@@ -85,11 +86,12 @@ def decode_attention(
 ) -> torch.Tensor:
     """Split-KV decode attention; the split count comes from ``plan``.
 
-    Returns (B, Hq, D) in q's dtype.  The partials kernel runs exactly the
-    plan's ``num_splits`` splits over ``k[:, :plan.bucket]``; the combine
-    kernel merges them in a fixed order.  With ``k_scale`` / ``v_scale``
-    the cache is quantized and the fused-dequant partials kernel reads
-    it, scales cut to the same bucket.  A context-only plan (or none,
+    Returns (B, Hq, D) in q's dtype.  The decode kernel runs exactly the
+    plan's ``num_splits`` splits over ``k[:, :plan.bucket]`` and merges
+    them in a fixed order, in one launch.  With ``k_scale`` / ``v_scale``
+    the cache is quantized: the fused-dequant partials kernel reads it,
+    scales cut to the same bucket, and the combine kernel merges its
+    partials.  A context-only plan (or none,
     meaning ``paper`` at 132 SMs) has the policy decide here, over the
     whole cache length.
     """
@@ -110,11 +112,11 @@ def decode_attention(
             v_scale = v_scale[:, :plan.bucket]
     s = max(1, min(plan.num_splits, k.shape[1]))
     qp = (q.float() * D ** -0.5).to(q.dtype).reshape(B, Hkv, Hq // Hkv, D)
-    if k_scale is not None:
-        acc, l, m = flash_decode_quant_partials(qp, k, v, k_scale, v_scale,
-                                                kv_len, num_splits=s)
-    else:
-        acc, l, m = flash_decode_partials(qp, k, v, kv_len, num_splits=s)
+    if k_scale is None:
+        out = flash_decode(qp, k, v, kv_len, num_splits=s, out_dtype=q.dtype)
+        return out.reshape(B, Hq, D)
+    acc, l, m = flash_decode_quant_partials(qp, k, v, k_scale, v_scale,
+                                            kv_len, num_splits=s)
     return flash_combine(acc, l, m, out_dtype=q.dtype).reshape(B, Hq, D)
 
 

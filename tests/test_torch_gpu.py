@@ -8,10 +8,11 @@ Elsewhere every test skips, with the reason from
 decided inside the ``cuda`` fixture, never at import or collection, so
 every pytest worker collects the same tests.
 
-Tolerances: bf16 2e-2 for decode and 3e-2 for prefill (the prefill
-kernel also rounds P to bf16 before P V, as FA3 does), float32 2e-5 for
-the combine and the f32 prefill (one fixed-order sum against another
-order), ``AB_ATOL`` (2e-2) for the quantized decode.
+Tolerances: bf16 2e-2 for decode and 3e-2 for prefill (both kernels'
+tensor-core bodies carry P as two bf16 terms in P V),
+float32 2e-5 for the combine, the f32 decode and the f32 prefill (one
+fixed-order sum against another order), ``AB_ATOL`` (2e-2) for the
+quantized decode.
 """
 import pytest
 import torch
@@ -22,6 +23,8 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.flash_combine import combine_plain, flash_combine
 from repro_torch.kernels.flash_decode import (
     decode_partials_plain,
+    decode_plain,
+    flash_decode,
     flash_decode_partials,
 )
 from repro_torch.kernels.flash_decode_quant import (
@@ -79,6 +82,167 @@ def test_decode_and_combine_match_plain(cuda, b, hkv, g, d, cap, bucket, s):
     assert torch.equal(again, out)          # same split, same bits
 
 
+@pytest.mark.parametrize("b,hkv,g,d,cap,bucket,s", [
+    (1, 2, 8, 128, 2048, 512, 3),
+    (2, 2, 8, 128, 2048, 2048, 16),
+    (2, 1, 4, 64, 256, 256, 2),
+    (3, 4, 2, 128, 640, 640, 5),
+    (2, 1, 16, 128, 1024, 1024, 8),   # G = 16: all 16 rows of M used
+    (2, 4, 1, 128, 640, 640, 3),      # G = 1: 15 rows of M are padding
+    (2, 2, 8, 64, 1024, 1024, 1),     # D = 64, S = 1: no combine
+    (2, 2, 8, 128, 2048, 384, 1),     # the serving run's 384 bucket
+    (1, 2, 8, 128, 2048, 512, 6),     # S > blocks: two empty splits
+])
+def test_fused_decode_matches_plain(cuda, b, hkv, g, d, cap, bucket, s):
+    """The tensor-core kernel with its combine epilogue against the
+    plain partials and combine; three calls give the same bits."""
+    k = _rand(cuda, (b, cap, hkv, d))
+    v = _rand(cuda, (b, cap, hkv, d))
+    q = _rand(cuda, (b, hkv, g, d))
+    lens = torch.randint(1, bucket + 1, (b,), device="cuda",
+                         generator=cuda, dtype=torch.int32)
+    kv, vv = k[:, :bucket], v[:, :bucket]
+    got = flash_decode(q, kv, vv, lens, num_splits=s)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hkv, g, d)
+    torch.testing.assert_close(
+        got.float(), decode_plain(q, kv, vv, lens, num_splits=s).float(),
+        rtol=2e-2, atol=2e-2)
+    for _ in range(2):
+        assert torch.equal(flash_decode(q, kv, vv, lens, num_splits=s), got)
+
+
+def test_fused_decode_at_kv_len_one(cuda):
+    """One valid row: the output is that row of V in every query head."""
+    k = _rand(cuda, (2, 1024, 2, 128))
+    v = _rand(cuda, (2, 1024, 2, 128))
+    q = _rand(cuda, (2, 2, 8, 128))
+    lens = torch.tensor([1, 1], device="cuda", dtype=torch.int32)
+    for s in (1, 8):
+        got = flash_decode(q, k, v, lens, num_splits=s)
+        torch.testing.assert_close(
+            got, v[:, 0, :, None, :].expand(2, 2, 8, 128), rtol=0, atol=0)
+
+
+def test_fused_decode_f32_query_over_a_bf16_cache(cuda):
+    """An f32 model over a bf16 cache takes the CUDA-core body with the
+    same epilogue: f32 out, exact to 2e-5, with S = 1 and S > 1."""
+    k = _rand(cuda, (2, 640, 2, 128))
+    v = _rand(cuda, (2, 640, 2, 128))
+    q = _rand(cuda, (2, 2, 8, 128), torch.float32)
+    lens = torch.tensor([600, 33], device="cuda", dtype=torch.int32)
+    for s in (1, 5):
+        got = flash_decode(q, k, v, lens, num_splits=s)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(
+            got, decode_plain(q, k, v, lens, num_splits=s), rtol=2e-5,
+            atol=2e-5)
+
+
+@pytest.mark.parametrize("s", [1, 3])
+def test_fused_decode_never_reads_a_nan_tail(cuda, s):
+    """Rows past kv_len hold NaN and Inf: the kernel never loads them, so
+    the output has the clean cache's bits."""
+    k = _rand(cuda, (2, 512, 2, 128))
+    v = _rand(cuda, (2, 512, 2, 128))
+    q = _rand(cuda, (2, 2, 8, 128))
+    lens = torch.tensor([300, 77], device="cuda", dtype=torch.int32)
+    tail = torch.arange(512, device="cuda")[None] >= lens[:, None]
+    kp, vp = k.clone(), v.clone()
+    kp[tail] = float("nan")
+    vp[tail] = float("inf")
+    got = flash_decode(q, kp, vp, lens, num_splits=s)
+    assert torch.equal(got, flash_decode(q, k, v, lens, num_splits=s))
+    torch.testing.assert_close(
+        got.float(), decode_plain(q, k, v, lens, num_splits=s).float(),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("s", [33, 40, 64])
+def test_fused_decode_merges_more_splits_than_one_chunk(cuda, s):
+    """S > 32: the last CTA finds m* over all splits first, then merges
+    the partials 32 at a time.  An 8192-row view (64 blocks); kv_len 5000
+    leaves the splits past row 5000 with no valid row, S = 33 and 40 have
+    splits past the view's end; tails hold NaN and Inf; three calls give
+    the same bits."""
+    k = _rand(cuda, (2, 8192, 2, 128))
+    v = _rand(cuda, (2, 8192, 2, 128))
+    q = _rand(cuda, (2, 2, 8, 128))
+    lens = torch.tensor([5000, 8192], device="cuda", dtype=torch.int32)
+    tail = torch.arange(8192, device="cuda")[None] >= lens[:, None]
+    kp, vp = k.clone(), v.clone()
+    kp[tail] = float("nan")
+    vp[tail] = float("inf")
+    got = flash_decode(q, kp, vp, lens, num_splits=s)
+    torch.testing.assert_close(
+        got.float(), decode_plain(q, k, v, lens, num_splits=s).float(),
+        rtol=2e-2, atol=2e-2)
+    for _ in range(2):
+        assert torch.equal(flash_decode(q, kp, vp, lens, num_splits=s), got)
+
+
+@pytest.mark.parametrize("b,bucket,s", [(2, 1024, 8), (2, 384, 1),
+                                         (1, 512, 3)])
+def test_fused_decode_over_large_values_and_few_dominant_keys(cuda, b,
+                                                               bucket, s):
+    """The full-width model's regime: V entries of ~100, the top scores a
+    few units apart, so an output is a short sum of large V entries.
+    Rounding P to one bf16 term misses 2e-2 here; the kernel's two terms
+    stay within it."""
+    k = _rand(cuda, (b, 2048, 2, 128)) * 10
+    v = _rand(cuda, (b, 2048, 2, 128)) * 100
+    q = _rand(cuda, (b, 2, 8, 128)) * 0.08
+    lens = torch.tensor([bucket - 24, bucket // 2 + 3][:b], device="cuda",
+                        dtype=torch.int32)
+    kv, vv = k[:, :bucket], v[:, :bucket]
+    got = flash_decode(q, kv, vv, lens, num_splits=s)
+    torch.testing.assert_close(
+        got.float(), decode_plain(q, kv, vv, lens, num_splits=s).float(),
+        rtol=2e-2, atol=2e-2)
+
+
+def test_fused_decode_same_bits_across_alternating_calls(cuda):
+    """Calls that alternate the split count and the batch give the bits
+    of their first call: every launch leaves the counters at zero."""
+    k = _rand(cuda, (2, 2048, 2, 128))
+    v = _rand(cuda, (2, 2048, 2, 128))
+    q = _rand(cuda, (2, 2, 8, 128))
+    lens = torch.tensor([1000, 450], device="cuda", dtype=torch.int32)
+    calls = [(2, 1024, 8), (1, 512, 3), (2, 1152, 9), (2, 384, 1),
+             (1, 1024, 8), (2, 2048, 16)]
+
+    def run(b, bucket, s):
+        return flash_decode(q[:b], k[:b, :bucket], v[:b, :bucket],
+                            lens[:b].clamp(max=bucket), num_splits=s)
+
+    first = [run(*c) for c in calls]
+    for _ in range(2):
+        for c, want in zip(calls, first):
+            assert torch.equal(run(*c), want), c
+
+
+def test_bf16_engine_decodes_through_the_fused_kernel_alone(cuda):
+    """A bf16 model over a bf16 cache, 36 layers: each decode step
+    launches the decode kernel once per layer and the combine never."""
+    cfg = reduced_config("qwen2.5-3b", num_layers=36, d_model=256)
+    model = build_model(cfg, device="cuda")
+    eng = ServingEngine(model, ServeConfig(model=cfg), max_len=256,
+                        batch_slots=2, device="cuda")
+    eng.load(model.init_params(0))
+    ops.reset_launch_counts()
+    for i, n in enumerate((3, 140, 9)):
+        eng.submit(Request(i, [(5 * i + j) % 250 + 1 for j in range(n)],
+                           max_new_tokens=6))
+    done = eng.drain()
+    counts = ops.launch_counts()
+    steps = sum(v for k, v in eng.stats.launches.items()
+                if isinstance(k, int))
+    assert [len(c.tokens) for c in done] == [6, 6, 6]
+    assert steps > 0
+    assert counts["flash_decode"] == 36 * steps
+    assert counts["flash_combine"] == 0
+    assert counts["flash_decode_quant"] == 0
+
+
 # The shapes the prefill kernel's tiling (64 query rows x 64 keys) cares
 # about; chip_smoke.py's PREFILL_CASES is the same list.
 PREFILL_CASES = [(1, L, L, 16, 2, 128, None, 0, True)
@@ -117,6 +281,23 @@ def test_prefill_matches_plain(cuda, b, lq, lk, hq, hkv, d, window, offset,
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
                                atol=3e-2)
     assert torch.equal(flash_prefill(q, k, v, **kw), got)
+
+
+@pytest.mark.parametrize("b,lq,lk,offset", [(1, 1024, 1024, 0),
+                                            (2, 200, 200, 0),
+                                            (1, 64, 320, 256)])
+def test_prefill_over_large_values_and_few_dominant_keys(cuda, b, lq, lk,
+                                                         offset):
+    """The full-width model's regime (V entries of ~100, the top scores a
+    few units apart): P rounded to one bf16 term misses 3e-2 here; the
+    kernel's two terms stay within it."""
+    q, k, v = _prefill_inputs(cuda, b, lq, lk, 16, 2, 128, torch.float32)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k * 10, v * 100))
+    got = flash_prefill(q, k, v, causal=True, q_offset=offset)
+    torch.testing.assert_close(
+        got.float(), prefill_plain(q, k, v, causal=True,
+                                   q_offset=offset).float(),
+        rtol=3e-2, atol=3e-2)
 
 
 @pytest.mark.parametrize("b,lq,lk,hq,hkv,d,window,offset,causal", [
@@ -233,8 +414,9 @@ def test_engine_smoke_on_the_card(cuda):
     assert by_shape == {("float32", k[1]): cfg.num_layers * v
                         for k, v in eng.stats.launches.items()
                         if isinstance(k, tuple)}
-    assert counts["flash_decode"] == counts["flash_combine"] \
-        == cfg.num_layers * steps
+    # the decode kernel merges its own splits: the combine never runs
+    assert counts["flash_decode"] == cfg.num_layers * steps
+    assert counts["flash_combine"] == 0
     assert tokens["cuda"] == tokens["cpu"]
 
 
