@@ -27,9 +27,15 @@ Phases, each fatal on failure:
    the bucket grid its partials-only epilogue is held the same way, and
    the combine kernel against its plain version on those partials; a
    rerun of every decode case, in turns of S and B, gives the first
-   run's bits.  The quantized decode kernel over int8 and fp8 caches with poisoned tails (2e-2,
-   ``AB_ATOL``), same split same bits; the prefill kernel at the shapes
-   its tiling cares about (``PREFILL_CASES``: the main path's buckets,
+   run's bits.  The quantized cache's decode kernel (partials and
+   combine in one launch, and its partials-only epilogue) over int8 and
+   fp8 caches whose rows past kv_len hold codes 127 and scales 1e4,
+   against ``decode_quant_plain`` on the clean cache (2e-2,
+   ``AB_ATOL``): at the same bucket grid, at ``DECODE_SHAPES``, at
+   ``WIDE_SPLIT_SHAPES`` and on ``SHARP_SHAPES`` data (K x 10 and V x 100
+   before quantization); its cases join the rerun in turns.  The
+   prefill kernel at the shapes its tiling cares about
+   (``PREFILL_CASES``: the main path's buckets,
    ragged prompts, B=2, MHA, D=64 with a window, ``q_offset``, one
    non-causal case), bf16 at 3e-2 and f32 at 2e-5, same inputs same
    bits.
@@ -38,10 +44,10 @@ Phases, each fatal on failure:
    ``ServingEngine`` submit/step/drain: 4 greedy requests, 2 slots, with
    a bf16 cache, then under ``kv_quant="int8"`` and ``"fp8"``.  Launch
    counts are zeroed just before each run and read just after: the decode
-   kernel 36 per decode step and the combine kernel none with a bf16
-   cache, the quantized decode and the combine kernel 36 each under int8
-   and fp8; logits must be finite.  Each admission step's wall ms is
-   printed with its prompt buckets.  Then the logits check: the model's
+   kernel 36 per decode step with a bf16 cache, the quantized cache's
+   decode kernel 36 per decode step under int8 and fp8, the combine
+   kernel none in every run; logits must be finite.  Each admission
+   step's wall ms is printed with its prompt buckets.  Then the logits check: the model's
    first ``LOGITS_STEPS`` decode steps, teacher-forced, at the main
    path's decode shape (B=2, bucket 1024) and the paper's cell (B=1,
    bucket 512).  Every layer's prefill attention of the prompts must be
@@ -50,7 +56,11 @@ Phases, each fatal on failure:
    body (f32 q over the same bf16 cache) and through ``decode_plain``
    (f32 math on the card); on the tensor-core route each layer's output
    must be within 2e-2 of ``decode_plain`` on the same inputs; the
-   routes' logits are printed side by side.
+   routes' logits are printed side by side.  Then an int8 and an fp8
+   pass at the main path's cell (B=2, bucket 1024): the same prompts
+   prefilled into a quantized cache, and every layer's quantized decode
+   attention on the model's own quantized cache held against
+   ``decode_quant_plain`` at 2e-2 for ``LOGITS_STEPS`` steps.
 4. The paper's cell: one 420-token prompt decoding 64 tokens (every step
    in the 512 bucket) under ``paper`` and ``fa3_baseline``, in turns
    (three runs each), plus the decode kernel alone at that shape, for
@@ -59,14 +69,17 @@ Phases, each fatal on failure:
    operations per step).
 5. One JSON ``kernels`` line: per kernel its error (a decode row's at
    that row's own inputs, over NaN/Inf tails), launches on the main
-   path (the bf16 run's; the quantized decode and combine kernels' from
-   the int8 run), its time (CUDA events, L2 flushed before each launch),
+   path (the bf16 run's; the quantized decode and the combine kernels'
+   from the int8 run), its time (CUDA events, L2 flushed before each
+   launch),
    the plain version's time, the yardstick library call's time, its
    bound, and ``floor_ms``, the time the same method gives one
    one-element ``fill_``.  The decode kernel has a row per decode shape
    of the serving run (buckets 384, 1024, 1152 at B=2) and of the paper's
    cell (B=1, 512, S=1 and S=3), each with the launches its wrapper
-   counted at that view length and split count; the prefill kernel a row
+   counted at that view length and split count, and so has the quantized
+   cache's decode kernel over int8 (the int8 run's launches), beside one
+   row of its partials-only epilogue; the prefill kernel a row
    per main-path bucket (bf16, tensor cores) and one for its f32
    instantiation (CUDA cores) at 1024, each with the launches its wrapper
    counted at that dtype and length.
@@ -75,9 +88,12 @@ Phases, each fatal on failure:
 steps alone, five runs on one engine; ``--phase times`` times the
 decode op (``ops.decode_attention``, as the model calls it) and the
 partials kernel followed by the combine kernel (the route of every
-slice before the fused kernel) at the decode shapes of phase 5, and the
-bf16 prefill kernel at the main path's buckets, beside SDPA and the
-timing floor.  These two use only calls every slice of the port has, so a copy of this script in an older checkout runs that
+slice before the fused kernel) at the decode shapes of phase 5, the
+quantized decode op (``ops.decode_attention_quant``) and the quantized
+partials kernel followed by the combine kernel there, over int8 and
+fp8, and the bf16 prefill kernel at the main path's buckets, beside
+SDPA and the timing floor.  These two use only calls every slice of the
+port has, so a copy of this script in an older checkout runs that
 checkout's kernels.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -89,6 +105,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import hashlib
 import json
 import subprocess
 import sys
@@ -115,6 +132,7 @@ from repro_torch.kernels.flash_combine import (  # noqa: E402
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode_partials,
 )
+from repro_torch.kernels import flash_decode_quant as fdq  # noqa: E402
 from repro_torch.kernels.flash_decode_quant import (  # noqa: E402
     decode_quant_partials_plain,
     flash_decode_quant_partials,
@@ -252,6 +270,12 @@ def time_ms(fn, iters: int, flush) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
+def bits(x: torch.Tensor) -> str:
+    """A short digest of a tensor's bytes."""
+    raw = x.detach().contiguous().view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()[:16]
+
+
 def bound(bytes_moved: float, flops: float, peak: float = BF16_FLOPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -320,64 +344,115 @@ def prefill_case(gen, b, lq, lk, hq, hkv, d, dtype=torch.bfloat16,
         dtype), (rand(gen, (b, lk, hkv, d), torch.float32) * mul[2]).to(dtype)
 
 
-def poisoned_cache(gen, b, cap, hkv, d, lens, kv_dtype):
-    """A quantized cache whose rows past kv_len hold data 127 and -127
-    and scales 1e4 (the reference's poisoned-tail oracle): a kernel that
-    read one tail row would be off by orders of magnitude."""
-    art = Quantizer.from_kv_dtype(kv_dtype).quantized_kv(
-        rand(gen, (b, cap, hkv, d), torch.float32),
-        rand(gen, (b, cap, hkv, d), torch.float32))
+def quant_case(q, art, bucket: int, kv_len, s: int, kv_dtype: str):
+    """One decode case over the quantized cache ``art`` (>= b, cap, hkv,
+    d) and queries ``q`` (>= b, hq, d), b = len(kv_len): a dict with the
+    label, b, bucket, S, kv_len, q, the clean cache rows ``art`` and
+    their bucket view ``view``, a copy ``poisoned`` of the rows whose rows
+    past kv_len hold codes 127 / -127 and scales 1e4 (the reference's
+    poisoned-tail oracle: a kernel that read one would be off by orders
+    of magnitude) and its bucket view ``pview``, and the pre-scaled qp
+    (b, hkv, g, d)."""
+    b = len(kv_len)
+    cap, hkv, d = art.k.shape[1:]
+    lens = torch.tensor(kv_len, device=DEVICE, dtype=torch.int32)
+    rows = QuantizedKV(*(t[:b] for t in art))
     tail = torch.arange(cap, device=DEVICE)[None] >= lens[:, None]
-    k, v, ks, vs = (t.clone() for t in art)
+    k, v, ks, vs = (t.clone() for t in rows)
     for x, val in ((k, 127.0), (v, -127.0)):     # through the raw bytes
         x.view(torch.uint8)[tail] = torch.tensor(
             val, device=DEVICE).to(x.dtype).view(torch.uint8)
     ks[tail] = 1e4
     vs[tail] = 1e4
-    return QuantizedKV(k, v, ks, vs)
+    poisoned = QuantizedKV(k, v, ks, vs)
+    return dict(
+        label=f"{kv_dtype} B{b} view{bucket} of {cap} kv_len "
+              f"{list(kv_len)} S{s}",
+        b=b, bucket=bucket, s=s, lens=lens, q=q[:b], art=rows,
+        view=QuantizedKV(*(t[:, :bucket] for t in rows)), poisoned=poisoned,
+        pview=QuantizedKV(*(t[:, :bucket] for t in poisoned)),
+        qp=(q[:b].float() * d ** -0.5).to(q.dtype).reshape(b, hkv, -1, d))
 
 
-def parity_quant(gen, sms: int, kv_dtype: str) -> float:
-    """K4 against its plain version at the main path's shapes; returns
-    the max abs error of the combined outputs."""
+def quant_shapes(gen, sms: int, kv_dtype: str, shapes=DECODE_SHAPES,
+                 cap: int = 2048, mul=(1.0, 1.0, 1.0)):
+    """quant_case of each of ``shapes`` (as decode_shapes) over one
+    ``kv_dtype`` cache of 2 x ``cap`` rows, 16/2 heads, D=128, quantized
+    from normals of standard deviations ``mul`` (q, K, V)."""
+    hkv, g, d = 2, 8, 128
+    art = Quantizer.from_kv_dtype(kv_dtype).quantized_kv(
+        rand(gen, (2, cap, hkv, d), torch.float32) * mul[1],
+        rand(gen, (2, cap, hkv, d), torch.float32) * mul[2])
+    q = rand(gen, (2, hkv * g, d)) * mul[0]
+    return [quant_case(q, art, bucket, kv_len, s or Planner(
+        policy="paper", num_cores=sms).plan(AttentionSpec.decode(
+            b, bucket, hkv * g, hkv, d, kv_dtype=kv_dtype)).num_splits,
+        kv_dtype) for b, bucket, kv_len, s in shapes]
+
+
+def check_decode_quant(c):
+    """The quantized cache's fused decode kernel at case ``c`` over its
+    poisoned view against ``decode_quant_plain`` over the clean one
+    (QUANT_TOL), then again for the same bits, and its partials-only
+    epilogue (merged by ``combine_plain``) the same way.  Returns the max
+    abs error and (a call that reruns the kernel, its first output, the
+    label)."""
+    qp, lens, s = c["qp"], c["lens"], c["s"]
+    run = functools.partial(fdq.flash_decode_quant, qp, *c["pview"], lens,
+                            num_splits=s)
+    got = run()
+    want = fdq.decode_quant_plain(qp, *c["view"], lens, num_splits=s)
+    err = max_err(got, want, QUANT_TOL)
+    check(torch.equal(got, run()),
+          f"decode_quant {c['label']}: same split, other bits")
+    parts = flash_decode_quant_partials(qp, *c["pview"], lens, num_splits=s)
+    max_err(combine_plain(*parts, out_dtype=qp.dtype), want, QUANT_TOL)
+    return err, (run, got, c["label"])
+
+
+def parity_quant(gen, sms: int, kv_dtype: str, reruns) -> float:
+    """The quantized cache's decode kernel against its plain version at
+    the bucket grid (and, through ``ops.decode_attention_quant``, against
+    the naive attention over the dequantized cache), at the decode shapes,
+    at S > 32 and on the model's regime of data; appends each case's
+    rerun to ``reruns``.  Returns the max abs error."""
     err = 0.0
     hkv, g, d, cap = 2, 8, 128, 2048
     qz = Quantizer.from_kv_dtype(kv_dtype)
+    cases = []
     for b in (1, 2):
+        art = qz.quantized_kv(rand(gen, (b, cap, hkv, d), torch.float32),
+                              rand(gen, (b, cap, hkv, d), torch.float32))
         q = rand(gen, (b, hkv * g, d))
         for bucket in (128, 512, 2048):
-            lens = torch.tensor([bucket - 17, bucket // 2 + 5][:b],
-                                device=DEVICE, dtype=torch.int32)
-            art = poisoned_cache(gen, b, cap, hkv, d, lens, kv_dtype)
-            view = QuantizedKV(*(t[:, :bucket] for t in art))
+            lens = [bucket - 17, bucket // 2 + 5][:b]
             plan = Planner(policy="paper", num_cores=sms).plan(
                 AttentionSpec.decode(b, bucket, hkv * g, hkv, d,
                                      kv_dtype=kv_dtype), bucket=bucket)
-            qp = (q.float() * d ** -0.5).to(q.dtype).reshape(b, hkv, g, d)
             for s in sorted({1, 3, plan.num_splits}):
-                got = flash_decode_quant_partials(qp, *view, lens,
-                                                  num_splits=s)
-                want = decode_quant_partials_plain(qp, *view, lens,
-                                                   num_splits=s)
-                err = max(err, max_err(
-                    combine_plain(*got, out_dtype=torch.float32),
-                    combine_plain(*want, out_dtype=torch.float32),
-                    QUANT_TOL))
-                again = flash_decode_quant_partials(qp, *view, lens,
-                                                    num_splits=s)
-                check(all(torch.equal(x, y) for x, y in zip(got, again)),
-                      f"{kv_dtype} decode B{b} L{bucket} S{s}: same split, "
-                      f"other bits")
-                full = ops.decode_attention_quant(
-                    q, art, lens, plan=Planner(num_splits_override=s).plan(
-                        AttentionSpec.decode(b, bucket, hkv * g, hkv, d,
-                                             kv_dtype=kv_dtype),
-                        bucket=bucket))
+                c = quant_case(q, art, bucket, lens, s, kv_dtype)
+                fixed = Planner(num_splits_override=s).plan(
+                    AttentionSpec.decode(b, bucket, hkv * g, hkv, d,
+                                         kv_dtype=kv_dtype), bucket=bucket)
+                full = ops.decode_attention_quant(q, c["poisoned"],
+                                                  c["lens"], plan=fixed)
+                view = c["view"]
                 max_err(full, ref.naive_decode_attention(
                     q, qz.dequantize(view.k, view.k_scale),
-                    qz.dequantize(view.v, view.v_scale), lens), QUANT_TOL)
-                print(f"parity decode_quant {kv_dtype} B{b} view{bucket} of "
-                      f"{cap} S{s} kv_len {lens.tolist()} tails poisoned: ok")
+                    qz.dequantize(view.v, view.v_scale), c["lens"]),
+                        QUANT_TOL)
+                cases.append(c)
+    # the serving run's and the paper cell's decode shapes, S > 32, and
+    # the model's regime, K x 10 and V x 100 before quantization
+    cases += quant_shapes(gen, sms, kv_dtype) + quant_shapes(
+        gen, sms, kv_dtype, WIDE_SPLIT_SHAPES, 8192) + quant_shapes(
+        gen, sms, kv_dtype, SHARP_SHAPES, mul=SHARP_MUL)
+    for c in cases:
+        e, rerun = check_decode_quant(c)
+        err = max(err, e)
+        reruns.append(rerun)
+        print(f"parity decode_quant {c['label']} tails poisoned, fused and "
+              f"partials only: ok")
     return err
 
 
@@ -501,15 +576,18 @@ def phase_parity(gen, sms: int):
         errs["flash_decode"] = max(errs["flash_decode"], err)
         reruns.append(rerun)
         print(f"parity decode {c['label']} tails NaN/Inf: ok")
-    # every case again, in turns of S and B: each launch must have left
-    # the arrival counters at zero
+    for kv_dtype in ("int8", "fp8"):
+        errs["flash_decode_quant"] = max(
+            errs["flash_decode_quant"], parity_quant(gen, sms, kv_dtype,
+                                                     reruns))
+    # every case again, in turns of S and B and of the two decode kernels,
+    # which share one workspace: each launch must have left the arrival
+    # counters at zero
     for fn, first, label in reruns:
         check(torch.equal(fn(), first), f"decode {label}: other bits after "
                                         f"calls of other S and B")
-    print(f"parity decode: {len(reruns)} cases rerun in turns, same bits")
-    for kv_dtype in ("int8", "fp8"):
-        errs["flash_decode_quant"] = max(errs["flash_decode_quant"],
-                                         parity_quant(gen, sms, kv_dtype))
+    print(f"parity decode and decode_quant: {len(reruns)} cases rerun in "
+          f"turns, same bits")
     errs["flash_prefill_f32"] = 0.0
     for cases, dtype, tol, key, mul in (
             (PREFILL_CASES, torch.bfloat16, PREFILL_TOL, "flash_prefill",
@@ -639,15 +717,15 @@ def phase_serving(model, params, cfg, seed: int, kv_quant=None,
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     by_shape = ops.launch_counts_by_key("flash_prefill")
+    decode = "flash_decode_quant" if kv_quant else "flash_decode"
+    other = "flash_decode" if kv_quant else "flash_decode_quant"
     decode_by_shape = {f"{L} S{s}": n for (L, s), n in sorted(
-        ops.launch_counts_by_key("flash_decode").items())}
+        ops.launch_counts_by_key(decode).items())}
     st = engine.stats
     admissions = sum(v for k, v in st.launches.items()
                      if isinstance(k, tuple))
     steps = sum(v for k, v in st.launches.items() if isinstance(k, int))
     layers = cfg.num_layers
-    decode = "flash_decode_quant" if kv_quant else "flash_decode"
-    other = "flash_decode" if kv_quant else "flash_decode_quant"
     print(f"serving {label} launches {json.dumps(counts)} admissions "
           f"{admissions} decode steps {steps} plan misses {st.misses} "
           f"distinct buckets {st.distinct_buckets} policy evals "
@@ -664,15 +742,13 @@ def phase_serving(model, params, cfg, seed: int, kv_quant=None,
                        if isinstance(k, tuple)},
           f"{label}: prefill launches by (dtype, Lq) {by_shape} != layers "
           f"x admissions by bucket")
-    check(counts[decode] == layers * steps,
+    check(counts[decode] == layers * steps
+          == sum(decode_by_shape.values()),
           f"{label}: {decode} launches != layers x decode steps")
     check(counts[other] == 0, f"{label}: {other} launched")
-    # a bf16 cache's decode kernel merges its own splits; the quantized
-    # decode kernel's partials go through the combine kernel
-    combines = layers * steps if kv_quant else 0
-    check(counts["flash_combine"] == combines,
-          f"{label}: {counts['flash_combine']} combine launches, expected "
-          f"{combines}")
+    # both decode kernels merge their own splits
+    check(counts["flash_combine"] == 0,
+          f"{label}: {counts['flash_combine']} combine launches")
     check(ops.policy_eval_count() == 0,
           f"{label}: policy evaluated inside a launch")
     check(st.misses == st.distinct_buckets, f"{label}: plan misses != "
@@ -785,6 +861,36 @@ def cuda_core_decode(q, k, v, kv_len, *, num_splits, out_dtype):
                              out_dtype=out_dtype)
 
 
+def prefill_checked(model, params, cfg, rng, lens, kv_dtype="bfloat16"):
+    """Prompts of ``lens`` tokens drawn from ``rng``, prefilled one per
+    slot (bucket-padded, as the engine does) into a new ``kv_dtype``
+    cache of 2048 rows, every layer's prefill attention held against
+    ``prefill_plain`` on the same inputs at PREFILL_TOL.  Returns the
+    caches, each prompt's greedy next token, and the check's max abs
+    error and count."""
+    caches = model.init_cache(len(lens), 2048, kv_dtype=kv_dtype)
+    first = []
+    pre = {"max_abs_err": 0.0, "launches": 0}
+
+    def checked_prefill(q, k, v, **kw):
+        got = flash_prefill(q, k, v, **kw)
+        pre["max_abs_err"] = max(pre["max_abs_err"], max_err(
+            got, prefill_plain(q, k, v, **kw), PREFILL_TOL))
+        pre["launches"] += 1
+        return got
+
+    with ops_route("flash_prefill", checked_prefill):
+        for slot, n in enumerate(lens):
+            toks = torch.tensor(rng.integers(0, cfg.vocab_size, n),
+                                device=DEVICE)
+            padded = torch.zeros(-(-n // 128) * 128, dtype=toks.dtype,
+                                 device=DEVICE)
+            padded[:n] = toks
+            first.append(model.prefill_slot(params, caches, padded, slot,
+                                            n).argmax())
+    return caches, first, pre
+
+
 def phase_logits(model, params, cfg, seed: int, sms: int,
                  steps: int = LOGITS_STEPS):
     """The full-width model's first ``steps`` decode steps at each of
@@ -807,26 +913,7 @@ def phase_logits(model, params, cfg, seed: int, sms: int,
     out = {}
     for lens, bucket in LOGITS_CELLS:
         b = len(lens)
-        caches = model.init_cache(b, 2048)
-        first = []
-        pre = {"max_abs_err": 0.0, "launches": 0}
-
-        def checked_prefill(q, k, v, **kw):
-            got = flash_prefill(q, k, v, **kw)
-            pre["max_abs_err"] = max(pre["max_abs_err"], max_err(
-                got, prefill_plain(q, k, v, **kw), PREFILL_TOL))
-            pre["launches"] += 1
-            return got
-
-        with ops_route("flash_prefill", checked_prefill):
-            for slot, n in enumerate(lens):
-                toks = torch.tensor(rng.integers(0, cfg.vocab_size, n),
-                                    device=DEVICE)
-                padded = torch.zeros(-(-n // 128) * 128, dtype=toks.dtype,
-                                     device=DEVICE)
-                padded[:n] = toks
-                first.append(model.prefill_slot(params, caches, padded,
-                                                slot, n).argmax())
+        caches, first, pre = prefill_checked(model, params, cfg, rng, lens)
         plan = Planner(policy="paper", num_cores=sms).plan(
             AttentionSpec.decode(b, bucket, hq, hkv, d), bucket=bucket)
         cell = f"B{b} bucket{bucket} S{plan.num_splits}"
@@ -899,6 +986,58 @@ def phase_logits(model, params, cfg, seed: int, sms: int,
     return out
 
 
+def phase_logits_quant(model, params, cfg, seed: int, sms: int,
+                       kv_dtype: str, steps: int = LOGITS_STEPS):
+    """Phase 3's per-layer check over a ``kv_dtype`` cache at the main
+    path's cell (LOGITS_CELLS' first, B=2, bucket 1024): the same prompts
+    as phase_logits prefilled into a quantized cache, then ``steps``
+    greedy decode steps under the cell's frozen ``paper`` plan, every
+    layer's quantized decode attention (the model's own q and quantized
+    cache) held against ``decode_quant_plain`` at QUANT_TOL."""
+    rng = np.random.default_rng(seed + 2)
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    lens, bucket = LOGITS_CELLS[0]
+    b = len(lens)
+    caches, first, pre = prefill_checked(model, params, cfg, rng, lens,
+                                         kv_dtype)
+    plan = Planner(policy="paper", num_cores=sms).plan(
+        AttentionSpec.decode(b, bucket, hq, hkv, d, kv_dtype=kv_dtype),
+        bucket=bucket)
+    cell = f"{kv_dtype} B{b} bucket{bucket} S{plan.num_splits}"
+    attn = {"max_abs_err": 0.0, "launches": 0}
+
+    def checked(q, k, v, k_scale, v_scale, kv_len, *, num_splits,
+                out_dtype):
+        got = fdq.flash_decode_quant(q, k, v, k_scale, v_scale, kv_len,
+                                     num_splits=num_splits,
+                                     out_dtype=out_dtype)
+        want = fdq.decode_quant_plain(q, k, v, k_scale, v_scale, kv_len,
+                                      num_splits=num_splits,
+                                      out_dtype=out_dtype)
+        attn["max_abs_err"] = max(attn["max_abs_err"],
+                                  max_err(got, want, QUANT_TOL))
+        attn["launches"] += 1
+        return got
+
+    pos = torch.tensor(lens, device=DEVICE)
+    tok = torch.stack(first)
+    with ops_route("flash_decode_quant", checked):
+        for i in range(steps):
+            x = model.decode_step(params, caches, tok, pos + i, plan=plan)
+            check(bool(torch.isfinite(x).all()), f"logits {cell}: non-finite")
+            tok = x.argmax(-1)
+    check(pre["launches"] == cfg.num_layers * b
+          and attn["launches"] == cfg.num_layers * steps,
+          f"logits {cell}: {pre['launches']} prefill and {attn['launches']} "
+          f"decode attention checks")
+    print(f"logits {cell}: prefill attention of {pre['launches']} layer "
+          f"prompts against prefill_plain, max abs err "
+          f"{pre['max_abs_err']:.4g}; quantized decode attention of "
+          f"{attn['launches']} layer steps against decode_quant_plain on "
+          f"the model's inputs: max abs err {attn['max_abs_err']:.4g}")
+    return {"prefill_attention": pre, "attention": attn}
+
+
 def phase_paper_cell(model, params, cfg, seed: int, flush, sms: int,
                      kv_quant=None, runs_per_policy: int = 3):
     label = kv_quant or "bf16"
@@ -953,7 +1092,7 @@ def phase_paper_cell(model, params, cfg, seed: int, flush, sms: int,
         name = "decode_quant"
 
         def kernel(s):
-            return flash_decode_quant_partials(qp, *view, lens, num_splits=s)
+            return fdq.flash_decode_quant(qp, *view, lens, num_splits=s)
     else:
         k = torch.randn((1, 2048, 2, 128), device=DEVICE).to(torch.bfloat16)
         name = "decode"
@@ -1040,12 +1179,13 @@ def phase_profile(model, params, cfg, seed: int, steps: int = 8,
 
 
 def phase_kernels_line(gen, sms: int, errs, counts, flush,
-                       prefill_launches, decode_launches):
+                       prefill_launches, decode_launches, quant_launches):
     """``counts``: the main path's launches by kernel name;
     ``prefill_launches`` / ``decode_launches``: the bf16 serving run's
-    prefill launches by "dtype Lq" and decode launches by "view S", each
-    row's ``launches``."""
-    hkv, g, d, b, cap, bucket = 2, 8, 128, 2, 2048, 1024
+    prefill launches by "dtype Lq" and decode launches by "view S",
+    ``quant_launches`` the int8 run's quantized decode launches by "view
+    S": each row's ``launches``."""
+    hkv, g, d, b = 2, 8, 128, 2
     hq = hkv * g
     out = []
     cases = decode_shapes(gen, sms)
@@ -1067,8 +1207,6 @@ def phase_kernels_line(gen, sms: int, errs, counts, flush,
     # K2 and K4 at the main path's shape, DECODE_SHAPES' first
     qp, kv, vv, lens, s = (cases[0][key] for key in ("qp", "kv", "vv",
                                                      "lens", "s"))
-    rows = int(lens.sum())
-    dec_flops = 4 * rows * hkv * g * d
     parts = flash_decode_partials(qp, kv, vv, lens, num_splits=s)
     part_bytes = s * b * hkv * g * (d + 2) * 4
     out.append(dict(
@@ -1098,22 +1236,42 @@ def phase_kernels_line(gen, sms: int, errs, counts, flush,
             err=errs["flash_prefill_f32" if f32 else "flash_prefill"],
             tol=F32_TOL if f32 else PREFILL_TOL,
             launches=prefill_launches.get(f"{str(dtype)[6:]} {lq}", 0)))
-    # K4 at K1's shape, over the int8 cache the quantized main path holds
-    art = Quantizer.from_kv_dtype("int8").quantized_kv(
-        rand(gen, (b, cap, hkv, d), torch.float32),
-        rand(gen, (b, cap, hkv, d), torch.float32))
-    qview = [t[:, :bucket] for t in art]
-    quant_bytes = (2 * rows * hkv * (d * 1 + 4) + qp.numel() * 2
-                   + part_bytes)
-    out.append(dict(
-        name="flash_decode_quant",
-        shape=f"B{b} view{bucket} of {cap} kv_len {lens.tolist()} S{s} int8",
-        fn=lambda: flash_decode_quant_partials(qp, *qview, lens,
-                                               num_splits=s),
-        plain=lambda: decode_quant_partials_plain(qp, *qview, lens,
-                                                  num_splits=s),
-        lib=None, nbytes=quant_bytes, flops=dec_flops + 2 * rows * hkv * d,
-        peak=INT8_OPS_PER_S))
+    # K4 at the same decode shapes, over int8 caches with poisoned tails
+    # (the quantized main path's cache), fused; then its partials-only
+    # epilogue at the main path's shape, DECODE_SHAPES' first
+    qcases = quant_shapes(gen, sms, "int8")
+    for c in qcases:
+        rows = int(c["lens"].sum())
+        qp, pview, view, lens, s = (c[key] for key in ("qp", "pview", "view",
+                                                        "lens", "s"))
+        err, _ = check_decode_quant(c)
+        out.append(dict(
+            name="flash_decode_quant", shape=c["label"] + " fused combine",
+            fn=functools.partial(fdq.flash_decode_quant, qp, *pview, lens,
+                                 num_splits=s),
+            plain=functools.partial(fdq.decode_quant_plain, qp, *view, lens,
+                                    num_splits=s),
+            lib=None,
+            # K and V codes and scales below kv_len, q, and the output
+            nbytes=2 * rows * hkv * (d + 4) + 2 * qp.numel() * 2,
+            flops=4 * rows * hkv * g * d + 2 * rows * hkv * d,
+            peak=INT8_OPS_PER_S, err=err,
+            launches=quant_launches.get(f"{c['bucket']} S{s}", 0)))
+    c, main = qcases[0], out[-len(qcases)]
+    qp, pview, view, lens, s = (c[key] for key in ("qp", "pview", "view",
+                                                    "lens", "s"))
+    parts = flash_decode_quant_partials(qp, *pview, lens, num_splits=s)
+    out.append(main | dict(
+        shape=c["label"] + " partials only",
+        fn=functools.partial(flash_decode_quant_partials, qp, *pview, lens,
+                             num_splits=s),
+        plain=functools.partial(decode_quant_partials_plain, qp, *view, lens,
+                                num_splits=s),
+        nbytes=main["nbytes"] - qp.numel() * 2 + part_bytes,
+        err=max_err(combine_plain(*parts, out_dtype=qp.dtype),
+                    fdq.decode_quant_plain(qp, *view, lens, num_splits=s),
+                    QUANT_TOL),
+        launches=0))
     # the method's floor: one one-element fill_, timed the same way
     tiny = torch.empty(1, device=DEVICE)
     floor_ms = time_ms(lambda: tiny.fill_(1.0), 100, flush)
@@ -1145,10 +1303,14 @@ def phase_times(gen, sms: int, flush, iters: int = 200):
     """At each of DECODE_SHAPES: the decode op as the model calls it
     (``ops.decode_attention`` under a frozen plan of that S and bucket,
     q's scaling included), the partials kernel followed by the combine
-    kernel, and SDPA; at each of PREFILL_BUCKETS the bf16 prefill kernel
+    kernel, and SDPA; there again over int8 and fp8 caches, the quantized
+    decode op (``ops.decode_attention_quant``) and the quantized partials
+    kernel followed by the combine kernel; at each of PREFILL_BUCKETS the
+    bf16 prefill kernel
     (B=1, 16/2 heads, D=128, causal) and SDPA; and the timing floor (one
-    one-element ``fill_``), all by ``time_ms``.  Uses only calls every
-    slice of the port has."""
+    one-element ``fill_``), all by ``time_ms``, and a digest of each
+    decode op's output bits (equal digests in two checkouts: the same
+    bits).  Uses only calls every slice of the port has."""
     tiny = torch.empty(1, device=DEVICE)
     out = {"floor_ms": time_ms(lambda: tiny.fill_(1.0), iters, flush)}
     print(f"decode timing floor: {out['floor_ms']:.6f} ms")
@@ -1159,18 +1321,41 @@ def phase_times(gen, sms: int, flush, iters: int = 200):
             AttentionSpec.decode(b, bucket, hkv * g, hkv, d), bucket=bucket)
         pair = functools.partial(flash_decode_partials, c["qp"], c["kv"],
                                  c["vv"], c["lens"], num_splits=s)
+        op = functools.partial(ops.decode_attention, c["q"], c["k"],
+                               c["v"], c["lens"], plan=plan)
         res = {
-            "op_ms": time_ms(functools.partial(
-                ops.decode_attention, c["q"], c["k"], c["v"], c["lens"],
-                plan=plan), iters, flush),
+            "op_bits": bits(op()),
+            "op_ms": time_ms(op, iters, flush),
             "partials_then_combine_ms": time_ms(
                 lambda: flash_combine(*pair(), out_dtype=torch.bfloat16),
                 iters, flush),
             "sdpa_ms": time_ms(c["sdpa"], iters, flush)}
         print(f"decode {c['label']}: op {res['op_ms']:.6f} ms, partials "
               f"then combine {res['partials_then_combine_ms']:.6f} ms, "
-              f"SDPA {res['sdpa_ms']:.6f} ms")
+              f"SDPA {res['sdpa_ms']:.6f} ms, op bits {res['op_bits']}")
         out[c["label"]] = res
+    for kv_dtype in ("int8", "fp8"):
+        for c in quant_shapes(gen, sms, kv_dtype):
+            b, bucket, s = c["b"], c["bucket"], c["s"]
+            hkv, g, d = c["qp"].shape[1:]
+            plan = Planner(num_splits_override=s).plan(
+                AttentionSpec.decode(b, bucket, hkv * g, hkv, d,
+                                     kv_dtype=kv_dtype), bucket=bucket)
+            pair = functools.partial(flash_decode_quant_partials, c["qp"],
+                                     *c["view"], c["lens"], num_splits=s)
+            op = functools.partial(ops.decode_attention_quant, c["q"],
+                                   c["art"], c["lens"], plan=plan)
+            res = {
+                "op_bits": bits(op()),
+                "op_ms": time_ms(op, iters, flush),
+                "partials_then_combine_ms": time_ms(
+                    lambda: flash_combine(*pair(), out_dtype=torch.bfloat16),
+                    iters, flush)}
+            print(f"decode {c['label']}: op {res['op_ms']:.6f} ms, "
+                  f"partials then combine "
+                  f"{res['partials_then_combine_ms']:.6f} ms, op bits "
+                  f"{res['op_bits']}")
+            out[c["label"]] = res
     for lq in PREFILL_BUCKETS:
         q, k, v = prefill_case(gen, 1, lq, lq, 16, 2, 128)
         res = {"kernel_ms": time_ms(functools.partial(
@@ -1236,10 +1421,12 @@ def main(argv=None) -> int:
     _, fserving, _ = phase_serving(model, params, cfg, args.seed,
                                    kv_quant="fp8", bf16=bf16)
     logits = phase_logits(model, params, cfg, args.seed, sms)
-    # K1 and K3 launches from the bf16 run, K2's and K4's from the int8
-    # run (a bf16 cache's decode kernel merges its own splits)
+    for kv_dtype in ("int8", "fp8"):
+        logits[kv_dtype] = phase_logits_quant(model, params, cfg, args.seed,
+                                              sms, kv_dtype)
+    # K1 and K3 launches from the bf16 run, K4's from the int8 run; K2
+    # runs in neither
     counts["flash_decode_quant"] = qcounts["flash_decode_quant"]
-    counts["flash_combine"] = qcounts["flash_combine"]
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     paper = phase_paper_cell(model, params, cfg, args.seed, flush, sms)
     qpaper = phase_paper_cell(model, params, cfg, args.seed, flush, sms,
@@ -1250,7 +1437,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels = phase_kernels_line(gen, sms, errs, counts, flush,
                                  serving["prefill_launches"],
-                                 serving["decode_launches"])
+                                 serving["decode_launches"],
+                                 qserving["decode_launches"])
     print(json.dumps({"serving": serving, "serving_int8": qserving,
                       "serving_fp8": fserving, "logits": logits,
                       "paper_cell": paper,

@@ -52,187 +52,19 @@
 //  - Any f32 operand (an f32 model over its cache, the CPU-parity dtypes)
 //    keeps the CUDA-core body (decode_cc_kernel): K and V staged as f32 in
 //    shared memory, 64 rows per step, register-blocked scores.
-//  - Epilogue, both bodies.  With S = 1 the CTA writes acc / max(l, 1e-30)
-//    in the output dtype.  With S > 1 it writes its (acc, l, m) to an f32
-//    workspace (an empty split: m = -1e30, l = 0, acc = 0, never -inf),
-//    fences, and takes a ticket from a per-(b, h) counter; the CTA that
-//    arrives last reads the S partials past L1, merges them in split
-//    order with flash_combine.cu's arithmetic, writes the output and
-//    resets the counter to 0.  The same split gives the same bits whichever CTA
-//    finishes last, and the next launch needs no memset.  Without a
-//    counter the kernel writes the partials only (flash_decode_partials).
+//  - Epilogue, both bodies (csrc/decode_epilogue.cuh, shared with the
+//    quantized cache's kernel): with S = 1 the CTA writes the output;
+//    with S > 1 it writes its partial and the CTA of (b, h) that arrives
+//    last merges the S partials in split order with flash_combine.cu's
+//    arithmetic and resets its arrival counter.  Without a counter the
+//    kernel writes the partials only (flash_decode_partials).
 #include <type_traits>
 
 #include "common.cuh"
+#include "decode_epilogue.cuh"
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBlockN = 128;   // KV_BLOCK: split bounds are counted in these
-constexpr int kTile = 64;      // rows per step (per ring stage)
-constexpr int kMaxG = 16;      // query heads per KV head
-constexpr int kWarpRows = kTile / kWarps;   // keys of a tile one warp owns
-constexpr int kStages = 2;     // tensor-core ring depth, in tiles
-
-struct Epilogue {
-    float* acc;       // (S, B, Hkv, G, D) partials
-    float* l;         // (S, B, Hkv, G)
-    float* m;         // (S, B, Hkv, G)
-    int* counters;    // (B, Hkv) arrivals; null: write the partials only
-    void* out;        // (B, Hkv, G, D) in out_dtype; null without counters
-    int out_dtype;
-};
-
-struct Rows {
-    int lo, hi;       // this split's rows [lo, hi), hi clamped to kv_len
-};
-
-__device__ __forceinline__ Rows split_rows(int L, int S, int s, int kv_len) {
-    const int nblk = (L + kBlockN - 1) / kBlockN;
-    const int nb = (nblk + S - 1) / S;
-    const int len = min(max(kv_len, 0), L);
-    return {min(s * nb * kBlockN, L),
-            min(min((s + 1) * nb * kBlockN, L), len)};
-}
-
-__device__ __forceinline__ void store_out(void* out, long long i, float x,
-                                          int dtype) {
-    if (dtype == REPRO_DTYPE_BF16)
-        static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(x);
-    else
-        static_cast<float*>(out)[i] = x;
-}
-
-// Writes one element of the split's result: the output itself when the
-// split is the whole row range (S = 1, fused), else the partial.
-__device__ __forceinline__ void store_split(const Epilogue& ep, int S, int s,
-                                            long long split_stride,
-                                            long long row, int D, int d,
-                                            float acc, float l, float m) {
-    if (S == 1 && ep.out != nullptr) {
-        store_out(ep.out, row * D + d, acc / fmaxf(l, 1e-30f), ep.out_dtype);
-        return;
-    }
-    const long long i = s * split_stride + row;
-    ep.acc[i * D + d] = acc;
-    if (d == 0) {
-        ep.l[i] = l;
-        ep.m[i] = m;
-    }
-}
-
-// Stores 4 consecutive output elements.
-__device__ __forceinline__ void store_out4(void* out, long long i, float4 x,
-                                           int dtype) {
-    if (dtype == REPRO_DTYPE_BF16) {
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-        uint2 v;
-        v.x = *reinterpret_cast<const uint32_t*>(&lo);
-        v.y = *reinterpret_cast<const uint32_t*>(&hi);
-        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + i) = v;
-    } else {
-        *reinterpret_cast<float4*>(static_cast<float*>(out) + i) = x;
-    }
-}
-
-// After every thread has stored its part of the split: in fused mode with
-// S > 1, the CTA of (b, h) that arrives last merges the S partials in split
-// order, m* = max_s m_s, w_s = exp(m_s - m*), out = sum_s w_s acc_s /
-// max(sum_s w_s l_s, 1e-30) (flash_combine.cu's arithmetic, so the same
-// bits), and resets the counter.  m and l of up to kMergeChunk splits are
-// staged in shared memory at once, which holds m* too when S fits in one
-// chunk; each thread reads 4-column slices of acc, whose loads for
-// different splits do not wait on each other.
-constexpr int kMergeChunk = 32;
-static_assert(kThreads == 8 * kMaxG, "8 lanes per row find m*");
-
-template <int D>
-__device__ __forceinline__ void combine_if_last(const Epilogue& ep, int S,
-                                                long long split_stride,
-                                                long long row0, int G,
-                                                long long bh) {
-    if (ep.counters == nullptr || S == 1) return;
-    constexpr int kC = kMaxG * D / 4 / kThreads;   // 4-column slices each
-    __shared__ int last;
-    __shared__ float mx_s[kMaxG], w_s[kMergeChunk][kMaxG],
-        l_s[kMergeChunk][kMaxG];
-    const int tid = threadIdx.x;
-    __threadfence();          // this thread's partials before the ticket
-    __syncthreads();
-    if (tid == 0) last = atomicAdd(ep.counters + bh, 1) == S - 1;
-    __syncthreads();
-    if (!last) return;
-    __threadfence();          // the other CTAs' partials after their tickets
-    if (S > kMergeChunk) {    // m* first, 8 lanes per row
-        const int g = tid / 8;
-        float mx = REPRO_NEG_INF;
-        if (g < G)
-            for (int s = tid % 8; s < S; s += 8)
-                mx = fmaxf(mx, __ldcg(ep.m + s * split_stride + row0 + g));
-#pragma unroll
-        for (int o = 1; o < 8; o <<= 1)
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        if (g < G && tid % 8 == 0) mx_s[g] = mx;
-    }
-    float4 num[kC];
-    float den[kC];
-#pragma unroll
-    for (int i = 0; i < kC; ++i) {
-        num[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-        den[i] = 0.f;
-    }
-    for (int s0 = 0; s0 < S; s0 += kMergeChunk) {
-        const int n = min(kMergeChunk, S - s0);
-        __syncthreads();      // m* is known; the last chunk's weights read
-        for (int i = tid; i < n * G; i += kThreads) {
-            const long long at = (s0 + i / G) * split_stride + row0 + i % G;
-            w_s[i / G][i % G] = __ldcg(ep.m + at);
-            l_s[i / G][i % G] = __ldcg(ep.l + at);
-        }
-        __syncthreads();
-        if (S <= kMergeChunk) {
-            if (tid < G) {
-                float mx = REPRO_NEG_INF;
-                for (int j = 0; j < n; ++j) mx = fmaxf(mx, w_s[j][tid]);
-                mx_s[tid] = mx;
-            }
-            __syncthreads();
-        }
-        for (int i = tid; i < n * G; i += kThreads)
-            w_s[i / G][i % G] = expf(w_s[i / G][i % G] - mx_s[i % G]);
-        __syncthreads();
-#pragma unroll 4
-        for (int j = 0; j < n; ++j) {
-            const float4* acc = reinterpret_cast<const float4*>(
-                ep.acc + ((s0 + j) * split_stride + row0) * D);
-#pragma unroll
-            for (int i = 0; i < kC; ++i) {
-                const int c = tid + i * kThreads, g = c * 4 / D;
-                if (g >= G) continue;
-                const float4 a = __ldcg(acc + c);
-                const float w = w_s[j][g];
-                num[i] = make_float4(fmaf(w, a.x, num[i].x),
-                                     fmaf(w, a.y, num[i].y),
-                                     fmaf(w, a.z, num[i].z),
-                                     fmaf(w, a.w, num[i].w));
-                den[i] = fmaf(w, l_s[j][g], den[i]);
-            }
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < kC; ++i) {
-        const int c = tid + i * kThreads;
-        if (c * 4 / D >= G) continue;
-        const float d = fmaxf(den[i], 1e-30f);
-        store_out4(ep.out, row0 * D + c * 4,
-                   make_float4(num[i].x / d, num[i].y / d, num[i].z / d,
-                               num[i].w / d), ep.out_dtype);
-    }
-    if (tid == 0) ep.counters[bh] = 0;
-}
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -245,8 +77,7 @@ struct TcShape {
     static constexpr int kStageElems = 2 * kTileElems;       // K, then V
     static constexpr size_t kRing = sizeof(__nv_bfloat16) * kStages *
                                     kStageElems;
-    static constexpr int kOPitch = D + 4;           // f32 per merge row
-    static constexpr size_t kMerge = sizeof(float) * kWarps * 16 * kOPitch;
+    static constexpr size_t kMerge = WarpMerge<D>::kBytes;
     static constexpr size_t kSmem = kRing > kMerge ? kRing : kMerge;
 };
 
@@ -263,7 +94,6 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Hkv, G, D)
     constexpr int kPerLane = kWarpRows * kChunks / 32;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __shared__ float m_w[kWarps][16], l_w[kWarps][16];
 
     const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -408,57 +238,7 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Hkv, G, D)
     }
     hopper::cp_async_wait<0>();
 
-    // merge the four warps: each scales its O to the CTA's running max and
-    // parks it in shared memory (the ring is free now), then the CTA sums
-    // the four in warp order
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
-        l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
-    }
-    __syncthreads();
-    if (tq == 0) {
-        m_w[warp][gq] = m_r[0];
-        m_w[warp][gq + 8] = m_r[1];
-        l_w[warp][gq] = l_r[0];
-        l_w[warp][gq + 8] = l_r[1];
-    }
-    __syncthreads();
-    float scale[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        float mw = REPRO_NEG_INF;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) mw = fmaxf(mw, m_w[w][gq + 8 * i]);
-        scale[i] = expf(m_r[i] - mw);
-    }
-    float* obuf = reinterpret_cast<float*>(smem_raw);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-        float* row = obuf + (warp * 16 + gq) * Sh::kOPitch + j * 8 + tq * 2;
-        *reinterpret_cast<float2*>(row) =
-            make_float2(o[j][0] * scale[0], o[j][1] * scale[0]);
-        *reinterpret_cast<float2*>(row + 8 * Sh::kOPitch) =
-            make_float2(o[j][2] * scale[1], o[j][3] * scale[1]);
-    }
-    __syncthreads();
-
-    const long long split_stride = static_cast<long long>(B) * Hkv * G;
-    const long long row0 = bh * G;
-    for (int e = threadIdx.x; e < G * D; e += kThreads) {
-        const int g = e / D, d = e % D;
-        float mw = REPRO_NEG_INF;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) mw = fmaxf(mw, m_w[w][g]);
-        float acc = 0.f, l = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) {
-            acc += obuf[(w * 16 + g) * Sh::kOPitch + d];
-            l = fmaf(expf(m_w[w][g] - mw), l_w[w][g], l);
-        }
-        store_split(ep, S, s, split_stride, row0 + g, D, d, acc, l, mw);
-    }
-    combine_if_last<D>(ep, S, split_stride, row0, G, bh);
+    finish_tc<D>(o, m_r, l_r, smem_raw, ep, B, Hkv, G, S, s, bh);
 }
 
 // ---------------------------------------------------------------------------
@@ -670,14 +450,6 @@ cudaError_t launch_kernel(Kernel kernel, size_t smem, const Args& a) {
         static_cast<const T*>(a.v), static_cast<const int*>(a.kv_len), a.ep,
         a.B, a.Hkv, a.G, a.L, a.S, a.stride_b, a.stride_l);
     return cudaGetLastError();
-}
-
-// opt in to more than 48 KB of dynamic shared memory, once per kernel
-template <typename Kernel>
-cudaError_t smem_attr(Kernel kernel, size_t smem) {
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem));
 }
 
 template <typename TQ, typename T, int D>

@@ -1,6 +1,7 @@
 // Inline-PTX wrappers for Hopper (sm_90a): mbarriers, TMA tensor loads,
 // and wgmma with bf16 operands and float32 accumulators (the prefill
-// kernel); cp.async, ldmatrix and mma.sync m16n8k16 (the decode kernel).
+// kernel); cp.async, ldmatrix and mma.sync m16n8k16 (the decode
+// kernels).
 //
 // Shared-memory tiles read by wgmma here are 64 rows of 128 bytes in the
 // 128-byte swizzle that TMA writes under CU_TENSOR_MAP_SWIZZLE_128B: the
@@ -180,6 +181,14 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                                             int src_bytes) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 4 bytes from global to shared memory, through L1 (.cg copies only 16);
+// with `src_bytes` 0 nothing is read and the 4 bytes are written as zeros.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                  :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with ``ctypes``; no PyTorch
 header is included, so a build takes seconds.  Libraries go to
 ``build/repro_torch_kernels/`` at the repository root, and a library's
-file name carries a hash of its sources and flags, so a stale build is
-never loaded.  :func:`build` starts one ``nvcc`` per source, all at
-once, and raises with the compiler's output when one fails.
+file name carries a hash of its source, every ``csrc/*.cuh`` header and
+the flags, so a stale build is never loaded.  :func:`build` starts one
+``nvcc`` per source, all at once, and raises with the compiler's output
+when one fails.
 
 Nothing here runs at import: the CPU tests import every module, and a
 kernel is built at its first launch (or by an explicit :func:`build`).
@@ -31,7 +32,6 @@ ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
 KERNELS = ("flash_decode", "flash_combine", "flash_prefill",
            "flash_decode_quant")
-HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -80,8 +80,8 @@ def available() -> Tuple[bool, str]:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (f"{name}.cu",) + HEADERS:
-        h.update((CSRC / part).read_bytes())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

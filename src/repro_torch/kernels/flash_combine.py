@@ -4,8 +4,9 @@ Counterpart of ``repro.kernels.flash_combine.flash_combine``.  On a CUDA
 tensor :func:`flash_combine` launches ``csrc/flash_combine.cu``, a
 fixed-order reduction over the splits with no atomics, so the same split
 gives the same bits; on a CPU tensor it runs :func:`combine_plain`.
-On the decode path it merges the quantized cache's partials: the decode
-kernel of a bf16 or f32 cache merges its own in its epilogue.
+No serving path launches it: both decode kernels, over a bf16 / f32 or
+a quantized cache, merge their own splits in their epilogue with its
+arithmetic.  It merges partials written by their partials-only epilogue.
 """
 from __future__ import annotations
 

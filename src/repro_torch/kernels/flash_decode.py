@@ -91,7 +91,7 @@ def _entry():
     return fn
 
 
-# The fused kernel's f32 partials and int32 arrival counters, per
+# The fused kernels' f32 partials and int32 arrival counters, per
 # (device, stream) and name: allocated at first use, grown on demand,
 # never per call.  Every launch leaves the counters at zero, as it found
 # them.  Launches on one stream share them and run in that stream's order;
@@ -109,6 +109,21 @@ def _workspace(device: torch.device, stream: int, name: str, numel: int,
         buf = _WORKSPACE[key] = torch.zeros(grown, device=device,
                                             dtype=dtype)
     return buf
+
+
+def fused_workspace(device: torch.device, stream: int, num_splits: int,
+                    batch: int, kv_heads: int, group: int, head_dim: int):
+    """Pointers to the fused decode kernels' workspace on ``device`` and
+    ``stream``: the f32 partials acc (S, B, Hkv, G, D), l and m (S, B,
+    Hkv, G), and the int32 arrival counters (B, Hkv), all zero between
+    launches.  The bf16 and the quantized cache's kernels share it."""
+    n = num_splits * batch * kv_heads * group
+    acc = _workspace(device, stream, "acc", n * head_dim, torch.float32)
+    lm = _workspace(device, stream, "lm", 2 * n, torch.float32)
+    counters = _workspace(device, stream, "counters", batch * kv_heads,
+                          torch.int32)
+    return (acc.data_ptr(), lm.data_ptr(), lm.data_ptr() + 4 * n,
+            counters.data_ptr())
 
 
 def _launch(q, k, v, kv_len, num_splits, acc, l, m, counters=None,
@@ -174,16 +189,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{list(build.DTYPE_CODES)}, got {out_dtype}")
     B, Hkv, G, D = q.shape
     S = int(num_splits)
-    n = S * B * Hkv * G
-    stream = build.stream_ptr()
-    acc = _workspace(q.device, stream, "acc", n * D,
-                     torch.float32).data_ptr()
-    lm = _workspace(q.device, stream, "lm", 2 * n, torch.float32).data_ptr()
-    counters = _workspace(q.device, stream, "counters", B * Hkv,
-                          torch.int32)
+    acc, l, m, counters = fused_workspace(q.device, build.stream_ptr(), S,
+                                          B, Hkv, G, D)
     out = torch.empty((B, Hkv, G, D), device=q.device, dtype=out_dtype)
-    _launch(q, k, v, kv_len, S, acc, lm, lm + 4 * n, counters.data_ptr(),
-            out)
+    _launch(q, k, v, kv_len, S, acc, l, m, counters, out)
     return out
 
 

@@ -6,8 +6,8 @@ and a CPU tensor runs their plain PyTorch versions, inside each kernel's
 wrapper.
 
 ``decode_attention`` is the op the paper targets.  Given per-row scales
-it reads a quantized (int8 / fp8) cache through the fused-dequant kernel
-instead; ``decode_attention_quant`` takes the scales as a
+it reads a quantized (int8 / fp8) cache through the quantized cache's
+decode kernel instead; ``decode_attention_quant`` takes the scales as a
 :class:`~repro_torch.quant.QuantizedKV`.  Its split count comes
 from a frozen :class:`~repro_torch.plan.LaunchPlan`; with no frozen plan
 the policy runs inside the call (the paper's internal-heuristic path),
@@ -23,10 +23,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_combine import flash_combine
 from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.kernels.flash_decode_quant import \
-    flash_decode_quant_partials
+from repro_torch.kernels.flash_decode_quant import flash_decode_quant
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.plan import AttentionSpec, LaunchPlan, Planner
 
@@ -89,11 +87,10 @@ def decode_attention(
     Returns (B, Hq, D) in q's dtype.  The decode kernel runs exactly the
     plan's ``num_splits`` splits over ``k[:, :plan.bucket]`` and merges
     them in a fixed order, in one launch.  With ``k_scale`` / ``v_scale``
-    the cache is quantized: the fused-dequant partials kernel reads it,
-    scales cut to the same bucket, and the combine kernel merges its
-    partials.  A context-only plan (or none,
-    meaning ``paper`` at 132 SMs) has the policy decide here, over the
-    whole cache length.
+    the cache is quantized: the quantized cache's decode kernel reads it,
+    scales cut to the same bucket, again in one launch.  A context-only
+    plan (or none, meaning ``paper`` at 132 SMs) has the policy decide
+    here, over the whole cache length.
     """
     B, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -114,10 +111,10 @@ def decode_attention(
     qp = (q.float() * D ** -0.5).to(q.dtype).reshape(B, Hkv, Hq // Hkv, D)
     if k_scale is None:
         out = flash_decode(qp, k, v, kv_len, num_splits=s, out_dtype=q.dtype)
-        return out.reshape(B, Hq, D)
-    acc, l, m = flash_decode_quant_partials(qp, k, v, k_scale, v_scale,
-                                            kv_len, num_splits=s)
-    return flash_combine(acc, l, m, out_dtype=q.dtype).reshape(B, Hq, D)
+    else:
+        out = flash_decode_quant(qp, k, v, k_scale, v_scale, kv_len,
+                                 num_splits=s, out_dtype=q.dtype)
+    return out.reshape(B, Hq, D)
 
 
 def decode_attention_quant(q: torch.Tensor, qkv, kv_len: torch.Tensor,

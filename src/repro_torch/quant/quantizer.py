@@ -91,8 +91,9 @@ class Quantizer:
 
     def dequantize(self, q: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
-        """(q (..., H, D), scale (..., H)) -> f32 (..., H, D); the fused
-        kernel applies the same ``float(q) * scale`` per staged row."""
+        """(q (..., H, D), scale (..., H)) -> f32 (..., H, D); the decode
+        kernel's CUDA-core body applies the same ``float(q) * scale`` per
+        staged row."""
         return q.float() * scale[..., None]
 
     def quantized_kv(self, k: torch.Tensor, v: torch.Tensor, *,

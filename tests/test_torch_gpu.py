@@ -12,7 +12,8 @@ Tolerances: bf16 2e-2 for decode and 3e-2 for prefill (both kernels'
 tensor-core bodies carry P as two bf16 terms in P V),
 float32 2e-5 for the combine, the f32 decode and the f32 prefill (one
 fixed-order sum against another order), ``AB_ATOL`` (2e-2) for the
-quantized decode.
+quantized decode (its tensor-core body also carries P, times each key's
+v scale, as two bf16 terms).
 """
 import pytest
 import torch
@@ -29,6 +30,8 @@ from repro_torch.kernels.flash_decode import (
 )
 from repro_torch.kernels.flash_decode_quant import (
     decode_quant_partials_plain,
+    decode_quant_plain,
+    flash_decode_quant,
     flash_decode_quant_partials,
 )
 from repro_torch.kernels.flash_prefill import flash_prefill, prefill_plain
@@ -326,12 +329,13 @@ def test_decode_takes_f32_queries_over_a_bf16_cache(cuda):
         torch.testing.assert_close(a, w, rtol=2e-5, atol=2e-5)
 
 
-def _poisoned_cache(gen, b, cap, hkv, d, lens, kv_dtype):
+def _poisoned_cache(gen, b, cap, hkv, d, lens, kv_dtype, mul=(1.0, 1.0)):
     """A quantized cache whose rows past kv_len hold data 127 and scales
-    1e4, as the reference's poisoned-tail oracle."""
+    1e4, as the reference's poisoned-tail oracle; K and V are drawn from
+    normals of standard deviations ``mul`` before quantization."""
     art = Quantizer.from_kv_dtype(kv_dtype).quantized_kv(
-        _rand(gen, (b, cap, hkv, d), torch.float32),
-        _rand(gen, (b, cap, hkv, d), torch.float32))
+        _rand(gen, (b, cap, hkv, d), torch.float32) * mul[0],
+        _rand(gen, (b, cap, hkv, d), torch.float32) * mul[1])
     tail = torch.arange(cap, device="cuda")[None] >= lens[:, None]
     k, v, ks, vs = (t.clone() for t in art)
     for x, val in ((k, 127.0), (v, -127.0)):     # through the raw bytes
@@ -351,6 +355,10 @@ def _poisoned_cache(gen, b, cap, hkv, d, lens, kv_dtype):
 ])
 def test_decode_quant_matches_plain(cuda, kv_dtype, b, hkv, g, d, cap,
                                     bucket, s, qdt):
+    """The quantized cache's kernel (bf16 q on the tensor cores, f32 q on
+    the CUDA cores) over poisoned tails: its partials-only epilogue and
+    its fused combine against the plain versions; the same split gives
+    the same bits."""
     lens = torch.randint(1, bucket + 1, (b,), device="cuda",
                          generator=cuda, dtype=torch.int32)
     art = _poisoned_cache(cuda, b, cap, hkv, d, lens, kv_dtype)
@@ -374,6 +382,109 @@ def test_decode_quant_matches_plain(cuda, kv_dtype, b, hkv, g, d, cap,
     again = flash_combine(*flash_decode_quant_partials(
         q, *view, lens, num_splits=s), out_dtype=torch.float32)
     assert torch.equal(again, out)          # same split, same bits
+    fused = flash_decode_quant(q, *view, lens, num_splits=s)
+    assert fused.dtype == qdt and fused.shape == (b, hkv, g, d)
+    torch.testing.assert_close(
+        fused.float(),
+        decode_quant_plain(q, *view, lens, num_splits=s).float(),
+        rtol=tol, atol=tol)
+    for _ in range(2):
+        assert torch.equal(flash_decode_quant(q, *view, lens, num_splits=s),
+                           fused)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("b,bucket,s", [(2, 1024, 8), (2, 384, 1),
+                                         (1, 512, 3)])
+def test_fused_decode_quant_over_large_values_and_few_dominant_keys(
+        cuda, kv_dtype, b, bucket, s):
+    """The full-width model's regime, K x 10 and V x 100 before
+    quantization: a dequantized V entry rounded to bf16, or P rounded to
+    one bf16 term, misses AB_ATOL here."""
+    lens = torch.tensor([bucket - 24, bucket // 2 + 3][:b], device="cuda",
+                        dtype=torch.int32)
+    art = _poisoned_cache(cuda, b, 2048, 2, 128, lens, kv_dtype,
+                          mul=(10.0, 100.0))
+    view = QuantizedKV(*(t[:, :bucket] for t in art))
+    q = _rand(cuda, (b, 2, 8, 128)) * 0.08
+    tol = AB_ATOL[kv_dtype]
+    torch.testing.assert_close(
+        flash_decode_quant(q, *view, lens, num_splits=s).float(),
+        decode_quant_plain(q, *view, lens, num_splits=s).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("s", [33, 40, 64])
+def test_fused_decode_quant_merges_more_splits_than_one_chunk(cuda, s):
+    """S > 32 over an 8192-row int8 view with kv_len 5000 (splits with no
+    valid row, and past the view's end at S = 33 and 40); poisoned tails;
+    the same bits again."""
+    lens = torch.tensor([5000, 8192], device="cuda", dtype=torch.int32)
+    art = _poisoned_cache(cuda, 2, 8192, 2, 128, lens, "int8")
+    q = _rand(cuda, (2, 2, 8, 128))
+    got = flash_decode_quant(q, *art, lens, num_splits=s)
+    torch.testing.assert_close(
+        got.float(), decode_quant_plain(q, *art, lens, num_splits=s).float(),
+        rtol=AB_ATOL["int8"], atol=AB_ATOL["int8"])
+    assert torch.equal(flash_decode_quant(q, *art, lens, num_splits=s), got)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_fused_decode_quant_at_kv_len_one(cuda, kv_dtype):
+    """One valid row: every query head's output is that row of V,
+    dequantized, to within the two bf16 terms that carry p times the v
+    scale (about 2^-17 of it)."""
+    lens = torch.tensor([1, 1], device="cuda", dtype=torch.int32)
+    art = _poisoned_cache(cuda, 2, 1024, 2, 128, lens, kv_dtype)
+    q = _rand(cuda, (2, 2, 8, 128))
+    row = Quantizer.from_kv_dtype(kv_dtype).dequantize(art.v[:, :1],
+                                                       art.v_scale[:, :1])
+    for s in (1, 8):
+        got = flash_decode_quant(q, *art, lens, num_splits=s,
+                                 out_dtype=torch.float32)
+        torch.testing.assert_close(
+            got, row[:, 0, :, None, :].expand(2, 2, 8, 128), rtol=1e-5,
+            atol=1e-6)
+
+
+def test_fused_decode_quant_f32_query_over_an_int8_cache(cuda):
+    """An f32 model over an int8 cache takes the CUDA-core body with the
+    fused epilogue: f32 out, exact to 2e-5, with S = 1 and S > 1."""
+    lens = torch.tensor([600, 33], device="cuda", dtype=torch.int32)
+    art = _poisoned_cache(cuda, 2, 640, 2, 128, lens, "int8")
+    q = _rand(cuda, (2, 2, 8, 128), torch.float32)
+    for s in (1, 5):
+        got = flash_decode_quant(q, *art, lens, num_splits=s)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(
+            got, decode_quant_plain(q, *art, lens, num_splits=s), rtol=2e-5,
+            atol=2e-5)
+
+
+def test_fused_decode_quant_same_bits_across_alternating_calls(cuda):
+    """Quantized and bf16 decode calls that alternate the split count and
+    the batch, on one stream's shared workspace, give the bits of their
+    first call: every launch leaves the counters at zero."""
+    lens = torch.tensor([1000, 450], device="cuda", dtype=torch.int32)
+    art = _poisoned_cache(cuda, 2, 2048, 2, 128, lens, "fp8")
+    k = _rand(cuda, (2, 2048, 2, 128))
+    q = _rand(cuda, (2, 2, 8, 128))
+    calls = [(2, 1024, 8), (1, 512, 3), (2, 1152, 9), (2, 384, 1),
+             (1, 1024, 8), (2, 2048, 16)]
+
+    def run(b, bucket, s, quant):
+        kv = lens[:b].clamp(max=bucket)
+        if quant:
+            return flash_decode_quant(q[:b], *(t[:b, :bucket] for t in art),
+                                      kv, num_splits=s)
+        return flash_decode(q[:b], k[:b, :bucket], k[:b, :bucket], kv,
+                            num_splits=s)
+
+    cases = [c + (quant,) for c in calls for quant in (True, False)]
+    first = [run(*c) for c in cases]
+    for _ in range(2):
+        for c, want in zip(cases, first):
+            assert torch.equal(run(*c), want), c
 
 
 def test_cuda_tensors_never_take_the_plain_path(cuda):
@@ -422,8 +533,9 @@ def test_engine_smoke_on_the_card(cuda):
 
 @pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
 def test_quantized_engine_on_the_card(cuda, kv_quant):
-    """The same model served under kv_quant: the fused-dequant kernel
-    carries every decode launch, the bf16 decode kernel none."""
+    """The same model served under kv_quant: the quantized cache's
+    decode kernel carries every decode launch, merging its own splits;
+    the bf16 decode kernel and the combine kernel launch never."""
     cfg = reduced_config("qwen2.5-3b", num_layers=2, d_model=256)
     model = build_model(cfg, device="cuda")
     eng = ServingEngine(model, ServeConfig(model=cfg, kv_quant=kv_quant),
@@ -439,8 +551,8 @@ def test_quantized_engine_on_the_card(cuda, kv_quant):
                 if isinstance(k, int))
     assert [len(c.tokens) for c in done] == [6, 6, 6]
     assert counts["flash_decode"] == 0
-    assert counts["flash_decode_quant"] == counts["flash_combine"] \
-        == cfg.num_layers * steps
+    assert counts["flash_combine"] == 0
+    assert counts["flash_decode_quant"] == cfg.num_layers * steps
     assert counts["flash_prefill"] == cfg.num_layers * 3
     assert {dt for dt, _ in ops.launch_counts_by_key("flash_prefill")} \
         == {"bfloat16"}
