@@ -5,8 +5,11 @@ Run from the repository root, on a machine with the card and nvcc:
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phase kernels # build + kernel parity only
+    python3 chip_smoke.py --phase digests # build + main path's parity
     python3 chip_smoke.py --phase admission  # build + admission steps
     python3 chip_smoke.py --phase times   # build + decode and prefill times
+    python3 chip_smoke.py --phase table1  # build + the paper's Table 1
+    python3 chip_smoke.py --phase shapes  # build + the configs' shapes
 
 Phases, each fatal on failure:
 
@@ -38,7 +41,17 @@ Phases, each fatal on failure:
    (``PREFILL_CASES``: the main path's buckets,
    ragged prompts, B=2, MHA, D=64 with a window, ``q_offset``, one
    non-causal case), bf16 at 3e-2 and f32 at 2e-5, same inputs same
-   bits.
+   bits.  Those cases draw their inputs as every slice has, and a line
+   ``parity digests`` prints their outputs' digests, so two checkouts
+   can be compared bit for bit.  Then the shapes the main path lacks,
+   from a generator of their own: both decode kernels at G in
+   ``WIDE_GROUPS`` (up to 64 query heads per KV head) and D in
+   ``WIDE_DIMS`` (128, 160, 256), at S = 1, 5 and 32 over poisoned tails,
+   at G = 64 on the K x 10, V x 100 data, at G 32 and 64 on that data
+   merging 16 and 32 splits over 2000 and 4000 rows, at G 72 and 128
+   (passes of 64 rows) and at D 64 past G 16, joining the rerun in turns;
+   the prefill kernel at D = 160 and 256 (``PREFILL_WIDE_CASES``: causal,
+   windowed, a q_offset with a ragged Lq; bf16, the sharp data, f32).
 3. Serving at full width: qwen2.5-3b (36 layers, d_model 2048, 16 query
    heads over 2 KV heads, bf16, seeded random weights) through
    ``ServingEngine`` submit/step/drain: 4 greedy requests, 2 slots, with
@@ -66,7 +79,19 @@ Phases, each fatal on failure:
    (three runs each), plus the decode kernel alone at that shape, for
    the bf16 cache and again under int8; then a torch.profiler window
    over its decode steps, bf16 and int8 (device busy and idle, device
-   operations per step).
+   operations per step).  Then the paper's Table 1 (``phase_table1``):
+   its 18 cells (B=1, H_Q=64, D=128, H_KV 1, 2, 8, L_K 128 to 4096)
+   through ``ops.decode_attention`` under ``get_scheduler_metadata``'s
+   frozen plans for ``fa3_baseline`` and ``paper`` at the card's SM
+   count, each output held against ``decode_plain`` and rerun for the
+   same bits, the launch counts zeroed before the cells run and read
+   after; the policies must differ exactly at (512, 1) and (512, 2),
+   with no policy evaluation in a call and one metadata-cache miss per
+   (cell, policy); per cell the op and kernel times of each policy
+   (mean, median, 10th-90th percentile) beside SDPA, the bound, the
+   timing floor, ``H100_SXM``'s
+   modeled latency and the paper's numbers; the two changed cells again
+   over an int8 cache.
 5. One JSON ``kernels`` line: per kernel its error (a decode row's at
    that row's own inputs, over NaN/Inf tails), launches on the main
    path (the bf16 run's; the quantized decode and the combine kernels'
@@ -82,7 +107,9 @@ Phases, each fatal on failure:
    row of its partials-only epilogue; the prefill kernel a row
    per main-path bucket (bf16, tensor cores) and one for its f32
    instantiation (CUDA cores) at 1024, each with the launches its wrapper
-   counted at that dtype and length.
+   counted at that dtype and length; both decode kernels a row at Table
+   1's two changed cells under ``paper`` (bf16, and int8), with the
+   launches of phase 4's Table 1 run.
 
 ``--phase admission`` times the serving cell's admission
 steps alone, five runs on one engine; ``--phase times`` times the
@@ -92,9 +119,12 @@ slice before the fused kernel) at the decode shapes of phase 5, the
 quantized decode op (``ops.decode_attention_quant``) and the quantized
 partials kernel followed by the combine kernel there, over int8 and
 fp8, and the bf16 prefill kernel at the main path's buckets, beside
-SDPA and the timing floor.  These two use only calls every slice of the
-port has, so a copy of this script in an older checkout runs that
-checkout's kernels.
+SDPA and the timing floor.  These two, and ``--phase digests``, use
+only calls every slice of the port has, so a copy of this script in an
+older checkout runs that checkout's kernels.  ``--phase table1`` runs
+phase 4's Table 1 alone; ``--phase shapes`` times both decode kernels
+and the prefill kernel at the reference configs' head shapes that only
+the wide bodies serve (``CONFIG_SHAPES``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 The script exits non-zero, printing no result, without a CUDA device or
@@ -223,6 +253,38 @@ PREFILL_SHARP_CASES = [(1, 1024, 1024, 16, 2, 128, None, 0, True),
 # main path's decode shape, then the paper's cell), and its steps
 LOGITS_CELLS = [((1000, 450), 1024), ((420,), 512)]
 LOGITS_STEPS = 8
+# the decode kernels at the shapes the reference's configs and the paper's
+# Table 1 need beyond the main path's (G up to 64, D 160 and 256): each
+# (G, D) of these over one cache of 2 x 4096 rows (H_KV 1 at G >= 32,
+# else 2), at S = 1, S = 5 and S = 32 (one block a split): batch, bucket,
+# kv_len, S; and on the K x 10, V x 100 data at G = 64
+WIDE_GROUPS = (1, 3, 4, 32, 40, 64)
+WIDE_DIMS = (128, 160, 256)
+WIDE_SHAPES = [(2, 1024, (1000, 333), 1), (2, 2048, (2000, 700), 5),
+               (1, 4096, (4000,), 32)]
+WIDE_SHARP_SHAPES = [(1, 512, (484,), 1), (1, 512, (484,), 3)]
+# the merge of many splits over 64 rows (four 16-row groups), as Table 1's
+# long cells plan it, on the K x 10, V x 100 data at G 32 and 64 (D 128):
+# a dropped or mis-weighted split moves an output by far more than the
+# tolerance there
+WIDE_SHARP_LONG_SHAPES = [(1, 2048, (2000,), 16), (1, 2048, (2000,), 32),
+                          (1, 4096, (4000,), 16), (1, 4096, (4000,), 32)]
+# more than 64 query rows a KV head: the wide bodies' passes of 64 rows
+# (G 72 and 128, D 128), at S = 1 and S = 32
+WIDE_MULTI_GROUPS = (72, 128)
+WIDE_MULTI_SHAPES = [(2, 1024, (1000, 333), 1), (1, 4096, (4000,), 32)]
+# D = 64 past 16 query rows a KV head takes the wide bodies too
+WIDE_D64_GROUPS = (32, 64)
+# the prefill kernel at D 160 and 256: causal, windowed, q_offset > 0
+# with a ragged Lq (the f32 cases take the CUDA-core body)
+PREFILL_WIDE_CASES = [c for d in (160, 256) for c in (
+    (1, 384, 384, 16, 2, d, None, 0, True),
+    (1, 300, 300, 8, 2, d, 100, 0, True),
+    (2, 100, 356, 8, 1, d, None, 256, True))]
+PREFILL_WIDE_F32_CASES = [(1, 200, 200, 8, 2, d, None, 0, True)
+                          for d in (160, 256)]
+PREFILL_WIDE_SHARP_CASES = [(1, 384, 384, 16, 2, d, None, 0, True)
+                            for d in (160, 256)]
 
 
 class SmokeFailure(Exception):
@@ -250,8 +312,8 @@ def max_err(got, want, tol: float) -> float:
 SPIN_CYCLES = 10_000_000
 
 
-def time_ms(fn, iters: int, flush) -> float:
-    """Mean device ms of ``fn`` over ``iters`` calls, each timed by its
+def device_times(fn, iters: int, flush) -> list:
+    """Device ms of ``fn`` in each of ``iters`` calls, each timed by its
     own pair of CUDA events after a write that evicts the 50 MB L2 and a
     spin that keeps the card behind the host."""
     fn()
@@ -267,7 +329,30 @@ def time_ms(fn, iters: int, flush) -> float:
         end.record()
         pairs.append((start, end))
         torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+    return [s.elapsed_time(e) for s, e in pairs]
+
+
+def time_ms(fn, iters: int, flush) -> float:
+    """Mean device ms of ``fn`` over ``iters`` calls (``device_times``)."""
+    return sum(device_times(fn, iters, flush)) / iters
+
+
+def time_stats_us(fn, iters: int, flush) -> dict:
+    """Mean, median, 10th and 90th percentile device us of ``fn`` over
+    ``iters`` calls (``device_times``)."""
+    t = sorted(1e3 * x for x in device_times(fn, iters, flush))
+    return {"mean": sum(t) / iters, "median": t[iters // 2],
+            "p10": t[iters // 10], "p90": t[iters - 1 - iters // 10]}
+
+
+def fmt_stats(a: dict, b: dict) -> str:
+    """Two time_stats_us side by side: the means, the medians (each with
+    a's over b's), and the 10th-90th percentile spreads."""
+    return (f"mean {a['mean']:.3f} / {b['mean']:.3f} us (x"
+            f"{a['mean'] / b['mean']:.3f}), median {a['median']:.3f} / "
+            f"{b['median']:.3f} us (x{a['median'] / b['median']:.3f}), "
+            f"p10-p90 {a['p10']:.3f}-{a['p90']:.3f} / "
+            f"{b['p10']:.3f}-{b['p90']:.3f} us")
 
 
 def bits(x: torch.Tensor) -> str:
@@ -524,10 +609,78 @@ def check_decode(c):
     return err, (run, got, c["label"])
 
 
-def phase_parity(gen, sms: int):
+def wide_cases(gen, kv_dtype=None, shapes=WIDE_SHAPES, cap: int = 4096,
+               mul=(1.0, 1.0, 1.0), groups=WIDE_GROUPS, dims=WIDE_DIMS):
+    """decode_case (or, with ``kv_dtype``, quant_case) at each of
+    ``shapes`` for every G of ``groups`` and D of ``dims``, each (G, D)
+    over one random cache of 2 x ``cap`` rows, H_KV 1 at G >= 32 and 2
+    below, q, K and V drawn from normals of standard deviations
+    ``mul``."""
+    cases = []
+    for g in groups:
+        for d in dims:
+            hkv = 1 if g >= 32 else 2
+            k, v = (rand(gen, (2, cap, hkv, d), torch.float32) * m
+                    for m in mul[1:])
+            q = rand(gen, (2, hkv * g, d)) * mul[0]
+            if kv_dtype:
+                art = Quantizer.from_kv_dtype(kv_dtype).quantized_kv(k, v)
+                new = [quant_case(q, art, bucket, kv_len, s, kv_dtype)
+                       for _, bucket, kv_len, s in shapes]
+            else:
+                k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+                new = [decode_case(q, k, v, bucket, kv_len, s)
+                       for _, bucket, kv_len, s in shapes]
+            for c in new:
+                c["label"] = f"G{g} D{d} {c['label']}"
+            cases += new
+    return cases
+
+
+def wide_grid(gen, kv_dtype=None):
+    """The repair's decode cases of one cache type: WIDE_GROUPS x
+    WIDE_DIMS at WIDE_SHAPES; G = 64 on the K x 10, V x 100 data at
+    WIDE_SHARP_SHAPES; G 32 and 64 on that data at WIDE_SHARP_LONG_SHAPES;
+    WIDE_MULTI_GROUPS at WIDE_MULTI_SHAPES; and WIDE_D64_GROUPS at D 64."""
+    return (wide_cases(gen, kv_dtype)
+            + wide_cases(gen, kv_dtype, WIDE_SHARP_SHAPES, mul=SHARP_MUL,
+                         groups=(64,))
+            + wide_cases(gen, kv_dtype, WIDE_SHARP_LONG_SHAPES,
+                         mul=SHARP_MUL, groups=(32, 64), dims=(128,))
+            + wide_cases(gen, kv_dtype, WIDE_MULTI_SHAPES,
+                         groups=WIDE_MULTI_GROUPS, dims=(128,))
+            + wide_cases(gen, kv_dtype, groups=WIDE_D64_GROUPS, dims=(64,)))
+
+
+def parity_wide(gen, errs, reruns) -> None:
+    """The decode kernels at the repair's shapes (``wide_grid``), over
+    poisoned tails, against their plain versions; each case joins
+    ``reruns``."""
+    for c in wide_grid(gen):
+        err, rerun = check_decode(c)
+        errs["flash_decode"] = max(errs["flash_decode"], err)
+        reruns.append(rerun)
+        print(f"parity decode {c['label']} tails NaN/Inf: ok, max abs err "
+              f"{err:.3g}")
+    for kv_dtype in ("int8", "fp8"):
+        for c in wide_grid(gen, kv_dtype):
+            err, rerun = check_decode_quant(c)
+            errs["flash_decode_quant"] = max(errs["flash_decode_quant"], err)
+            reruns.append(rerun)
+            print(f"parity decode_quant {c['label']} tails poisoned, fused "
+                  f"and partials only: ok, max abs err {err:.3g}")
+
+
+def phase_parity(gen, sms: int, wide_gen=None):
+    """Every kernel against its plain version.  The main path's cases draw
+    from ``gen`` in the order every slice of the port has drawn them, and
+    their output digests are printed (on a line starting ``parity
+    digests``), so two checkouts can be compared bit for bit; with
+    ``wide_gen`` the repair's shapes (G > 16, D 160 and 256) follow, drawn
+    from it."""
     errs = {name: 0.0 for name in REPLACES}
     hkv, g, d, cap = 2, 8, 128, 2048
-    reruns = []
+    reruns, digests = [], []
     for b in (1, 2):
         k = rand(gen, (b, cap, hkv, d))
         v = rand(gen, (b, cap, hkv, d))
@@ -580,6 +733,9 @@ def phase_parity(gen, sms: int):
         errs["flash_decode_quant"] = max(
             errs["flash_decode_quant"], parity_quant(gen, sms, kv_dtype,
                                                      reruns))
+    digests += [(label, bits(first)) for _, first, label in reruns]
+    if wide_gen is not None:
+        parity_wide(wide_gen, errs, reruns)
     # every case again, in turns of S and B and of the two decode kernels,
     # which share one workspace: each launch must have left the arrival
     # counters at zero
@@ -589,27 +745,38 @@ def phase_parity(gen, sms: int):
     print(f"parity decode and decode_quant: {len(reruns)} cases rerun in "
           f"turns, same bits")
     errs["flash_prefill_f32"] = 0.0
-    for cases, dtype, tol, key, mul in (
-            (PREFILL_CASES, torch.bfloat16, PREFILL_TOL, "flash_prefill",
-             (1.0, 1.0, 1.0)),
-            (PREFILL_SHARP_CASES, torch.bfloat16, PREFILL_TOL,
-             "flash_prefill", SHARP_MUL),
-            (PREFILL_F32_CASES, torch.float32, F32_TOL, "flash_prefill_f32",
-             (1.0, 1.0, 1.0))):
+    groups = [(gen, PREFILL_CASES, torch.bfloat16, (1.0, 1.0, 1.0)),
+              (gen, PREFILL_SHARP_CASES, torch.bfloat16, SHARP_MUL),
+              (gen, PREFILL_F32_CASES, torch.float32, (1.0, 1.0, 1.0))]
+    if wide_gen is not None:
+        groups += [
+            (wide_gen, PREFILL_WIDE_CASES, torch.bfloat16, (1.0, 1.0, 1.0)),
+            (wide_gen, PREFILL_WIDE_SHARP_CASES, torch.bfloat16, SHARP_MUL),
+            (wide_gen, PREFILL_WIDE_F32_CASES, torch.float32,
+             (1.0, 1.0, 1.0))]
+    for src, cases, dtype, mul in groups:
+        f32 = dtype == torch.float32
+        key = "flash_prefill_f32" if f32 else "flash_prefill"
+        tol = F32_TOL if f32 else PREFILL_TOL
         for b, lq, lk, hq, hkv, d, window, off, causal in cases:
-            q, k, v = prefill_case(gen, b, lq, lk, hq, hkv, d, dtype, mul)
+            q, k, v = prefill_case(src, b, lq, lk, hq, hkv, d, dtype, mul)
             kw = dict(causal=causal, window=window, q_offset=off)
             got = flash_prefill(q, k, v, **kw)
-            errs[key] = max(errs[key], max_err(
-                got, prefill_plain(q, k, v, **kw), tol))
+            err = max_err(got, prefill_plain(q, k, v, **kw), tol)
+            errs[key] = max(errs[key], err)
             check(torch.equal(got, flash_prefill(q, k, v, **kw)),
                   f"prefill {dtype} B{b} Lq{lq} Lk{lk}: same inputs, other "
                   f"bits")
-            print(f"parity prefill {str(dtype)[6:]} B{b} Lq{lq} Lk{lk} "
-                  f"heads {hq}/{hkv} D{d} window {window} q_offset {off} "
-                  f"causal {causal} q, K, V x {mul}: ok")
+            label = (f"prefill {str(dtype)[6:]} B{b} Lq{lq} Lk{lk} heads "
+                     f"{hq}/{hkv} D{d} window {window} q_offset {off} "
+                     f"causal {causal} q, K, V x {mul}")
+            if src is gen:
+                digests.append((label, bits(got)))
+            print(f"parity {label}: ok, max abs err {err:.3g}")
     torch.cuda.synchronize()
     print(f"parity max abs errors: {json.dumps(errs)}")
+    print(f"parity digests of the main path's {len(digests)} cases: "
+          f"{json.dumps(digests)}")
     return errs
 
 
@@ -1174,17 +1341,229 @@ def phase_profile(model, params, cfg, seed: int, steps: int = 8,
 
 
 # ---------------------------------------------------------------------------
+# the paper's Table 1
+# ---------------------------------------------------------------------------
+
+# The paper's Table 1 (as benchmarks/table1_ab.py holds it): (L_K, H_KV) ->
+# the paper's measured (standard us, patched us) of FA3's decode on an
+# H100, B = 1, H_Q = 64, D = 128, bf16.  The patch changes the launch in
+# exactly two cells.
+PAPER_TABLE1 = {
+    (128, 1): (9.56, 9.56), (128, 2): (9.45, 9.45), (128, 8): (9.46, 9.46),
+    (256, 1): (11.57, 11.57), (256, 2): (11.58, 11.58),
+    (256, 8): (11.60, 11.60),
+    (384, 1): (13.60, 13.60), (384, 2): (13.57, 13.57),
+    (384, 8): (13.55, 13.55),
+    (512, 1): (13.72, 11.37), (512, 2): (13.52, 10.93),
+    (512, 8): (13.56, 13.56),
+    (2048, 1): (11.99, 11.99), (2048, 2): (12.66, 12.66),
+    (2048, 8): (12.73, 12.73),
+    (4096, 1): (13.88, 13.88), (4096, 2): (13.53, 13.53),
+    (4096, 8): (15.05, 15.05),
+}
+TABLE1_CHANGED = {(512, 1), (512, 2)}
+TABLE1_POLICIES = ("fa3_baseline", "paper")
+
+
+def phase_table1(gen, sms: int, card: str, flush, iters: int = 100):
+    """The paper's Table 1 on the card.  For each of its 18 cells (B=1,
+    H_Q=64, D=128, bf16, kv_len = L_K) and each policy, the frozen plan
+    ``get_scheduler_metadata(1, 1, L_K, 64, H_KV, 128, policy=...,
+    num_cores=sms)``; the decode op (``ops.decode_attention``) under it,
+    run once with the launch counts zeroed before and read after (the
+    path), held against ``decode_plain`` at DECODE_TOL, and at DECODE_TOL
+    of the largest output, and rerun for the same bits; then timed
+    (``time_stats_us``), beside the decode kernel alone at
+    the same split, SDPA (GQA) at the same shape, the bytes bound, the
+    timing floor, the modeled latency of ``H100_SXM`` and the paper's
+    numbers.  Each time is given as the mean, the median and the 10th to
+    90th percentile of ``iters`` calls.  The cells where the two
+    policies' splits differ must be
+    TABLE1_CHANGED; no policy may run inside a call; the metadata cache
+    must miss once per (cell, policy) and hit on the repeat.  The changed
+    cells run again over an int8 cache.  Returns the cells' results and
+    the kernels line's rows for the changed cells at ``paper``'s split."""
+    from repro_torch.core import (H100_SXM, DecodeWorkload,
+                                  get_scheduler_metadata,
+                                  metadata_cache_info, modeled_latency_us)
+    hq, d = 64, 128
+    print(f"table1 on {card}: B=1 H_Q={hq} D={d} bf16 kv_len = L_K, "
+          f"{' vs '.join(TABLE1_POLICIES)} at {sms} SMs, CUDA events, L2 "
+          f"flushed, {iters} calls each")
+    info0 = metadata_cache_info()
+
+    def plan_of(lk, hkv, policy):
+        return get_scheduler_metadata(1, 1, lk, hq, hkv, d, policy=policy,
+                                      num_cores=sms)
+
+    cells = {}
+    for lk, hkv in PAPER_TABLE1:
+        k, v = (rand(gen, (1, lk, hkv, d)) for _ in range(2))
+        lens = torch.tensor([lk], device=DEVICE, dtype=torch.int32)
+        cells[lk, hkv] = dict(q=rand(gen, (1, hq, d)), k=k, v=v, lens=lens,
+                              plans={pol: plan_of(lk, hkv, pol)
+                                     for pol in TABLE1_POLICIES})
+    # the path: every (cell, policy) once through the decode op
+    ops.reset_launch_counts()
+    ops.reset_policy_eval_count()
+    launches = {}
+    for key, c in cells.items():
+        c["out"] = {}
+        for pol, plan in c["plans"].items():
+            before = ops.launch_counts()["flash_decode"]
+            c["out"][pol] = ops.decode_attention(c["q"], c["k"], c["v"],
+                                                 c["lens"], plan=plan)
+            launches[key, pol] = ops.launch_counts()["flash_decode"] - before
+    torch.cuda.synchronize()
+    check(ops.policy_eval_count() == 0, "table1: policy evaluated inside "
+                                        "the decode op")
+    check(all(n == 1 for n in launches.values()), f"table1: launches "
+                                                  f"{launches}")
+    tiny = torch.empty(1, device=DEVICE)
+    floor_us = time_stats_us(lambda: tiny.fill_(1.0), iters, flush)
+    results, rows = [], []
+    for (lk, hkv), c in cells.items():
+        q, k, v, lens = c["q"], c["k"], c["v"], c["lens"]
+        qp = (q.float() * d ** -0.5).to(q.dtype).reshape(1, hkv, -1, d)
+        w = DecodeWorkload(1, 1, lk, hq, hkv, d)
+        row = {"L_K": lk, "H_KV": hkv, "G": hq // hkv,
+               "paper_us": dict(zip(TABLE1_POLICIES,
+                                    PAPER_TABLE1[lk, hkv]))}
+        for pol in TABLE1_POLICIES:
+            plan = plan_of(lk, hkv, pol)        # a hit: the same frozen plan
+            s = plan.num_splits
+            got = c["out"][pol]
+            want = fdec.decode_plain(qp, k, v, lens,
+                                     num_splits=s).reshape(1, hq, d)
+            err = max_err(got, want, DECODE_TOL)
+            # at L_K in the thousands an output is a few hundredths, so
+            # the error is also held to DECODE_TOL of the largest one: a
+            # dropped or mis-weighted split moves it further
+            scale = want.float().abs().max().item()
+            check(err <= DECODE_TOL * scale,
+                  f"table1 ({lk}, {hkv}) {pol}: max abs err {err:.3e} over "
+                  f"{DECODE_TOL} x the largest output {scale:.3e}")
+            check(torch.equal(got, ops.decode_attention(q, k, v, lens,
+                                                        plan=plan)),
+                  f"table1 ({lk}, {hkv}) {pol}: other bits on a rerun")
+            row[pol] = {
+                "splits": s, "max_abs_err": err,
+                "op_us": time_stats_us(functools.partial(
+                    ops.decode_attention, q, k, v, lens, plan=plan), iters,
+                    flush),
+                "kernel_us": time_stats_us(functools.partial(
+                    fdec.flash_decode, qp, k, v, lens, num_splits=s), iters,
+                    flush),
+                "model_us": modeled_latency_us(
+                    w, s, num_cores=H100_SXM.num_cores, hw=H100_SXM),
+                "launches": launches[(lk, hkv), pol]}
+        sdpa = functools.partial(
+            F.scaled_dot_product_attention, q[:, :, None], k.transpose(1, 2),
+            v.transpose(1, 2), scale=d ** -0.5, enable_gqa=True)
+        nbytes = 2 * lk * hkv * d * 2 + 2 * hq * d * 2   # K, V, q, output
+        row["sdpa_us"] = time_stats_us(sdpa, iters, flush)
+        row["bound_us"] = 1e3 * bound(nbytes, 4 * lk * hq * d)[0]
+        row["floor_us"] = floor_us
+        std, pat = (row[pol] for pol in TABLE1_POLICIES)
+        p_std, p_pat = PAPER_TABLE1[lk, hkv]
+        print(f"table1 L_K {lk} H_KV {hkv} (G {hq // hkv}): s_std "
+              f"{std['splits']} s_patched {pat['splits']}; measured op "
+              f"{fmt_stats(std['op_us'], pat['op_us'])}; kernel alone "
+              f"{fmt_stats(std['kernel_us'], pat['kernel_us'])}; model "
+              f"{std['model_us']:.2f} / {pat['model_us']:.2f} us; paper "
+              f"{p_std} / {p_pat} us, speedup {p_std / p_pat:.3f}; SDPA "
+              f"mean {row['sdpa_us']['mean']:.3f} median "
+              f"{row['sdpa_us']['median']:.3f} us; bound "
+              f"{row['bound_us']:.4f} us; floor mean "
+              f"{floor_us['mean']:.3f} median {floor_us['median']:.3f} us")
+        results.append(row)
+        if (lk, hkv) in TABLE1_CHANGED:
+            s = pat["splits"]
+            rows.append(dict(
+                name="flash_decode",
+                shape=f"Table 1 L_K {lk} H_KV {hkv} G {hq // hkv} D {d} S{s} "
+                      f"fused combine",
+                fn=functools.partial(fdec.flash_decode, qp, k, v, lens,
+                                     num_splits=s),
+                plain=functools.partial(fdec.decode_plain, qp, k, v, lens,
+                                        num_splits=s),
+                lib=sdpa, nbytes=nbytes, flops=4 * lk * hq * d,
+                err=pat["max_abs_err"], launches=pat["launches"]))
+    changed = {(r["L_K"], r["H_KV"]) for r in results
+               if r["fa3_baseline"]["splits"] != r["paper"]["splits"]}
+    check(changed == TABLE1_CHANGED, f"table1: the policies differ at "
+                                     f"{sorted(changed)}")
+    check(ops.policy_eval_count() == 0, "table1: policy evaluated inside a "
+                                        "timed call")
+    info1 = metadata_cache_info()
+    n = len(cells) * len(TABLE1_POLICIES)
+    check((info1.misses - info0.misses, info1.hits - info0.hits) == (n, n),
+          f"table1: metadata cache {info0} -> {info1}, want {n} misses and "
+          f"{n} hits")
+    print(f"table1: cells where the policies differ {sorted(changed)}; "
+          f"metadata cache {n} misses then {n} hits; 0 policy evaluations "
+          f"in the calls")
+    # the changed cells over an int8 cache
+    for lk, hkv in sorted(TABLE1_CHANGED):
+        c = cells[lk, hkv]
+        art = Quantizer.from_kv_dtype("int8").quantized_kv(
+            c["k"].float(), c["v"].float())
+        q, lens = c["q"], c["lens"]
+        qp = (q.float() * d ** -0.5).to(q.dtype).reshape(1, hkv, -1, d)
+        row = {"L_K": lk, "H_KV": hkv, "kv_dtype": "int8"}
+        for pol in TABLE1_POLICIES:
+            plan = c["plans"][pol]
+            s = plan.num_splits
+            before = ops.launch_counts()["flash_decode_quant"]
+            got = ops.decode_attention_quant(q, art, lens, plan=plan)
+            n_launch = ops.launch_counts()["flash_decode_quant"] - before
+            err = max_err(got, fdq.decode_quant_plain(
+                qp, *art, lens, num_splits=s).reshape(1, hq, d), QUANT_TOL)
+            row[pol] = {
+                "splits": s, "max_abs_err": err, "launches": n_launch,
+                "op_us": time_stats_us(functools.partial(
+                    ops.decode_attention_quant, q, art, lens, plan=plan),
+                    iters, flush),
+                "kernel_us": time_stats_us(functools.partial(
+                    fdq.flash_decode_quant, qp, *art, lens, num_splits=s),
+                    iters, flush)}
+        std, pat = (row[pol] for pol in TABLE1_POLICIES)
+        print(f"table1 int8 L_K {lk} H_KV {hkv}: s_std {std['splits']} "
+              f"s_patched {pat['splits']}; measured op "
+              f"{fmt_stats(std['op_us'], pat['op_us'])}; kernel alone "
+              f"{fmt_stats(std['kernel_us'], pat['kernel_us'])}")
+        results.append(row)
+        s = pat["splits"]
+        rows.append(dict(
+            name="flash_decode_quant",
+            shape=f"Table 1 int8 L_K {lk} H_KV {hkv} G {hq // hkv} D {d} "
+                  f"S{s} fused combine",
+            fn=functools.partial(fdq.flash_decode_quant, qp, *art, lens,
+                                 num_splits=s),
+            plain=functools.partial(fdq.decode_quant_plain, qp, *art, lens,
+                                    num_splits=s),
+            lib=None, nbytes=2 * lk * hkv * (d + 4) + 2 * hq * d * 2,
+            flops=4 * lk * hq * d + 2 * lk * hkv * d, peak=INT8_OPS_PER_S,
+            err=pat["max_abs_err"], launches=pat["launches"]))
+    check(ops.policy_eval_count() == 0, "table1 int8: policy evaluated")
+    return results, rows
+
+
+# ---------------------------------------------------------------------------
 # phase 5
 # ---------------------------------------------------------------------------
 
 
 def phase_kernels_line(gen, sms: int, errs, counts, flush,
-                       prefill_launches, decode_launches, quant_launches):
+                       prefill_launches, decode_launches, quant_launches,
+                       table1_rows):
     """``counts``: the main path's launches by kernel name;
     ``prefill_launches`` / ``decode_launches``: the bf16 serving run's
     prefill launches by "dtype Lq" and decode launches by "view S",
     ``quant_launches`` the int8 run's quantized decode launches by "view
-    S": each row's ``launches``."""
+    S": each row's ``launches``; ``table1_rows``: the rows of
+    phase_table1 (the decode kernels at Table 1's changed cells, with the
+    launches of that phase's path)."""
     hkv, g, d, b = 2, 8, 128, 2
     hq = hkv * g
     out = []
@@ -1272,6 +1651,7 @@ def phase_kernels_line(gen, sms: int, errs, counts, flush,
                     fdq.decode_quant_plain(qp, *view, lens, num_splits=s),
                     QUANT_TOL),
         launches=0))
+    out += table1_rows
     # the method's floor: one one-element fill_, timed the same way
     tiny = torch.empty(1, device=DEVICE)
     floor_ms = time_ms(lambda: tiny.fill_(1.0), 100, flush)
@@ -1371,16 +1751,85 @@ def phase_times(gen, sms: int, flush, iters: int = 200):
     return out
 
 
+# the reference configs' attention shapes that only the repair's bodies
+# serve (--phase shapes): name, H_Q, H_KV, D
+CONFIG_SHAPES = [("stablelm-12b", 32, 8, 160), ("paligemma-3b", 8, 1, 256),
+                 ("recurrentgemma-9b", 16, 1, 256)]
+
+
+def phase_shapes(gen, sms: int, flush, iters: int = 100):
+    """The decode kernels (bf16, and int8 over a quantized cache) at B=2,
+    view 1024, kv_len [1000, 450] under the ``paper`` plan, and the bf16
+    prefill kernel at Lq = Lk = 512, causal, at each of CONFIG_SHAPES,
+    beside SDPA and the bytes (or operations) bound, by ``time_ms``."""
+    out = {}
+    for name, hq, hkv, d in CONFIG_SHAPES:
+        s = Planner(policy="paper", num_cores=sms).plan(AttentionSpec.decode(
+            2, 1024, hq, hkv, d)).num_splits
+        k, v = (rand(gen, (2, 1024, hkv, d)) for _ in range(2))
+        c = decode_case(rand(gen, (2, hq, d)), k, v, 1024, (1000, 450), s)
+        err, _ = check_decode(c)
+        rows = int(c["lens"].sum())
+        art = Quantizer.from_kv_dtype("int8").quantized_kv(k.float(),
+                                                           v.float())
+        qerr, _ = check_decode_quant(quant_case(c["q"], art, 1024,
+                                                (1000, 450), s, "int8"))
+        pq, pk, pv = prefill_case(gen, 1, 512, 512, hq, hkv, d)
+        res = {
+            "splits": s, "max_abs_err": err, "int8_max_abs_err": qerr,
+            "decode_ms": time_ms(functools.partial(
+                fdec.flash_decode, c["qp"], c["kp"], c["vp"], c["lens"],
+                num_splits=s), iters, flush),
+            "decode_sdpa_ms": time_ms(c["sdpa"], iters, flush),
+            "decode_bound_ms": bound(2 * rows * hkv * d * 2
+                                     + 2 * c["qp"].numel() * 2,
+                                     4 * rows * hq * d)[0],
+            "int8_decode_ms": time_ms(functools.partial(
+                fdq.flash_decode_quant, c["qp"], *art, c["lens"],
+                num_splits=s), iters, flush),
+            "int8_decode_bound_ms": bound(2 * rows * hkv * (d + 4)
+                                          + 2 * c["qp"].numel() * 2,
+                                          4 * rows * hq * d,
+                                          INT8_OPS_PER_S)[0],
+            "prefill_ms": time_ms(functools.partial(
+                flash_prefill, pq, pk, pv, causal=True), iters, flush),
+            "prefill_sdpa_ms": time_ms(functools.partial(
+                F.scaled_dot_product_attention,
+                *(t.transpose(1, 2) for t in (pq, pk, pv)), is_causal=True,
+                scale=1.0, enable_gqa=True), iters, flush),
+            "prefill_bound_ms": bound(
+                2 * (2 * pq.numel() + pk.numel() + pv.numel()),
+                4 * hq * d * 512 * 513 / 2)[0]}
+        max_err(flash_prefill(pq, pk, pv, causal=True),
+                prefill_plain(pq, pk, pv, causal=True), PREFILL_TOL)
+        print(f"shapes {name} (H_Q {hq} H_KV {hkv} D {d}): decode B2 view "
+              f"1024 S{s} {res['decode_ms']:.6f} ms (SDPA "
+              f"{res['decode_sdpa_ms']:.6f}, bound "
+              f"{res['decode_bound_ms']:.6f}), int8 "
+              f"{res['int8_decode_ms']:.6f} ms (bound "
+              f"{res['int8_decode_bound_ms']:.6f}); prefill 512 "
+              f"{res['prefill_ms']:.6f} ms (SDPA {res['prefill_sdpa_ms']:.6f},"
+              f" bound {res['prefill_bound_ms']:.6f})")
+        out[name] = res
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
-                    choices=("all", "kernels", "admission", "times"),
+                    choices=("all", "kernels", "digests", "admission",
+                             "times", "table1", "shapes"),
                     default="all",
                     help="'kernels' stops after build and kernel parity; "
-                         "'admission' builds, then times the serving "
-                         "cell's admission steps alone; 'times' builds, "
-                         "then times the decode op at the decode shapes "
-                         "and the prefill kernel at the buckets")
+                         "'digests' builds, then runs the main path's "
+                         "parity cases alone and prints their output "
+                         "digests; 'admission' builds, then times the "
+                         "serving cell's admission steps alone; 'times' "
+                         "builds, then times the decode op at the decode "
+                         "shapes and the prefill kernel at the buckets; "
+                         "'table1' builds, then runs the paper's Table 1; "
+                         "'shapes' builds, then times the kernels at the "
+                         "configs' head shapes the main path lacks")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -1399,7 +1848,22 @@ def main(argv=None) -> int:
         print(json.dumps({"times": phase_times(gen, sms, flush),
                           "card": card}))
         return 0
-    errs = phase_parity(gen, sms)
+    if args.phase == "table1":
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+        table1, _ = phase_table1(gen, sms, card, flush)
+        print(json.dumps({"table1": table1, "card": card}))
+        return 0
+    if args.phase == "shapes":
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+        print(json.dumps({"shapes": phase_shapes(gen, sms, flush),
+                          "card": card}))
+        return 0
+    if args.phase == "digests":
+        phase_parity(gen, sms)
+        print("phase digests: done")
+        return 0
+    wide_gen = torch.Generator(device=DEVICE).manual_seed(args.seed + 17)
+    errs = phase_parity(gen, sms, wide_gen)
     if args.phase == "kernels":
         print("phase kernels: done")
         return 0
@@ -1435,15 +1899,17 @@ def main(argv=None) -> int:
     qprofile = phase_profile(model, params, cfg, args.seed, kv_quant="int8")
     del params, model
     torch.cuda.empty_cache()
+    table1, table1_rows = phase_table1(gen, sms, card, flush)
     kernels = phase_kernels_line(gen, sms, errs, counts, flush,
                                  serving["prefill_launches"],
                                  serving["decode_launches"],
-                                 qserving["decode_launches"])
+                                 qserving["decode_launches"], table1_rows)
     print(json.dumps({"serving": serving, "serving_int8": qserving,
                       "serving_fp8": fserving, "logits": logits,
                       "paper_cell": paper,
                       "paper_cell_int8": qpaper, "profile": profile,
-                      "profile_int8": qprofile, "card": card}))
+                      "profile_int8": qprofile, "table1": table1,
+                      "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,10 @@
 // empty split: m = -1e30, l = 0, acc = 0, never -inf), fences, and takes a
 // ticket from a per-(b, h) counter; the CTA that arrives last reads the S
 // partials past L1, merges them in split order with flash_combine.cu's
-// arithmetic, writes the output and resets the counter to 0.  The same
-// split gives the same bits whichever CTA finishes last, and the next
-// launch needs no memset.  Without a counter the kernel writes the
-// partials only.
+// arithmetic, 16 query rows at a time, writes the output and resets the
+// counter to 0.  The same split gives the same bits whichever CTA
+// finishes last, and the next launch needs no memset.  Without a counter
+// the kernel writes the partials only.
 #pragma once
 
 #include "common.cuh"
@@ -25,9 +25,10 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlockN = 128;   // KV_BLOCK: split bounds are counted in these
 constexpr int kTile = 64;      // rows per step (per ring stage)
-constexpr int kMaxG = 16;      // query heads per KV head
+constexpr int kRowGroup = 16;  // query rows of one mma M, one merge group
 constexpr int kWarpRows = kTile / kWarps;   // keys of a tile one warp owns
 constexpr int kStages = 2;     // tensor-core ring depth, in tiles
+constexpr int kPassRows = kWarps * kRowGroup;   // wide bodies' rows a pass
 
 struct Epilogue {
     float* acc;       // (S, B, Hkv, G, D) partials
@@ -95,30 +96,25 @@ __device__ __forceinline__ void store_out4(void* out, long long i, float4 x,
 // S > 1, the CTA of (b, h) that arrives last merges the S partials in split
 // order, m* = max_s m_s, w_s = exp(m_s - m*), out = sum_s w_s acc_s /
 // max(sum_s w_s l_s, 1e-30) (flash_combine.cu's arithmetic, so the same
-// bits), and resets the counter.  m and l of up to kMergeChunk splits are
-// staged in shared memory at once, which holds m* too when S fits in one
-// chunk; each thread reads 4-column slices of acc, whose loads for
-// different splits do not wait on each other.
+// bits), and resets the counter.  The G rows are merged in groups of
+// kRowGroup; in each, m and l of up to kMergeChunk splits are staged in
+// shared memory at once, which holds m* too when S fits in one chunk; each
+// thread reads 4-column slices of acc, whose loads for different splits do
+// not wait on each other.
 constexpr int kMergeChunk = 32;
-static_assert(kThreads == 8 * kMaxG, "8 lanes per row find m*");
+static_assert(kThreads == 8 * kRowGroup, "8 lanes per row find m*");
 
+// Merges the S partials of rows [row0, row0 + G), G <= kRowGroup, into
+// the output.
 template <int D>
-__device__ __forceinline__ void combine_if_last(const Epilogue& ep, int S,
-                                                long long split_stride,
-                                                long long row0, int G,
-                                                long long bh) {
-    if (ep.counters == nullptr || S == 1) return;
-    constexpr int kC = kMaxG * D / 4 / kThreads;   // 4-column slices each
-    __shared__ int last;
-    __shared__ float mx_s[kMaxG], w_s[kMergeChunk][kMaxG],
-        l_s[kMergeChunk][kMaxG];
+__device__ __forceinline__ void merge_group(const Epilogue& ep, int S,
+                                            long long split_stride,
+                                            long long row0, int G) {
+    constexpr int kC = kRowGroup * D / 4 / kThreads;   // 4-column slices
+    static_assert(kRowGroup * D % (4 * kThreads) == 0, "slices split evenly");
+    __shared__ float mx_s[kRowGroup], w_s[kMergeChunk][kRowGroup],
+        l_s[kMergeChunk][kRowGroup];
     const int tid = threadIdx.x;
-    __threadfence();          // this thread's partials before the ticket
-    __syncthreads();
-    if (tid == 0) last = atomicAdd(ep.counters + bh, 1) == S - 1;
-    __syncthreads();
-    if (!last) return;
-    __threadfence();          // the other CTAs' partials after their tickets
     if (S > kMergeChunk) {    // m* first, 8 lanes per row
         const int g = tid / 8;
         float mx = REPRO_NEG_INF;
@@ -183,6 +179,27 @@ __device__ __forceinline__ void combine_if_last(const Epilogue& ep, int S,
         store_out4(ep.out, row0 * D + c * 4,
                    make_float4(num[i].x / d, num[i].y / d, num[i].z / d,
                                num[i].w / d), ep.out_dtype);
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void combine_if_last(const Epilogue& ep, int S,
+                                                long long split_stride,
+                                                long long row0, int G,
+                                                long long bh) {
+    if (ep.counters == nullptr || S == 1) return;
+    __shared__ int last;
+    const int tid = threadIdx.x;
+    __threadfence();          // this thread's partials before the ticket
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(ep.counters + bh, 1) == S - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();          // the other CTAs' partials after their tickets
+    for (int g0 = 0; g0 < G; g0 += kRowGroup) {
+        if (g0 > 0) __syncthreads();      // the last group's weights read
+        merge_group<D>(ep, S, split_stride, row0 + g0,
+                       min(kRowGroup, G - g0));
     }
     if (tid == 0) ep.counters[bh] = 0;
 }
@@ -259,6 +276,71 @@ __device__ __forceinline__ void finish_tc(float (&o)[D / 8][4],
         store_split(ep, S, s, split_stride, row0 + g, D, d, acc, l, mw);
     }
     combine_if_last<D>(ep, S, split_stride, row0, G, bh);
+}
+
+// The wide tensor-core bodies' end of one pass of up to kPassRows query
+// rows [g0, g0 + gp): warp w holds row group w % R of the pass over key
+// slice w / R of every tile, in finish_tc's register layout.  The warps of
+// one row group merge through `smem` in slice order (the caller has
+// waited for every copy and synchronised), and the pass's rows go to the
+// epilogue.
+template <int D>
+__device__ __forceinline__ void finish_wide(float (&o)[D / 8][4],
+                                            const float (&m_r)[2],
+                                            float (&l_r)[2], void* smem,
+                                            const Epilogue& ep, int B,
+                                            int Hkv, int G, int S, int s,
+                                            long long bh, int g0, int gp,
+                                            int R) {
+    __shared__ float m_w[kWarps][16], l_w[kWarps][16];
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int gq = lane / 4, tq = lane % 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+        l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+    }
+    if (tq == 0) {
+        m_w[warp][gq] = m_r[0];
+        m_w[warp][gq + 8] = m_r[1];
+        l_w[warp][gq] = l_r[0];
+        l_w[warp][gq + 8] = l_r[1];
+    }
+    __syncthreads();
+    float scale[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        float mw = REPRO_NEG_INF;
+        for (int w = warp % R; w < kWarps; w += R)
+            mw = fmaxf(mw, m_w[w][gq + 8 * i]);
+        scale[i] = expf(m_r[i] - mw);
+    }
+    constexpr int kOPitch = WarpMerge<D>::kOPitch;
+    float* obuf = static_cast<float*>(smem);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+        float* row = obuf + (warp * 16 + gq) * kOPitch + j * 8 + tq * 2;
+        *reinterpret_cast<float2*>(row) =
+            make_float2(o[j][0] * scale[0], o[j][1] * scale[0]);
+        *reinterpret_cast<float2*>(row + 8 * kOPitch) =
+            make_float2(o[j][2] * scale[1], o[j][3] * scale[1]);
+    }
+    __syncthreads();
+
+    const long long split_stride = static_cast<long long>(B) * Hkv * G;
+    const long long row0 = bh * G + g0;
+    for (int e = threadIdx.x; e < gp * D; e += kThreads) {
+        const int g = e / D, d = e % D;
+        const int r = g / 16, gr = g % 16;       // row group, row in it
+        float mw = REPRO_NEG_INF;
+        for (int w = r; w < kWarps; w += R) mw = fmaxf(mw, m_w[w][gr]);
+        float acc = 0.f, l = 0.f;
+        for (int w = r; w < kWarps; w += R) {
+            acc += obuf[(w * 16 + gr) * kOPitch + d];
+            l = fmaf(expf(m_w[w][gr] - mw), l_w[w][gr], l);
+        }
+        store_split(ep, S, s, split_stride, row0 + g, D, d, acc, l, mw);
+    }
 }
 
 // opt in to more than 48 KB of dynamic shared memory, once per kernel

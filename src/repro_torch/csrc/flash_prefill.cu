@@ -26,8 +26,9 @@
 //  - CTA = 1 consumer warpgroup (64 query rows) + 1 producer warp.  The
 //    producer's one thread loads Q once and K, V tiles of 64 keys
 //    through a kStages-deep ring in shared memory with TMA
-//    (cp.async.bulk.tensor, 128-byte swizzle, one 64-column box per half
-//    of a D = 128 row), each completing on an mbarrier; consumers free a
+//    (cp.async.bulk.tensor, 128-byte swizzle, one 64-column box per 64
+//    columns of a row, the last one zero-filled past D = 160), each
+//    completing on an mbarrier; consumers free a
 //    K or V slot with an arrival on its "empty" barrier as soon as the
 //    wgmma that reads it has completed.  Loads of the next tiles are in
 //    flight while the consumers compute.
@@ -300,9 +301,15 @@ constexpr int kThreads = 128 + 32;         // consumer warpgroup + producer
 constexpr int kBox = 64 * 128;             // one 64-row x 64-column bf16 box
 constexpr float kLog2e = 1.4426950408889634f;
 
+// A row of D columns is ceil(D / 64) boxes of 64; at D = 160 the third
+// box's last 32 columns lie past the tensor, so TMA fills them with zeros:
+// they add 0 to Q K^T and give output columns that are never written.
+// Two CTAs share an SM up to D = 128; at 160 and 256 the tiles take more
+// than half of its shared memory, and the minimum of one block lets a
+// thread keep the wider O (128 f32 registers at D = 256).
 template <int D>
 struct TcShape {
-    static constexpr int kHalves = D / 64;          // 64-column boxes a row
+    static constexpr int kHalves = (D + 63) / 64;   // 64-column boxes a row
     static constexpr int kQBytes = kHalves * kBox;   // the Q tile
     static constexpr int kKVBytes = kHalves * kBox;  // one K or V tile
     static constexpr int kTileBytes = kQBytes + 2 * kStages * kKVBytes;
@@ -310,10 +317,11 @@ struct TcShape {
     static constexpr int kBarBytes = 8 * (1 + 4 * kStages);
     // + 1024 so the tiles can start on a 1024-byte boundary
     static constexpr size_t kSmem = kTileBytes + kBarBytes + 1024;
+    static constexpr int kMinBlocks = kHalves <= 2 ? 2 : 1;
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, TcShape<D>::kMinBlocks)
 prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,D)
                   const __grid_constant__ CUtensorMap tk,   // (B,Lk,Hkv,D)
                   const __grid_constant__ CUtensorMap tv,
@@ -525,6 +533,7 @@ prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,D)
         for (int hf = 0; hf < kHalves; ++hf)
 #pragma unroll
             for (int n8 = 0; n8 < 8; ++n8) {
+                if (hf * 64 + n8 * 8 >= D) continue;    // padding columns
                 const int i = 4 * n8 + 2 * r;
                 *reinterpret_cast<__nv_bfloat162*>(
                     orow + hf * 64 + n8 * 8 + c0) =
@@ -604,6 +613,22 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
     return cudaGetLastError();
 }
 
+// bf16 (tensor cores) or f32 (CUDA cores) at one of the head dims
+template <bool kBf16, typename... Args>
+cudaError_t launch_d(int D, Args... args) {
+    switch (D) {
+        case 64: return kBf16 ? launch_tc<64>(args...)
+                              : launch_simt<64>(args...);
+        case 128: return kBf16 ? launch_tc<128>(args...)
+                               : launch_simt<128>(args...);
+        case 160: return kBf16 ? launch_tc<160>(args...)
+                               : launch_simt<160>(args...);
+        case 256: return kBf16 ? launch_tc<256>(args...)
+                               : launch_simt<256>(args...);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
@@ -614,17 +639,13 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
         B > 65535 || (Lq + 63) / 64 > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == REPRO_DTYPE_BF16 && D == 128)
-        return launch_tc<128>(q, k, v, out, B, Lq, Lk, Hq, Hkv, causal,
-                              window, q_offset, st);
-    if (dtype == REPRO_DTYPE_BF16 && D == 64)
-        return launch_tc<64>(q, k, v, out, B, Lq, Lk, Hq, Hkv, causal,
-                             window, q_offset, st);
-    if (dtype == REPRO_DTYPE_F32 && D == 128)
-        return launch_simt<128>(q, k, v, out, B, Lq, Lk, Hq, Hkv, causal,
-                                window, q_offset, st);
-    if (dtype == REPRO_DTYPE_F32 && D == 64)
-        return launch_simt<64>(q, k, v, out, B, Lq, Lk, Hq, Hkv, causal,
-                               window, q_offset, st);
+    if (dtype == REPRO_DTYPE_BF16)
+        return static_cast<int>(launch_d<true>(
+            D, q, k, v, out, B, Lq, Lk, Hq, Hkv, causal, window, q_offset,
+            st));
+    if (dtype == REPRO_DTYPE_F32)
+        return static_cast<int>(launch_d<false>(
+            D, q, k, v, out, B, Lq, Lk, Hq, Hkv, causal, window, q_offset,
+            st));
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -27,9 +27,8 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_combine import combine_plain
 
-BLOCK_K = 128          # KV_BLOCK: the split bounds are counted in these
-HEAD_DIMS = (64, 128)  # head dims the kernel is compiled for
-MAX_GROUP = 16         # query heads per KV head the kernel takes
+BLOCK_K = 128                    # KV_BLOCK: split bounds count these
+HEAD_DIMS = (64, 128, 160, 256)  # head dims the kernel is compiled for
 
 
 def split_bounds(length: int, num_splits: int, split: int):
@@ -135,9 +134,6 @@ def _launch(q, k, v, kv_len, num_splits, acc, l, m, counters=None,
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_decode kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {D}")
-    if G > MAX_GROUP:
-        raise ValueError(f"flash_decode kernel takes at most {MAX_GROUP} "
-                         f"query heads per KV head, got {G}")
     codes = build.DTYPE_CODES
     if q.dtype not in codes or k.dtype not in codes or v.dtype != k.dtype:
         raise ValueError(f"flash_decode kernel needs q in, and k, v of one "

@@ -21,8 +21,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_combine import combine_plain
-from repro_torch.kernels.flash_decode import HEAD_DIMS, MAX_GROUP, \
-    fused_workspace, split_bounds
+from repro_torch.kernels.flash_decode import HEAD_DIMS, fused_workspace, \
+    split_bounds
 
 
 def decode_quant_partials_plain(q: torch.Tensor, k: torch.Tensor,
@@ -92,9 +92,6 @@ def _launch(q, k, v, k_scale, v_scale, kv_len, num_splits, acc, l, m,
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_decode_quant kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {D}")
-    if G > MAX_GROUP:
-        raise ValueError(f"flash_decode_quant kernel takes at most "
-                         f"{MAX_GROUP} query heads per KV head, got {G}")
     if q.dtype not in build.DTYPE_CODES:
         raise ValueError(f"flash_decode_quant kernel takes q in "
                          f"{list(build.DTYPE_CODES)}, got {q.dtype}")

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 160, 256)
 
 
 def prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -22,11 +22,12 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core.scheduler_metadata import get_scheduler_metadata
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_decode_quant import flash_decode_quant
 from repro_torch.kernels.flash_prefill import flash_prefill
-from repro_torch.plan import AttentionSpec, LaunchPlan, Planner
+from repro_torch.plan import LaunchPlan
 
 # How many times the split policy ran inside a decode-attention call.
 # The metadata-enabled serving path passes frozen plans and must leave
@@ -98,9 +99,9 @@ def decode_attention(
         global _POLICY_EVALS
         _POLICY_EVALS += 1
         ctx = plan if plan is not None else LaunchPlan()
-        spec = AttentionSpec.decode(B, k.shape[1], Hq, Hkv, D)
-        plan = Planner(policy=ctx.policy,
-                       num_cores=ctx.num_cores).plan(spec)
+        cores = {} if ctx.num_cores is None else {"num_cores": ctx.num_cores}
+        plan = get_scheduler_metadata(B, 1, k.shape[1], Hq, Hkv, D,
+                                      policy=ctx.policy, **cores)
     if plan.bucket is not None:
         k = k[:, :plan.bucket]
         v = v[:, :plan.bucket]

@@ -5,9 +5,13 @@ touch; a re-visited evicted key builds again and counts as a fresh miss.
 """
 from __future__ import annotations
 
-from collections import OrderedDict
+from collections import OrderedDict, namedtuple
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Hashable, List, Optional, Set
+
+# functools.lru_cache's cache_info() shape
+CacheInfo = namedtuple("CacheInfo", ("hits", "misses", "maxsize",
+                                     "currsize"))
 
 
 @dataclass
@@ -77,6 +81,11 @@ class PlanCache:
                 self._entries.popitem(last=False)
         self.stats.record_launch(key)
         return value
+
+    def cache_info(self) -> CacheInfo:
+        """lru_cache-style counters (observability)."""
+        return CacheInfo(self.stats.hits, self.stats.misses,
+                         self.capacity, len(self._entries))
 
     def __len__(self) -> int:
         return len(self._entries)

@@ -65,6 +65,10 @@ def _port(q, k, v, lens, s, dtype):
     (2, 4, 1, 64, 384, 3, [384, 5]),          # G = 1
     (1, 1, 16, 128, 512, 2, [511]),           # G = 16
     (2, 2, 8, 128, 512, 3, [1, 300]),         # kv_len = 1
+    (1, 1, 64, 128, 256, 2, [200]),           # G = 64 (Table 1, H_KV 1)
+    (2, 1, 32, 128, 256, 1, [256, 77]),       # G = 32 (Table 1, H_KV 2)
+    (1, 2, 4, 160, 256, 2, [250]),            # D = 160 (stablelm-12b)
+    (1, 1, 8, 256, 256, 3, [180]),            # D = 256, S > blocks
 ])
 def test_fused_decode_matches_pallas_partials_and_combine(
         b, hkv, g, d, length, s, lens, dtype):

@@ -15,6 +15,8 @@ fixed-order sum against another order), ``AB_ATOL`` (2e-2) for the
 quantized decode (its tensor-core body also carries P, times each key's
 v scale, as two bf16 terms).
 """
+import functools
+
 import pytest
 import torch
 
@@ -556,3 +558,182 @@ def test_quantized_engine_on_the_card(cuda, kv_quant):
     assert counts["flash_prefill"] == cfg.num_layers * 3
     assert {dt for dt, _ in ops.launch_counts_by_key("flash_prefill")} \
         == {"bfloat16"}
+
+
+# The repair's shapes: G beyond 16 query heads per KV head and head dims
+# 160 and 256, which the reference's configs and the paper's Table 1 use
+# (chip_smoke.py phase 2 holds the same grid).  S = 1, S = 5 and S = 32
+# (one 128-row block a split).
+WIDE_GROUPS = (1, 3, 4, 32, 40, 64)
+WIDE_DIMS = (128, 160, 256)
+WIDE_SHAPES = [(2, 1024, (1000, 333), 1), (2, 2048, (2000, 700), 5),
+               (1, 4096, (4000,), 32)]
+
+
+def _nan_tailed(x, lens, value):
+    y = x.clone()
+    y[torch.arange(x.shape[1], device="cuda")[None] >= lens[:, None]] = value
+    return y
+
+
+def _check_wide(gen, g, d, shapes, kv_dtype=None, mul=(1.0, 1.0, 1.0)):
+    """The decode kernel over a bf16 cache with NaN / Inf tails or, with
+    ``kv_dtype``, the quantized cache's over poisoned tails, at each of
+    ``shapes``: within its tolerance of the plain version, and the same
+    bits again.  q, K and V are drawn from normals of standard deviations
+    ``mul``."""
+    hkv = 1 if g >= 32 else 2
+    q = _rand(gen, (2, hkv, g, d)) * mul[0]
+    if kv_dtype is None:
+        k = _rand(gen, (2, 4096, hkv, d)) * mul[1]
+        v = _rand(gen, (2, 4096, hkv, d)) * mul[2]
+    for b, bucket, kv_len, s in shapes:
+        lens = torch.tensor(kv_len, device="cuda", dtype=torch.int32)
+        if kv_dtype is None:
+            kp = _nan_tailed(k[:b], lens, float("nan"))[:, :bucket]
+            vp = _nan_tailed(v[:b], lens, float("inf"))[:, :bucket]
+            run = functools.partial(flash_decode, q[:b], kp, vp, lens,
+                                    num_splits=s)
+            want = decode_plain(q[:b], k[:b, :bucket], v[:b, :bucket], lens,
+                                num_splits=s)
+            tol = 2e-2
+        else:
+            art = _poisoned_cache(gen, b, 4096, hkv, d, lens, kv_dtype,
+                                  mul=mul[1:])
+            view = QuantizedKV(*(t[:, :bucket] for t in art))
+            run = functools.partial(flash_decode_quant, q[:b], *view, lens,
+                                    num_splits=s)
+            want = decode_quant_plain(q[:b], *view, lens, num_splits=s)
+            tol = AB_ATOL[kv_dtype]
+        got = run()
+        assert got.shape == (b, hkv, g, d)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(run(), got)
+
+
+@pytest.mark.parametrize("g", WIDE_GROUPS)
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_fused_decode_takes_any_group_and_head_dim(cuda, g, d):
+    """Tails hold NaN and Inf; each split count gives the plain version's
+    output within 2e-2 and the same bits on a second call."""
+    _check_wide(cuda, g, d, WIDE_SHAPES)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("g", WIDE_GROUPS)
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_fused_decode_quant_takes_any_group_and_head_dim(cuda, kv_dtype, g,
+                                                         d):
+    """Tails hold codes 127 and scales 1e4; each split count gives the
+    plain version's output within AB_ATOL and the same bits again."""
+    _check_wide(cuda, g, d, WIDE_SHAPES, kv_dtype)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+@pytest.mark.parametrize("g", [32, 64])
+@pytest.mark.parametrize("bucket,kv_len", [(2048, 2000), (4096, 4000)])
+@pytest.mark.parametrize("s", [16, 32])
+def test_wide_decode_merges_many_splits_over_large_values(cuda, kv_dtype, g,
+                                                          bucket, kv_len, s):
+    """G 32 and 64 merging 16 and 32 splits, as Table 1's long cells plan
+    them, on the K x 10, V x 100 data, where a dropped or mis-weighted
+    split moves an output far past the tolerance."""
+    _check_wide(cuda, g, 128, [(1, bucket, (kv_len,), s)], kv_dtype,
+                mul=(1.0, 10.0, 100.0))
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+@pytest.mark.parametrize("g", [72, 128])
+def test_wide_decode_loops_over_groups_past_64(cuda, kv_dtype, g):
+    """More than 64 query rows a KV head run in passes of 64 rows."""
+    _check_wide(cuda, g, 128, [(2, 1024, (1000, 333), 1),
+                               (1, 4096, (4000,), 32)], kv_dtype)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+@pytest.mark.parametrize("g", [32, 64])
+def test_wide_decode_at_head_dim_64(cuda, kv_dtype, g):
+    """D = 64 past 16 query rows a KV head takes the wide bodies."""
+    _check_wide(cuda, g, 64, WIDE_SHAPES, kv_dtype)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("s", [1, 3])
+def test_wide_decode_over_large_values_and_few_dominant_keys(cuda, d, s):
+    """G = 64 on the full-width model's regime (K x 10, V x 100): both
+    decode kernels within their tolerances of the plain versions."""
+    lens = torch.tensor([484], device="cuda", dtype=torch.int32)
+    k = _rand(cuda, (1, 512, 1, d)) * 10
+    v = _rand(cuda, (1, 512, 1, d)) * 100
+    q = _rand(cuda, (1, 1, 64, d))
+    torch.testing.assert_close(
+        flash_decode(q, k, v, lens, num_splits=s).float(),
+        decode_plain(q, k, v, lens, num_splits=s).float(), rtol=2e-2,
+        atol=2e-2)
+    for kv_dtype in ("int8", "fp8"):
+        art = _poisoned_cache(cuda, 1, 512, 1, d, lens, kv_dtype,
+                              mul=(10.0, 100.0))
+        tol = AB_ATOL[kv_dtype]
+        torch.testing.assert_close(
+            flash_decode_quant(q, *art, lens, num_splits=s).float(),
+            decode_quant_plain(q, *art, lens, num_splits=s).float(),
+            rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
+                                       (torch.float32, 2e-5)])
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("b,lq,lk,hq,hkv,window,offset", [
+    (1, 384, 384, 16, 2, None, 0),         # causal
+    (1, 300, 300, 8, 2, 100, 0),           # windowed
+    (2, 100, 356, 8, 1, None, 256),        # q_offset, ragged Lq
+])
+def test_prefill_takes_head_dims_160_and_256(cuda, b, lq, lk, hq, hkv,
+                                             window, offset, d, dtype, tol):
+    q, k, v = _prefill_inputs(cuda, b, lq, lk, hq, hkv, d, dtype)
+    kw = dict(causal=True, window=window, q_offset=offset)
+    got = flash_prefill(q, k, v, **kw)
+    torch.testing.assert_close(got.float(),
+                               prefill_plain(q, k, v, **kw).float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(flash_prefill(q, k, v, **kw), got)
+
+
+def test_table1_cells_through_the_metadata_path(cuda):
+    """The paper's Table 1 (B=1, H_Q=64, D=128, H_KV 1 / 2 / 8) through
+    ops.decode_attention under get_scheduler_metadata's frozen plans at
+    132 SMs: each output within 2e-2 of the plain version (and of its
+    largest element), no policy run
+    inside a call, and the policies' splits differ exactly at L_K 512 with
+    H_KV 1 and 2."""
+    from repro_torch.core import get_scheduler_metadata
+    changed = set()
+    ops.reset_policy_eval_count()
+    for lk in (128, 256, 384, 512, 2048, 4096):
+        for hkv in (1, 2, 8):
+            q = _rand(cuda, (1, 64, 128))
+            k = _rand(cuda, (1, lk, hkv, 128))
+            v = _rand(cuda, (1, lk, hkv, 128))
+            lens = torch.tensor([lk], device="cuda", dtype=torch.int32)
+            splits = {}
+            for policy in ("fa3_baseline", "paper"):
+                plan = get_scheduler_metadata(1, 1, lk, 64, hkv, 128,
+                                              policy=policy, num_cores=132)
+                splits[policy] = plan.num_splits
+                got = ops.decode_attention(q, k, v, lens, plan=plan)
+                qp = (q.float() * 128 ** -0.5).to(q.dtype).reshape(
+                    1, hkv, -1, 128)
+                want = decode_plain(qp, k, v, lens,
+                                    num_splits=plan.num_splits
+                                    ).reshape(1, 64, 128).float()
+                torch.testing.assert_close(got.float(), want, rtol=2e-2,
+                                           atol=2e-2)
+                # outputs are a few hundredths at L_K in the thousands:
+                # hold the error to 2e-2 of the largest one as well
+                err = (got.float() - want).abs().max().item()
+                assert err <= 2e-2 * want.abs().max().item()
+            if splits["fa3_baseline"] != splits["paper"]:
+                changed.add((lk, hkv))
+    assert changed == {(512, 1), (512, 2)}
+    assert ops.policy_eval_count() == 0

@@ -38,7 +38,9 @@ def test_no_module_imports_jax_or_repro():
     for want in ("repro_torch.kernels.ops", "repro_torch.serving.engine",
                  "repro_torch.interop", "repro_torch.kernels.build",
                  "repro_torch.quant.quantizer",
-                 "repro_torch.kernels.flash_decode_quant"):
+                 "repro_torch.kernels.flash_decode_quant",
+                 "repro_torch.core.occupancy",
+                 "repro_torch.core.scheduler_metadata"):
         assert want in res["modules"]
 
 

@@ -50,6 +50,8 @@ DECODE_GRID = [
     (1, 1, 4, 1024, 4),
     (2, 4, 1, 256, 2),        # MHA-style (g=1)
     (1, 1, 1, 2048, 8),
+    (1, 1, 64, 256, 2),       # Table 1's H_KV=1 row (G=64)
+    (2, 1, 32, 256, 1),       # Table 1's H_KV=2 row (G=32)
 ]
 
 
@@ -194,6 +196,29 @@ def test_prefill_matches_pallas_kernel_main_widths(lq, lk, offset, causal,
     want = j_prefill(jq, jk, jv, causal=causal, q_offset=offset,
                      interpret=True)
     got = ops.attention(tq, tk, tv, causal=causal, q_offset=offset)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, 3e-2 if dtype == "bfloat16" else 2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,window,offset", [
+    (1, 4, 2, 130, 130, None, 0),          # causal, ragged against tiles
+    (1, 4, 1, 200, 200, 100, 0),           # local window
+    (2, 2, 1, 60, 188, None, 128),         # q_offset, ragged Lq
+])
+def test_prefill_matches_pallas_kernel_wide_heads(b, hq, hkv, lq, lk, window,
+                                                  offset, d, dtype):
+    """Head dims 160 (stablelm-12b) and 256 (paligemma, recurrentgemma),
+    which the prefill kernel takes besides 64 and 128."""
+    rng = np.random.default_rng(lq + lk + d)
+    jq, tq = _both(rng.standard_normal((b, lq, hq, d), np.float32), dtype)
+    jk, tk = _both(rng.standard_normal((b, lk, hkv, d), np.float32), dtype)
+    jv, tv = _both(rng.standard_normal((b, lk, hkv, d), np.float32), dtype)
+    want = j_prefill(jq, jk, jv, causal=True, window=window,
+                     q_offset=offset, interpret=True)
+    got = ops.attention(tq, tk, tv, causal=True, window=window,
+                        q_offset=offset)
     assert got.dtype == tq.dtype and got.shape == tq.shape
     _close(got, want, 3e-2 if dtype == "bfloat16" else 2e-5)
 
