@@ -10,6 +10,8 @@ Run from the repository root, on a machine with the card and nvcc:
     python3 chip_smoke.py --phase times   # build + decode and prefill times
     python3 chip_smoke.py --phase table1  # build + the paper's Table 1
     python3 chip_smoke.py --phase shapes  # build + the configs' shapes
+    python3 chip_smoke.py --phase paged   # build + paged, prefix sharing,
+                                          # DecodeEngine, the serving CLI
 
 Phases, each fatal on failure:
 
@@ -51,7 +53,9 @@ Phases, each fatal on failure:
    merging 16 and 32 splits over 2000 and 4000 rows, at G 72 and 128
    (passes of 64 rows) and at D 64 past G 16, joining the rerun in turns;
    the prefill kernel at D = 160 and 256 (``PREFILL_WIDE_CASES``: causal,
-   windowed, a q_offset with a ragged Lq; bf16, the sharp data, f32).
+   windowed, a q_offset with a ragged Lq; bf16, the sharp data, f32); the
+   prefill kernel at the suffix prefill's shapes (``SUFFIX_CASES``, with
+   ``q_offset + Lq > Lk``), on random and on the sharp data.
 3. Serving at full width: qwen2.5-3b (36 layers, d_model 2048, 16 query
    heads over 2 KV heads, bf16, seeded random weights) through
    ``ServingEngine`` submit/step/drain: 4 greedy requests, 2 slots, with
@@ -92,6 +96,27 @@ Phases, each fatal on failure:
    timing floor, ``H100_SXM``'s
    modeled latency and the paper's numbers; the two changed cells again
    over an int8 cache.
+4b. The slice's paths (``phase_paged_all``), each driven with the launch
+   counts zeroed just before and read just after.  Paged against dense
+   (``phase_paged``): the serving cell through a dense and a paged engine
+   (page 64, dense-equivalent budget), three runs of each in turns after
+   a warm-up, with a bf16, an int8 and an fp8 cache: the same streams,
+   launches by kernel and by key, and splits, no policy evaluation,
+   conservation; the paper cell and the serving decode shape profiled in
+   each layout.  The prefix cell (``phase_prefix``, bf16 and int8): a
+   1000-token system prompt opening six requests with 4-11-token tails,
+   4 slots, shared and unshared arms on one engine each, warmed on
+   another system prompt (every layer's prefill attention checked there
+   against ``prefill_plain`` on the model's inputs, the suffix prefills
+   at Lq 128 over a 1024-row view from ``q_offset`` 960); three timed
+   runs of each arm in turns (1 full and 5 suffix prefills against 6
+   full, ``PREFIX_PAGES``, prefix hits, conservation; follower TTFT and
+   admission steps); the follower admission step alone, in turns, then
+   under torch.profiler and cProfile.  ``DecodeEngine`` at full width
+   (``phase_decode_engine``: loop admission, every layer's decode
+   attention against ``decode_plain``).  The serving CLI
+   (``phase_cli``: ``run_serving`` four ways, then the module as a
+   subprocess, which must exit 0).
 5. One JSON ``kernels`` line: per kernel its error (a decode row's at
    that row's own inputs, over NaN/Inf tails), launches on the main
    path (the bf16 run's; the quantized decode and the combine kernels'
@@ -107,9 +132,12 @@ Phases, each fatal on failure:
    row of its partials-only epilogue; the prefill kernel a row
    per main-path bucket (bf16, tensor cores) and one for its f32
    instantiation (CUDA cores) at 1024, each with the launches its wrapper
-   counted at that dtype and length; both decode kernels a row at Table
-   1's two changed cells under ``paper`` (bf16, and int8), with the
-   launches of phase 4's Table 1 run.
+   counted at that dtype and length, and one at the suffix prefill's
+   shape (Lq 128, Lk 1024, ``q_offset`` 960, with the first timed shared
+   bf16 run of the prefix cell's launches); both decode kernels a row
+   at Table 1's two changed cells under ``paper`` (bf16, and int8), with
+   the launches of phase 4's Table 1 run.  Every phase prints its wall
+   seconds.
 
 ``--phase admission`` times the serving cell's admission
 steps alone, five runs on one engine; ``--phase times`` times the
@@ -134,9 +162,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import cProfile
 import functools
 import hashlib
 import json
+import os
+import pstats
 import subprocess
 import sys
 import time
@@ -285,6 +316,13 @@ PREFILL_WIDE_F32_CASES = [(1, 200, 200, 8, 2, d, None, 0, True)
                           for d in (160, 256)]
 PREFILL_WIDE_SHARP_CASES = [(1, 384, 384, 16, 2, d, None, 0, True)
                             for d in (160, 256)]
+# the prefill kernel as prefix sharing's suffix prefill runs it: a padded
+# suffix of 128 rows over a slot's view from q_offset = the shared rows;
+# at Lk 1024 the last query rows lie past the view's end (q_offset + Lq >
+# Lk) and attend every key (tests/test_torch_gpu.py has the same list)
+SUFFIX_CASES = [(1, 128, 512, 16, 2, 128, None, 448, True),
+                (1, 128, 1024, 16, 2, 128, None, 960, True),
+                (1, 128, 1024, 16, 2, 128, None, 1000, True)]
 
 
 class SmokeFailure(Exception):
@@ -753,7 +791,9 @@ def phase_parity(gen, sms: int, wide_gen=None):
             (wide_gen, PREFILL_WIDE_CASES, torch.bfloat16, (1.0, 1.0, 1.0)),
             (wide_gen, PREFILL_WIDE_SHARP_CASES, torch.bfloat16, SHARP_MUL),
             (wide_gen, PREFILL_WIDE_F32_CASES, torch.float32,
-             (1.0, 1.0, 1.0))]
+             (1.0, 1.0, 1.0)),
+            (wide_gen, SUFFIX_CASES, torch.bfloat16, (1.0, 1.0, 1.0)),
+            (wide_gen, SUFFIX_CASES, torch.bfloat16, SHARP_MUL)]
     for src, cases, dtype, mul in groups:
         f32 = dtype == torch.float32
         key = "flash_prefill_f32" if f32 else "flash_prefill"
@@ -1035,7 +1075,8 @@ def prefill_checked(model, params, cfg, rng, lens, kv_dtype="bfloat16"):
     ``prefill_plain`` on the same inputs at PREFILL_TOL.  Returns the
     caches, each prompt's greedy next token, and the check's max abs
     error and count."""
-    caches = model.init_cache(len(lens), 2048, kv_dtype=kv_dtype)
+    layout = model.cache_manager(len(lens), 2048, kv_dtype).layout
+    caches = layout.init_storage()
     first = []
     pre = {"max_abs_err": 0.0, "launches": 0}
 
@@ -1053,8 +1094,10 @@ def prefill_checked(model, params, cfg, rng, lens, kv_dtype="bfloat16"):
             padded = torch.zeros(-(-n // 128) * 128, dtype=toks.dtype,
                                  device=DEVICE)
             padded[:n] = toks
-            first.append(model.prefill_slot(params, caches, padded, slot,
-                                            n).argmax())
+            logits, rows = model.prefill_slot_view(params, padded, n,
+                                                   kv_dtype=kv_dtype)
+            layout.write_slot(caches, rows, None, slot, 0)
+            first.append(logits.argmax())
     return caches, first, pre
 
 
@@ -1302,21 +1345,24 @@ def device_kernels(prof):
 
 
 def phase_profile(model, params, cfg, seed: int, steps: int = 8,
-                  kv_quant=None):
+                  kv_quant=None, layout: str = "dense", lens=(420,)):
     """Where a decode step's time goes: torch.profiler over ``steps``
-    decode steps of the paper cell (B=1, 512 bucket, ``paper``), with a
-    bf16 cache or under ``kv_quant``.  Reports the step's wall ms, the
-    device's busy ms (sum of kernel durations), the idle share, the
-    kernels launched per step, and the kernels with the most device
-    time."""
-    label = kv_quant or "bf16"
+    decode steps of prompts of ``lens`` tokens, one slot each (the paper
+    cell by default: B=1, 512 bucket, ``paper``), with a bf16 cache or
+    under ``kv_quant``, in the cache ``layout``.  Reports the step's
+    wall ms, the device's busy ms (sum of kernel durations), the idle
+    share, the kernels launched per step, and the kernels with the most
+    device time."""
+    label = (kv_quant or "bf16") + (" paged" if layout == "paged" else "")
     rng = np.random.default_rng(seed + 1)
-    engine = ServingEngine(model, ServeConfig(model=cfg, kv_quant=kv_quant),
-                           max_len=2048, batch_slots=1, policy="paper",
-                           device=DEVICE)
+    engine = ServingEngine(model, ServeConfig(model=cfg, kv_quant=kv_quant,
+                                              cache_layout=layout),
+                           max_len=2048, batch_slots=len(lens),
+                           policy="paper", device=DEVICE)
     engine.load(params)
-    engine.submit(Request(0, rng.integers(0, cfg.vocab_size, 420).tolist(),
-                          max_new_tokens=steps + 4))
+    for i, n in enumerate(lens):
+        engine.submit(Request(i, rng.integers(0, cfg.vocab_size, n).tolist(),
+                              max_new_tokens=steps + 4))
     engine.step()
     engine.step()
     with profiled() as (prof, wall):
@@ -1330,14 +1376,529 @@ def phase_profile(model, params, cfg, seed: int, steps: int = 8,
            "idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
            "device_ops_per_step": launches / steps,
            "top_kernels_ms_per_step": {k[:80]: v / steps for k, v in top}}
-    print(f"profile {label} decode step B1 bucket512 paper: wall "
-          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+    bucket = max(engine.planned_splits())
+    print(f"profile {label} decode step B{len(lens)} bucket{bucket} paper: "
+          f"wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
           f"{out['idle_share']:.3f}, {launches / steps:.1f} device ops per "
           f"step (profiler on)")
     for name, ms in out["top_kernels_ms_per_step"].items():
         print(f"  {ms:.4f} ms/step  {name}")
     engine.drain()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the paged cache, prefix sharing, DecodeEngine and the serving CLI
+# ---------------------------------------------------------------------------
+
+# the paged-against-dense runs of the serving cell, in turns
+PAGED_ORDER = ("dense", "paged") * 3
+# the prefix cell: a 1000-token system prompt (15 full pages of 64 and 40
+# rows) opening PREFIX_REQUESTS requests with unique tails of 4-11 tokens,
+# PREFIX_NEW new tokens each through PREFIX_SLOTS slots, page 64, a
+# dense-equivalent page budget.  tests/test_torch_prefix.py draws the same
+# prompts and pins PREFIX_PAGES (pages allocated, shared and unshared)
+# against the reference's cache manager.
+PREFIX_SYSTEM, PREFIX_REQUESTS, PREFIX_SLOTS, PREFIX_NEW = 1000, 6, 4, 16
+PREFIX_PAGES = {True: 23, False: 98}
+PREFIX_RUNS = 3           # timed runs of each arm, in turns
+FOLLOWER_ROUNDS = 15      # timed follower admission steps of each arm
+
+
+def prefix_prompts(vocab: int, seed: int = 0):
+    """The prefix cell's prompts and its warm-up's: another system prompt
+    of the same length before the same tails, so the warm-up takes every
+    plan the timed runs take, suffix prefills included."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, PREFIX_SYSTEM).tolist()
+    warm = rng.integers(0, vocab, PREFIX_SYSTEM).tolist()
+    tails = [rng.integers(0, vocab, int(n)).tolist()
+             for n in rng.integers(4, 12, PREFIX_REQUESTS)]
+    return [system + t for t in tails], [warm + t for t in tails]
+
+
+def serve_once(model, params, cfg, requests, *, max_len: int = 2048,
+               slots: int = 2, **scfg_kw):
+    """One engine run of ``requests`` under ``paper``, the launch counts
+    zeroed just before it and read just after; a paged cache is checked
+    for conservation after the drain.  Returns the run's streams, finish
+    reasons, launch counts (by kernel, and by key for each kernel), frozen
+    splits, policy evaluations, step timings and cache summary."""
+    sampler = CheckedGreedy()
+    engine = ServingEngine(model, ServeConfig(model=cfg, **scfg_kw),
+                           max_len=max_len, batch_slots=slots,
+                           policy="paper", sampler=sampler, device=DEVICE)
+    engine.load(params)
+    ops.reset_launch_counts()
+    ops.reset_policy_eval_count()
+    ttft, decode_ms, wall, done, _, admits = drive(engine, requests)
+    torch.cuda.synchronize()
+    run = {"streams": [c.tokens for c in done],
+           "reasons": [c.finish_reason for c in done],
+           "counts": ops.launch_counts(),
+           "by_key": {name: ops.launch_counts_by_key(name)
+                      for name in build.KERNELS},
+           "splits": engine.planned_splits(),
+           "evals": ops.policy_eval_count(),
+           "ttft_ms": ttft, "decode_ms": decode_ms, "admits": admits,
+           "cache": engine.cache_stats()}
+    check(bool(sampler.finite.item()), "non-finite logits")
+    if engine.cache.is_paged:
+        engine.cache.check_conservation()
+    return run
+
+
+def same_path(a, b, label):
+    """Two runs of one workload took the same path: streams, finish
+    reasons, launches by kernel and by key, frozen splits; no policy
+    evaluation in either."""
+    for key in ("streams", "reasons", "counts", "by_key", "splits"):
+        check(a[key] == b[key], f"{label}: {key} differ: {a[key]} / "
+              f"{b[key]}")
+    check(a["evals"] == b["evals"] == 0, f"{label}: policy evaluated")
+
+
+def phase_paged(model, params, cfg, seed: int):
+    """Paged against dense at full width: the serving cell's 4 requests
+    (32 new tokens each, 2 slots) through a dense and a paged engine (page
+    64, dense-equivalent budget) after one dense warm-up run, three runs
+    of each layout in turns, with a bf16, an int8 and an fp8 cache; the
+    launch counts zeroed just before each run and read just after.  Every
+    run takes the warm-up's path: the same streams, launches by kernel and
+    by (view, S) and (dtype, Lq), frozen splits, no policy evaluation;
+    conservation.  Then a profiler window of 8 decode steps of the paper
+    cell (B=1, bucket 512) and of the serving cell's decode shape (B=2,
+    bucket 1024) in each layout."""
+    out = {}
+    rng = np.random.default_rng(seed)
+    serving = [Request(i, rng.integers(0, cfg.vocab_size, n).tolist(),
+                       max_new_tokens=32)
+               for i, n in enumerate(SERVING_PROMPTS)]
+    for kv_quant in (None, "int8", "fp8"):
+        label = kv_quant or "bf16"
+        first = serve_once(model, params, cfg, serving, kv_quant=kv_quant)
+        runs = {"dense": [], "paged": []}
+        for layout in PAGED_ORDER:
+            runs[layout].append(serve_once(
+                model, params, cfg, serving, kv_quant=kv_quant,
+                cache_layout=layout))
+        for run in runs["dense"] + runs["paged"]:
+            same_path(first, run, f"paged {label} serving")
+        res = {layout: {
+            "decode_step_ms": median([m for r in rs for m in r["decode_ms"]]),
+            "per_run_ms": [median(r["decode_ms"]) for r in rs]}
+            for layout, rs in runs.items()}
+        paged = runs["paged"][0]
+        decode = "flash_decode_quant" if kv_quant else "flash_decode"
+        res["launches"] = paged["counts"]
+        res["decode_launches"] = {f"{v} S{s}": n for (v, s), n in sorted(
+            paged["by_key"][decode].items())}
+        res["cache"] = paged["cache"]
+        per_run = {layout: [round(x, 3) for x in res[layout]["per_run_ms"]]
+                   for layout in runs}
+        print(f"paged {label} serving: streams, launches by key and splits "
+              f"{paged['splits']} equal dense's in all {len(PAGED_ORDER) + 1} "
+              f"runs; median decode "
+              f"step ms dense {res['dense']['decode_step_ms']:.3f} (runs "
+              f"{per_run['dense']}) paged "
+              f"{res['paged']['decode_step_ms']:.3f} (runs "
+              f"{per_run['paged']}); launches {json.dumps(paged['counts'])}; "
+              f"decode launches by (view, S) {res['decode_launches']}; cache "
+              f"{json.dumps(paged['cache'])}")
+        out[f"serving_{label}"] = res
+    for name, lens in (("paper", (420,)), ("serving", (1000, 450))):
+        for layout in ("dense", "paged"):
+            out[f"profile_{name}_{layout}"] = phase_profile(
+                model, params, cfg, seed, layout=layout, lens=lens)
+    return out
+
+
+def prefix_run(engine, prompts, label: str, share: bool, layers: int):
+    """One timed run of the prefix cell on a warmed engine, the launch
+    counts zeroed just before it and read just after; then the trie is
+    emptied (``reset_prefix``), so every run's leader prefills in full.
+    Checks the structure: 1 full and 5 suffix prefills shared (6 full
+    unshared), the prefill kernel at (dtype, Lq) accordingly, the pages
+    allocated, the prefix hits, conservation, no policy evaluation."""
+    base = dict(engine.stats.launches)
+    cache = engine.cache
+    before = (cache.pages_allocated_total, cache.prefix_hits,
+              cache.prefix_shared_rows)
+    ops.reset_launch_counts()
+    ops.reset_policy_eval_count()
+    ttft, decode_ms, wall, done, _, admits = drive(
+        engine, [Request(i, p, max_new_tokens=PREFIX_NEW)
+                 for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    kinds, steps = {}, 0
+    for key, n in engine.stats.launches.items():
+        n -= base.get(key, 0)
+        if isinstance(key, tuple) and n:
+            kinds[key[0]] = kinds.get(key[0], 0) + n
+        elif isinstance(key, int):
+            steps += n
+    pages, hits, rows = (a - b for a, b in zip(
+        (cache.pages_allocated_total, cache.prefix_hits,
+         cache.prefix_shared_rows), before))
+    counts = ops.launch_counts()
+    by_key = ops.launch_counts_by_key("flash_prefill")
+    decode = ("flash_decode_quant" if engine.kv_dtype in QUANT_DTYPES
+              else "flash_decode")
+    dt = "bfloat16"
+    n = PREFIX_REQUESTS
+    want = ({"prefill": 1, "sprefill": n - 1}, {(dt, 1024): layers,
+                                                 (dt, 128): (n - 1) * layers},
+            n - 1, (n - 1) * (PREFIX_SYSTEM // 64) * 64) if share else (
+        {"prefill": n}, {(dt, 1024): n * layers}, 0, 0)
+    check((kinds, by_key, hits, rows) == want,
+          f"prefix {label}: admissions {kinds}, prefill launches {by_key}, "
+          f"hits {hits}, shared rows {rows}; want {want}")
+    check(pages == PREFIX_PAGES[share],
+          f"prefix {label}: {pages} pages allocated, want "
+          f"{PREFIX_PAGES[share]}")
+    check(counts[decode] == layers * steps and counts["flash_combine"] == 0,
+          f"prefix {label}: launches {counts} over {steps} decode steps")
+    check(ops.policy_eval_count() == 0, f"prefix {label}: policy evaluated")
+    check([c.finish_reason for c in done] == ["length"] * n
+          and all(len(c.tokens) == PREFIX_NEW for c in done),
+          f"prefix {label}: completions")
+    cache.check_conservation()
+    cache.reset_prefix()
+    cache.check_conservation()
+    check(cache.free_pages == cache.spec.total_pages,
+          f"prefix {label}: pages held after the trie was emptied")
+    return {"streams": [c.tokens for c in done], "ttft_ms": ttft,
+            "admit_ms": [ms for _, ms in admits], "decode_ms": decode_ms,
+            "pages": pages, "prefill_by_key": by_key}
+
+
+def follower_step(engine, leader, followers, ctx=contextlib.nullcontext):
+    """The follower admission step alone: ``leader`` served by itself
+    (one new token: admitted, prefilled, its full pages registered when
+    the arm shares, finished), then one step, inside ``ctx()``, that
+    admits ``followers`` (suffix prefills over the adopted pages when the
+    arm shares, full prefills when not) and decodes them once.  Returns
+    that step's wall ms and what ``ctx()`` yielded; the engine ends empty,
+    its trie emptied."""
+    drive(engine, [leader])
+    for r in followers:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    with ctx() as handle:
+        t0 = time.perf_counter()
+        engine.step()             # ends in a host copy of the tokens
+        ms = (time.perf_counter() - t0) * 1e3
+    engine.drain()
+    engine.cache.reset_prefix()
+    engine.cache.check_conservation()
+    return ms, handle
+
+
+def host_profile(prof, rows: int = 10):
+    """The profiler's host-side operations with the most self time:
+    (name, self ms, calls), and the kernel launches the host issued."""
+    ka = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    launches = sum(e.count for e in ka
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    return [(e.key, e.self_cpu_time_total / 1e3, e.count)
+            for e in ka[:rows]], launches
+
+
+@contextlib.contextmanager
+def python_profiled():
+    """cProfile over the block; yields the profiler."""
+    prof = cProfile.Profile()
+    prof.enable()
+    try:
+        yield prof
+    finally:
+        prof.disable()
+
+
+def python_top(prof, rows: int = 12):
+    """The Python functions with the most self time in a cProfile run,
+    as (function, self ms, cumulative ms, calls)."""
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:rows]
+    return [(f"{Path(f).name}:{line}({func})", tt * 1e3, ct * 1e3, nc)
+            for (f, line, func), (_, nc, tt, ct, _) in top]
+
+
+def pct(xs, q: float) -> float:
+    """The ``q`` quantile of ``xs`` by nearest rank."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def phase_prefix(model, params, cfg, seed: int, kv_quant=None):
+    """Prefix sharing at full width, a shared and an unshared arm, one
+    engine each (4 slots, page 64, max_len 2048), on the prefix cell.
+
+    1. Warm-up on each engine: the warm-up prompts (another system
+       prompt), every plan the timed runs take, each layer's prefill
+       attention held against ``prefill_plain`` on the model's own inputs
+       at PREFILL_TOL (the shared arm's suffix prefills at Lq 128 over a
+       1024-row view from ``q_offset`` 960, past the view's end).
+    2. PREFIX_RUNS timed runs of each arm in turns (``prefix_run``):
+       follower TTFT and admission-step ms; each arm's runs give the same
+       streams.
+    3. The follower admission step alone (``follower_step``), its two last
+       requests after the leader, FOLLOWER_ROUNDS rounds of each arm in
+       turns after one untimed round; then that step once in each arm
+       under torch.profiler (wall, device busy, device operations, kernel
+       launches, the host operations with the most self time) and once
+       under cProfile (the Python functions with the most self time).
+    """
+    label = kv_quant or "bf16"
+    layers = cfg.num_layers
+    prompts, warm = prefix_prompts(cfg.vocab_size, seed)
+    engines, checks = {}, {}
+    for share in (True, False):
+        c = checks[share] = {"max_abs_err": 0.0, "full": 0, "suffix": 0,
+                             "suffix_shapes": []}
+
+        def checked(q, k, v, c=c, **kw):
+            got = flash_prefill(q, k, v, **kw)
+            c["max_abs_err"] = max(c["max_abs_err"], max_err(
+                got, prefill_plain(q, k, v, **kw), PREFILL_TOL))
+            if kw.get("q_offset"):
+                c["suffix"] += 1
+                shape = (q.shape[1], k.shape[1], kw["q_offset"])
+                if shape not in c["suffix_shapes"]:
+                    c["suffix_shapes"].append(shape)
+            else:
+                c["full"] += 1
+            return got
+
+        engine = ServingEngine(
+            model, ServeConfig(model=cfg, kv_quant=kv_quant,
+                               cache_layout="paged", share_prefix=share),
+            max_len=2048, batch_slots=PREFIX_SLOTS, policy="paper",
+            sampler=CheckedGreedy(), device=DEVICE)
+        engine.load(params)
+        with ops_route("flash_prefill", checked):
+            drive(engine, [Request(i, p, max_new_tokens=PREFIX_NEW)
+                           for i, p in enumerate(warm)])
+        engine.cache.reset_prefix()
+        engine.cache.check_conservation()
+        engines[share] = engine
+    n = PREFIX_REQUESTS
+    check(checks[True]["full"] == layers
+          and checks[True]["suffix"] == (n - 1) * layers
+          and checks[False]["full"] == n * layers
+          and checks[False]["suffix"] == 0,
+          f"prefix {label}: prefill attention checks {checks}")
+
+    runs = {True: [], False: []}
+    for _ in range(PREFIX_RUNS):
+        for share in (True, False):
+            runs[share].append(prefix_run(engines[share], prompts,
+                                          f"{label} share={share}", share,
+                                          layers))
+    for share, rs in runs.items():
+        check(all(r["streams"] == rs[0]["streams"] for r in rs),
+              f"prefix {label} share={share}: streams differ across runs")
+        check(bool(engines[share].sampler.finite.item()),
+              f"prefix {label}: non-finite logits")
+    parted = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                   None) for a, b in zip(runs[True][0]["streams"],
+                                         runs[False][0]["streams"])]
+
+    def by_position(rs, key):
+        return [median([r[key][j] for r in rs])
+                for j in range(len(rs[0][key]))]
+
+    ttft = {s: by_position(rs, "ttft_ms") for s, rs in runs.items()}
+    admit = {s: by_position(rs, "admit_ms") for s, rs in runs.items()}
+    step = {s: median([m for r in rs for m in r["decode_ms"]])
+            for s, rs in runs.items()}
+
+    leader = Request(0, prompts[0], max_new_tokens=1)
+    followers = [Request(i, prompts[i], max_new_tokens=2)
+                 for i in range(n - 2, n)]
+    alone = {True: [], False: []}
+    for r in range(FOLLOWER_ROUNDS + 1):
+        for share in (True, False):
+            ms, _ = follower_step(engines[share], leader, followers)
+            if r:
+                alone[share].append(ms)
+    prof_out = {}
+    for share in (True, False):
+        engine = engines[share]
+        _, (prof, wall) = follower_step(engine, leader, followers, profiled)
+        kernels, dev_ops = device_kernels(prof)
+        busy = sum(kernels.values())
+        host, launches = host_profile(prof)
+        _, py = follower_step(engine, leader, followers, python_profiled)
+        prof_out[share] = {
+            "wall_ms": wall[0], "device_busy_ms": busy,
+            "device_ops": dev_ops, "host_launches": launches,
+            "host_ops": host,
+            "top_kernels": sorted(kernels.items(), key=lambda kv: -kv[1])[:5],
+            "python": python_top(py)}
+    for share in (True, False):
+        engines[share].cache.check_conservation()
+
+    arm = {True: "shared", False: "unshared"}
+    print(f"prefix {label}: {n} requests, a {PREFIX_SYSTEM}-token system "
+          f"prompt, {PREFIX_SLOTS} slots, page 64; shared 1 full + "
+          f"{n - 1} suffix prefills, unshared {n} full, in each of "
+          f"{PREFIX_RUNS} runs an arm; pages allocated shared "
+          f"{runs[True][0]['pages']} unshared {runs[False][0]['pages']}; "
+          f"prefill attention of {checks[True]['full']} full and "
+          f"{checks[True]['suffix']} suffix layer launches (Lq, Lk, "
+          f"q_offset {checks[True]['suffix_shapes']}) and "
+          f"{checks[False]['full']} unshared against prefill_plain on the "
+          f"model's inputs: max abs err "
+          f"{max(c['max_abs_err'] for c in checks.values()):.4g}; streams "
+          f"shared vs unshared part at tokens {parted}")
+    for share in (True, False):
+        print(f"prefix {label} {arm[share]}: TTFT ms by request (median of "
+              f"{PREFIX_RUNS} runs) {[round(x, 3) for x in ttft[share]]}, "
+              f"followers' median {median(ttft[share][1:]):.3f}; admission "
+              f"steps ms {[round(x, 3) for x in admit[share]]}; median "
+              f"decode step {step[share]:.3f} ms; follower admission step "
+              f"alone (2 followers + 1 decode step) ms median "
+              f"{median(alone[share]):.3f}, p10-p90 "
+              f"{pct(alone[share], 0.1):.3f}-{pct(alone[share], 0.9):.3f} "
+              f"over {FOLLOWER_ROUNDS} rounds")
+        p = prof_out[share]
+        print(f"prefix {label} {arm[share]} follower admission step, "
+              f"profiler on: wall {p['wall_ms']:.3f} ms, device busy "
+              f"{p['device_busy_ms']:.3f} ms, idle share "
+              f"{1 - p['device_busy_ms'] / p['wall_ms']:.3f}, "
+              f"{p['device_ops']} device operations, "
+              f"{p['host_launches']} kernel launches by the host")
+        for name, ms, calls in p["host_ops"]:
+            print(f"  host {ms:9.3f} ms self  {calls:6d} calls  {name[:70]}")
+        for name, ms in p["top_kernels"]:
+            print(f"  device {ms:9.4f} ms  {name[:80]}")
+        for name, tt, ct, calls in p["python"]:
+            print(f"  python {tt:9.3f} ms self {ct:9.3f} ms cum {calls:6d} "
+                  f"calls  {name[:70]}")
+    return {"pages_allocated": {arm[s]: runs[s][0]["pages"] for s in runs},
+            "prefill_attention": {arm[s]: checks[s] for s in checks},
+            "streams_part_at": parted,
+            "ttft_ms": {arm[s]: ttft[s] for s in ttft},
+            "follower_ttft_median_ms": {arm[s]: median(ttft[s][1:])
+                                        for s in ttft},
+            "admission_step_ms": {arm[s]: admit[s] for s in admit},
+            "decode_step_ms": {arm[s]: step[s] for s in step},
+            "follower_step_ms": {arm[s]: alone[s] for s in alone},
+            "follower_step_profile": {arm[s]: prof_out[s] for s in prof_out},
+            "prefill_launches": {f"{dt} {lq}": k for (dt, lq), k in
+                                 runs[True][0]["prefill_by_key"].items()}}
+
+
+def phase_decode_engine(model, params, cfg, seed: int):
+    """DecodeEngine at full width: two greedy requests (prompts of 24 and
+    40 tokens, 8 new tokens each) through 2 slots by loop admission, the
+    launch counts zeroed just before and read just after; every layer's
+    decode attention held against ``decode_plain`` on the model's own
+    inputs at DECODE_TOL.  The decode kernel runs once a layer a step and
+    the prefill kernel never; no policy evaluation.  Then one unchecked
+    run of the same requests: the same streams, and its wall time."""
+    # imported here, so that a copy of this script runs an older
+    # checkout's ``--phase admission``, ``times`` and ``digests``
+    from repro_torch.serving import DecodeEngine
+    rng = np.random.default_rng(seed + 2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (24, 40)]
+    engine = DecodeEngine(model, ServeConfig(model=cfg), max_len=2048,
+                          batch_slots=2, policy="paper", device=DEVICE)
+    engine.load(params)
+    attn = {"max_abs_err": 0.0, "launches": 0}
+
+    def checked(q, k, v, kv_len, *, num_splits, out_dtype):
+        got = fdec.flash_decode(q, k, v, kv_len, num_splits=num_splits,
+                                out_dtype=out_dtype)
+        attn["max_abs_err"] = max(attn["max_abs_err"], max_err(
+            got, fdec.decode_plain(q, k, v, kv_len, num_splits=num_splits,
+                                   out_dtype=out_dtype), DECODE_TOL))
+        attn["launches"] += 1
+        return got
+
+    def requests():
+        return [Request(i, p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+
+    ops.reset_launch_counts()
+    ops.reset_policy_eval_count()
+    with ops_route("flash_decode", checked):
+        done = engine.generate(requests())
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    steps = sum(v for k, v in engine.stats.launches.items()
+                if isinstance(k, int))
+    layers = cfg.num_layers
+    check(steps == 40 - 1 + 8 and counts["flash_decode"] == attn["launches"]
+          == layers * steps and counts["flash_prefill"] == 0
+          and ops.policy_eval_count() == 0,
+          f"DecodeEngine: {counts} over {steps} steps, {attn}")
+    check([len(c.tokens) for c in done] == [8, 8]
+          and all(c.finish_reason == "length" for c in done),
+          "DecodeEngine: completions")
+    t0 = time.perf_counter()
+    again = engine.generate(requests())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check([c.tokens for c in again] == [c.tokens for c in done],
+          "DecodeEngine: streams differ between two runs")
+    print(f"DecodeEngine: 2 requests (24 and 40 prompt tokens, 8 new) by "
+          f"loop admission, {steps} decode steps, launches "
+          f"{json.dumps(counts)}, splits {engine.planned_splits()}; decode "
+          f"attention of {attn['launches']} layer steps against "
+          f"decode_plain on the model's inputs: max abs err "
+          f"{attn['max_abs_err']:.4g}; unchecked run {wall:.3f} s "
+          f"({wall / steps * 1e3:.3f} ms a step)")
+    return {"steps": steps, "launches": counts, "decode_attention": attn,
+            "wall_s": wall, "splits": engine.planned_splits()}
+
+
+def phase_cli():
+    """The serving CLI: ``run_serving`` (the reduced qwen2.5-3b at d_model
+    512, 2 layers) dense, paged, paged with prefix sharing and paged
+    under int8, no policy evaluation, the paged-cache and prefix-sharing
+    lines printed; then ``python -m repro_torch.launch.serve
+    --cache-layout paged --share-prefix`` as a subprocess, which must exit
+    0."""
+    from repro_torch.launch.serve import run_serving
+    cli = {}
+    for kw in (dict(), dict(cache_layout="paged"),
+               dict(cache_layout="paged", share_prefix=True),
+               dict(cache_layout="paged", kv_quant="int8")):
+        name = "+".join(f"{k}={v}" for k, v in kw.items()) or "dense"
+        lines = []
+        ops.reset_launch_counts()
+        ops.reset_policy_eval_count()
+        outs = run_serving("qwen2.5-3b", log_fn=lines.append, **kw)
+        counts = ops.launch_counts()
+        decode = "flash_decode_quant" if kw.get("kv_quant") else \
+            "flash_decode"
+        check(ops.policy_eval_count() == 0, f"cli {name}: policy evaluated")
+        check(counts[decode] > 0 and counts["flash_prefill"] > 0,
+              f"cli {name}: launches {counts}")
+        check(len(outs) == 8 and all(len(c.tokens) == 16 for c in outs),
+              f"cli {name}: completions")
+        want = ["paged cache:"] if kw else []
+        if kw.get("share_prefix"):
+            want.append("prefix sharing:")
+        for head in want:
+            check(any(x.startswith(head) for x in lines),
+                  f"cli {name}: no {head!r} line")
+        summary = [x for x in lines if not x.startswith("req ")]
+        print(f"cli {name}: launches {json.dumps(counts)} | "
+              + " | ".join(summary))
+        cli[name] = summary
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "qwen2.5-3b", "--cache-layout", "paged", "--share-prefix"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    print(f"cli subprocess {' '.join(cmd[1:])}: exit {res.returncode}; "
+          + " | ".join(res.stdout.strip().splitlines()[-4:]))
+    check(res.returncode == 0, f"cli subprocess failed: {res.stderr[-2000:]}")
+    cli["subprocess_rc"] = res.returncode
+    return cli
 
 
 # ---------------------------------------------------------------------------
@@ -1556,14 +2117,17 @@ def phase_table1(gen, sms: int, card: str, flush, iters: int = 100):
 
 def phase_kernels_line(gen, sms: int, errs, counts, flush,
                        prefill_launches, decode_launches, quant_launches,
-                       table1_rows):
+                       table1_rows, suffix_launches):
     """``counts``: the main path's launches by kernel name;
     ``prefill_launches`` / ``decode_launches``: the bf16 serving run's
     prefill launches by "dtype Lq" and decode launches by "view S",
     ``quant_launches`` the int8 run's quantized decode launches by "view
     S": each row's ``launches``; ``table1_rows``: the rows of
     phase_table1 (the decode kernels at Table 1's changed cells, with the
-    launches of that phase's path)."""
+    launches of that phase's path); ``suffix_launches``: the first timed
+    shared bf16 run of the prefix cell's prefill launches by "dtype Lq"
+    (its suffix prefills run at Lq 128 over a 1024-row view from q_offset
+    960)."""
     hkv, g, d, b = 2, 8, 128, 2
     hq = hkv * g
     out = []
@@ -1651,6 +2215,29 @@ def phase_kernels_line(gen, sms: int, errs, counts, flush,
                     fdq.decode_quant_plain(qp, *view, lens, num_splits=s),
                     QUANT_TOL),
         launches=0))
+    # K3 as the prefix cell's suffix prefill runs it: the padded suffix
+    # (Lq 128) over the slot's 1024-row view from q_offset 960, so its
+    # last 64 query rows lie past the view's end
+    lq, lk, off = 128, 1024, (PREFIX_SYSTEM // 64) * 64
+    pq, pk, pv = prefill_case(gen, 1, lq, lk, hq, hkv, d)
+    mask = (torch.arange(lk, device=DEVICE)[None]
+            <= off + torch.arange(lq, device=DEVICE)[:, None])
+    kw = dict(causal=True, q_offset=off)
+    out.append(dict(
+        name="flash_prefill",
+        shape=f"B1 Lq={lq} Lk={lk} q_offset={off} Hq{hq} Hkv{hkv} D{d} "
+              f"causal bf16, suffix prefill",
+        fn=functools.partial(flash_prefill, pq, pk, pv, **kw),
+        plain=functools.partial(prefill_plain, pq, pk, pv, **kw),
+        lib=functools.partial(F.scaled_dot_product_attention,
+                              *(t.transpose(1, 2) for t in (pq, pk, pv)),
+                              attn_mask=mask, scale=1.0, enable_gqa=True),
+        nbytes=2 * (2 * pq.numel() + pk.numel() + pv.numel()),
+        # query row i attends keys 0 .. min(off + i, lk - 1)
+        flops=4 * hq * d * sum(min(off + i + 1, lk) for i in range(lq)),
+        err=max_err(flash_prefill(pq, pk, pv, **kw),
+                    prefill_plain(pq, pk, pv, **kw), PREFILL_TOL),
+        launches=suffix_launches.get(f"bfloat16 {lq}", 0)))
     out += table1_rows
     # the method's floor: one one-element fill_, timed the same way
     tiny = torch.empty(1, device=DEVICE)
@@ -1814,11 +2401,34 @@ def phase_shapes(gen, sms: int, flush, iters: int = 100):
     return out
 
 
+def phase_paged_all(model, params, cfg, seed: int):
+    """The slice's paths, each fatal on failure: paged against dense, the
+    prefix cell (bf16 and int8), DecodeEngine, the serving CLI."""
+    out = {"paged": timed("paged", phase_paged, model, params, cfg, seed)}
+    for kv_quant in (None, "int8"):
+        label = kv_quant or "bf16"
+        out[f"prefix_{label}"] = timed(f"prefix {label}", phase_prefix,
+                                       model, params, cfg, seed,
+                                       kv_quant=kv_quant)
+    out["decode_engine"] = timed("decode engine", phase_decode_engine, model,
+                                 params, cfg, seed)
+    out["cli"] = timed("cli", phase_cli)
+    return out
+
+
+def timed(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, printing the phase's wall seconds."""
+    t0 = time.perf_counter()
+    res = fn(*args, **kw)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "digests", "admission",
-                             "times", "table1", "shapes"),
+                             "times", "table1", "shapes", "paged"),
                     default="all",
                     help="'kernels' stops after build and kernel parity; "
                          "'digests' builds, then runs the main path's "
@@ -1829,11 +2439,14 @@ def main(argv=None) -> int:
                          "shapes and the prefill kernel at the buckets; "
                          "'table1' builds, then runs the paper's Table 1; "
                          "'shapes' builds, then times the kernels at the "
-                         "configs' head shapes the main path lacks")
+                         "configs' head shapes the main path lacks; "
+                         "'paged' builds, then runs the paged cache, "
+                         "prefix sharing, DecodeEngine and the serving "
+                         "CLI")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    card, sms = phase_env_build()
+    card, sms = timed("build", phase_env_build)
     gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
     if args.phase == "admission":
         cfg = get_arch("qwen2.5-3b")
@@ -1862,8 +2475,9 @@ def main(argv=None) -> int:
         phase_parity(gen, sms)
         print("phase digests: done")
         return 0
-    wide_gen = torch.Generator(device=DEVICE).manual_seed(args.seed + 17)
-    errs = phase_parity(gen, sms, wide_gen)
+    if args.phase != "paged":
+        wide_gen = torch.Generator(device=DEVICE).manual_seed(args.seed + 17)
+        errs = timed("parity", phase_parity, gen, sms, wide_gen)
     if args.phase == "kernels":
         print("phase kernels: done")
         return 0
@@ -1879,36 +2493,48 @@ def main(argv=None) -> int:
           f"{cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size} "
           f"{cfg.param_dtype}: {n_params} params, init "
           f"{time.perf_counter() - t0:.1f} s")
-    counts, serving, bf16 = phase_serving(model, params, cfg, args.seed)
-    qcounts, qserving, _ = phase_serving(model, params, cfg, args.seed,
-                                         kv_quant="int8", bf16=bf16)
-    _, fserving, _ = phase_serving(model, params, cfg, args.seed,
-                                   kv_quant="fp8", bf16=bf16)
-    logits = phase_logits(model, params, cfg, args.seed, sms)
+    if args.phase == "paged":
+        paged = phase_paged_all(model, params, cfg, args.seed)
+        print(json.dumps({"paged": paged, "card": card}))
+        return 0
+    counts, serving, bf16 = timed("serving bf16", phase_serving, model,
+                                  params, cfg, args.seed)
+    qcounts, qserving, _ = timed("serving int8", phase_serving, model,
+                                 params, cfg, args.seed, kv_quant="int8",
+                                 bf16=bf16)
+    _, fserving, _ = timed("serving fp8", phase_serving, model, params, cfg,
+                           args.seed, kv_quant="fp8", bf16=bf16)
+    logits = timed("logits", phase_logits, model, params, cfg, args.seed,
+                   sms)
     for kv_dtype in ("int8", "fp8"):
-        logits[kv_dtype] = phase_logits_quant(model, params, cfg, args.seed,
-                                              sms, kv_dtype)
+        logits[kv_dtype] = timed(f"logits {kv_dtype}", phase_logits_quant,
+                                 model, params, cfg, args.seed, sms,
+                                 kv_dtype)
     # K1 and K3 launches from the bf16 run, K4's from the int8 run; K2
     # runs in neither
     counts["flash_decode_quant"] = qcounts["flash_decode_quant"]
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
-    paper = phase_paper_cell(model, params, cfg, args.seed, flush, sms)
-    qpaper = phase_paper_cell(model, params, cfg, args.seed, flush, sms,
-                              kv_quant="int8")
-    profile = phase_profile(model, params, cfg, args.seed)
-    qprofile = phase_profile(model, params, cfg, args.seed, kv_quant="int8")
-    del params, model
-    torch.cuda.empty_cache()
-    table1, table1_rows = phase_table1(gen, sms, card, flush)
-    kernels = phase_kernels_line(gen, sms, errs, counts, flush,
-                                 serving["prefill_launches"],
-                                 serving["decode_launches"],
-                                 qserving["decode_launches"], table1_rows)
+    paper = timed("paper cell bf16", phase_paper_cell, model, params, cfg,
+                  args.seed, flush, sms)
+    qpaper = timed("paper cell int8", phase_paper_cell, model, params, cfg,
+                   args.seed, flush, sms, kv_quant="int8")
+    profile = timed("profile bf16", phase_profile, model, params, cfg,
+                    args.seed)
+    qprofile = timed("profile int8", phase_profile, model, params, cfg,
+                     args.seed, kv_quant="int8")
+    paged = phase_paged_all(model, params, cfg, args.seed)
+    table1, table1_rows = timed("table1", phase_table1, gen, sms, card,
+                                flush)
+    kernels = timed("kernels line", phase_kernels_line, gen, sms, errs,
+                    counts, flush, serving["prefill_launches"],
+                    serving["decode_launches"], qserving["decode_launches"],
+                    table1_rows, paged["prefix_bf16"]["prefill_launches"])
     print(json.dumps({"serving": serving, "serving_int8": qserving,
                       "serving_fp8": fserving, "logits": logits,
                       "paper_cell": paper,
                       "paper_cell_int8": qpaper, "profile": profile,
-                      "profile_int8": qprofile, "table1": table1,
+                      "profile_int8": qprofile, "paged": paged,
+                      "table1": table1,
                       "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

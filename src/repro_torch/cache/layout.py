@@ -1,0 +1,252 @@
+"""CacheLayout: how an engine's KV-cache tensors are arranged on the card.
+
+Counterpart of ``repro.cache.layout``.  A layout maps between the
+model-facing cache VIEW, the dict of dense ``(layers, B, L, ...)``
+tensors every ``decode_step`` and prefill consumes, and the device
+STORAGE the layout allocates.  The reference's entry points are pure
+functions returning new storage; here the storage is the engine's static
+tensors and every write lands in place:
+
+- ``init_storage()`` allocates the storage dict;
+- ``gather_view(storage, table, n)`` is the full-batch dense view of the
+  first ``n`` pages of every slot (the dense storage is its own view),
+  and ``scatter_view`` writes a whole view back;
+- ``decode_positions`` bounds each slot's write row to that view;
+- ``write_token`` writes back the page holding each slot's decoded row
+  (dense: the step already wrote it);
+- ``write_slot`` lands a prefilled batch-1 view in a slot; the paged
+  ``slot_view`` gathers one for suffix prefill;
+- ``copy_page`` backs copy-on-write; ``zero_slot`` resets a slot for
+  loop admission.
+
+The engine drives both layouts through these calls alone.
+
+:class:`DenseLayout` keeps ``Model.init_cache``'s tensors.
+:class:`PagedKVCache` stores every cache tensor ``(layers, B, max_len,
+*rest)`` as a pool ``(layers, pool_pages, page_size, *rest)``; one page
+table ``(B, slot_pages)`` serves every tensor and every layer, so a
+decode step's gather is one ``index_select`` per tensor over the whole
+layer stack (:func:`repro_torch.kernels.ops.gather_pages`).  Every
+cache tensor of a dense model is position-linear, so every one pages.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.cache.spec import CacheSpec
+from repro_torch.kernels import ops
+
+Storage = Dict[str, torch.Tensor]
+
+
+def _nbytes(shape, dtype: torch.dtype) -> int:
+    n = 1
+    for d in shape:
+        n *= d
+    return n * dtype.itemsize
+
+
+class CacheLayout:
+    """Base: resolved from a :class:`CacheSpec` by the CacheManager."""
+
+    kind: str = "abstract"
+
+    def __init__(self, model, spec: CacheSpec):
+        self.model = model
+        self.spec = spec
+        # name -> ((layers, B, max_len, *rest), dtype)
+        self.shapes = model.cache_shapes(spec.batch, spec.max_len,
+                                         spec.kv_dtype)
+
+    # --- sizing (observability) ---------------------------------------------
+
+    def dense_bytes(self) -> int:
+        """Bytes of the dense-equivalent storage (the baseline)."""
+        return sum(_nbytes(s, dt) for s, dt in self.shapes.values())
+
+    def storage_bytes(self) -> int:
+        raise NotImplementedError
+
+    def row_bytes(self) -> int:
+        """Cache bytes per resident row per slot (all layers)."""
+        return sum(_nbytes(s, dt) // (s[1] * s[2])
+                   for s, dt in self.shapes.values())
+
+    def attended_bytes(self, view_len: int) -> int:
+        """K/V bytes one decode launch reads for a ``view_len``-row view.
+        Both layouts attend the resident bucket here (the reference's
+        dense decode reads the padded capacity)."""
+        return self.row_bytes() * int(view_len) * self.spec.batch
+
+
+class DenseLayout(CacheLayout):
+    """``Model.init_cache``'s tensors: the storage is the view."""
+
+    kind = "dense"
+
+    def init_storage(self) -> Storage:
+        return self.model.init_cache(self.spec.batch, self.spec.max_len,
+                                     self.spec.kv_dtype)
+
+    def gather_view(self, storage: Storage, table: torch.Tensor,
+                    num_pages: int) -> Storage:
+        """The storage itself: decode attends its first ``plan.bucket``
+        rows (``ops.decode_attention``) and writes its row in place."""
+        return storage
+
+    def scatter_view(self, storage: Storage, view: Storage,
+                     table: torch.Tensor, num_pages: int) -> None:
+        """Nothing to write back: the view is the storage."""
+
+    def decode_positions(self, positions: torch.Tensor,
+                         num_pages: int) -> torch.Tensor:
+        return positions
+
+    def write_token(self, storage: Storage, view: Storage,
+                    table: torch.Tensor, positions: torch.Tensor,
+                    num_pages: int) -> None:
+        """Nothing to write back: the view is the storage."""
+
+    def write_slot(self, storage: Storage, view: Storage,
+                   table: torch.Tensor, slot: int, num_pages: int, *,
+                   first_page: int = 0) -> None:
+        """Copy rows [first_page * page, Lb) of a batch-1 view ``(layers,
+        1, Lb, ...)`` into the same rows of slot ``slot``, one copy per
+        tensor over every layer."""
+        lo = first_page * self.spec.page_size
+        for name, leaf in storage.items():
+            rows = view[name]
+            leaf[:, slot, lo:rows.shape[2]] = rows[:, 0, lo:]
+
+    def zero_slot(self, storage: Storage, slot: int) -> None:
+        """Zero slot ``slot``'s rows of every tensor (data and scales)."""
+        for t in storage.values():
+            t[:, slot].zero_()
+
+    def storage_bytes(self) -> int:
+        return self.dense_bytes()
+
+
+class PagedKVCache(CacheLayout):
+    """Fixed-size pages in one pool per tensor, per-slot page tables.
+
+    Page 0 is the trash page (:data:`repro_torch.cache.spec.TRASH_PAGE`):
+    table entries past a slot's allocation, and every entry of a free
+    slot, point at it, so a dead slot's lockstep writes land there and a
+    gather of an unallocated tail reads rows that ``kv_len`` masks."""
+
+    kind = "paged"
+
+    def _paged_shape(self, shape):
+        return ((shape[0], self.spec.pool_pages, self.spec.page_size)
+                + tuple(shape[3:]))
+
+    def init_storage(self) -> Storage:
+        dev = self.model.device
+        return {name: torch.zeros(self._paged_shape(s), dtype=dt,
+                                  device=dev)
+                for name, (s, dt) in self.shapes.items()}
+
+    # --- full-batch decode view ---------------------------------------------
+
+    def gather_view(self, storage: Storage, table: torch.Tensor,
+                    num_pages: int) -> Storage:
+        """Every slot's first ``num_pages`` pages, as new dense tensors
+        ``(layers, B, num_pages * page_size, *rest)``."""
+        return {name: ops.gather_pages(leaf, table, num_pages=num_pages,
+                                       axis=1)
+                for name, leaf in storage.items()}
+
+    def scatter_view(self, storage: Storage, view: Storage,
+                     table: torch.Tensor, num_pages: int) -> None:
+        """Write a whole full-batch view back into every slot's first
+        ``num_pages`` pages (the inverse of :meth:`gather_view`).  The
+        engine writes back only what a launch produced
+        (:meth:`write_token`, :meth:`write_slot`); this is the general
+        form."""
+        for name, leaf in storage.items():
+            ops.scatter_pages(leaf, view[name], table, num_pages=num_pages,
+                              axis=1)
+
+    def decode_positions(self, positions: torch.Tensor,
+                         num_pages: int) -> torch.Tensor:
+        """Clamp each slot's write row into the ``num_pages``-page view.
+        Only a dead slot's stale position can lie past it; its table row
+        is the trash page and its output is ignored."""
+        return positions.clamp(max=num_pages * self.spec.page_size - 1)
+
+    def write_token(self, storage: Storage, view: Storage,
+                    table: torch.Tensor, positions: torch.Tensor,
+                    num_pages: int) -> None:
+        """Write back only the page holding each slot's row
+        ``positions[b]`` (a decode step changes one row a slot, so
+        scattering the whole view would rewrite ``view_len`` rows for
+        nothing).  Dead slots' table rows point at the trash page, so
+        their stale writes land there."""
+        ps = self.spec.page_size
+        pidx = positions.long() // ps                            # (B,)
+        dst = table.gather(1, pidx[:, None])[:, 0].long()
+        rows = torch.arange(pidx.shape[0], device=pidx.device)
+        for name, leaf in storage.items():
+            v = view[name]
+            vp = v.view(v.shape[:2] + (num_pages, ps) + v.shape[3:])
+            sel = ops.bit_view(vp)[:, rows, pidx]   # (layers, B, ps, ...)
+            ops.bit_view(leaf).index_copy_(1, dst, sel)
+
+    # --- batch-1 slot view (fused and suffix prefill) -----------------------
+
+    def slot_view(self, storage: Storage, table: torch.Tensor, slot: int,
+                  num_pages: int) -> Storage:
+        row = table[slot:slot + 1]
+        return {name: ops.gather_pages(leaf, row, num_pages=num_pages,
+                                       axis=1)
+                for name, leaf in storage.items()}
+
+    def write_slot(self, storage: Storage, view: Storage,
+                   table: torch.Tensor, slot: int, num_pages: int, *,
+                   first_page: int = 0) -> None:
+        """Scatter pages [first_page, num_pages) of a batch-1 view
+        ``(layers, 1, rows, ...)`` into slot ``slot``'s pages.  A view
+        that ends inside its last page (a prompt bucket cut at a
+        ``max_len`` the page size does not divide) is zero-padded to it.
+        Suffix prefill passes the page holding its first row, so the
+        adopted prefix pages, which other owners read, are not written."""
+        ps = self.spec.page_size
+        row = table[slot:slot + 1, first_page:num_pages]
+        lo, hi = first_page * ps, num_pages * ps
+        for name, leaf in storage.items():
+            part = view[name][:, :, lo:hi]
+            short = hi - lo - part.shape[2]
+            if short:
+                pad = part.new_zeros(part.shape[:2] + (short,)
+                                     + part.shape[3:])
+                part = torch.cat([part, pad], dim=2)
+            ops.scatter_pages(leaf, part, row,
+                              num_pages=num_pages - first_page, axis=1)
+
+    # --- page copies (prefix sharing) ---------------------------------------
+
+    def copy_page(self, storage: Storage, src: int, dst: int) -> None:
+        """Copy pool page ``src`` to ``dst`` in every layer of every
+        tensor.  Backs copy-on-write and copy-on-adopt: the manager
+        queues (src, dst) pairs and the engine applies them before any
+        gather can read ``dst``."""
+        for leaf in storage.values():
+            raw = ops.bit_view(leaf)
+            raw[:, dst].copy_(raw[:, src])
+
+    # --- admission reset ----------------------------------------------------
+
+    def zero_slot(self, storage: Storage, slot: int) -> None:
+        """Nothing to reset: a freshly allocated page holds stale rows
+        only at positions >= the new request's ``kv_len``, which every
+        consumer masks (the reference zeroes only tensors that do not
+        page, and a dense model has none)."""
+
+    # --- sizing -------------------------------------------------------------
+
+    def storage_bytes(self) -> int:
+        return sum(_nbytes(self._paged_shape(s), dt)
+                   for s, dt in self.shapes.values())

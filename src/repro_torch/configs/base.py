@@ -5,7 +5,8 @@ so they hash, print and diff cleanly and a config file is only data.
 ``ModelConfig`` keeps the reference's dense-family fields; the attention
 implementation is not a config knob here, because the kernel follows the
 tensor's device (see ``repro_torch.kernels.ops``).  ``ServeConfig``
-carries the dense-path serving fields and the KV-cache format.
+carries the serving fields: planning, admission, the KV-cache format and
+its layout (dense or paged, with prefix sharing).
 """
 from __future__ import annotations
 
@@ -78,6 +79,29 @@ class ServeConfig:
     # decode attends through the fused-dequant kernel.  None =
     # kv_cache_dtype rules.
     kv_quant: Optional[str] = None
+    # repro_torch.cache storage layout: "dense" = one (B, max_len, ...)
+    # block per cache tensor; "paged" = fixed-size pages in a shared pool
+    # plus per-slot page tables, decode views gathered per resident
+    # bucket, admission gated on free pages.  Paged rides the metadata
+    # path.
+    cache_layout: str = "dense"
+    # paged layout: rows per page.  Must divide seqlen_bucket and
+    # prefill_bucket (views are gathered per resident bucket).
+    cache_page_size: int = 64
+    # paged layout: data pages in the pool.  None = dense-equivalent
+    # (batch_slots * ceil(max_len / page_size)).  Smaller budgets
+    # oversubscribe slots; exhaustion mid-generation finishes that
+    # request with finish_reason="cache_capacity".
+    cache_page_budget: Optional[int] = None
+    # paged layout: share identical prompt prefixes across requests
+    # (per-page refcounts, a token-keyed prefix trie, copy-on-write);
+    # only the unshared suffix is prefilled, as an ("sprefill", ...)
+    # planned launch.  Needs cache_layout="paged" and fused prefill.
+    share_prefix: bool = False
+    # share_prefix: max pages the trie keeps anchored beyond their
+    # owners (None = the pool is the only bound); anchored-only pages
+    # are evicted leaf-first LRU.
+    prefix_capacity: Optional[int] = None
     seed: int = 0
 
 

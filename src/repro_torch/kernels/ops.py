@@ -15,10 +15,17 @@ which :func:`policy_eval_count` counts.  A frozen plan's ``bucket`` cuts
 the cache to ``k[:, :bucket]`` before the split, so the splits partition
 the resident-length bucket rather than the cache's whole capacity.  Rows
 at or past ``kv_len`` are masked either way, so it is the same function.
+
+The paged cache's gather path lives here too: :class:`PagedKV` names one
+tensor's page pool, page table and page count, :func:`gather_pages`
+reads the pages of every slot into a dense view with one indexing op
+(over every layer at once when the pool is layer-stacked), and
+:func:`scatter_pages` writes a view back.  ``decode_attention`` takes a
+:class:`PagedKV` wherever it takes a cache tensor and gathers it first.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -61,6 +68,70 @@ def reset_launch_counts() -> None:
     build.LAUNCHES.clear()
 
 
+class PagedKV(NamedTuple):
+    """A paged view of one cache tensor, in place of a dense ``(B, L,
+    *rest)`` one.  ``pages`` is the shared pool ``(P, page, *rest)``,
+    ``page_table`` maps each slot to its pages ``(B, >= num_pages)``
+    int32, and ``num_pages`` is how many pages the launch attends over
+    (the resident-length bucket over the page size).  Table entries past
+    a slot's allocation point at the trash page, whose rows sit at
+    positions >= the slot's ``kv_len`` and are masked."""
+    pages: torch.Tensor
+    page_table: torch.Tensor
+    num_pages: int
+
+    @property
+    def view_len(self) -> int:
+        return self.num_pages * self.pages.shape[1]
+
+
+def bit_view(x: torch.Tensor) -> torch.Tensor:
+    """One-byte float storage (fp8) as uint8: indexed copies of fp8 are
+    not implemented on every device, and a bit copy is all they do."""
+    return x.view(torch.uint8) if x.dtype.is_floating_point \
+        and x.element_size() == 1 else x
+
+
+def gather_pages(pages: torch.Tensor, page_table: torch.Tensor, *,
+                 num_pages: int, axis: int = 0) -> torch.Tensor:
+    """A dense per-slot view of a page pool, in one ``index_select``.
+
+    ``pages``: ``(..., P, page, *rest)`` with the pool dim at ``axis``;
+    ``page_table``: ``(B, >= num_pages)`` int32.  Returns ``(..., B,
+    num_pages * page, *rest)``: the first ``num_pages`` pages of every
+    slot, in sequence order, as a new tensor."""
+    pt = page_table[:, :num_pages]
+    g = torch.index_select(bit_view(pages), axis, pt.reshape(-1))
+    shape = (pages.shape[:axis] + (pt.shape[0],
+                                   num_pages * pages.shape[axis + 1])
+             + pages.shape[axis + 2:])
+    return g.view(shape).view(pages.dtype)
+
+
+def scatter_pages(pages: torch.Tensor, view: torch.Tensor,
+                  page_table: torch.Tensor, *, num_pages: int,
+                  axis: int = 0) -> torch.Tensor:
+    """Write a dense per-slot view back into the pool, in place (the
+    inverse of :func:`gather_pages`); returns ``pages``.
+
+    Table entries that repeat (every slot's unallocated tail points at
+    the shared trash page) leave that one page's content
+    nondeterministic: its rows are masked by ``kv_len`` everywhere."""
+    pt = page_table[:, :num_pages].reshape(-1).long()
+    page = pages.shape[axis + 1]
+    vp = view.reshape(view.shape[:axis] + (pt.numel(), page)
+                      + view.shape[axis + 2:])
+    bit_view(pages).index_copy_(axis, pt, bit_view(vp.to(pages.dtype)))
+    return pages
+
+
+def _resolve_paged(x):
+    """A dense tensor -> itself; a :class:`PagedKV` -> its gathered view."""
+    if isinstance(x, PagedKV):
+        return gather_pages(x.pages, x.page_table, num_pages=x.num_pages)
+    return x
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               q_offset: int = 0) -> torch.Tensor:
@@ -75,12 +146,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(
     q: torch.Tensor,         # (B, Hq, D): one new token per sequence
-    k: torch.Tensor,         # (B, Lk, Hkv, D) KV cache (may be a view)
-    v: torch.Tensor,
+    k,                       # (B, Lk, Hkv, D) KV cache (may be a view),
+    v,                       # or a PagedKV
     kv_len: torch.Tensor,    # (B,) valid lengths
     *,
-    k_scale: Optional[torch.Tensor] = None,   # (B, Lk, Hkv) f32
-    v_scale: Optional[torch.Tensor] = None,
+    k_scale=None,            # (B, Lk, Hkv) f32, or a PagedKV
+    v_scale=None,
     plan: Optional[LaunchPlan] = None,
 ) -> torch.Tensor:
     """Split-KV decode attention; the split count comes from ``plan``.
@@ -91,8 +162,11 @@ def decode_attention(
     the cache is quantized: the quantized cache's decode kernel reads it,
     scales cut to the same bucket, again in one launch.  A context-only
     plan (or none, meaning ``paper`` at 132 SMs) has the policy decide
-    here, over the whole cache length.
+    here, over the whole cache length.  Any of ``k``, ``v``, ``k_scale``
+    and ``v_scale`` may be a :class:`PagedKV`, gathered first.
     """
+    k, v, k_scale, v_scale = (_resolve_paged(x)
+                              for x in (k, v, k_scale, v_scale))
     B, Hq, D = q.shape
     Hkv = k.shape[2]
     if plan is None or not plan.frozen:

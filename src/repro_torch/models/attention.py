@@ -1,10 +1,11 @@
-"""GQA attention block with a dense KV cache.
+"""GQA attention block over a KV cache.
 
 Counterpart of ``repro.models.attention`` (full attention).  A layer's
-cache is a dict of the engine's static tensors: ``k`` / ``v`` of shape
-``(B, max_len, H_kv, D)`` in the KV dtype, plus ``k_s`` / ``v_s`` f32
-scales of shape ``(B, max_len, H_kv)`` when the cache is quantized
-(int8 or fp8), as in the reference.
+cache is a dict of tensors: ``k`` / ``v`` of shape ``(B, L, H_kv, D)``
+in the KV dtype, plus ``k_s`` / ``v_s`` f32 scales of shape ``(B, L,
+H_kv)`` when the cache is quantized (int8 or fp8), as in the reference.
+They are views of the engine's static tensors (L = max_len) or of a view
+the paged layout gathered (L = the resident bucket).
 """
 from __future__ import annotations
 
@@ -121,6 +122,52 @@ def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], t + 1,
                                    plan=plan)
     return _out_proj(p, out)[:, None]
+
+
+def _place_rows(old: torch.Tensor, new: torch.Tensor, start: int) -> None:
+    """Write ``new`` (B, M, ...) into ``old`` (B, V, ...) at rows [start,
+    start + M), in place; rows past the view's end are dropped, not
+    clamped back into it (the reference masks them for the same reason).
+    One-byte storage is written as raw bytes: indexed writes of fp8 are
+    not implemented on every device."""
+    m = min(new.shape[1], old.shape[1] - start)
+    ops.bit_view(old)[:, start:start + m] = ops.bit_view(
+        new[:, :m].to(old.dtype))
+
+
+def attention_suffix_prefill(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                             cache: LayerCache, start: int, rope: Rope, *,
+                             kv_dtype: str = "bfloat16") -> torch.Tensor:
+    """Prefill only rows [start, start + M) against a resident prefix
+    (prefix sharing).  Returns y (1, M, d).
+
+    ``x`` (1, M, d) is the unshared suffix and ``rope`` its angles at
+    positions ``start + i``; ``cache`` is the slot's batch-1 view, whose
+    rows [0, start) hold the adopted pages' K/V.  The suffix's K/V
+    (quantized first for a quantized ``kv_dtype``) is placed into the
+    view in place, and the suffix queries attend over the whole view
+    through the causal ``q_offset = start``: rows past ``start + M`` are
+    the slot's unwritten tail, at key positions beyond every query.  As
+    in the reference, a quantized view is attended dequantized.  On the
+    card this runs the prefill kernel, which takes ``q_offset`` at run
+    time; the reference sends it to XLA, because its Pallas kernel needs
+    a static offset.
+    """
+    q, k, v = _project_qkv(p, cfg, x, rope)
+    if kv_dtype in QUANT_DTYPES:
+        qz = Quantizer.from_kv_dtype(kv_dtype)
+        (kq, ks), (vq, vs) = qz.quantize(k), qz.quantize(v)
+        for name, rows in (("k", kq), ("v", vq), ("k_s", ks), ("v_s", vs)):
+            _place_rows(cache[name], rows, start)
+        kf = qz.dequantize(cache["k"], cache["k_s"])
+        vf = qz.dequantize(cache["v"], cache["v_s"])
+    else:
+        _place_rows(cache["k"], k, start)
+        _place_rows(cache["v"], v, start)
+        kf, vf = cache["k"], cache["v"]
+    out = ops.attention(q, kf.to(q.dtype), vf.to(q.dtype), causal=True,
+                        q_offset=start)
+    return _out_proj(p, out)
 
 
 # int8 per-(token, head) transforms as module functions, as in the

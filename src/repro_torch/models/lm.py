@@ -2,14 +2,15 @@
 
 Counterpart of the dense path of ``repro.models.lm``.  Layers are an
 ``nn.ModuleList`` walked by a Python loop (the reference scans a
-layer-stacked pytree).  Caches are the engine's static dense buffers
-``{"k", "v"}`` of shape (layers, B, max_len, Hkv, D), plus ``{"k_s",
-"v_s"}`` f32 scales of shape (layers, B, max_len, Hkv) for a quantized
-cache, updated in place.
+layer-stacked pytree).  Caches are dicts of dense tensors ``{"k", "v"}``
+of shape (layers, B, L, Hkv, D), plus ``{"k_s", "v_s"}`` f32 scales of
+shape (layers, B, L, Hkv) for a quantized cache: the engine's static
+dense buffers (L = max_len), or a view the paged layout gathered (L =
+the resident bucket).  Decode and suffix prefill update them in place.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,7 +29,6 @@ from repro_torch.models.common import (
     unembed,
 )
 from repro_torch.plan import LaunchPlan
-from repro_torch.quant import Quantizer
 
 Caches = Dict[str, torch.Tensor]
 
@@ -82,14 +82,6 @@ def block_decode(block: Block, cfg: ModelConfig, x: torch.Tensor,
     return _ffn(block, cfg, x + mix)
 
 
-def cache_kv_dtype(caches: Caches) -> str:
-    """The KV_DTYPES name a cache dict was allocated for."""
-    qz = Quantizer.for_cache(caches)
-    if qz is not None:
-        return qz.spec.kv_dtype
-    return str(caches["k"].dtype).removeprefix("torch.")
-
-
 def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return unembed(params.embed,
                    rms_norm(x, params.final_norm.scale, cfg.norm_eps))
@@ -99,41 +91,67 @@ def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def lm_prefill_view(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
                     length: int, *, plan: Optional[LaunchPlan] = None,
                     kv_dtype: str = "bfloat16"
-                    ) -> Tuple[torch.Tensor, List[attn_mod.LayerCache]]:
+                    ) -> Tuple[torch.Tensor, Caches]:
     """Prefill one bucket-padded prompt ``tokens`` (Lb,) in one pass.
 
-    Returns (the logits at row ``length - 1`` (vocab,) f32, each layer's
-    cache rows: ``k`` / ``v`` (1, Lb, Hkv, D), and ``k_s`` / ``v_s`` (1,
-    Lb, Hkv) when ``kv_dtype`` is quantized).  Rows at or past ``length``
-    hold the padding's K/V: causal attention keeps them out of every real
-    row, and decode masks and then overwrites them.  ``plan`` is the
-    prefill-kind plan of the bucket; prefill never splits, so nothing in
-    it changes the math.
+    Returns (the logits at row ``length - 1`` (vocab,) f32, the prompt's
+    batch-1 cache rows: ``k`` / ``v`` (layers, 1, Lb, Hkv, D), and
+    ``k_s`` / ``v_s`` (layers, 1, Lb, Hkv) when ``kv_dtype`` is
+    quantized), one stacked tensor each, so a cache layout lands them in
+    one write per tensor.  Rows in [length, Lb) hold the padding's K/V:
+    causal attention keeps them out of every real row, and decode masks
+    and then overwrites them.  ``plan`` is the prefill-kind plan of the
+    bucket; prefill never splits, so nothing in it changes the math.
     """
     x = embed_tokens(params.embed, tokens[None])
-    rope = rope_angles(torch.arange(x.shape[1], device=x.device)[None],
+    lb = x.shape[1]
+    rope = rope_angles(torch.arange(lb, device=x.device)[None],
                        cfg.resolved_head_dim, cfg.rope_theta)
     kv = []
     for block in params.layers:
         x, rows = block_prefill(block, cfg, x, rope, kv_dtype)
         kv.append(rows)
-    return _logits(params, cfg, x[:, length - 1:length])[0, 0], kv
+    view = {name: torch.stack([rows[name] for rows in kv]) for name in kv[0]}
+    return _logits(params, cfg, x[:, length - 1:length])[0, 0], view
+
+
+def block_suffix_prefill(block: Block, cfg: ModelConfig, x: torch.Tensor,
+                         cache: attn_mod.LayerCache, start: int, rope: Rope,
+                         kv_dtype: str) -> torch.Tensor:
+    """One block over an unshared suffix (prefix sharing): rows [0,
+    start) of the layer's batch-1 cache view arrive resident, and the
+    suffix's K/V is written at [start, start + M) in place."""
+    h = rms_norm(x, block.ln1.scale, cfg.norm_eps)
+    mix = attn_mod.attention_suffix_prefill(block.mix, cfg, h, cache, start,
+                                            rope, kv_dtype=kv_dtype)
+    return _ffn(block, cfg, x + mix)
 
 
 @torch.no_grad()
-def lm_prefill_slot(params: LM, cfg: ModelConfig, caches: Caches,
-                    tokens: torch.Tensor, slot: int, length: int, *,
-                    plan: Optional[LaunchPlan] = None) -> torch.Tensor:
-    """Prefill one prompt into slot ``slot`` of the dense cache, in place:
-    rows [0, Lb) of every layer, quantized if the cache is.  Returns the
-    logits at the last real prompt row, (vocab,) f32."""
-    logits, kv = lm_prefill_view(params, cfg, tokens, length, plan=plan,
-                                 kv_dtype=cache_kv_dtype(caches))
-    lb = tokens.shape[0]
-    for li, rows in enumerate(kv):
-        for name, val in rows.items():
-            caches[name][li, slot, :lb] = val[0]
-    return logits
+def lm_prefill_suffix_view(params: LM, cfg: ModelConfig, view: Caches,
+                           tokens: torch.Tensor, start: int, length: int, *,
+                           plan: Optional[LaunchPlan] = None,
+                           kv_dtype: str = "bfloat16") -> torch.Tensor:
+    """Suffix-only admission prefill (prefix sharing).
+
+    The counterpart of :func:`lm_prefill_view` when rows [0, start) of
+    the batch-1 view ``view`` (layers, 1, V, ...) already hold a shared
+    prefix's K/V: one pass computes only the ``length - start`` unshared
+    rows (bucket-padded to ``tokens``' length Mb), attending over prefix
+    and suffix through the causal ``q_offset = start``, and writes their
+    K/V into ``view`` in place.  Returns the logits at prompt row
+    ``length - 1`` (vocab,) f32.  Padding rows land at key positions no
+    real query attends, as in :func:`lm_prefill_view`.
+    """
+    x = embed_tokens(params.embed, tokens[None])
+    pos = start + torch.arange(x.shape[1], device=x.device)
+    rope = rope_angles(pos[None], cfg.resolved_head_dim, cfg.rope_theta)
+    for li, block in enumerate(params.layers):
+        x = block_suffix_prefill(block, cfg, x,
+                                 {name: c[li] for name, c in view.items()},
+                                 start, rope, kv_dtype)
+    row = length - 1 - start
+    return _logits(params, cfg, x[:, row:row + 1])[0, 0]
 
 
 @torch.no_grad()

@@ -6,10 +6,12 @@ CUDA card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.cache.manager import CacheManager
+from repro_torch.cache.spec import CacheSpec
 from repro_torch.configs.base import ModelConfig, get_arch
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.common import init_params
@@ -31,7 +33,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 class Model:
-    """One dense LM on one device: params, dense cache, prefill, decode."""
+    """One dense LM on one device: params, caches, prefill, decode."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         if cfg.family != "dense":
@@ -49,39 +51,96 @@ class Model:
             gen.manual_seed(int(seed))
         return init_params(lm_mod.LM(self.cfg, self.device), gen)
 
-    def init_cache(self, batch: int, max_len: int,
-                   kv_dtype: str = "bfloat16") -> lm_mod.Caches:
-        """Dense K and V caches, (layers, batch, max_len, Hkv, D), zeroed,
-        in ``kv_dtype`` (a KV_DTYPES name).  A quantized ``kv_dtype``
-        ("int8" | "fp8") stores its storage dtype plus ``k_s`` / ``v_s``
-        f32 scales of shape (layers, batch, max_len, Hkv), as the
-        reference's ``kv_cache_specs``."""
+    def cache_shapes(self, batch: int, max_len: int,
+                     kv_dtype: str = "bfloat16"
+                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """Each dense cache tensor's (shape, dtype): K and V (layers,
+        batch, max_len, Hkv, D) in ``kv_dtype`` (a KV_DTYPES name); a
+        quantized ``kv_dtype`` ("int8" | "fp8") stores its storage dtype
+        plus ``k_s`` / ``v_s`` f32 scales of shape (layers, batch,
+        max_len, Hkv), as the reference's ``kv_cache_specs``.  Every one
+        is position-linear (row t holds position t), so every one pages."""
         cfg = self.cfg
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
         if kv_dtype in QUANT_DTYPES:
             dt = QUANT_DTYPES[kv_dtype].torch_dtype
-            scales = {name: torch.zeros(shape[:4], dtype=torch.float32,
-                                        device=self.device)
+            scales = {name: (shape[:4], torch.float32)
                       for name in ("k_s", "v_s")}
         else:
             dt = getattr(torch, kv_dtype)
             scales = {}
-        return {"k": torch.zeros(shape, dtype=dt, device=self.device),
-                "v": torch.zeros(shape, dtype=dt, device=self.device),
-                **scales}
+        return {"k": (shape, dt), "v": (shape, dt), **scales}
+
+    def init_cache(self, batch: int, max_len: int,
+                   kv_dtype: str = "bfloat16") -> lm_mod.Caches:
+        """Dense caches of :meth:`cache_shapes`, zeroed, on this device."""
+        return {name: torch.zeros(shape, dtype=dt, device=self.device)
+                for name, (shape, dt) in self.cache_shapes(
+                    batch, max_len, kv_dtype).items()}
+
+    @property
+    def supports_prefix_sharing(self) -> bool:
+        """Whether ``share_prefix`` may index this model's pages: every
+        dense cache tensor is position-linear, so it pages, and suffix
+        prefill is the restartable form of fused prefill."""
+        return self.supports_fused_prefill
+
+    def cache_spec(self, batch: int, max_len: int,
+                   kv_dtype: str = "bfloat16", *, layout: str = "dense",
+                   page_size: int = 64, page_budget: Optional[int] = None,
+                   share_prefix: bool = False,
+                   prefix_capacity: Optional[int] = None) -> CacheSpec:
+        """The declarative :class:`~repro_torch.cache.spec.CacheSpec` for
+        this model's caches, the input a
+        :class:`~repro_torch.cache.manager.CacheManager` resolves into a
+        layout."""
+        if share_prefix and not self.supports_prefix_sharing:
+            raise ValueError(
+                f"{self.cfg.family} models cannot share prefix pages "
+                "(needs paged caches, fused prefill and a uniform "
+                "full-attention stack)")
+        return CacheSpec(self.cfg.family, batch, max_len, kv_dtype=kv_dtype,
+                         layout=layout, page_size=page_size,
+                         page_budget=page_budget, share_prefix=share_prefix,
+                         prefix_capacity=prefix_capacity)
+
+    def cache_manager(self, batch: int, max_len: int,
+                      kv_dtype: str = "bfloat16",
+                      **layout_kw) -> CacheManager:
+        """Resolve :meth:`cache_spec` into a
+        :class:`~repro_torch.cache.manager.CacheManager` (the owner of
+        residency and page tables; the engine holds the storage)."""
+        return CacheManager(self, self.cache_spec(batch, max_len, kv_dtype,
+                                                  **layout_kw))
 
     @property
     def supports_fused_prefill(self) -> bool:
         return True                     # dense, token inputs only
 
-    def prefill_slot(self, params: lm_mod.LM, caches: lm_mod.Caches,
-                     tokens: torch.Tensor, slot: int, length: int, *,
-                     plan: Optional[LaunchPlan] = None) -> torch.Tensor:
-        """Prefill the bucket-padded prompt ``tokens`` into ``slot`` in
-        place; returns the logits at row ``length - 1`` (vocab,) f32."""
-        return lm_mod.lm_prefill_slot(params, self.cfg, caches, tokens, slot,
-                                      length, plan=plan)
+    def prefill_slot_view(self, params: lm_mod.LM, tokens: torch.Tensor,
+                          length: int, *,
+                          plan: Optional[LaunchPlan] = None,
+                          kv_dtype: str = "bfloat16"):
+        """Prefill the bucket-padded prompt ``tokens`` (Lb,): (the logits
+        at row ``length - 1`` (vocab,) f32, the prompt's batch-1 cache
+        rows (layers, 1, Lb, ...)), written nowhere; the cache layout's
+        ``write_slot`` lands them in a slot."""
+        return lm_mod.lm_prefill_view(params, self.cfg, tokens, length,
+                                      plan=plan, kv_dtype=kv_dtype)
+
+    def prefill_suffix_view(self, params: lm_mod.LM, view: lm_mod.Caches,
+                            tokens: torch.Tensor, start: int, length: int,
+                            *, plan: Optional[LaunchPlan] = None,
+                            kv_dtype: str = "bfloat16") -> torch.Tensor:
+        """Suffix-only prefill over a batch-1 cache view whose rows [0,
+        start) hold a shared prefix's K/V: ``tokens`` is the bucket-padded
+        unshared suffix, ``length`` the whole prompt's length.  Writes
+        the suffix rows into ``view`` in place and returns the logits at
+        prompt row ``length - 1``."""
+        return lm_mod.lm_prefill_suffix_view(params, self.cfg, view, tokens,
+                                             start, length, plan=plan,
+                                             kv_dtype=kv_dtype)
 
     def decode_step(self, params: lm_mod.LM, caches: lm_mod.Caches,
                     token: torch.Tensor, t: torch.Tensor, *,

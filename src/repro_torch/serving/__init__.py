@@ -1,6 +1,9 @@
 """Serving (counterpart of ``repro.serving``): the request-lifecycle
 engine, its scheduler, sampling and events."""
-from repro_torch.serving.engine import ServingEngine  # noqa: F401
+from repro_torch.serving.engine import (  # noqa: F401
+    DecodeEngine,
+    ServingEngine,
+)
 from repro_torch.serving.events import (  # noqa: F401
     FINISH_CACHE_CAPACITY,
     FINISH_EOS,

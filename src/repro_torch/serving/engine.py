@@ -1,8 +1,7 @@
 """Request-lifecycle serving engine: submit / step / stream / drain.
 
-Counterpart of ``repro.serving.engine.ServingEngine`` on one device with
-the dense cache.  A fixed pool of ``B`` decode slots runs in lockstep;
-each slot carries its own position.
+Counterpart of ``repro.serving.engine`` on one device.  A fixed pool of
+``B`` decode slots runs in lockstep; each slot carries its own position.
 
 - :meth:`ServingEngine.submit` enqueues a :class:`Request` and returns a
   handle.
@@ -21,16 +20,34 @@ bucket, so the policy runs zero times inside a launch
 (``kernels.ops.policy_eval_count`` stays flat).  On the card the plans
 are made for the card's SM count.
 
-The K/V caches are static buffers of the engine, written in place by
-prefill and decode; the reference instead threads updated copies
-through donated jitted steps.
+Cache layouts (``repro_torch.cache``): a
+:class:`~repro_torch.cache.manager.CacheManager` resolves the engine's
+:class:`~repro_torch.cache.spec.CacheSpec` into a layout; the engine
+holds the storage tensors, which prefill and decode write in place (the
+reference threads updated copies through donated jitted steps).
+Both layouts run through the same layout calls.  ``dense`` is one
+``(layers, B, max_len, ...)`` tensor per cache tensor, its own decode
+view.  ``paged`` stores them as fixed-size pages with per-slot page tables:
+each decode launch gathers the resident bucket's pages of every slot,
+runs the planned step on that view and writes back the page each slot
+wrote; admission is gated on free pages, and a request whose next page
+the pool cannot cover finishes alone with ``finish_reason=
+"cache_capacity"``.  Under ``share_prefix`` admission adopts the pages
+of an already-prefilled prompt prefix (refcounts, copy-on-write) and
+prefills only the unshared suffix, keyed ``("sprefill", view_bucket,
+suffix_bucket)``; queued page copies land before any launch that
+gathers.
+
+:class:`DecodeEngine` is the batch-synchronous facade
+(``generate(requests) -> completions``): loop admission and greedy
+sampling, as the reference's.
 """
 from __future__ import annotations
 
 import functools
 import warnings
 from collections import deque
-from typing import Deque, Dict, Iterator, List, Optional
+from typing import Any, Deque, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -96,6 +113,41 @@ class ServingEngine:
         # the cache's storage dtype (a KV_DTYPES name); kv_quant wins
         self.kv_dtype = scfg.kv_quant or scfg.kv_cache_dtype
 
+        layout = scfg.cache_layout
+        if layout == "paged":
+            if not self.use_metadata:
+                raise ValueError(
+                    "the paged cache layout rides the metadata-enabled "
+                    "plan path (views are gathered per resident-length "
+                    "bucket); set use_scheduler_metadata=True or "
+                    "cache_layout='dense'")
+            for width in (scfg.seqlen_bucket,
+                          scfg.prefill_bucket or scfg.seqlen_bucket):
+                if width % scfg.cache_page_size:
+                    raise ValueError(
+                        f"cache_page_size ({scfg.cache_page_size}) must "
+                        f"divide the plan bucket widths (got {width})")
+        self.share_prefix = scfg.share_prefix
+        if self.share_prefix:
+            if layout != "paged":
+                raise ValueError(
+                    "share_prefix maps prompts onto existing pages; set "
+                    "cache_layout='paged'")
+            if self.prefill_mode != "fused":
+                raise ValueError(
+                    "prefix sharing admits through the fused prefill "
+                    "path (suffix prefill is its restartable form); "
+                    "prefill_mode='loop' cannot start from adopted pages")
+        self._cache_kw = dict(kv_dtype=self.kv_dtype, layout=layout,
+                              page_size=scfg.cache_page_size,
+                              page_budget=scfg.cache_page_budget,
+                              share_prefix=scfg.share_prefix,
+                              prefix_capacity=scfg.prefix_capacity)
+        # residency bookkeeping and the layout; load() makes a fresh one
+        # together with fresh storage
+        self.cache = model.cache_manager(self.B, self.max_len,
+                                         **self._cache_kw)
+
         num_cores = None
         if self.device.type == "cuda":
             num_cores = torch.cuda.get_device_properties(
@@ -123,7 +175,9 @@ class ServingEngine:
         self._queues: Dict[int, Deque[Event]] = {}
         self._completions: Dict[int, Completion] = {}
         self._undrained: List[int] = []
+        # once-per-engine warnings, one flag per capacity condition
         self._warned_len_capacity = False
+        self._warned_page_capacity = False
 
     # --- observability ------------------------------------------------------
 
@@ -138,37 +192,86 @@ class ServingEngine:
     def planned_prefill_buckets(self) -> List[int]:
         return self.sched.planned_prefill_buckets()
 
+    def planned_suffix_buckets(self) -> List[Any]:
+        return self.sched.planned_suffix_buckets()
+
+    def cache_stats(self) -> Dict[str, Any]:
+        """The cache manager's layout / residency / page-pool summary."""
+        return self.cache.describe()
+
     # --- state --------------------------------------------------------------
 
     def load(self, params) -> None:
-        """Bind weights and allocate fresh zeroed caches (a new session)."""
+        """Bind weights and allocate fresh zeroed storage with fresh
+        residency and page tables (a new session)."""
         dev = next(params.parameters()).device
         if dev.type != self.device.type:
             raise ValueError(f"params live on {dev}, engine on "
                              f"{self.device}")
         self._params = params
-        self._caches = self.model.init_cache(self.B, self.max_len,
-                                             kv_dtype=self.kv_dtype)
+        self.cache = self.model.cache_manager(self.B, self.max_len,
+                                              **self._cache_kw)
+        self._caches = self.cache.init_storage()
 
     # --- bound steps --------------------------------------------------------
 
     def _decode_impl(self, token: torch.Tensor, t: torch.Tensor,
-                     plan: LaunchPlan) -> torch.Tensor:
-        logits = self.model.decode_step(self._params, self._caches, token, t,
+                     plan: LaunchPlan, num_pages: int) -> torch.Tensor:
+        """Lockstep decode over the resident bucket's view.  Paged: one
+        gather per cache tensor (every layer at once), the planned step
+        on the view, then only the page holding each slot's new row goes
+        back.  Dense: the storage is the view and the step writes it."""
+        lay = self.cache.layout
+        table = self.cache.table_device()
+        t = lay.decode_positions(t, num_pages)
+        view = lay.gather_view(self._caches, table, num_pages)
+        logits = self.model.decode_step(self._params, view, token, t,
                                         plan=plan)
+        lay.write_token(self._caches, view, table, t, num_pages)
         return self.sampler.sample(logits)
 
     def _prefill_impl(self, tokens: torch.Tensor, slot: int, length: int,
-                      plan: LaunchPlan) -> int:
-        logits = self.model.prefill_slot(self._params, self._caches, tokens,
-                                         slot, length, plan=plan)
+                      plan: LaunchPlan, num_pages: int) -> int:
+        """Fused single-slot prefill; the layout lands the rows."""
+        logits, view = self.model.prefill_slot_view(
+            self._params, tokens, length, plan=plan, kv_dtype=self.kv_dtype)
+        self.cache.layout.write_slot(self._caches, view,
+                                     self.cache.table_device(), slot,
+                                     num_pages)
         return int(self.sampler.sample(logits[None])[0])
 
-    def _build_decode(self, plan: LaunchPlan):
-        return functools.partial(self._decode_impl, plan=plan)
+    def _suffix_prefill_impl(self, tokens: torch.Tensor, slot: int,
+                             start: int, length: int, plan: LaunchPlan,
+                             num_pages: int) -> int:
+        """Suffix-only prefill (prefix sharing): gather the slot's view,
+        whose rows [0, start) arrived with adopted pages, compute only
+        the unshared suffix against it, and scatter back the pages from
+        the one holding row ``start`` on: the slot's own, since the
+        boundary page was copied on adoption.  The adopted full pages,
+        which other slots and the trie read, are not written."""
+        lay = self.cache.layout
+        table = self.cache.table_device()
+        view = lay.slot_view(self._caches, table, slot, num_pages)
+        logits = self.model.prefill_suffix_view(
+            self._params, view, tokens, start, length, plan=plan,
+            kv_dtype=self.kv_dtype)
+        lay.write_slot(self._caches, view, table, slot, num_pages,
+                       first_page=start // self.cache.spec.page_size)
+        return int(self.sampler.sample(logits[None])[0])
 
-    def _build_prefill(self, plan: LaunchPlan):
-        return functools.partial(self._prefill_impl, plan=plan)
+    def _build(self, impl, plan: LaunchPlan):
+        # plan.bucket spans the whole view: the resident length for
+        # decode, the prompt for prefill and suffix prefill
+        return functools.partial(impl, plan=plan,
+                                 num_pages=self.cache.spec.view_pages(
+                                     plan.bucket))
+
+    def _apply_copies(self) -> None:
+        """Apply the cache manager's queued (src, dst) page copies.  Runs
+        before any launch that could gather a copied-into page: until its
+        copy lands, a page fresh from the free list holds garbage."""
+        for src, dst in self.cache.drain_copies():
+            self.cache.layout.copy_page(self._caches, src, dst)
 
     # --- request lifecycle --------------------------------------------------
 
@@ -176,6 +279,18 @@ class ServingEngine:
         """Raise on requests that could never run (no state mutated)."""
         self.sched.validate(req)
         self.sampler.check(req.sampling)
+        if self.cache.is_paged:
+            # +1: the request must also fit its first decode row, or a
+            # prompt whose pages fill the pool would admit and then wait
+            # forever on a page no finish can free
+            need = self.cache.pages_for(len(req.prompt) + 1)
+            limit = self.cache.max_request_pages()
+            if need > limit:
+                raise ValueError(
+                    f"request {req.request_id}: prompt plus its first "
+                    f"decode row needs {need} pages, page budget allows "
+                    f"{limit} per request "
+                    f"(page_size={self.cache.spec.page_size})")
 
     def submit(self, req: Request) -> int:
         """Enqueue a request; returns its handle (admission happens on a
@@ -199,7 +314,7 @@ class ServingEngine:
             raise RuntimeError("call load(params) first")
         events: List[Event] = []
         while True:
-            adm = self.sched.admit_next()
+            adm = self.sched.admit_next(self._admissible)
             if adm is None:
                 break
             self._admit(*adm, events)
@@ -207,6 +322,14 @@ class ServingEngine:
         if live:
             self._decode_launch(live, events)
         return events
+
+    def _admissible(self, st: SlotState) -> bool:
+        """Page-budget admission gate (dense always admits): the queue
+        head needs its whole prompt's pages free; under prefix sharing,
+        only those its shared prefix does not already cover."""
+        if self.share_prefix:
+            return self.cache.can_admit(st.request.prompt)
+        return self.cache.can_reserve(len(st.request.prompt))
 
     def stream(self, handle: int) -> Iterator[Event]:
         """Iterate one handle's events in order, stepping as needed.  Once
@@ -248,41 +371,90 @@ class ServingEngine:
     # --- internals ----------------------------------------------------------
 
     def _admit(self, i: int, st: SlotState, events: List[Event]) -> None:
+        # the whole prompt's pages are reserved up front (all-or-nothing;
+        # _admissible already checked the free list, so this cannot fail)
+        prompt = st.request.prompt
+        if self.share_prefix:
+            shared = self.cache.admit_prompt(i, prompt)
+            if shared is None:
+                raise RuntimeError("admission raced the page free list")
+        else:
+            if not self.cache.reserve(i, len(prompt)):
+                raise RuntimeError("admission raced the page free list")
+            shared = 0
         if self.prefill_mode == "fused":
-            self._admit_fused(i, st, events)
+            self._admit_fused(i, st, events, shared)
             return
         # loop admission teacher-forces the prompt through decode steps;
-        # the slot's rows (data and scales) are zeroed first, as the
+        # the slot's rows (data and scales) are reset first, as the
         # reference does
-        for c in self._caches.values():
-            c[:, i].zero_()
-        st.prompt_left = list(st.request.prompt)
+        self.cache.layout.zero_slot(self._caches, i)
+        st.prompt_left = list(prompt)
         self._pos[i] = 0
         self._next_token[i] = st.prompt_left.pop(0)
 
-    def _admit_fused(self, i: int, st: SlotState,
-                     events: List[Event]) -> None:
+    def _admit_fused(self, i: int, st: SlotState, events: List[Event],
+                     shared: int = 0) -> None:
         """Prefill the prompt in one planned launch; the slot joins the
-        decode lockstep holding its first token."""
+        decode lockstep holding its first token.  With ``shared`` > 0
+        (prefix sharing) the launch is the suffix-only one: rows [0,
+        shared) came with the adopted pages, and it counts under an
+        ``("sprefill", ...)`` key, never ``("prefill", ...)``."""
         prompt = st.request.prompt
         n = len(prompt)
-        entry = self.sched.prefill_entry(n, self._build_prefill)
-        toks = np.zeros(entry.key[1], np.int64)
-        toks[:n] = prompt
-        tok = entry.step(torch.from_numpy(toks).to(self.device), i, n)
+        if shared:
+            # adopted boundary rows travel by page copy: land them before
+            # the suffix launch gathers the slot's view
+            self._apply_copies()
+            entry = self.sched.suffix_prefill_entry(
+                n - shared, n,
+                functools.partial(self._build, self._suffix_prefill_impl))
+            toks = np.zeros(entry.key[2], np.int64)
+            toks[:n - shared] = prompt[shared:]
+            tok = entry.step(torch.from_numpy(toks).to(self.device), i,
+                             shared, n)
+        else:
+            entry = self.sched.prefill_entry(
+                n, functools.partial(self._build, self._prefill_impl))
+            toks = np.zeros(entry.key[1], np.int64)
+            toks[:n] = prompt
+            tok = entry.step(torch.from_numpy(toks).to(self.device), i, n)
+        self.cache.note_write(i, n - 1)
+        if self.share_prefix:
+            # index the now-resident full pages so the next request that
+            # shares the prefix adopts them
+            self.cache.register_prefix(i, prompt)
         self._pos[i] = n
         st.completion.steps += 1
         self._emit_token(i, st, tok, events)
 
     def _decode_launch(self, live, events: List[Event]) -> None:
+        # every live slot is about to write row _pos[i]: allocate its
+        # page now (paged), and finish (only) the requests whose page the
+        # pool cannot cover.  A finish releases pages, so a later slot may
+        # succeed because an earlier one was culled.
+        for i, st in live:
+            if not self.cache.ensure(i, int(self._pos[i])):
+                self._finish_capacity(i, st, events)
+        live = self.sched.live()
+        if not live:
+            return
+        # ensure() may have copy-on-written a shared page; its contents
+        # must land before this launch's gather
+        self._apply_copies()
+        for i, _ in live:
+            self.cache.note_write(i, int(self._pos[i]))
         tok = torch.from_numpy(self._next_token).to(self.device)
         t = torch.from_numpy(self._pos).to(self.device)
         t_max = max(int(self._pos[i]) for i, _ in live)
         if self.use_metadata:
-            step = self.sched.decode_entry(t_max, self._build_decode).step
+            step = self.sched.decode_entry(
+                t_max, functools.partial(self._build, self._decode_impl)).step
         else:
+            # dense only (paged needs the metadata path): the whole cache
             step = functools.partial(self._decode_impl,
-                                     plan=self._fallback_plan)
+                                     plan=self._fallback_plan,
+                                     num_pages=self.cache.spec.slot_pages)
             self.stats.record_fallback(t_max + 1, self.max_len)
         out = step(tok, t).cpu().numpy()    # host copy waits for the launch
         for i, st in live:
@@ -299,6 +471,9 @@ class ServingEngine:
 
     def _finish(self, i: int, st: SlotState, reason: str,
                 events: List[Event]) -> None:
+        """Stamp the reason, emit FINISHED to the step's events and the
+        handle's queue, release the slot and its cache residency (its
+        table row goes back to the trash page)."""
         comp = st.completion
         comp.finish_reason = reason
         fin = Event(FINISHED, st.handle, comp.request_id,
@@ -306,6 +481,23 @@ class ServingEngine:
         events.append(fin)
         self._queues[st.handle].append(fin)
         self.sched.finish(i)
+        self.cache.release(i)
+
+    def _finish_capacity(self, i: int, st: SlotState,
+                         events: List[Event]) -> None:
+        """Finish one request on page-pool exhaustion, before the launch:
+        no token is produced this step, since its K/V row has nowhere to
+        go.  The rest of the batch keeps decoding."""
+        if not self._warned_page_capacity:
+            self._warned_page_capacity = True
+            warnings.warn(
+                f"request {st.request.request_id} exhausted the KV page "
+                f"pool ({self.cache.spec.total_pages} pages of "
+                f"{self.cache.spec.page_size}) mid-generation; finishing "
+                "with finish_reason='cache_capacity' (further page "
+                "exhaustions on this engine are silent)",
+                RuntimeWarning, stacklevel=3)
+        self._finish(i, st, FINISH_CACHE_CAPACITY, events)
 
     def _finish_reason(self, i: int, st: SlotState,
                        token: int) -> Optional[str]:
@@ -341,3 +533,40 @@ class ServingEngine:
             self._finish(i, st, reason, events)
         else:
             self._next_token[i] = token
+
+
+class DecodeEngine:
+    """Batch-synchronous facade: ``generate(requests)``.
+
+    A thin wrapper over :class:`ServingEngine` pinned to loop admission
+    (teacher-forcing the prompt through decode steps) and
+    :class:`~repro_torch.serving.sampling.GreedySampler`, as the
+    reference's; :meth:`generate` validates every request before it
+    submits any, so a bad request fails fast instead of aborting the
+    batch mid-flight.
+    """
+
+    def __init__(self, model: Model, scfg: ServeConfig, *,
+                 max_len: int = 256, batch_slots: int = 4,
+                 policy: Optional[str] = None, device: DeviceLike = None):
+        self.engine = ServingEngine(model, scfg, max_len=max_len,
+                                    batch_slots=batch_slots, policy=policy,
+                                    prefill_mode="loop",
+                                    sampler=GreedySampler(), device=device)
+
+    @property
+    def stats(self) -> PlanCacheStats:
+        return self.engine.stats
+
+    def load(self, params) -> None:
+        self.engine.load(params)
+
+    def planned_splits(self) -> Dict[int, int]:
+        return self.engine.planned_splits()
+
+    def generate(self, requests: Sequence[Request]) -> List[Completion]:
+        for req in requests:
+            self.engine.validate(req)
+        for req in requests:
+            self.engine.submit(req)
+        return self.engine.drain()

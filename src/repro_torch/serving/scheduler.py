@@ -1,14 +1,17 @@
 """Scheduler: slot admission, per-slot request state, bucketed plans.
 
-Counterpart of ``repro.serving.scheduler`` (dense, single device).  It
+Counterpart of ``repro.serving.scheduler`` (single device).  It
 owns the fixed pool of decode slots, the pending queue, and, through the
 :class:`~repro_torch.plan.Planner` and one
 :class:`~repro_torch.plan.PlanCache`, every launch-plan decision the
 engine consumes:
 
-- decode plans, keyed by the int resident-length bucket;
+- decode plans, keyed by the int resident-length bucket (under the paged
+  layout that bucket is also the view every decode launch gathers);
 - prefill plans, keyed by ``("prefill", bucket)`` with the prompt length
-  rounded up to ``prefill_bucket``.
+  rounded up to ``prefill_bucket``;
+- suffix-prefill plans (prefix sharing), keyed by ``("sprefill",
+  view_bucket, suffix_bucket)``.
 
 ``num_cores`` is the machine the policy plans for: the card's SM count
 when the engine runs on one.
@@ -107,13 +110,21 @@ class Scheduler:
         self.pending.append(st)
         return st
 
-    def admit_next(self) -> Optional[Tuple[int, SlotState]]:
+    def admit_next(self, admissible: Optional[
+            Callable[[SlotState], bool]] = None
+            ) -> Optional[Tuple[int, SlotState]]:
         """Pop the queue head into the lowest free slot (None when no
-        slot is free or nothing is pending)."""
+        slot is free or nothing is pending).  ``admissible`` gates the
+        head on a resource the scheduler does not own (the engine passes
+        the cache manager's free-page check); a refused head blocks the
+        queue, FIFO, until a finish frees its pages."""
         if not self.pending:
             return None
         for i, slot in enumerate(self.slots):
             if slot is None:
+                if admissible is not None \
+                        and not admissible(self.pending[0]):
+                    return None
                 st = self.pending.popleft()
                 self.slots[i] = st
                 return i, st
@@ -179,6 +190,28 @@ class Scheduler:
 
         return self.plans.get_or_build(key, miss)
 
+    def suffix_prefill_entry(self, suffix_len: int, total_len: int,
+                             build: Callable[[LaunchPlan], Any]
+                             ) -> PlanEntry:
+        """Suffix-only prefill (prefix sharing): queries span the
+        unshared suffix, bucketed to ``mb``, and keys the whole resident
+        prompt, the view bucket ``vb``, so entries key on the pair
+        ``("sprefill", vb, mb)``.  Launches under these keys are what
+        show that a shared admission ran no full prefill."""
+        mb = min(bucket_seqlen(suffix_len, self.prefill_bucket_width),
+                 self.max_len)
+        vb = self.prefill_len(total_len)
+        key = ("sprefill", vb, mb)
+
+        def miss() -> PlanEntry:
+            cfg = self.cfg
+            spec = AttentionSpec("prefill", 1, mb, vb, cfg.num_heads,
+                                 cfg.num_kv_heads, cfg.resolved_head_dim)
+            plan = self.planner.plan(spec, bucket=vb)
+            return PlanEntry(key, plan, build(plan))
+
+        return self.plans.get_or_build(key, miss)
+
     # --- observability ------------------------------------------------------
 
     def planned_splits(self) -> Dict[int, int]:
@@ -189,3 +222,8 @@ class Scheduler:
     def planned_prefill_buckets(self) -> List[int]:
         return sorted(k[1] for k in self.plans.keys()
                       if isinstance(k, tuple) and k[0] == "prefill")
+
+    def planned_suffix_buckets(self) -> List[Tuple[int, int]]:
+        """Resident suffix-prefill (view, suffix) bucket pairs, sorted."""
+        return sorted((k[1], k[2]) for k in self.plans.keys()
+                      if isinstance(k, tuple) and k[0] == "sprefill")

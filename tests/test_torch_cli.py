@@ -1,0 +1,102 @@
+"""The port's DecodeEngine and serving CLI against the reference's, on
+the CPU.
+
+Same weights (JAX-initialised, passed through ``repro_torch.interop``)
+or, for the CLI, the reference's own seeded request stream: the
+completions, plan counters and summary lines must be identical.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from repro.configs.base import ServeConfig as JServeConfig
+from repro.serving import DecodeEngine as JDecodeEngine
+from repro.serving import Request as JRequest
+from repro.serving import SamplingParams as JSamplingParams
+from repro_torch.configs.base import ServeConfig
+from repro_torch.serving import DecodeEngine, Request, SamplingParams
+from test_torch_serving import _reqs, tiny  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_decode_engine_generate_matches_reference(tiny):
+    """The batch-synchronous facade: loop admission, greedy; the
+    reference's completions, and a bad request refused before any runs."""
+    jcfg, jmodel, jparams, cfg, model, params = tiny
+    jeng = JDecodeEngine(jmodel, JServeConfig(model=jcfg), max_len=64,
+                         batch_slots=2)
+    jeng.load(jparams)
+    eng = DecodeEngine(model, ServeConfig(model=cfg), max_len=64,
+                       batch_slots=2, device="cpu")
+    eng.load(params)
+    assert eng.engine.prefill_mode == jeng.engine.prefill_mode == "loop"
+    jdone = jeng.generate(_reqs(JRequest, JSamplingParams))
+    done = eng.generate(_reqs(Request, SamplingParams))
+    assert [(c.tokens, c.finish_reason, c.steps) for c in done] == \
+        [(c.tokens, c.finish_reason, c.steps) for c in jdone]
+    assert eng.stats.launches == jeng.stats.launches
+    assert eng.planned_splits() == jeng.planned_splits()
+    bad = _reqs(Request, SamplingParams) + [Request(9, [])]
+    with pytest.raises(ValueError, match="empty prompt"):
+        eng.generate(bad)
+    assert not eng.engine.has_work()
+
+
+def _summary(log):
+    return [x for x in log if x.startswith(
+        ("paged cache:", "prefix sharing:", "frozen plans",
+         "fused prefill buckets", "kv quant:"))]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(cache_layout="paged"),
+    dict(cache_layout="paged", share_prefix=True),
+    dict(cache_layout="paged", kv_quant="int8"),
+    dict(prefill_mode="loop", policy="fa3_baseline"),
+], ids=["dense", "paged", "paged_shared", "paged_int8", "loop_fa3"])
+def test_run_serving_reports_the_reference_counts(kw):
+    """``run_serving`` on the CPU over the reference's seeded request
+    stream: the same prompts and completion lengths, and the same frozen
+    plans, prefill buckets, page counts and prefix hits in the summary
+    lines as the reference's ``run_serving``."""
+    from repro.launch.serve import run_serving as j_run_serving
+    from repro_torch.launch.serve import run_serving
+    kw = dict(num_requests=6, max_new=6, d_model=64, **kw)
+    jlines, lines = [], []
+    jouts = j_run_serving("qwen2.5-3b", log_fn=jlines.append, **kw)
+    outs = run_serving("qwen2.5-3b", device="cpu", log_fn=lines.append, **kw)
+    assert [c.prompt for c in outs] == [c.prompt for c in jouts]
+    assert [len(c.tokens) for c in outs] == [len(c.tokens) for c in jouts]
+    assert _summary(lines) == _summary(jlines)
+    if kw.get("share_prefix"):
+        assert "prefix sharing: 5 hits" in _summary(lines)[2]
+
+
+def test_serve_module_runs_and_refuses_unported_flags():
+    """``python -m repro_torch.launch.serve`` runs on the CPU and prints
+    the reference's summary wording; flags for what the port does not
+    serve (sampling, speculation, tracing, mesh) are not in its parser."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.serve",
+            "--arch", "qwen2.5-3b", "--device", "cpu", "--requests", "3",
+            "--max-new", "3"]
+    out = subprocess.run(base + ["--cache-layout", "paged",
+                                 "--share-prefix", "--stream"],
+                         capture_output=True, text=True, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "policy=paper: 3 requests, 9 tokens" in out.stdout
+    assert "prefix sharing: 2 hits" in out.stdout
+    assert "req 0 finished (length)" in out.stdout
+    for flag in (["--temperature", "0.5"], ["--speculate", "ngram"],
+                 ["--trace", "t.json"], ["--mesh", "1,1"],
+                 ["--tune-table", "t.json"]):
+        bad = subprocess.run(base + flag, capture_output=True, text=True,
+                             env=env, timeout=120)
+        assert bad.returncode == 2, flag
+        assert "unrecognized arguments" in bad.stderr, flag

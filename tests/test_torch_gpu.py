@@ -38,6 +38,7 @@ from repro_torch.kernels.flash_decode_quant import (
 )
 from repro_torch.kernels.flash_prefill import flash_prefill, prefill_plain
 from repro_torch.models import build_model
+from repro_torch.plan import AttentionSpec, Planner
 from repro_torch.quant import AB_ATOL, QuantizedKV, Quantizer
 from repro_torch.serving import Request, ServingEngine
 
@@ -737,3 +738,151 @@ def test_table1_cells_through_the_metadata_path(cuda):
                 changed.add((lk, hkv))
     assert changed == {(512, 1), (512, 2)}
     assert ops.policy_eval_count() == 0
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_paged_engine_serves_the_dense_streams(cuda, kv_quant):
+    """Reduced qwen2.5-3b at head_dim 128 (d_model 512), bf16 weights:
+    a paged engine (page 64, dense-equivalent budget) gathers the same
+    rows of every slot as the dense engine attends, so it serves the
+    dense engine's streams bit for bit, with the same launches by kernel
+    and by (view, S) and (dtype, Lq) key, and the same frozen splits."""
+    cfg = reduced_config("qwen2.5-3b", num_layers=2, d_model=512)
+    model = build_model(cfg, device="cuda")
+    params = model.init_params(0)
+    decode = "flash_decode_quant" if kv_quant else "flash_decode"
+    runs = {}
+    for layout in ("dense", "paged"):
+        eng = ServingEngine(model, ServeConfig(model=cfg, kv_quant=kv_quant,
+                                               cache_layout=layout),
+                            max_len=512, batch_slots=2, device="cuda")
+        eng.load(params)
+        ops.reset_launch_counts()
+        ops.reset_policy_eval_count()
+        for i, n in enumerate((3, 140, 9, 300)):
+            eng.submit(Request(i, [(5 * i + j) % 250 + 1 for j in range(n)],
+                               max_new_tokens=8))
+        done = eng.drain()
+        runs[layout] = ([c.tokens for c in done], ops.launch_counts(),
+                        ops.launch_counts_by_key(decode),
+                        ops.launch_counts_by_key("flash_prefill"),
+                        eng.planned_splits())
+        assert ops.policy_eval_count() == 0
+    assert runs["paged"] == runs["dense"]
+    eng.cache.check_conservation()
+
+
+def test_suffix_prefill_attention_matches_plain(cuda, monkeypatch):
+    """Prefix sharing's suffix prefill on the card, reduced qwen2.5-3b at
+    head_dim 128: every layer's attention launches the prefill kernel
+    with ``q_offset = start`` over the slot's view, within 3e-2 of
+    ``prefill_plain`` on the model's own inputs; then a shared engine
+    admits its followers through suffix launches alone."""
+    from repro_torch.models import lm
+    cfg = reduced_config("qwen2.5-3b", num_layers=2, d_model=512)
+    model = build_model(cfg, device="cuda")
+    params = model.init_params(0)
+    calls = []
+
+    def checked(q, k, v, **kw):
+        got = flash_prefill(q, k, v, **kw)
+        torch.testing.assert_close(got.float(),
+                                   prefill_plain(q, k, v, **kw).float(),
+                                   rtol=3e-2, atol=3e-2)
+        calls.append(kw["q_offset"])
+        return got
+
+    toks = torch.arange(1, 201, device="cuda") % 250
+    padded = torch.zeros(256, dtype=toks.dtype, device="cuda")
+    padded[:200] = toks
+    _, view = lm.lm_prefill_view(params, cfg, padded, 200)
+    suffix = torch.zeros(128, dtype=toks.dtype, device="cuda")
+    suffix[:72] = toks[128:]
+    monkeypatch.setattr(ops, "flash_prefill", checked)
+    logits = lm.lm_prefill_suffix_view(params, cfg, view, suffix, 128, 200)
+    assert calls == [128] * cfg.num_layers
+    assert bool(torch.isfinite(logits).all())
+    monkeypatch.undo()
+    eng = ServingEngine(model, ServeConfig(model=cfg, cache_layout="paged",
+                                           share_prefix=True),
+                        max_len=512, batch_slots=2, device="cuda")
+    eng.load(params)
+    system = [(3 * j) % 250 + 1 for j in range(192)]
+    for i in range(4):
+        eng.submit(Request(i, system + [i + 1] * (5 + i), max_new_tokens=4))
+    done = eng.drain()
+    assert [len(c.tokens) for c in done] == [4] * 4
+    kinds = {}
+    for k, v in eng.stats.launches.items():
+        if isinstance(k, tuple):
+            kinds[k[0]] = kinds.get(k[0], 0) + v
+    assert kinds == {"prefill": 1, "sprefill": 3}
+    eng.cache.check_conservation()
+
+
+# Prefix sharing's suffix prefill: a padded suffix of 128 rows over a
+# slot's view from q_offset = the shared rows; at Lk 1024 the last query
+# rows lie past the view's end (chip_smoke.py's SUFFIX_CASES): Lq, Lk,
+# q_offset
+SUFFIX_CASES = [(128, 512, 448), (128, 1024, 960), (128, 1024, 1000)]
+
+
+@pytest.mark.parametrize("mul", [(1.0, 1.0), (10.0, 100.0)],
+                         ids=["random", "large_values"])
+@pytest.mark.parametrize("lq,lk,offset", SUFFIX_CASES)
+def test_prefill_at_suffix_shapes(cuda, lq, lk, offset, mul):
+    """The prefill kernel at the suffix prefill's shapes, including
+    ``q_offset + Lq > Lk`` (rows past the view's end attend every key),
+    on random data and on K x 10, V x 100 data, against the plain
+    version; the same inputs give the same bits."""
+    q, k, v = _prefill_inputs(cuda, 1, lq, lk, 16, 2, 128, torch.float32)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k * mul[0], v * mul[1]))
+    kw = dict(causal=True, q_offset=offset)
+    got = flash_prefill(q, k, v, **kw)
+    torch.testing.assert_close(got.float(),
+                               prefill_plain(q, k, v, **kw).float(),
+                               rtol=3e-2, atol=3e-2)
+    assert torch.equal(flash_prefill(q, k, v, **kw), got)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+@pytest.mark.parametrize("bucket,lens,s", [(1024, (1000, 450), 8),
+                                           (384, (60, 320), 1),
+                                           (512, (484,), 3)])
+def test_paged_decode_equals_dense_bits(cuda, kv_dtype, bucket, lens, s):
+    """The decode kernels over a paged cache: a pool holds a dense cache's
+    pages in a shuffled order (page 0, the trash page, holds none), and
+    ``ops.decode_attention`` over ``PagedKV`` views of it launches the
+    same kernel once and gives the dense launch's bits on the same
+    resident view (K1 over bf16, K4 over int8 and fp8 with their scales
+    paged beside the codes)."""
+    b, cap, hkv, g, d, page = len(lens), 2048, 2, 8, 128, 64
+    kv_len = torch.tensor(lens, device="cuda", dtype=torch.int32)
+    q = _rand(cuda, (b, hkv * g, d))
+    if kv_dtype:
+        art = _poisoned_cache(cuda, b, cap, hkv, d, kv_len, kv_dtype)
+        dense = dict(k=art.k, v=art.v, k_scale=art.k_scale,
+                     v_scale=art.v_scale)
+    else:
+        dense = dict(k=_rand(cuda, (b, cap, hkv, d)),
+                     v=_rand(cuda, (b, cap, hkv, d)))
+    n = cap // page
+    table = (torch.randperm(b * n, device="cuda", generator=cuda)
+             + 1).view(b, n).int()
+    paged = {}
+    for name, x in dense.items():
+        pool = x.new_zeros((b * n + 1, page) + x.shape[2:])
+        ops.bit_view(pool)[table.reshape(-1).long()] = ops.bit_view(
+            x).reshape((b * n, page) + x.shape[2:])
+        paged[name] = ops.PagedKV(pool, table, bucket // page)
+    plan = Planner(num_splits_override=s).plan(
+        AttentionSpec.decode(b, bucket, hkv * g, hkv, d,
+                             kv_dtype=kv_dtype or "bfloat16"),
+        bucket=bucket)
+    want = ops.decode_attention(q, kv_len=kv_len, plan=plan, **dense)
+    ops.reset_launch_counts()
+    got = ops.decode_attention(q, kv_len=kv_len, plan=plan, **paged)
+    name = "flash_decode_quant" if kv_dtype else "flash_decode"
+    assert ops.launch_counts_by_key(name) == {(bucket, s): 1}
+    assert torch.equal(got, want)
+

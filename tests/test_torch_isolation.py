@@ -40,7 +40,9 @@ def test_no_module_imports_jax_or_repro():
                  "repro_torch.quant.quantizer",
                  "repro_torch.kernels.flash_decode_quant",
                  "repro_torch.core.occupancy",
-                 "repro_torch.core.scheduler_metadata"):
+                 "repro_torch.core.scheduler_metadata",
+                 "repro_torch.cache.manager", "repro_torch.cache.layout",
+                 "repro_torch.launch.serve"):
         assert want in res["modules"]
 
 
@@ -50,10 +52,18 @@ def test_entry_points_raise_without_cuda():
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.reduced import reduced_config
     from repro_torch.models import build_model
-    from repro_torch.serving import ServingEngine
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.serving import DecodeEngine, ServingEngine
     cfg = reduced_config("qwen2.5-3b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg)
     model = build_model(cfg, device="cpu")
+    for engine in (ServingEngine, DecodeEngine):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            engine(model, ServeConfig(model=cfg))
+        engine(model, ServeConfig(model=cfg), device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        ServingEngine(model, ServeConfig(model=cfg))
+        run_serving("qwen2.5-3b", num_requests=1, max_new=1)
+    assert len(run_serving("qwen2.5-3b", num_requests=1, max_new=1,
+                           d_model=64, device="cpu",
+                           log_fn=lambda line: None)) == 1

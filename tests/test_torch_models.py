@@ -72,7 +72,8 @@ def test_prefill_and_decode_logits_match_jax(pair):
     jcfg, jmodel, jparams, cfg, model, params = pair
     prompts = _prompts()
     jcaches = jmodel.init_cache(len(LENS), MAX_LEN, kv_dtype="float32")
-    caches = model.init_cache(len(LENS), MAX_LEN, kv_dtype="float32")
+    layout = model.cache_manager(len(LENS), MAX_LEN, "float32").layout
+    caches = layout.init_storage()
     next_tok = []
     for slot, p in enumerate(prompts):
         lb = bucket_seqlen(len(p), 16)
@@ -81,9 +82,10 @@ def test_prefill_and_decode_logits_match_jax(pair):
         jlogits, jcaches = jlm.lm_prefill_slot(
             jparams, jcfg, jcaches, jnp.asarray(padded), jnp.int32(slot),
             jnp.int32(len(p)), MAX_LEN)
-        logits = model.prefill_slot(params, caches,
-                                    torch.from_numpy(padded).long(), slot,
-                                    len(p))
+        logits, rows = model.prefill_slot_view(
+            params, torch.from_numpy(padded).long(), len(p),
+            kv_dtype="float32")
+        layout.write_slot(caches, rows, None, slot, 0)
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                    **TOL)
         assert int(logits.argmax()) == int(jnp.argmax(jlogits))

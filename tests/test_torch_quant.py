@@ -362,7 +362,8 @@ def test_quantized_prefill_and_decode_match_jax(tiny_f32, kv_dtype):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, 256, n).astype(np.int32) for n in LENS]
     jcaches = jmodel.init_cache(len(LENS), MAX_LEN, kv_dtype=kv_dtype)
-    caches = model.init_cache(len(LENS), MAX_LEN, kv_dtype=kv_dtype)
+    layout = model.cache_manager(len(LENS), MAX_LEN, kv_dtype).layout
+    caches = layout.init_storage()
     next_tok = []
     for slot, p in enumerate(prompts):
         lb = bucket_seqlen(len(p), 16)
@@ -371,9 +372,10 @@ def test_quantized_prefill_and_decode_match_jax(tiny_f32, kv_dtype):
         jlogits, jcaches = jlm.lm_prefill_slot(
             jparams, jcfg, jcaches, jnp.asarray(padded), jnp.int32(slot),
             jnp.int32(len(p)), MAX_LEN, kv_dtype=kv_dtype)
-        logits = model.prefill_slot(params, caches,
-                                    torch.from_numpy(padded).long(), slot,
-                                    len(p))
+        logits, rows = model.prefill_slot_view(
+            params, torch.from_numpy(padded).long(), len(p),
+            kv_dtype=kv_dtype)
+        layout.write_slot(caches, rows, None, slot, 0)
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                    **TOL)
         next_tok.append(int(jnp.argmax(jlogits)))

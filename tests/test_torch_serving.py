@@ -43,15 +43,21 @@ def tiny():
         tree, cfg, device="cpu")
 
 
-def _reqs(cls, sp_cls, lens=(3, 9, 2, 5), max_new=(6, 4, 8, 5), **kw):
-    return [cls(i, [(7 * i + j) % 200 + 1 for j in range(n)],
-                max_new_tokens=m, sampling=sp_cls(), **kw)
-            for i, (n, m) in enumerate(zip(lens, max_new))]
+def _reqs(cls, sp_cls, lens=(3, 9, 2, 5), max_new=(6, 4, 8, 5),
+          prompts=None, **kw):
+    if prompts is None:
+        prompts = [[(7 * i + j) % 200 + 1 for j in range(n)]
+                   for i, n in enumerate(lens)]
+    return [cls(i, list(p), max_new_tokens=m, sampling=sp_cls(), **kw)
+            for i, (p, m) in enumerate(zip(prompts, max_new))]
 
 
-def _run_both(tiny, *, slots=2, max_len=64, reqs_kw=None, **scfg_kw):
+def _run_both(tiny, *, slots=2, max_len=64, reqs_kw=None, prompts=None,
+              **scfg_kw):
+    """Serve ``_reqs`` (or ``prompts``) through the JAX engine and the
+    port's, each with a greedy sampler, on one set of weights."""
     jcfg, jmodel, jparams, cfg, model, params = tiny
-    reqs_kw = reqs_kw or {}
+    reqs_kw = dict(reqs_kw or {}, prompts=prompts)
     jeng = JServingEngine(jmodel, JServeConfig(model=jcfg, **scfg_kw),
                           max_len=max_len, batch_slots=slots,
                           sampler=JGreedySampler())
