@@ -12,6 +12,10 @@ Run from the repository root, on a machine with the card and nvcc:
     python3 chip_smoke.py --phase shapes  # build + the configs' shapes
     python3 chip_smoke.py --phase paged   # build + paged, prefix sharing,
                                           # DecodeEngine, the serving CLI
+    python3 chip_smoke.py --phase spec    # build + speculative decoding
+                                          # and the sampled path
+    python3 chip_smoke.py --phase archs   # build + codeqwen1.5-7b and
+                                          # stablelm-12b at full width
 
 Phases, each fatal on failure:
 
@@ -99,7 +103,7 @@ Phases, each fatal on failure:
 4b. The slice's paths (``phase_paged_all``), each driven with the launch
    counts zeroed just before and read just after.  Paged against dense
    (``phase_paged``): the serving cell through a dense and a paged engine
-   (page 64, dense-equivalent budget), three runs of each in turns after
+   (page 64, dense-equivalent budget), two runs of each in turns after
    a warm-up, with a bf16, an int8 and an fp8 cache: the same streams,
    launches by kernel and by key, and splits, no policy evaluation,
    conservation; the paper cell and the serving decode shape profiled in
@@ -116,7 +120,44 @@ Phases, each fatal on failure:
    (``phase_decode_engine``: loop admission, every layer's decode
    attention against ``decode_plain``).  The serving CLI
    (``phase_cli``: ``run_serving`` four ways, then the module as a
-   subprocess, which must exit 0).
+   subprocess twice, with ``--share-prefix`` and with ``--speculate ngram
+   --temperature 0.8``, each of which must exit 0).
+4c. Speculative decoding and the sampled path (``phase_spec``), on
+   ``benchmarks/spec_ab.py``'s workload at full width (8 prompts, half
+   repetitive, half random, 32 new tokens, 4 slots, k = 4): spec-off,
+   ``ngram`` and the replay oracle (registered through
+   ``register_drafter``, replaying the spec-off run), dense and paged
+   (page 64), and ``ngram`` and the oracle under int8 (paged; the oracle
+   always drafts, so verify runs over the dequantized view).  Each run
+   zeroes the
+   launch counts just before and reads them just after: the decode
+   kernels' launches by (view, S) must be what the run's plan keys imply
+   (36 per plain step, K4's under int8; 36 x (k + 1) of K1 per verify
+   step of k drafts, at its ``("verify", k, bucket)`` plan), the prefill
+   kernel 36 per admission, no policy evaluation, finite logits,
+   conservation (paged); the dense ``ngram`` run holds every layer's
+   verify attention of its first 4 verify steps against ``decode_plain``
+   row by row at 2e-2; ``verify_vs_decode`` feeds 5 tokens as 5 decode
+   steps and as one verify block from one cache and checks equal output
+   bits wherever a layer-row's attention inputs are equal.  A sampled
+   pass (temperature 0.8, top-k 50, top-p 0.9, request 0 greedy),
+   spec-off and with the oracle's drafts, twice each: the same
+   tokens, greedy rows equal to GreedySampler's bits, and spec-off,
+   request 0's stream equal to the GreedySampler engine's.  Acceptance,
+   tokens per verify step, where spec-on streams leave spec-off's, the
+   median verify-step ms, the sampler's share of a verify step and one
+   profiled verify step are printed, not checked.
+4d. codeqwen1.5-7b (32 layers, MHA: G 1, D 128, QKV bias) and stablelm-12b
+   (40 layers, G 4, D 160) at full width, bf16, seeded random weights,
+   one at a time (``phase_archs``): the serving cell's prompts, 16 new
+   tokens, 2 slots, with a bf16 cache and under int8, each twice: a run
+   that holds every layer's prefill attention against ``prefill_plain``
+   (3e-2) and decode attention against ``decode_plain`` /
+   ``decode_quant_plain`` (2e-2) on the model's own inputs, then a timed
+   run that must take the same path and give the same streams; decode
+   launches 1 a layer a step, no policy evaluation, finite logits;
+   admission-step and median decode-step ms, the parameter count and
+   ``torch.cuda.max_memory_allocated`` printed.
 5. One JSON ``kernels`` line: per kernel its error (a decode row's at
    that row's own inputs, over NaN/Inf tails), launches on the main
    path (the bf16 run's; the quantized decode and the combine kernels'
@@ -136,8 +177,12 @@ Phases, each fatal on failure:
    shape (Lq 128, Lk 1024, ``q_offset`` 960, with the first timed shared
    bf16 run of the prefix cell's launches); both decode kernels a row
    at Table 1's two changed cells under ``paper`` (bf16, and int8), with
-   the launches of phase 4's Table 1 run.  Every phase prints its wall
-   seconds.
+   the launches of phase 4's Table 1 run; the decode kernel at one
+   verify row of the spec cell (B=4, view 128, the verify plan), with
+   the dense ``ngram`` run's verify-row launches; and per config of
+   phase 4d the decode kernel (bf16, and int8) at B=2 view 1024 and the
+   prefill kernel at 1024, with that config's launches there.  Every
+   phase prints its wall seconds.
 
 ``--phase admission`` times the serving cell's admission
 steps alone, five runs on one engine; ``--phase times`` times the
@@ -164,6 +209,7 @@ import argparse
 import contextlib
 import cProfile
 import functools
+import gc
 import hashlib
 import json
 import os
@@ -833,11 +879,15 @@ class CheckedGreedy(GreedySampler):
         self.finite = torch.ones((), dtype=torch.bool, device=DEVICE)
         self.margins = []
 
-    def sample(self, logits):
+    def sample(self, logits, *args):
         self.finite &= torch.isfinite(logits).all()
         top = torch.topk(logits, 2, dim=-1).values
         self.margins.append(top[:, 0] - top[:, 1])
-        return super().sample(logits)
+        return super().sample(logits, *args)
+
+    def verify(self, logits, *args):
+        self.finite &= torch.isfinite(logits).all()
+        return super().verify(logits, *args)
 
 
 def drive(engine, requests, sampler=None):
@@ -1391,8 +1441,9 @@ def phase_profile(model, params, cfg, seed: int, steps: int = 8,
 # the paged cache, prefix sharing, DecodeEngine and the serving CLI
 # ---------------------------------------------------------------------------
 
-# the paged-against-dense runs of the serving cell, in turns
-PAGED_ORDER = ("dense", "paged") * 3
+# the paged-against-dense runs of the serving cell, in turns (two of each:
+# the run grew two phases, and this is the deepest earlier path)
+PAGED_ORDER = ("dense", "paged") * 2
 # the prefix cell: a 1000-token system prompt (15 full pages of 64 and 40
 # rows) opening PREFIX_REQUESTS requests with unique tails of 4-11 tokens,
 # PREFIX_NEW new tokens each through PREFIX_SLOTS slots, page 64, a
@@ -1402,7 +1453,7 @@ PAGED_ORDER = ("dense", "paged") * 3
 PREFIX_SYSTEM, PREFIX_REQUESTS, PREFIX_SLOTS, PREFIX_NEW = 1000, 6, 4, 16
 PREFIX_PAGES = {True: 23, False: 98}
 PREFIX_RUNS = 3           # timed runs of each arm, in turns
-FOLLOWER_ROUNDS = 15      # timed follower admission steps of each arm
+FOLLOWER_ROUNDS = 10      # timed follower admission steps of each arm
 
 
 def prefix_prompts(vocab: int, seed: int = 0):
@@ -1461,7 +1512,7 @@ def same_path(a, b, label):
 def phase_paged(model, params, cfg, seed: int):
     """Paged against dense at full width: the serving cell's 4 requests
     (32 new tokens each, 2 slots) through a dense and a paged engine (page
-    64, dense-equivalent budget) after one dense warm-up run, three runs
+    64, dense-equivalent budget) after one dense warm-up run, two runs
     of each layout in turns, with a bf16, an int8 and an fp8 cache; the
     launch counts zeroed just before each run and read just after.  Every
     run takes the warm-up's path: the same streams, launches by kernel and
@@ -1859,8 +1910,9 @@ def phase_cli():
     512, 2 layers) dense, paged, paged with prefix sharing and paged
     under int8, no policy evaluation, the paged-cache and prefix-sharing
     lines printed; then ``python -m repro_torch.launch.serve
-    --cache-layout paged --share-prefix`` as a subprocess, which must exit
-    0."""
+    --cache-layout paged --share-prefix`` and ``... --speculate ngram
+    --temperature 0.8`` as subprocesses, which must exit 0 (the second
+    printing the speculation line)."""
     from repro_torch.launch.serve import run_serving
     cli = {}
     for kw in (dict(), dict(cache_layout="paged"),
@@ -1889,16 +1941,790 @@ def phase_cli():
         print(f"cli {name}: launches {json.dumps(counts)} | "
               + " | ".join(summary))
         cli[name] = summary
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           "qwen2.5-3b", "--cache-layout", "paged", "--share-prefix"]
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=600)
-    print(f"cli subprocess {' '.join(cmd[1:])}: exit {res.returncode}; "
-          + " | ".join(res.stdout.strip().splitlines()[-4:]))
-    check(res.returncode == 0, f"cli subprocess failed: {res.stderr[-2000:]}")
-    cli["subprocess_rc"] = res.returncode
+    module = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+              "qwen2.5-3b"]
+    for flags, key in ((["--cache-layout", "paged", "--share-prefix"],
+                        "subprocess_rc"),
+                       (["--speculate", "ngram", "--temperature", "0.8"],
+                        "subprocess_speculate_sampled_rc")):
+        cmd = module + flags
+        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        print(f"cli subprocess {' '.join(cmd[1:])}: exit {res.returncode}; "
+              + " | ".join(res.stdout.strip().splitlines()[-4:]))
+        check(res.returncode == 0,
+              f"cli subprocess failed: {res.stderr[-2000:]}")
+        if "--speculate" in flags:
+            check("speculation (ngram, k=4): " in res.stdout,
+                  "cli subprocess: no speculation line")
+        cli[key] = res.returncode
     return cli
+
+
+# ---------------------------------------------------------------------------
+# the two dense configs still missing, at full width
+# ---------------------------------------------------------------------------
+
+# codeqwen1.5-7b (MHA: G = 1, D 128, QKV bias) and stablelm-12b (G = 4,
+# D 160): the serving cell's prompts, 16 new tokens each, 2 slots
+ARCHS = ("codeqwen1.5-7b", "stablelm-12b")
+ARCH_NEW = 16
+
+
+@contextlib.contextmanager
+def checked_kernels(acc):
+    """Within the block, every prefill-kernel launch and every decode-
+    kernel launch (bf16 or quantized cache) is held against its plain
+    version on the same inputs: prefill at PREFILL_TOL, decode at
+    DECODE_TOL and QUANT_TOL.  ``acc`` gathers the largest errors and the
+    number of checks by kernel name.  Each wrapper launches its kernel
+    once, so the launch counts are the unchecked path's."""
+    for name in ("flash_prefill", "flash_decode", "flash_decode_quant"):
+        acc.setdefault(name, {"max_abs_err": 0.0, "checks": 0})
+
+    def note(name, got, want, tol):
+        acc[name]["max_abs_err"] = max(acc[name]["max_abs_err"],
+                                       max_err(got, want, tol))
+        acc[name]["checks"] += 1
+        return got
+
+    def prefill(q, k, v, **kw):
+        return note("flash_prefill", flash_prefill(q, k, v, **kw),
+                    prefill_plain(q, k, v, **kw), PREFILL_TOL)
+
+    def decode(q, k, v, kv_len, *, num_splits, out_dtype):
+        kw = dict(num_splits=num_splits, out_dtype=out_dtype)
+        return note("flash_decode", fdec.flash_decode(q, k, v, kv_len, **kw),
+                    fdec.decode_plain(q, k, v, kv_len, **kw), DECODE_TOL)
+
+    def decode_quant(q, k, v, k_scale, v_scale, kv_len, *, num_splits,
+                     out_dtype):
+        args = (q, k, v, k_scale, v_scale, kv_len)
+        kw = dict(num_splits=num_splits, out_dtype=out_dtype)
+        return note("flash_decode_quant", fdq.flash_decode_quant(*args, **kw),
+                    fdq.decode_quant_plain(*args, **kw), QUANT_TOL)
+
+    with ops_route("flash_prefill", prefill), \
+            ops_route("flash_decode", decode), \
+            ops_route("flash_decode_quant", decode_quant):
+        yield acc
+
+
+def arch_run(model, params, cfg, prompts, kv_quant=None):
+    """One config's serving cell: the requests through 2 slots with a
+    bf16 cache or under ``kv_quant``, twice on fresh engines, the launch
+    counts zeroed just before each run and read just after.  The first
+    run holds every layer's prefill attention against ``prefill_plain``
+    and every layer's decode attention against ``decode_plain`` (int8:
+    ``decode_quant_plain``) on the model's own inputs; the second, which
+    is timed, must take the same path and give the same streams."""
+    label = f"{cfg.name} {kv_quant or 'bf16'}"
+    layers = cfg.num_layers
+    decode = "flash_decode_quant" if kv_quant else "flash_decode"
+    runs, acc = [], {}
+    for checked in (True, False):
+        sampler = CheckedGreedy()
+        engine = ServingEngine(model, ServeConfig(model=cfg,
+                                                  kv_quant=kv_quant),
+                               max_len=2048, batch_slots=2, policy="paper",
+                               sampler=sampler, device=DEVICE)
+        engine.load(params)
+        reqs = [Request(i, p, max_new_tokens=ARCH_NEW)
+                for i, p in enumerate(prompts)]
+        ops.reset_launch_counts()
+        ops.reset_policy_eval_count()
+        with checked_kernels(acc) if checked else contextlib.nullcontext():
+            ttft, decode_ms, wall, done, _, admits = drive(engine, reqs)
+        torch.cuda.synchronize()
+        st = engine.stats
+        run = {"streams": [c.tokens for c in done],
+               "counts": ops.launch_counts(),
+               "by_key": {name: ops.launch_counts_by_key(name)
+                          for name in ("flash_decode", "flash_decode_quant",
+                                       "flash_prefill")},
+               "steps": sum(v for k, v in st.launches.items()
+                            if isinstance(k, int)),
+               "admissions": sum(v for k, v in st.launches.items()
+                                 if isinstance(k, tuple)),
+               "evals": ops.policy_eval_count(), "splits":
+               engine.planned_splits(), "decode_ms": decode_ms,
+               "admits": admits}
+        counts = run["counts"]
+        check(bool(sampler.finite.item()), f"archs {label}: non-finite "
+              f"logits")
+        check(counts[decode] == layers * run["steps"],
+              f"archs {label}: {counts[decode]} {decode} launches over "
+              f"{run['steps']} decode steps")
+        check(counts["flash_prefill"] == layers * run["admissions"]
+              == layers * len(prompts), f"archs {label}: prefill launches")
+        other = "flash_decode" if kv_quant else "flash_decode_quant"
+        check(counts[other] == 0 and counts["flash_combine"] == 0,
+              f"archs {label}: launches {counts}")
+        check(run["evals"] == 0, f"archs {label}: policy evaluated")
+        check(st.misses == st.distinct_buckets, f"archs {label}: plan "
+              f"misses != buckets")
+        check([len(c.tokens) for c in done] == [ARCH_NEW] * len(prompts)
+              and all(c.finish_reason == "length" for c in done),
+              f"archs {label}: completions")
+        runs.append(run)
+    first, timed_run = runs
+    counts = first["counts"]
+    check(acc[decode]["checks"] == counts[decode]
+          and acc["flash_prefill"]["checks"] == counts["flash_prefill"],
+          f"archs {label}: {acc} checks against {first['counts']}")
+    for key in ("streams", "counts", "by_key", "splits"):
+        check(first[key] == timed_run[key], f"archs {label}: the checked "
+              f"and the timed run differ in {key}")
+    step_ms = median(timed_run["decode_ms"])
+    print(f"archs {label}: {first['admissions']} admissions, "
+          f"{first['steps']} decode steps, launches "
+          f"{json.dumps(first['counts'])}, splits {first['splits']}, 0 "
+          f"policy evaluations; prefill attention of "
+          f"{acc['flash_prefill']['checks']} layer prompts against "
+          f"prefill_plain: max abs err "
+          f"{acc['flash_prefill']['max_abs_err']:.4g}; decode attention of "
+          f"{acc[decode]['checks']} layer steps against "
+          f"{'decode_quant_plain' if kv_quant else 'decode_plain'} on the "
+          f"model's inputs: max abs err {acc[decode]['max_abs_err']:.4g}")
+    for buckets, ms in timed_run["admits"]:
+        print(f"archs {label} admission step, prompt buckets {buckets}: "
+              f"{ms:.3f} ms wall")
+    print(f"archs {label}: median decode step {step_ms:.3f} ms over "
+          f"{len(timed_run['decode_ms'])} steps")
+    return {"admissions": first["admissions"], "decode_steps": first["steps"],
+            "launches": first["counts"],
+            "decode_launches": {f"{v} S{s}": n for (v, s), n in sorted(
+                first["by_key"][decode].items())},
+            "prefill_launches": {f"{dt} {lq}": n for (dt, lq), n in sorted(
+                first["by_key"]["flash_prefill"].items())},
+            "checks": acc, "splits": first["splits"],
+            "admission_steps": [{"buckets": bk, "ms": ms}
+                                for bk, ms in timed_run["admits"]],
+            "decode_step_ms": step_ms}
+
+
+def phase_archs(seed: int):
+    """codeqwen1.5-7b and stablelm-12b at full width, bf16, seeded random
+    weights, one at a time: each serves the serving cell's prompts (37,
+    300, 450, 1000 tokens, 16 new tokens, 2 slots) with a bf16 cache and
+    under int8 (``arch_run``), then is freed before the next loads."""
+    out = {}
+    for arch in ARCHS:
+        cfg = get_arch(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=DEVICE)
+        params = model.init_params(seed)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"archs model {cfg.name}: {cfg.num_layers} layers d_model "
+              f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} "
+              f"(G {cfg.q_group_size}) head_dim {cfg.resolved_head_dim} "
+              f"d_ff {cfg.d_ff} vocab {cfg.vocab_size} qkv_bias "
+              f"{cfg.qkv_bias} {cfg.param_dtype}: {n_params} params, init "
+              f"{time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in SERVING_PROMPTS]
+        res = {"params": n_params, "heads": (cfg.num_heads,
+                                             cfg.num_kv_heads,
+                                             cfg.resolved_head_dim)}
+        for kv_quant in (None, "int8"):
+            res[kv_quant or "bf16"] = arch_run(model, params, cfg, prompts,
+                                               kv_quant)
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        print(f"archs {cfg.name}: torch.cuda.max_memory_allocated "
+              f"{res['max_memory_allocated']} B")
+        out[arch] = res
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def arch_kernel_rows(gen, sms: int, archs):
+    """The kernels line's rows at each config's shapes, with the launches
+    its serving runs counted there: the decode kernel at B=2, view 1024,
+    kv_len [1000, 450] (the second wave's decode shape) under ``paper``,
+    over a bf16 cache and over int8 (NaN / poisoned tails), and the bf16
+    prefill kernel at Lq = Lk = 1024 (the 1000-token prompt's bucket)."""
+    rows = []
+    for arch, res in archs.items():
+        hq, hkv, d = res["heads"]
+        g = hq // hkv
+        s = Planner(policy="paper", num_cores=sms).plan(AttentionSpec.decode(
+            2, 1024, hq, hkv, d)).num_splits
+        sq = Planner(policy="paper", num_cores=sms).plan(AttentionSpec.decode(
+            2, 1024, hq, hkv, d, kv_dtype="int8")).num_splits
+        k, v = (rand(gen, (2, 1024, hkv, d)) for _ in range(2))
+        c = decode_case(rand(gen, (2, hq, d)), k, v, 1024, (1000, 450), s)
+        n = int(c["lens"].sum())
+        err, _ = check_decode(c)
+        rows.append(dict(
+            name="flash_decode", shape=f"{arch} G{g} D{d} {c['label']} "
+                                       f"fused combine",
+            fn=functools.partial(fdec.flash_decode, c["qp"], c["kp"],
+                                 c["vp"], c["lens"], num_splits=s),
+            plain=functools.partial(fdec.decode_plain, c["qp"], c["kv"],
+                                    c["vv"], c["lens"], num_splits=s),
+            lib=c["sdpa"],
+            nbytes=2 * n * hkv * d * 2 + 2 * c["qp"].numel() * 2,
+            flops=4 * n * hq * d, err=err,
+            launches=res["bf16"]["decode_launches"].get(f"1024 S{s}", 0)))
+        art = Quantizer.from_kv_dtype("int8").quantized_kv(k.float(),
+                                                           v.float())
+        qc = quant_case(c["q"], art, 1024, (1000, 450), sq, "int8")
+        qerr, _ = check_decode_quant(qc)
+        rows.append(dict(
+            name="flash_decode_quant",
+            shape=f"{arch} G{g} D{d} {qc['label']} fused combine",
+            fn=functools.partial(fdq.flash_decode_quant, qc["qp"],
+                                 *qc["pview"], qc["lens"], num_splits=sq),
+            plain=functools.partial(fdq.decode_quant_plain, qc["qp"],
+                                    *qc["view"], qc["lens"], num_splits=sq),
+            lib=None, nbytes=2 * n * hkv * (d + 4) + 2 * qc["qp"].numel() * 2,
+            flops=4 * n * hq * d + 2 * n * hkv * d, peak=INT8_OPS_PER_S,
+            err=qerr,
+            launches=res["int8"]["decode_launches"].get(f"1024 S{sq}", 0)))
+        pq, pk, pv = prefill_case(gen, 1, 1024, 1024, hq, hkv, d)
+        rows.append(dict(
+            name="flash_prefill",
+            shape=f"{arch} B1 Lq=Lk=1024 Hq{hq} Hkv{hkv} D{d} causal bf16",
+            fn=functools.partial(flash_prefill, pq, pk, pv, causal=True),
+            plain=functools.partial(prefill_plain, pq, pk, pv, causal=True),
+            lib=functools.partial(F.scaled_dot_product_attention,
+                                  *(t.transpose(1, 2) for t in (pq, pk, pv)),
+                                  is_causal=True, scale=1.0, enable_gqa=True),
+            nbytes=2 * (2 * pq.numel() + pk.numel() + pv.numel()),
+            flops=4 * hq * d * 1024 * 1025 / 2,
+            err=max_err(flash_prefill(pq, pk, pv, causal=True),
+                        prefill_plain(pq, pk, pv, causal=True), PREFILL_TOL),
+            launches=res["bf16"]["prefill_launches"].get("bfloat16 1024", 0)))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding and the sampled path
+# ---------------------------------------------------------------------------
+
+# benchmarks/spec_ab.py's full workload at full width: 8 prompts (half
+# repetitive, which the n-gram drafter drafts well, half random, which
+# reject every draft), 32 new tokens, 4 slots, k = 4, max_len 256
+SPEC_REQUESTS, SPEC_NEW, SPEC_SLOTS, SPEC_K, SPEC_MAX_LEN = 8, 32, 4, 4, 256
+SPEC_CHECKED_STEPS = 4     # verify steps held per layer against the plain
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
+
+
+def spec_prompts(vocab: int, seed: int):
+    """benchmarks/spec_ab.py's prompts (its ``_workload``), at ``vocab``."""
+    rng = np.random.default_rng(seed)
+    prompts = []
+    for i in range(SPEC_REQUESTS):
+        if i % 2 == 0:
+            period = rng.integers(2, 5)
+            motif = rng.integers(1, vocab, size=period).tolist()
+            n = int(rng.integers(8, 16))
+            prompts.append((motif * n)[:n])
+        else:
+            prompts.append(rng.integers(1, vocab,
+                                        size=rng.integers(6, 14)).tolist())
+    return prompts
+
+
+@functools.lru_cache(maxsize=None)
+def spec_classes():
+    """The spec phase's replay drafter (registered as ``"replay"``) and
+    checked sampler, made on first use: they build on modules that came
+    with speculative decoding, and a copy of this script also runs an
+    older checkout's ``--phase admission``, ``times`` and ``digests``."""
+    from repro_torch.serving import CategoricalSampler
+    from repro_torch.spec import Drafter, register_drafter
+
+    class ReplayDrafter(Drafter):
+        """The replay oracle of benchmarks/spec_ab.py: proposes a
+        recorded run's continuation of the history's prompt."""
+
+        script = {}
+
+        def propose(self, history, k):
+            h = tuple(history)
+            for prompt, toks in self.script.items():
+                if h[:len(prompt)] == prompt:
+                    done = len(h) - len(prompt)
+                    return list(toks[done:done + k])
+            return []
+
+    register_drafter("replay", ReplayDrafter)
+
+    class CheckedCategorical(CategoricalSampler):
+        """CategoricalSampler that keeps, on the device, whether every
+        logit was finite and whether its greedy rows equal
+        GreedySampler's bits on the same logits (sample and verify), and
+        the host ms of its verify calls (each between two
+        synchronizes)."""
+
+        def __init__(self):
+            self.finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+            self.greedy_same = torch.ones((), dtype=torch.bool,
+                                          device=DEVICE)
+            self.verify_ms = []
+
+        def sample(self, logits, state, pos):
+            self.finite &= torch.isfinite(logits).all()
+            out = super().sample(logits, state, pos)
+            g = torch.as_tensor(state["temperature"] <= 0, device=DEVICE)
+            want = GreedySampler().sample(logits, state, pos)
+            self.greedy_same &= ((out == want) | ~g).all()
+            return out
+
+        def verify(self, logits, draft, state, pos):
+            self.finite &= torch.isfinite(logits).all()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, acc = super().verify(logits, draft, state, pos)
+            torch.cuda.synchronize()
+            self.verify_ms.append((time.perf_counter() - t0) * 1e3)
+            g = torch.as_tensor(state["temperature"] <= 0, device=DEVICE)
+            wt, wa = GreedySampler().verify(logits, draft, state, pos)
+            self.greedy_same &= (((toks == wt).all(-1) & (acc == wa))
+                                 | ~g).all()
+            return toks, acc
+
+    return ReplayDrafter, CheckedCategorical
+
+
+@contextlib.contextmanager
+def checked_verify(acc, layer_calls: int):
+    """Within the block, the first ``layer_calls`` layer calls of
+    ``ops.verify_attention`` hold each row's decode-kernel launch against
+    ``decode_plain`` on the same inputs (the model's own q and view) at
+    DECODE_TOL; every other launch runs unchecked."""
+    verify = ops.verify_attention
+
+    def layer(*args, **kw):
+        acc["active"] = acc["layers"] < layer_calls
+        try:
+            return verify(*args, **kw)
+        finally:
+            acc["layers"] += acc["active"]
+            acc["active"] = False
+
+    def row(q, k, v, kv_len, *, num_splits, out_dtype):
+        got = fdec.flash_decode(q, k, v, kv_len, num_splits=num_splits,
+                                out_dtype=out_dtype)
+        if acc["active"]:
+            acc["max_abs_err"] = max(acc["max_abs_err"], max_err(
+                got, fdec.decode_plain(q, k, v, kv_len,
+                                       num_splits=num_splits,
+                                       out_dtype=out_dtype), DECODE_TOL))
+            acc["rows"] += 1
+        return got
+
+    with ops_route("verify_attention", layer), ops_route("flash_decode",
+                                                         row):
+        yield acc
+
+
+def drive_steps(engine, requests):
+    """Submit everything, then step to completion.  Returns each step's
+    kind ("admission" when it prefilled, else "verify" or "decode", from
+    the plan keys it launched) with its wall ms, and the completions."""
+    for r in requests:
+        engine.submit(r)
+    steps = []
+    while engine.has_work():
+        before = dict(engine.stats.launches)
+        t0 = time.perf_counter()
+        engine.step()           # ends in a host copy of the tokens
+        ms = (time.perf_counter() - t0) * 1e3
+        new = [k for k, v in engine.stats.launches.items()
+               if v != before.get(k, 0)]
+        kind = ("admission" if any(isinstance(k, tuple) and "prefill" in k[0]
+                                   for k in new)
+                else "verify" if any(isinstance(k, tuple) for k in new)
+                else "decode")
+        steps.append((kind, ms))
+    return steps, engine.drain()
+
+
+def expected_decode_launches(engine, layers: int, kv_quant=None):
+    """The decode-kernel launches a run's plan keys imply, by kernel and
+    (view, S): a plain step launches the decode kernel (the quantized
+    cache's under ``kv_quant``) once a layer at its bucket's plan; a
+    verify step of k drafts launches the bf16 decode kernel k + 1 times a
+    layer (one per row), at its ("verify", k, bucket) plan."""
+    plans = dict(engine.sched.plans.items())
+    plain = "flash_decode_quant" if kv_quant else "flash_decode"
+    want = {plain: {}, "flash_decode": {}}
+    for key, n in engine.stats.launches.items():
+        if isinstance(key, int):
+            name, bucket, rows = plain, key, 1
+        elif key[0] == "verify":
+            name, bucket, rows = "flash_decode", key[2], key[1] + 1
+        else:
+            continue
+        s = max(1, min(plans[key].plan.num_splits, bucket))
+        by = want[name]
+        by[(bucket, s)] = by.get((bucket, s), 0) + layers * rows * n
+    return want
+
+
+def spec_run(model, params, cfg, prompts, method=None, layout="dense",
+             kv_quant=None, checked_steps: int = 0, sampling=None,
+             sampler=None):
+    """One engine run of the spec cell: ``prompts`` with ``method``'s
+    drafter at k = SPEC_K (None: spec-off), ``sampling(i)`` the knobs of
+    request i (None: greedy), the launch counts zeroed just before the run
+    and read just after.  Checks: the decode-kernel launches by kernel and
+    by (view, S) are what the plan keys imply (36 per plain step, 36 x (k
+    + 1) per verify step of k drafts), the prefill kernel 36 per
+    admission, no combine, no policy evaluation, finite logits, full
+    completions, conservation (paged); with ``checked_steps``, every
+    layer's verify attention of the first verify steps against
+    ``decode_plain`` row by row."""
+    from repro_torch.serving import SamplingParams
+    from repro_torch.spec import SpecConfig
+    spec_classes()                      # registers the replay drafter
+    layers = cfg.num_layers
+    label = (f"spec {method or 'off'} {layout} {kv_quant or 'bf16'}"
+             + (" sampled" if sampling else ""))
+    sampler = sampler if sampler is not None else CheckedGreedy()
+    engine = ServingEngine(
+        model, ServeConfig(model=cfg, cache_layout=layout, kv_quant=kv_quant),
+        max_len=SPEC_MAX_LEN, batch_slots=SPEC_SLOTS, policy="paper",
+        sampler=sampler, device=DEVICE)
+    engine.load(params)
+    spec = SpecConfig(method, SPEC_K) if method else None
+    reqs = [Request(i, p, max_new_tokens=SPEC_NEW, sampling=SamplingParams(
+        speculation=spec, **((sampling and sampling(i)) or {})))
+        for i, p in enumerate(prompts)]
+    acc = {"max_abs_err": 0.0, "rows": 0, "layers": 0, "active": False}
+    ops.reset_launch_counts()
+    ops.reset_policy_eval_count()
+    with checked_verify(acc, checked_steps * layers):
+        steps, done = drive_steps(engine, reqs)
+    torch.cuda.synchronize()
+    st = engine.stats
+    counts = ops.launch_counts()
+    want = expected_decode_launches(engine, layers, kv_quant)
+    for name, by in want.items():
+        got = ops.launch_counts_by_key(name)
+        check(got == by, f"{label}: {name} launches by (view, S) {got} != "
+              f"{by} from the plan keys")
+        check(counts[name] == sum(by.values()), f"{label}: {name} "
+              f"launches {counts[name]}")
+    admissions = sum(v for k, v in st.launches.items()
+                     if isinstance(k, tuple) and k[0] == "prefill")
+    check(counts["flash_prefill"] == layers * admissions
+          == layers * len(prompts), f"{label}: prefill launches")
+    check(counts["flash_combine"] == 0, f"{label}: combine launched")
+    check(ops.policy_eval_count() == 0, f"{label}: policy evaluated")
+    check(bool(sampler.finite.item()), f"{label}: non-finite logits")
+    check([len(c.tokens) for c in done] == [SPEC_NEW] * len(prompts)
+          and all(c.finish_reason == "length" for c in done),
+          f"{label}: completions")
+    if engine.cache.is_paged:
+        engine.cache.check_conservation()
+    if checked_steps:
+        check(acc["layers"] == checked_steps * layers and acc["rows"] > 0,
+              f"{label}: {acc['layers']} verify layer calls checked")
+    verify_ms = [ms for kind, ms in steps if kind == "verify"]
+    plain_ms = [ms for kind, ms in steps if kind == "decode"]
+    plain_steps = sum(v for k, v in st.launches.items() if isinstance(k, int))
+    verify_keys = {f"{k[1]}/{k[2]}": v for k, v in st.launches.items()
+                   if isinstance(k, tuple) and k[0] == "verify"}
+    run = {"streams": [c.tokens for c in done],
+           "plain_steps": plain_steps, "verify_launches": verify_keys,
+           "verify_row_launches": layers * sum(
+               v * (int(k.split("/")[0]) + 1)
+               for k, v in verify_keys.items()),
+           "spec": {k: v for k, v in st.to_json().items()
+                    if k.startswith("spec_")},
+           "launches": counts,
+           "decode_launches": {f"{name} {v} S{s}": n
+                               for name, by in want.items()
+                               for (v, s), n in sorted(by.items())},
+           "median_verify_step_ms": median(verify_ms) if verify_ms
+           else None,
+           "median_decode_step_ms": median(plain_ms) if plain_ms else None,
+           "verify_steps": len(verify_ms), "decode_steps": len(plain_ms)}
+    if checked_steps:
+        run["checked"] = {"layer_calls": acc["layers"], "rows": acc["rows"],
+                          "max_abs_err": acc["max_abs_err"]}
+    print(f"{label}: acceptance {st.spec_acceptance_rate:.4f} "
+          f"({st.spec_accepted}/{st.spec_proposed}), "
+          f"{st.spec_tokens_per_step:.4f} tokens per verify step, "
+          f"{st.spec_steps} verify slot steps, {st.spec_disabled} disabled; "
+          f"{plain_steps} plain steps, verify launches {verify_keys}; "
+          f"decode-kernel launches {run['decode_launches']}; median verify "
+          f"step {run['median_verify_step_ms']} ms over {len(verify_ms)}, "
+          f"median plain step {run['median_decode_step_ms']} ms over "
+          f"{len(plain_ms)}")
+    if checked_steps:
+        print(f"{label}: verify attention of the first {checked_steps} "
+              f"verify steps, {acc['layers']} layer calls, {acc['rows']} "
+              f"row launches against decode_plain on the model's inputs: "
+              f"max abs err {acc['max_abs_err']:.4g}")
+    return run
+
+
+def parts_at(base, run):
+    """Per request, the first token index where ``run``'s stream leaves
+    ``base``'s (None where they agree)."""
+    return [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            for a, b in zip(base, run)]
+
+
+def verify_vs_decode(model, params, cfg, seed: int, rows: int = SPEC_K + 1):
+    """Where a verify step's values leave sequential decode's on the same
+    tokens, at full width: 4 prompts (37, 60, 90 and 120 tokens)
+    prefilled into one cache, then ``rows`` tokens fed either as ``rows``
+    decode steps or as one verify block, from copies of that cache, under
+    frozen ``paper`` plans of the same bucket (both S1 here); once through
+    the kernels and once with the decode kernel's plain version (f32
+    attention).  Every layer's attention inputs (q, and the K and V rows a
+    row may read) and output are recorded in both: wherever a row's inputs
+    are equal bit for bit its output must be too (checked), which holds
+    the verify rows to decode's function exactly.  The first layer whose
+    inputs differ (the GEMMs over B x rows rows round otherwise than over
+    B), the logits' relative L2 and the share of equal argmaxes are
+    printed."""
+    rng = np.random.default_rng(seed + 3)
+    lens = (37, 60, 90, 120)
+    caches, first, _ = prefill_checked(model, params, cfg, rng, lens)
+    b, bucket = len(lens), 128
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    planner = Planner(policy="paper",
+                      num_cores=torch.cuda.get_device_properties(
+                          0).multi_processor_count)
+    dplan = planner.plan(AttentionSpec.decode(b, bucket, hq, hkv, d),
+                         bucket=bucket)
+    vplan = planner.plan(AttentionSpec.verify(b, rows, bucket, hq, hkv, d),
+                         bucket=bucket)
+    pos = torch.tensor(lens, device=DEVICE)
+    tokens = torch.stack([torch.stack(first)]
+                         + [torch.tensor(rng.integers(0, cfg.vocab_size, b),
+                                         device=DEVICE)
+                            for _ in range(rows - 1)], dim=1)
+    out = {}
+    for route, fn in (("kernels", fdec.flash_decode),
+                      ("plain", fdec.decode_plain)):
+        rec = {"decode": [], "verify": []}
+
+        def recorded(kind, op):
+            def call(q, k, v, *args, **kw):
+                o = op(q, k, v, *args, **kw)
+                rec[kind].append((q.clone(), k[:, :bucket].clone(),
+                                  v[:, :bucket].clone(), o))
+                return o
+            return call
+
+        with ops_route("flash_decode", fn), \
+                ops_route("decode_attention",
+                          recorded("decode", ops.decode_attention)), \
+                ops_route("verify_attention",
+                          recorded("verify", ops.verify_attention)):
+            cache = {k: x.clone() for k, x in caches.items()}
+            seq = torch.stack([model.decode_step(params, cache, tokens[:, j],
+                                                 pos + j, plan=dplan)
+                               for j in range(rows)], dim=1)
+            cache = {k: x.clone() for k, x in caches.items()}
+            ver = model.verify_step(params, cache, tokens, pos, plan=vplan)
+        layers = cfg.num_layers
+        first_diff, same_inputs = None, 0
+        for layer in range(layers):
+            qv, kv, vv, ov = rec["verify"][layer]
+            for j in range(rows):
+                qd, kd, vd, od = rec["decode"][j * layers + layer]
+                equal_in = torch.equal(qd, qv[:, j]) and all(
+                    torch.equal(x[i, :n + j + 1], y[i, :n + j + 1])
+                    for x, y in ((kd, kv), (vd, vv))
+                    for i, n in enumerate(lens))
+                if not equal_in:
+                    first_diff = layer if first_diff is None else first_diff
+                    continue
+                same_inputs += 1
+                if dplan.num_splits == vplan.num_splits:
+                    check(torch.equal(od, ov[:, j]),
+                          f"spec verify vs decode ({route}): layer {layer} "
+                          f"row {j} equal inputs, other output bits")
+        rel = ((ver - seq).norm(dim=-1) / seq.norm(dim=-1)).flatten()
+        same = (ver.argmax(-1) == seq.argmax(-1)).float().mean().item()
+        out[route] = {"rel_l2_max": rel.max().item(),
+                      "rel_l2_median": rel.median().item(),
+                      "argmax_agrees": same,
+                      "first_layer_inputs_differ": first_diff,
+                      "rows_with_equal_inputs": same_inputs,
+                      "rows": layers * rows}
+        print(f"spec verify vs decode ({route}, B{b} bucket{bucket}, {rows} "
+              f"rows, decode S{dplan.num_splits} verify S{vplan.num_splits}):"
+              f" {same_inputs} of {layers * rows} layer rows see the same "
+              f"attention inputs, and give the same output bits; inputs "
+              f"first differ at layer {first_diff}; logits rel L2 median "
+              f"{out[route]['rel_l2_median']:.3e} max "
+              f"{out[route]['rel_l2_max']:.3e}, argmax agrees {same:.3f}")
+    return out
+
+
+def profile_verify_step(model, params, cfg, prompts, script):
+    """torch.profiler over one verify step of the replay oracle (dense,
+    the first wave of SPEC_SLOTS requests, after its admission and one
+    verify step): wall ms, device busy ms, idle share and device
+    operations."""
+    from repro_torch.serving import SamplingParams
+    from repro_torch.spec import SpecConfig
+    replay, _ = spec_classes()
+    replay.script = script
+    engine = ServingEngine(model, ServeConfig(model=cfg),
+                           max_len=SPEC_MAX_LEN, batch_slots=SPEC_SLOTS,
+                           policy="paper", device=DEVICE)
+    engine.load(params)
+    for i, p in enumerate(prompts[:SPEC_SLOTS]):
+        engine.submit(Request(i, p, max_new_tokens=SPEC_NEW,
+                              sampling=SamplingParams(
+                                  speculation=SpecConfig("replay", SPEC_K))))
+    engine.step()
+    engine.step()
+
+    def verify_launches():
+        return sum(v for k, v in engine.stats.launches.items()
+                   if isinstance(k, tuple) and k[0] == "verify")
+
+    before = verify_launches()
+    with profiled() as (prof, wall):
+        engine.step()
+    check(verify_launches() == before + 1, "spec profile: not a verify step")
+    kernels, launches = device_kernels(prof)
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    out = {"wall_ms": wall[0], "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall[0], "device_ops": launches,
+           "top_kernels_ms": {k[:80]: v for k, v in top}}
+    print(f"spec profile, one verify step (B{SPEC_SLOTS}, k={SPEC_K}, "
+          f"oracle, dense): wall {wall[0]:.3f} ms, device busy {busy:.3f} "
+          f"ms, idle share {out['idle_share']:.3f}, {launches} device ops "
+          f"(profiler on)")
+    for name, ms in out["top_kernels_ms"].items():
+        print(f"  {ms:.4f} ms  {name}")
+    engine.drain()
+    return out
+
+
+def phase_spec(model, params, cfg, seed: int):
+    """Speculative decoding and the sampled path at full width (the
+    qwen2.5-3b of phase 3) on benchmarks/spec_ab.py's workload, each run
+    through ``spec_run``: spec-off, ``ngram`` and the replay oracle (the
+    spec-off run's streams), dense and paged (page 64), the dense ngram
+    run with every layer's verify attention of its first
+    SPEC_CHECKED_STEPS verify steps checked; the ngram cell again under
+    int8 (paged; K4 on plain steps, K1 on the dequantized view for
+    verify), and the oracle, which always drafts; ``verify_vs_decode``; a
+    sampled pass (SAMPLED, request 0 greedy) spec-off and with the
+    oracle's drafts, twice each, for the same tokens, its greedy rows
+    equal to GreedySampler's, and, spec-off, request 0's stream equal to
+    a GreedySampler engine's; one profiled verify step.  Acceptance,
+    tokens per verify step and where each spec-on stream leaves
+    spec-off's are printed, not checked: at full width the verify rows'
+    GEMMs over k + 1 rows round otherwise than a decode row's."""
+    replay, checked_categorical = spec_classes()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = spec_prompts(cfg.vocab_size, seed)
+    out = {}
+    for layout in ("dense", "paged"):
+        base = spec_run(model, params, cfg, prompts, None, layout)
+        ngram = spec_run(model, params, cfg, prompts, "ngram", layout,
+                         checked_steps=SPEC_CHECKED_STEPS
+                         if layout == "dense" else 0)
+        replay.script = {tuple(p): t
+                         for p, t in zip(prompts, base["streams"])}
+        oracle = spec_run(model, params, cfg, prompts, "replay", layout)
+        for name, run in (("ngram", ngram), ("oracle", oracle)):
+            run["leaves_spec_off_at"] = parts_at(base["streams"],
+                                                 run["streams"])
+            print(f"spec {name} {layout}: streams leave spec-off's at "
+                  f"{run['leaves_spec_off_at']}")
+        out[layout] = {"off": base, "ngram": ngram, "oracle": oracle}
+    check(out["dense"]["off"]["streams"] == out["paged"]["off"]["streams"],
+          "spec: paged spec-off streams differ from dense")
+    for layout in ("dense", "paged"):
+        check(out[layout]["oracle"]["verify_steps"] > 0,
+              f"spec oracle {layout}: no verify step")
+    script = {tuple(p): t for p, t in zip(prompts,
+                                          out["dense"]["off"]["streams"])}
+    # under int8 the n-gram drafter may find nothing to draft in these
+    # streams; the replay oracle always drafts, so verify runs over the
+    # dequantized view
+    for method in ("ngram", "replay"):
+        replay.script = script
+        out[f"int8_{method}"] = spec_run(model, params, cfg, prompts, method,
+                                         "paged", kv_quant="int8")
+    check(out["int8_replay"]["verify_steps"] > 0, "spec int8: no verify step")
+    out["verify_vs_decode"] = verify_vs_decode(model, params, cfg, seed)
+    out["profile"] = profile_verify_step(model, params, cfg, prompts, script)
+
+    def sampled(i):
+        return None if i == 0 else dict(SAMPLED, seed=seed + i)
+
+    for method in (None, "replay"):
+        runs, samplers = [], []
+        for _ in range(2):
+            replay.script = script
+            samplers.append(checked_categorical())
+            runs.append(spec_run(model, params, cfg, prompts, method,
+                                 sampling=sampled, sampler=samplers[-1]))
+        name = f"sampled_{method or 'off'}"
+        check(runs[0]["streams"] == runs[1]["streams"],
+              f"spec {name}: two runs with the same seeds differ")
+        check(all(bool(s.greedy_same.item()) for s in samplers),
+              f"spec {name}: greedy rows differ from GreedySampler's")
+        res = runs[0]
+        if method:
+            check(res["verify_steps"] > 0, f"spec {name}: no verify step")
+            ms = samplers[0].verify_ms
+            share = sum(ms) / (res["median_verify_step_ms"]
+                               * res["verify_steps"])
+            res["sampler_verify_ms"] = median(ms)
+            res["sampler_share_of_verify_step"] = share
+            print(f"spec {name}: sampler.verify median {median(ms):.3f} ms "
+                  f"over {len(ms)} calls (host, synchronized), about "
+                  f"{share:.3f} of the verify steps' wall")
+        else:
+            check(res["streams"][0] == out["dense"]["off"]["streams"][0],
+                  f"spec {name}: request 0 (greedy) differs from the "
+                  f"GreedySampler engine's stream")
+        print(f"spec {name}: two runs give the same tokens; greedy rows "
+              f"equal GreedySampler's bits")
+        out[name] = res
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(f"spec: torch.cuda.max_memory_allocated "
+          f"{out['max_memory_allocated']} B")
+    return out
+
+
+def verify_kernel_row(gen, sms: int, spec):
+    """The kernels line's row of one verify-row launch at the spec cell's
+    shape: B=4 slots, view 128, the verify plan of k = SPEC_K at that
+    bucket, kv_len of a mid-run verify step; launches: the dense ngram
+    run's verify-row launches (a layer's k + 1 per verify step)."""
+    hkv, g, d, b, bucket = 2, 8, 128, SPEC_SLOTS, 128
+    s = Planner(policy="paper", num_cores=sms).plan(AttentionSpec.verify(
+        b, SPEC_K + 1, bucket, hkv * g, hkv, d), bucket=bucket).num_splits
+    k, v = (rand(gen, (b, bucket, hkv, d)) for _ in range(2))
+    c = decode_case(rand(gen, (b, hkv * g, d)), k, v, bucket,
+                    (30, 41, 25, 36), s)
+    n = int(c["lens"].sum())
+    err, _ = check_decode(c)
+    ngram = spec["dense"]["ngram"]
+    return dict(
+        name="flash_decode", shape=f"verify row, {c['label']} fused combine",
+        fn=functools.partial(fdec.flash_decode, c["qp"], c["kp"], c["vp"],
+                             c["lens"], num_splits=s),
+        plain=functools.partial(fdec.decode_plain, c["qp"], c["kv"], c["vv"],
+                                c["lens"], num_splits=s),
+        lib=c["sdpa"], nbytes=2 * n * hkv * d * 2 + 2 * c["qp"].numel() * 2,
+        flops=4 * n * hkv * g * d, err=err,
+        launches=ngram["verify_row_launches"])
 
 
 # ---------------------------------------------------------------------------
@@ -2117,7 +2943,7 @@ def phase_table1(gen, sms: int, card: str, flush, iters: int = 100):
 
 def phase_kernels_line(gen, sms: int, errs, counts, flush,
                        prefill_launches, decode_launches, quant_launches,
-                       table1_rows, suffix_launches):
+                       table1_rows, suffix_launches, extra_rows=()):
     """``counts``: the main path's launches by kernel name;
     ``prefill_launches`` / ``decode_launches``: the bf16 serving run's
     prefill launches by "dtype Lq" and decode launches by "view S",
@@ -2127,7 +2953,8 @@ def phase_kernels_line(gen, sms: int, errs, counts, flush,
     launches of that phase's path); ``suffix_launches``: the first timed
     shared bf16 run of the prefix cell's prefill launches by "dtype Lq"
     (its suffix prefills run at Lq 128 over a 1024-row view from q_offset
-    960)."""
+    960); ``extra_rows``: rows built elsewhere in the same form (the
+    verify row of the spec cell, the two configs' rows)."""
     hkv, g, d, b = 2, 8, 128, 2
     hq = hkv * g
     out = []
@@ -2239,6 +3066,7 @@ def phase_kernels_line(gen, sms: int, errs, counts, flush,
                     prefill_plain(pq, pk, pv, **kw), PREFILL_TOL),
         launches=suffix_launches.get(f"bfloat16 {lq}", 0)))
     out += table1_rows
+    out += list(extra_rows)
     # the method's floor: one one-element fill_, timed the same way
     tiny = torch.empty(1, device=DEVICE)
     floor_ms = time_ms(lambda: tiny.fill_(1.0), 100, flush)
@@ -2428,7 +3256,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "digests", "admission",
-                             "times", "table1", "shapes", "paged"),
+                             "times", "table1", "shapes", "paged", "spec",
+                             "archs"),
                     default="all",
                     help="'kernels' stops after build and kernel parity; "
                          "'digests' builds, then runs the main path's "
@@ -2442,7 +3271,9 @@ def main(argv=None) -> int:
                          "configs' head shapes the main path lacks; "
                          "'paged' builds, then runs the paged cache, "
                          "prefix sharing, DecodeEngine and the serving "
-                         "CLI")
+                         "CLI; 'spec' builds, then runs speculative "
+                         "decoding and the sampled path; 'archs' builds, "
+                         "then serves codeqwen1.5-7b and stablelm-12b")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -2475,7 +3306,11 @@ def main(argv=None) -> int:
         phase_parity(gen, sms)
         print("phase digests: done")
         return 0
-    if args.phase != "paged":
+    if args.phase == "archs":
+        archs = timed("archs", phase_archs, args.seed)
+        print(json.dumps({"archs": archs, "card": card}))
+        return 0
+    if args.phase not in ("paged", "spec"):
         wide_gen = torch.Generator(device=DEVICE).manual_seed(args.seed + 17)
         errs = timed("parity", phase_parity, gen, sms, wide_gen)
     if args.phase == "kernels":
@@ -2496,6 +3331,10 @@ def main(argv=None) -> int:
     if args.phase == "paged":
         paged = phase_paged_all(model, params, cfg, args.seed)
         print(json.dumps({"paged": paged, "card": card}))
+        return 0
+    if args.phase == "spec":
+        spec = timed("spec", phase_spec, model, params, cfg, args.seed)
+        print(json.dumps({"spec": spec, "card": card}))
         return 0
     counts, serving, bf16 = timed("serving bf16", phase_serving, model,
                                   params, cfg, args.seed)
@@ -2523,18 +3362,26 @@ def main(argv=None) -> int:
     qprofile = timed("profile int8", phase_profile, model, params, cfg,
                      args.seed, kv_quant="int8")
     paged = phase_paged_all(model, params, cfg, args.seed)
+    spec = timed("spec", phase_spec, model, params, cfg, args.seed)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    archs = timed("archs", phase_archs, args.seed)
     table1, table1_rows = timed("table1", phase_table1, gen, sms, card,
                                 flush)
+    extra = [verify_kernel_row(gen, sms, spec)] + arch_kernel_rows(gen, sms,
+                                                                  archs)
     kernels = timed("kernels line", phase_kernels_line, gen, sms, errs,
                     counts, flush, serving["prefill_launches"],
                     serving["decode_launches"], qserving["decode_launches"],
-                    table1_rows, paged["prefix_bf16"]["prefill_launches"])
+                    table1_rows, paged["prefix_bf16"]["prefill_launches"],
+                    extra)
     print(json.dumps({"serving": serving, "serving_int8": qserving,
                       "serving_fp8": fserving, "logits": logits,
                       "paper_cell": paper,
                       "paper_cell_int8": qpaper, "profile": profile,
                       "profile_int8": qprofile, "paged": paged,
-                      "table1": table1,
+                      "spec": spec, "archs": archs, "table1": table1,
                       "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

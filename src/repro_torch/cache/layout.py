@@ -12,8 +12,9 @@ tensors and every write lands in place:
   first ``n`` pages of every slot (the dense storage is its own view),
   and ``scatter_view`` writes a whole view back;
 - ``decode_positions`` bounds each slot's write row to that view;
-- ``write_token`` writes back the page holding each slot's decoded row
-  (dense: the step already wrote it);
+- ``write_token`` writes back the page holding each slot's decoded row,
+  and ``write_rows`` the pages holding a verify step's accepted rows
+  (dense: the step already wrote them);
 - ``write_slot`` lands a prefilled batch-1 view in a slot; the paged
   ``slot_view`` gathers one for suffix prefill;
 - ``copy_page`` backs copy-on-write; ``zero_slot`` resets a slot for
@@ -35,7 +36,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.cache.spec import CacheSpec
+from repro_torch.cache.spec import TRASH_PAGE, CacheSpec
 from repro_torch.kernels import ops
 
 Storage = Dict[str, torch.Tensor]
@@ -108,6 +109,13 @@ class DenseLayout(CacheLayout):
                     table: torch.Tensor, positions: torch.Tensor,
                     num_pages: int) -> None:
         """Nothing to write back: the view is the storage."""
+
+    def write_rows(self, storage: Storage, view: Storage,
+                   table: torch.Tensor, start: torch.Tensor,
+                   count: torch.Tensor, max_rows: int,
+                   num_pages: int) -> None:
+        """Nothing to write back: the view is the storage, and rejected
+        rows lie above the slot's rolled-back ``kv_len``."""
 
     def write_slot(self, storage: Storage, view: Storage,
                    table: torch.Tensor, slot: int, num_pages: int, *,
@@ -194,6 +202,37 @@ class PagedKVCache(CacheLayout):
             vp = v.view(v.shape[:2] + (num_pages, ps) + v.shape[3:])
             sel = ops.bit_view(vp)[:, rows, pidx]   # (layers, B, ps, ...)
             ops.bit_view(leaf).index_copy_(1, dst, sel)
+
+    def write_rows(self, storage: Storage, view: Storage,
+                   table: torch.Tensor, start: torch.Tensor,
+                   count: torch.Tensor, max_rows: int,
+                   num_pages: int) -> None:
+        """Write back only the pages overlapping each slot's rows
+        [start[b], start[b] + count[b]): a verify step's accepted rows.
+
+        ``max_rows`` bounds a slot's row count, so its rows straddle at
+        most ``ceil(max_rows / page_size) + 1`` pages.  Pages of that span
+        that lie wholly past the accepted rows, or past the view, go to
+        the trash page instead: that is how rejected draft rows never
+        reach storage (the host then rolls ``kv_len`` back).  Rows below
+        ``start`` on the first page go back with their gathered values,
+        unchanged."""
+        ps = self.spec.page_size
+        span = -(-int(max_rows) // ps) + 1
+        start = start.to(device=table.device, dtype=torch.int64)
+        first = start // ps                                      # (B,)
+        pidx = first[:, None] + torch.arange(span, device=table.device)
+        end = start + count.to(device=table.device, dtype=torch.int64)
+        commit = (pidx * ps < end[:, None]) & (pidx < num_pages)
+        pidx = pidx.clamp(max=num_pages - 1)
+        dst = torch.where(commit, table.gather(1, pidx).long(), TRASH_PAGE)
+        rows = torch.arange(pidx.shape[0], device=table.device)[:, None]
+        for name, leaf in storage.items():
+            v = view[name]
+            vp = v.view(v.shape[:2] + (num_pages, ps) + v.shape[3:])
+            sel = ops.bit_view(vp)[:, rows, pidx]   # (layers, B, span, ps..)
+            ops.bit_view(leaf).index_copy_(
+                1, dst.reshape(-1), sel.flatten(1, 2))
 
     # --- batch-1 slot view (fused and suffix prefill) -----------------------
 

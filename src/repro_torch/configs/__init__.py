@@ -8,7 +8,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _LOADED = False
 
-ARCH_MODULES = ("qwen25_3b",)
+ARCH_MODULES = ("qwen25_3b", "codeqwen15_7b", "stablelm_12b")
 
 
 def _load_all() -> None:

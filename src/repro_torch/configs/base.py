@@ -5,8 +5,8 @@ so they hash, print and diff cleanly and a config file is only data.
 ``ModelConfig`` keeps the reference's dense-family fields; the attention
 implementation is not a config knob here, because the kernel follows the
 tensor's device (see ``repro_torch.kernels.ops``).  ``ServeConfig``
-carries the serving fields: planning, admission, the KV-cache format and
-its layout (dense or paged, with prefix sharing).
+carries the serving fields: planning, admission, the KV-cache format,
+its layout (dense or paged, with prefix sharing) and speculation.
 """
 from __future__ import annotations
 
@@ -102,6 +102,17 @@ class ServeConfig:
     # owners (None = the pool is the only bound); anchored-only pages
     # are evicted leaf-first LRU.
     prefix_capacity: Optional[int] = None
+    # repro_torch.spec: the engine-wide speculative-decoding default, a
+    # drafter name ("ngram" | "prompt_lookup" | a registered one) every
+    # request decodes with unless its SamplingParams.speculation says
+    # otherwise.  None = plain decode.  Rides the metadata-enabled plan
+    # path (verify launches are planned under ("verify", k, bucket) keys).
+    speculation: Optional[str] = None
+    # draft tokens proposed per verify step (1..64)
+    speculation_k: int = 4
+    # consecutive zero-accept verify steps before the engine stops
+    # speculating for that request (None = never)
+    speculation_max_rejects: Optional[int] = None
     seed: int = 0
 
 

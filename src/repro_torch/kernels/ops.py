@@ -16,6 +16,11 @@ the cache to ``k[:, :bucket]`` before the split, so the splits partition
 the resident-length bucket rather than the cache's whole capacity.  Rows
 at or past ``kv_len`` are masked either way, so it is the same function.
 
+``verify_attention`` scores a speculative verify step's query block:
+row ``j`` of slot ``b`` is split-KV decode over ``pos[b] + j + 1`` keys,
+each row one launch of the decode kernel at the verify plan's split
+count.
+
 The paged cache's gather path lives here too: :class:`PagedKV` names one
 tensor's page pool, page table and page count, :func:`gather_pages`
 reads the pages of every slot into a dense view with one indexing op
@@ -200,3 +205,56 @@ def decode_attention_quant(q: torch.Tensor, qkv, kv_len: torch.Tensor,
     k, v, k_scale, v_scale = qkv
     return decode_attention(q, k, v, kv_len, k_scale=k_scale,
                             v_scale=v_scale, **kw)
+
+
+def verify_attention(
+    q: torch.Tensor,         # (B, M, Hq, D): the k + 1-row query block
+    k,                       # (B, Lk, Hkv, D) KV cache (may be a view),
+    v,                       # or a PagedKV
+    pos: torch.Tensor,       # (B,) absolute position of q[:, 0]
+    *,
+    plan: Optional[LaunchPlan] = None,
+) -> torch.Tensor:
+    """Speculative-verify attention: the ``M = k + 1`` query rows of each
+    slot (its committed current token and k drafts), causal within the
+    block at the slot's own offset and over the whole prefix outside it.
+
+    Row ``j`` of slot ``b`` sits at position ``pos[b] + j`` and is
+    split-KV decode over ``kv_len = clamp(pos[b] + j + 1, 1, L)``, where
+    ``L`` is the attended view (``k[:, :plan.bucket]`` under a frozen
+    plan), so a padding row or a dead slot's stale position past the view
+    reads the whole view and is ignored by the caller.  Each row is one
+    launch of the decode kernel, ``M`` launches in all, with the plan's
+    ``num_splits``, counted under ``("flash_decode", L, S)``.  The frozen
+    ``("verify", k, bucket)`` plan is consumed as :func:`decode_attention`
+    consumes its plan: without one the policy decides here on the M-row
+    workload, and that counts as a policy evaluation.  The reference
+    sends verify to XLA because its Pallas kernel needs static offsets;
+    the decode kernel takes per-row lengths at run time.  Returns (B, M,
+    Hq, D) in q's dtype.
+    """
+    k, v = _resolve_paged(k), _resolve_paged(v)
+    B, M, Hq, D = q.shape
+    Hkv = k.shape[2]
+    if plan is None or not plan.frozen:
+        global _POLICY_EVALS
+        _POLICY_EVALS += 1
+        ctx = plan if plan is not None else LaunchPlan()
+        cores = {} if ctx.num_cores is None else {"num_cores": ctx.num_cores}
+        plan = get_scheduler_metadata(B, M, k.shape[1], Hq, Hkv, D,
+                                      policy=ctx.policy, **cores)
+    if plan.bucket is not None:
+        k = k[:, :plan.bucket]
+        v = v[:, :plan.bucket]
+    L = k.shape[1]
+    s = max(1, min(plan.num_splits, L))
+    # row-major copies of every row's pre-scaled queries (M, B, Hkv, G, D)
+    # and kv_len (M, B), so each launch reads a contiguous slice
+    qp = (q.float() * D ** -0.5).to(q.dtype).reshape(
+        B, M, Hkv, Hq // Hkv, D).transpose(0, 1).contiguous()
+    lens = (pos.to(device=q.device, dtype=torch.int32)[None]
+            + torch.arange(1, M + 1, device=q.device, dtype=torch.int32)[
+                :, None]).clamp(1, L)
+    rows = [flash_decode(qp[j], k, v, lens[j], num_splits=s,
+                         out_dtype=q.dtype) for j in range(M)]
+    return torch.stack(rows, dim=1).reshape(B, M, Hq, D)

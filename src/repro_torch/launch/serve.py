@@ -9,14 +9,17 @@ A/Bs the paper's heuristic against FA3's baseline on the same requests;
 ``--prefill`` switches between fused bucketed admission and the
 teacher-forcing loop; ``--cache-layout paged`` and ``--share-prefix``
 serve from the paged cache, sharing the system prompt's pages;
-``--kv-quant`` stores the cache in int8 or fp8.  It runs on the card
-unless ``--device cpu`` is given.
+``--kv-quant`` stores the cache in int8 or fp8;
+``--temperature`` / ``--top-k`` / ``--top-p`` select seeded sampling
+(default greedy) through ``--sampler``; ``--speculate`` decodes through
+verify launches with a registered drafter.  It runs on the card unless
+``--device cpu`` is given.
 
 One difference from the reference: the default ``d_model`` is 512, not
 128.  The reduced config keeps 4 query heads, so the reference's default
 gives head_dim 32, and the port's kernels take head_dim 64, 128, 160 or
-256; 512 gives 128.  The reference's sampling, speculation, tuning-table,
-tracing, metrics and mesh flags are not ported yet.
+256; 512 gives 128.  The reference's tuning-table, stats, tracing,
+metrics and mesh flags are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,9 +37,10 @@ from repro_torch.models import build_model
 from repro_torch.serving import (
     FINISHED,
     TOKEN,
-    GreedySampler,
     Request,
+    SamplingParams,
     ServingEngine,
+    get_sampler,
 )
 
 
@@ -45,8 +49,12 @@ def run_serving(arch: str, *, num_requests: int = 8, max_new: int = 16,
                 max_len: int = 256, d_model: int = 512,
                 num_layers: int = 2, seed: int = 0,
                 num_splits_override: Optional[int] = None,
+                temperature: float = 0.0, top_k: int = 0,
+                top_p: float = 1.0, sampler: str = "categorical",
                 prefill_mode: str = "auto", stream: bool = False,
                 cache_layout: str = "dense", share_prefix: bool = False,
+                speculate: Optional[str] = None, speculate_k: int = 4,
+                speculate_max_rejects: Optional[int] = None,
                 kv_quant: Optional[str] = None, device=None, log_fn=print):
     """Serve the reference's request stream on a reduced ``arch`` and log
     the summary; returns the completions.  ``device=None`` is the card."""
@@ -57,10 +65,13 @@ def run_serving(arch: str, *, num_requests: int = 8, max_new: int = 16,
     scfg = ServeConfig(model=cfg, split_policy=policy,
                        num_splits_override=num_splits_override,
                        prefill_mode=prefill_mode, cache_layout=cache_layout,
-                       share_prefix=share_prefix, kv_quant=kv_quant)
+                       share_prefix=share_prefix, speculation=speculate,
+                       speculation_k=speculate_k,
+                       speculation_max_rejects=speculate_max_rejects,
+                       kv_quant=kv_quant)
     engine = ServingEngine(model, scfg, max_len=max_len,
-                           batch_slots=batch_slots, sampler=GreedySampler(),
-                           device=device)
+                           batch_slots=batch_slots,
+                           sampler=get_sampler(sampler), device=device)
     engine.load(params)
 
     rng = np.random.default_rng(seed)
@@ -72,7 +83,10 @@ def run_serving(arch: str, *, num_requests: int = 8, max_new: int = 16,
         Request(i, system
                 + rng.integers(0, cfg.vocab_size,
                                size=rng.integers(4, 12)).tolist(),
-                max_new_tokens=max_new)
+                max_new_tokens=max_new,
+                sampling=SamplingParams(temperature=temperature,
+                                        top_k=top_k, top_p=top_p,
+                                        seed=seed + i))
         for i in range(num_requests)]
     t0 = time.monotonic()
     handles = [engine.submit(r) for r in reqs]
@@ -114,6 +128,15 @@ def run_serving(arch: str, *, num_requests: int = 8, max_new: int = 16,
     if engine.prefill_mode == "fused":
         log_fn("fused prefill buckets: "
                f"{engine.planned_prefill_buckets()}")
+    if speculate:
+        st = engine.stats
+        log_fn(f"speculation ({speculate}, k={speculate_k}): "
+               f"{st.spec_steps} verify steps, acceptance "
+               f"{st.spec_acceptance_rate:.2f} "
+               f"({st.spec_accepted}/{st.spec_proposed} drafts), "
+               f"{st.spec_tokens_per_step:.2f} tokens/step, "
+               f"{st.spec_disabled} requests disabled; verify plans "
+               f"{engine.sched.planned_verify_keys()}")
     assert len(handles) == len(outs)
     return outs
 
@@ -130,6 +153,16 @@ def main(argv=None) -> None:
                     help="explicit num_splits override: the engine's "
                          "Planner bypasses the policy (FA3's explicit "
                          "num_splits argument)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k truncation (0 = off)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus truncation (1.0 = off)")
+    ap.add_argument("--sampler", default="categorical",
+                    help="sampler registry name (greedy | categorical; "
+                         "extensible via repro_torch.serving."
+                         "register_sampler)")
     ap.add_argument("--prefill", default="auto",
                     choices=("auto", "fused", "loop"),
                     help="admission path: fused bucketed prefill vs the "
@@ -142,6 +175,15 @@ def main(argv=None) -> None:
                     help="share identical prompt prefixes across requests "
                          "(refcounted copy-on-write pages; requires "
                          "--cache-layout paged)")
+    ap.add_argument("--speculate", default=None,
+                    help="speculative decoding: drafter registry name "
+                         "(ngram | prompt_lookup; extensible via "
+                         "repro_torch.spec.register_drafter)")
+    ap.add_argument("--speculate-k", type=int, default=4,
+                    help="draft tokens per verify step (with --speculate)")
+    ap.add_argument("--speculate-max-rejects", type=int, default=None,
+                    help="consecutive zero-accept verify steps before a "
+                         "request stops speculating (default: never)")
     ap.add_argument("--kv-quant", default=None, choices=["int8", "fp8"],
                     help="quantized KV cache: int8 or fp8 storage + f32 "
                          "scales, read by the quantized decode kernel")
@@ -154,10 +196,14 @@ def main(argv=None) -> None:
     run_serving(args.arch, num_requests=args.requests,
                 max_new=args.max_new, policy=args.policy,
                 batch_slots=args.slots, num_splits_override=args.splits,
+                temperature=args.temperature, top_k=args.top_k,
+                top_p=args.top_p, sampler=args.sampler,
                 prefill_mode=args.prefill, stream=args.stream,
                 cache_layout=args.cache_layout,
-                share_prefix=args.share_prefix, kv_quant=args.kv_quant,
-                device=args.device)
+                share_prefix=args.share_prefix, speculate=args.speculate,
+                speculate_k=args.speculate_k,
+                speculate_max_rejects=args.speculate_max_rejects,
+                kv_quant=args.kv_quant, device=args.device)
 
 
 if __name__ == "__main__":

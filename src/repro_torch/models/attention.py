@@ -170,6 +170,70 @@ def attention_suffix_prefill(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     return _out_proj(p, out)
 
 
+def _place_rows_at(old: torch.Tensor, new: torch.Tensor,
+                   start: torch.Tensor) -> None:
+    """Per-slot :func:`_place_rows`: write ``new`` (B, M, ...) into ``old``
+    (B, V, ...) at rows [start[b], start[b] + M) of each slot ``b``, in
+    place.  A verify block places each slot's rows at that slot's own
+    position, so the offset is a vector.  Rows past the view's end (a
+    padding row, a dead slot's stale position) are dropped, not clamped
+    back into it: their writes go to the view's last row carrying that
+    row's own value (the block's row that lands there, else its old
+    content), so every write to it agrees, and no host sync is needed to
+    find them.  One-byte storage is written as raw bytes."""
+    B, V = old.shape[:2]
+    M = new.shape[1]
+    dev = old.device
+    st = start.to(device=dev, dtype=torch.int64)[:, None]           # (B, 1)
+    j = torch.arange(M, device=dev)
+    dst = st + j                                                    # (B, M)
+    inside = dst < V
+    at_last = (V - 1 - st).expand(B, M)     # the block row landing on V-1
+    src = torch.where(inside, j, at_last.clamp(0, M - 1))
+    from_block = inside | ((at_last >= 0) & (at_last < M))
+    slot = torch.arange(B, device=dev)[:, None].expand(B, M)
+    dst = dst.clamp(max=V - 1)
+    raw = ops.bit_view(old)
+    vals = ops.bit_view(new.to(old.dtype))[slot, src]
+    keep = from_block.reshape((B, M) + (1,) * (old.dim() - 2))
+    raw[slot, dst] = torch.where(keep, vals, raw[slot, dst])
+
+
+def attention_verify(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                     cache: LayerCache, t: torch.Tensor, rope: Rope, *,
+                     plan: LaunchPlan = None) -> torch.Tensor:
+    """Speculative-verify attention: score an ``M = k + 1``-row query
+    block per slot.  Returns y (B, M, d).
+
+    ``x`` (B, M, d) holds each slot's current token and drafts, ``t``
+    (B,) each slot's position and ``rope`` the angles at ``t + j``.  The
+    block's K/V rows land in ``cache`` in place at [t, t + M) per slot
+    (rows past the view are dropped), then the queries attend causal
+    within the block through :func:`ops.verify_attention` and the frozen
+    ``("verify", k, bucket)`` plan.  The caller commits only accepted
+    rows: the paged layout writes back only the pages up to the accept
+    point, and the host rolls ``kv_len`` back; rejected rows stay above
+    ``kv_len``, masked.  A quantized cache gets the rows quantized and
+    placed, data and scales, and is attended dequantized to q's dtype, as
+    in the reference.
+    """
+    q, k, v = _project_qkv(p, cfg, x, rope)
+    qz = Quantizer.for_cache(cache)
+    if qz is not None:
+        (kq, ks), (vq, vs) = qz.quantize(k), qz.quantize(v)
+        for name, rows in (("k", kq), ("v", vq), ("k_s", ks), ("v_s", vs)):
+            _place_rows_at(cache[name], rows, t)
+        kf = qz.dequantize(cache["k"], cache["k_s"])
+        vf = qz.dequantize(cache["v"], cache["v_s"])
+    else:
+        _place_rows_at(cache["k"], k, t)
+        _place_rows_at(cache["v"], v, t)
+        kf, vf = cache["k"], cache["v"]
+    out = ops.verify_attention(q, kf.to(q.dtype), vf.to(q.dtype), t,
+                               plan=plan)
+    return _out_proj(p, out)
+
+
 # int8 per-(token, head) transforms as module functions, as in the
 # reference; they delegate to the default Quantizer.
 _INT8 = Quantizer()

@@ -6,7 +6,8 @@ layer-stacked pytree).  Caches are dicts of dense tensors ``{"k", "v"}``
 of shape (layers, B, L, Hkv, D), plus ``{"k_s", "v_s"}`` f32 scales of
 shape (layers, B, L, Hkv) for a quantized cache: the engine's static
 dense buffers (L = max_len), or a view the paged layout gathered (L =
-the resident bucket).  Decode and suffix prefill update them in place.
+the resident bucket).  Decode, suffix prefill and verify update them in
+place.
 """
 from __future__ import annotations
 
@@ -169,3 +170,37 @@ def lm_decode_step(params: LM, cfg: ModelConfig, caches: Caches,
                          {name: c[li] for name, c in caches.items()}, t,
                          rope, plan=plan)
     return _logits(params, cfg, x)[:, 0]
+
+
+def block_verify(block: Block, cfg: ModelConfig, x: torch.Tensor,
+                 cache: attn_mod.LayerCache, t: torch.Tensor, rope: Rope, *,
+                 plan: LaunchPlan = None) -> torch.Tensor:
+    """One block over an M-row verify block per slot; x: (B, M, d)."""
+    h = rms_norm(x, block.ln1.scale, cfg.norm_eps)
+    mix = attn_mod.attention_verify(block.mix, cfg, h, cache, t, rope,
+                                    plan=plan)
+    return _ffn(block, cfg, x + mix)
+
+
+@torch.no_grad()
+def lm_verify_step(params: LM, cfg: ModelConfig, caches: Caches,
+                   tokens: torch.Tensor, t: torch.Tensor, *,
+                   plan: Optional[LaunchPlan] = None) -> torch.Tensor:
+    """Speculative verify: score M = k + 1 rows per slot in one pass.
+
+    The multi-token sibling of :func:`lm_decode_step`: ``tokens[:, 0]``
+    (B, M) is each slot's committed current token and ``tokens[:, 1:]``
+    its drafts, at positions ``t + j``.  Row ``j`` of the returned logits
+    (B, M, vocab) f32 is the next-token distribution after rows [0, j],
+    the teacher-forced scores that accept/reject consumes.  Every layer
+    writes the block's K/V rows into ``caches`` in place and attends
+    through the frozen ``("verify", k, bucket)`` plan.
+    """
+    x = embed_tokens(params.embed, tokens)
+    pos = t[:, None] + torch.arange(tokens.shape[1], device=t.device)
+    rope = rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta)
+    for li, block in enumerate(params.layers):
+        x = block_verify(block, cfg, x,
+                         {name: c[li] for name, c in caches.items()}, t,
+                         rope, plan=plan)
+    return _logits(params, cfg, x)

@@ -33,7 +33,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 class Model:
-    """One dense LM on one device: params, caches, prefill, decode."""
+    """One dense LM on one device: params, caches, prefill, decode,
+    verify."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         if cfg.family != "dense":
@@ -141,6 +142,30 @@ class Model:
         return lm_mod.lm_prefill_suffix_view(params, self.cfg, view, tokens,
                                              start, length, plan=plan,
                                              kv_dtype=kv_dtype)
+
+    @property
+    def supports_speculation(self) -> bool:
+        """Whether the engine may run speculative verify steps against
+        this model: a uniform full-attention stack over the standard k/v
+        cache, whose rejected rows roll back by truncating ``kv_len``.
+        Every dense model qualifies."""
+        return self.cfg.family == "dense"
+
+    def verify_step(self, params: lm_mod.LM, caches: lm_mod.Caches,
+                    tokens: torch.Tensor, t: torch.Tensor, *,
+                    plan: Optional[LaunchPlan] = None) -> torch.Tensor:
+        """Speculative verify: score a (B, M = k + 1)-token block per
+        slot, each slot's current token and its drafts at positions [t, t
+        + M), in one planned pass; caches updated in place.  Returns
+        logits (B, M, vocab) f32, row ``j`` the next-token distribution
+        after rows [0, j].  ``plan`` is the frozen ``("verify", k,
+        bucket)`` plan."""
+        if not self.supports_speculation:
+            raise NotImplementedError(
+                f"{self.cfg.family} models cannot run speculative verify "
+                "steps")
+        return lm_mod.lm_verify_step(params, self.cfg, caches, tokens, t,
+                                     plan=plan)
 
     def decode_step(self, params: lm_mod.LM, caches: lm_mod.Caches,
                     token: torch.Tensor, t: torch.Tensor, *,

@@ -23,7 +23,11 @@ class PlanCacheStats:
     persistent set of every key launched, so ``distinct_buckets`` stays
     exact.  ``fallback_*`` attribute launches of the internal-heuristic
     path (``use_scheduler_metadata=False``): per launch, the resident
-    length it covered and the padded length the policy saw.
+    length it covered and the padded length the policy saw.  ``spec_*``
+    count speculative decoding: one ``spec_steps`` per drafting slot of
+    a verify launch, the draft tokens proposed and accepted, every token
+    those slots emitted (accepted drafts plus correction or bonus rows),
+    and the requests that gave up after ``SpecConfig.max_rejects``.
     """
     TRACE_CAP = 4096
 
@@ -34,10 +38,28 @@ class PlanCacheStats:
     seen_buckets: Set[Hashable] = field(default_factory=set)
     fallback_launches: int = 0
     fallback_trace: List[tuple] = field(default_factory=list)
+    spec_steps: int = 0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    spec_emitted: int = 0
+    spec_disabled: int = 0
 
     @property
     def total_launches(self) -> int:
         return self.hits + self.misses
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens that verified (0.0 when no
+        drafts were proposed)."""
+        return (self.spec_accepted / self.spec_proposed
+                if self.spec_proposed else 0.0)
+
+    @property
+    def spec_tokens_per_step(self) -> float:
+        """Tokens emitted per verify step (0.0 when none ran)."""
+        return (self.spec_emitted / self.spec_steps
+                if self.spec_steps else 0.0)
 
     @property
     def distinct_buckets(self) -> int:
@@ -57,6 +79,59 @@ class PlanCacheStats:
         self.fallback_launches += 1
         self.fallback_trace.append((int(resident_max), int(traced_len)))
         self._trim(self.fallback_trace)
+
+    def record_spec_step(self, proposed: int, accepted: int,
+                         emitted: int) -> None:
+        """One speculative verify launch's drafting slot: ``proposed``
+        draft tokens went in, ``accepted`` survived, ``emitted`` tokens
+        came out."""
+        self.spec_steps += 1
+        self.spec_proposed += int(proposed)
+        self.spec_accepted += int(accepted)
+        self.spec_emitted += int(emitted)
+
+    def record_spec_disabled(self) -> None:
+        """One request gave up on speculation (``max_rejects``
+        consecutive zero-accept verify steps)."""
+        self.spec_disabled += 1
+
+    def to_json(self) -> Dict[str, Any]:
+        """JSON-safe snapshot of every counter (tuple keys flattened to
+        ``"a/b"`` strings), as the reference's."""
+        def k2s(k: Hashable) -> str:
+            return "/".join(map(str, k)) if isinstance(k, tuple) else str(k)
+
+        return {
+            "hits": self.hits,
+            "misses": self.misses,
+            "total_launches": self.total_launches,
+            "distinct_buckets": self.distinct_buckets,
+            "launches": {k2s(k): v for k, v in self.launches.items()},
+            "seen_buckets": sorted(k2s(k) for k in self.seen_buckets),
+            "fallback_launches": self.fallback_launches,
+            "fallback_trace": [list(t) for t in self.fallback_trace],
+            "spec_steps": self.spec_steps,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "spec_emitted": self.spec_emitted,
+            "spec_disabled": self.spec_disabled,
+            "spec_acceptance_rate": round(self.spec_acceptance_rate, 4),
+            "spec_tokens_per_step": round(self.spec_tokens_per_step, 4),
+        }
+
+    def reset(self) -> None:
+        self.hits = 0
+        self.misses = 0
+        self.launches.clear()
+        self.trace.clear()
+        self.seen_buckets.clear()
+        self.fallback_launches = 0
+        self.fallback_trace.clear()
+        self.spec_steps = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
+        self.spec_disabled = 0
 
 
 class PlanCache:

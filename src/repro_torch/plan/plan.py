@@ -17,7 +17,7 @@ from repro_torch.plan.spec import AttentionSpec
 
 @dataclass(frozen=True)
 class LaunchPlan:
-    kind: str = "decode"                  # decode | prefill
+    kind: str = "decode"                  # decode | prefill | verify
     spec: Optional[AttentionSpec] = None
     num_splits: Optional[int] = None      # None = not frozen
     policy: str = "paper"

@@ -1,8 +1,9 @@
 """AttentionSpec: the declarative input to the planner.
 
-Counterpart of ``repro.plan.spec``, decode and prefill kinds.  A spec
-says WHAT is launched (kind and shapes); the :class:`Planner` decides
-HOW (the split count) and freezes it in a :class:`LaunchPlan`.
+Counterpart of ``repro.plan.spec``: the decode, prefill and verify
+kinds.  A spec says WHAT is launched (kind and shapes); the
+:class:`Planner` decides HOW (the split count) and freezes it in a
+:class:`LaunchPlan`.
 """
 from __future__ import annotations
 
@@ -10,7 +11,11 @@ from dataclasses import dataclass
 
 from repro_torch.core.split_policy import KV_BLOCK, KV_DTYPES, DecodeWorkload
 
-KINDS = ("decode", "prefill")
+# ``verify`` is the speculative-decoding verify step: decode with a
+# k + 1-row query block (seqlen_q = draft length + 1), planned by the same
+# split policy over a workload whose ``num_m_blocks`` scales with the
+# query rows.
+KINDS = ("decode", "prefill", "verify")
 
 
 def bucket_seqlen(seqlen_k: int, bucket: int = KV_BLOCK) -> int:
@@ -65,4 +70,16 @@ class AttentionSpec:
         (L_Q = L_K).  Prefill never splits KV, but it is planned,
         cached and counted like any other launch."""
         return cls("prefill", batch, seqlen, seqlen, num_heads_q,
+                   num_heads_kv, head_dim, **kw)
+
+    @classmethod
+    def verify(cls, batch: int, seqlen_q: int, seqlen_k: int,
+               num_heads_q: int, num_heads_kv: int, head_dim: int = 128,
+               **kw) -> "AttentionSpec":
+        """Speculative-decoding verify step: a ``seqlen_q``-row query
+        block (the committed current token and k drafts) against the KV
+        cache, causal within the block at each slot's own offset.  The
+        same sequence-aware policy as decode plans its splits; the k-row
+        block shifts ``num_m_blocks``, and with it the occupancy."""
+        return cls("verify", batch, seqlen_q, seqlen_k, num_heads_q,
                    num_heads_kv, head_dim, **kw)

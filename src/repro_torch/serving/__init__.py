@@ -15,9 +15,12 @@ from repro_torch.serving.events import (  # noqa: F401
 )
 from repro_torch.serving.sampling import (  # noqa: F401
     GREEDY,
+    CategoricalSampler,
     GreedySampler,
     Sampler,
     SamplingParams,
+    get_sampler,
+    register_sampler,
 )
 from repro_torch.serving.scheduler import (  # noqa: F401
     Completion,

@@ -38,6 +38,25 @@ prefills only the unshared suffix, keyed ``("sprefill", view_bucket,
 suffix_bucket)``; queued page copies land before any launch that
 gathers.
 
+Sampling: a :class:`~repro_torch.serving.sampling.Sampler` keeps one
+host row of state per slot (temperature, top-k, top-p, seed), written
+at admission; :class:`~repro_torch.serving.sampling.CategoricalSampler`
+is the default, so a request with ``temperature > 0`` is served.
+
+Speculative decoding (``repro_torch.spec``): a request opting in through
+``SamplingParams.speculation`` (or the engine-wide
+``ServeConfig.speculation``) decodes through planned verify launches.
+A host-side :class:`~repro_torch.spec.Drafter` proposes up to ``k`` draft
+tokens from the slot's history; the model scores the slot's current
+token and its drafts in one ``("verify", k, bucket)`` launch; the sampler
+accepts the longest valid draft prefix (argmax match for greedy rows,
+rejection sampling for sampled ones).  Accepted rows commit (paged:
+``PagedKVCache.write_rows`` writes back only their pages), rejected rows
+die by rolling ``kv_len`` back (``CacheManager.truncate``), so page
+conservation holds under any accept/reject sequence and greedy output
+is sequential greedy decode's by construction.  ``SpecConfig.max_rejects``
+consecutive zero-accept steps turn speculation off for that request.
+
 :class:`DecodeEngine` is the batch-synchronous facade
 (``generate(requests) -> completions``): loop admission and greedy
 sampling, as the reference's.
@@ -65,9 +84,11 @@ from repro_torch.serving.events import (
     TOKEN,
     Event,
 )
-from repro_torch.serving.sampling import GreedySampler, Sampler
+from repro_torch.serving.sampling import CategoricalSampler, \
+    GreedySampler, Sampler
 from repro_torch.serving.scheduler import Completion, Request, Scheduler, \
     SlotState
+from repro_torch.spec import Drafter, SpecConfig, get_drafter
 
 PREFILL_MODES = ("auto", "fused", "loop")
 
@@ -92,7 +113,11 @@ class ServingEngine:
         self.max_len = max_len
         self.B = batch_slots
         self.use_metadata = scfg.use_scheduler_metadata
-        self.sampler = sampler if sampler is not None else GreedySampler()
+        # CategoricalSampler by default, so every request's SamplingParams
+        # are honoured; a batch with no sampled row costs one argmax, as
+        # GreedySampler's, which instead refuses sampled requests at submit
+        self.sampler = sampler if sampler is not None else \
+            CategoricalSampler()
 
         mode = prefill_mode or scfg.prefill_mode
         if mode not in PREFILL_MODES:
@@ -171,6 +196,20 @@ class ServingEngine:
         # computed and ignored)
         self._pos = np.zeros(self.B, np.int64)
         self._next_token = np.zeros(self.B, np.int64)
+        # the sampler's per-slot rows, written at admission
+        self._state = self.sampler.init_state(self.B)
+
+        # engine-wide speculation default (a request's SamplingParams
+        # wins); per-slot drafters and zero-accept streaks
+        self._default_spec: Optional[SpecConfig] = None
+        if scfg.speculation:
+            self._default_spec = SpecConfig(
+                method=scfg.speculation, k=scfg.speculation_k,
+                max_rejects=scfg.speculation_max_rejects)
+            self._check_speculation(self._default_spec, "ServeConfig")
+        self._spec_cfg: List[Optional[SpecConfig]] = [None] * self.B
+        self._drafters: List[Optional[Drafter]] = [None] * self.B
+        self._spec_rejects = [0] * self.B
         self._next_handle = 0
         self._queues: Dict[int, Deque[Event]] = {}
         self._completions: Dict[int, Completion] = {}
@@ -212,6 +251,7 @@ class ServingEngine:
         self.cache = self.model.cache_manager(self.B, self.max_len,
                                               **self._cache_kw)
         self._caches = self.cache.init_storage()
+        self._state = self.sampler.init_state(self.B)
 
     # --- bound steps --------------------------------------------------------
 
@@ -228,7 +268,7 @@ class ServingEngine:
         logits = self.model.decode_step(self._params, view, token, t,
                                         plan=plan)
         lay.write_token(self._caches, view, table, t, num_pages)
-        return self.sampler.sample(logits)
+        return self.sampler.sample(logits, self._state, self._pos)
 
     def _prefill_impl(self, tokens: torch.Tensor, slot: int, length: int,
                       plan: LaunchPlan, num_pages: int) -> int:
@@ -238,7 +278,7 @@ class ServingEngine:
         self.cache.layout.write_slot(self._caches, view,
                                      self.cache.table_device(), slot,
                                      num_pages)
-        return int(self.sampler.sample(logits[None])[0])
+        return self._sample_row(logits, slot, length - 1)
 
     def _suffix_prefill_impl(self, tokens: torch.Tensor, slot: int,
                              start: int, length: int, plan: LaunchPlan,
@@ -257,7 +297,37 @@ class ServingEngine:
             kv_dtype=self.kv_dtype)
         lay.write_slot(self._caches, view, table, slot, num_pages,
                        first_page=start // self.cache.spec.page_size)
-        return int(self.sampler.sample(logits[None])[0])
+        return self._sample_row(logits, slot, length - 1)
+
+    def _sample_row(self, logits: torch.Tensor, slot: int, pos: int) -> int:
+        """Sample one slot's token from its logits (vocab,) at ``pos``."""
+        state = {name: a[slot:slot + 1] for name, a in self._state.items()}
+        return int(self.sampler.sample(logits[None], state, [pos])[0])
+
+    def _verify_impl(self, tokens: torch.Tensor, t: torch.Tensor,
+                     dlen: torch.Tensor, plan: LaunchPlan, num_pages: int):
+        """Speculative verify over the resident bucket's view: score the
+        (B, M = K + 1) token rows in one planned pass and accept or
+        reject them as a batch.  ``dlen`` (B,) is each slot's true draft
+        count: the sampler sees the rows past it as padding, and
+        ``accepted`` is clamped by it, so padding rows never commit.
+        Paged: only the pages overlapping each slot's accepted rows [t, t
+        + accepted + 1) go back to storage; the rest of the span goes to
+        the trash page.  Dense: the step wrote the storage, and the host
+        rolls ``kv_len`` back over the rejected rows."""
+        lay = self.cache.layout
+        table = self.cache.table_device()
+        view = lay.gather_view(self._caches, table, num_pages)
+        logits = self.model.verify_step(self._params, view, tokens, t,
+                                        plan=plan)
+        row = torch.arange(tokens.shape[1] - 1, device=tokens.device)
+        draft = torch.where(row < dlen[:, None], tokens[:, 1:], -1)
+        toks, acc = self.sampler.verify(logits, draft, self._state,
+                                        self._pos)
+        acc = torch.minimum(acc, dlen)
+        lay.write_rows(self._caches, view, table, t, acc + 1,
+                       tokens.shape[1], num_pages)
+        return toks, acc
 
     def _build(self, impl, plan: LaunchPlan):
         # plan.bucket spans the whole view: the resident length for
@@ -275,10 +345,33 @@ class ServingEngine:
 
     # --- request lifecycle --------------------------------------------------
 
+    def _check_speculation(self, spec: SpecConfig, who: str) -> None:
+        """The submit-time and engine-default speculation gate: the
+        drafter name must resolve, the model must support verify steps,
+        and verify launches are planned, so they need the metadata
+        path."""
+        try:
+            get_drafter(spec.method)
+        except KeyError as e:
+            raise ValueError(f"{who}: {e.args[0]}") from None
+        if not self.model.supports_speculation:
+            raise ValueError(
+                f"{who}: {self.cfg.family} models cannot run speculative "
+                "verify steps (see Model.supports_speculation)")
+        if not self.use_metadata:
+            raise ValueError(
+                f"{who}: speculative decoding rides the metadata-enabled "
+                "plan path (verify launches are planned under "
+                "('verify', k, bucket) keys); set "
+                "use_scheduler_metadata=True or drop the speculation knob")
+
     def validate(self, req: Request) -> None:
         """Raise on requests that could never run (no state mutated)."""
         self.sched.validate(req)
         self.sampler.check(req.sampling)
+        spec = req.sampling.speculation or self._default_spec
+        if spec is not None:
+            self._check_speculation(spec, f"request {req.request_id}")
         if self.cache.is_paged:
             # +1: the request must also fit its first decode row, or a
             # prompt whose pages fill the pool would admit and then wait
@@ -382,6 +475,13 @@ class ServingEngine:
             if not self.cache.reserve(i, len(prompt)):
                 raise RuntimeError("admission raced the page free list")
             shared = 0
+        for name, value in self.sampler.slot_state(
+                st.request.sampling).items():
+            self._state[name][i] = value
+        spec = st.request.sampling.speculation or self._default_spec
+        self._spec_cfg[i] = spec
+        self._drafters[i] = get_drafter(spec.method)() if spec else None
+        self._spec_rejects[i] = 0
         if self.prefill_mode == "fused":
             self._admit_fused(i, st, events, shared)
             return
@@ -429,6 +529,13 @@ class ServingEngine:
         self._emit_token(i, st, tok, events)
 
     def _decode_launch(self, live, events: List[Event]) -> None:
+        drafts = self._collect_drafts(live)
+        if drafts:
+            self._verify_launch(live, drafts, events)
+        else:
+            self._plain_launch(live, events)
+
+    def _plain_launch(self, live, events: List[Event]) -> None:
         # every live slot is about to write row _pos[i]: allocate its
         # page now (paged), and finish (only) the requests whose page the
         # pool cannot cover.  A finish releases pages, so a later slot may
@@ -459,6 +566,128 @@ class ServingEngine:
         out = step(tok, t).cpu().numpy()    # host copy waits for the launch
         for i, st in live:
             self._advance(i, st, int(out[i]), events)
+
+    # --- speculative verify launch ------------------------------------------
+
+    def _collect_drafts(self, live) -> Dict[int, List[int]]:
+        """Ask each speculating slot's drafter for draft tokens.  Only
+        slots past their prompt, still speculating and with budget left
+        draft; the others ride the launch as 1-token rows.  Returns only
+        non-empty drafts: an empty dict makes this step a plain decode
+        launch."""
+        drafts: Dict[int, List[int]] = {}
+        for i, st in live:
+            spec, drafter = self._spec_cfg[i], self._drafters[i]
+            if spec is None or drafter is None or st.prompt_left:
+                continue
+            # a draft row past the request's remaining budget could never
+            # emit.  The cache-wall bound is one stricter than decode's
+            # (max_len - 2): the whole accepted run must land below the
+            # capacity-finish position, or a multi-token emit would hit
+            # the wall after fewer tokens than sequential decode
+            budget = st.request.max_new_tokens \
+                - len(st.completion.tokens) - 1
+            room = self.max_len - 2 - int(self._pos[i])
+            k = min(spec.k, budget, room)
+            if k < 1:
+                continue
+            history = st.completion.prompt + st.completion.tokens
+            d = list(drafter.propose(history, k))[:k]
+            if d:
+                drafts[i] = d
+        return drafts
+
+    def _verify_launch(self, live, drafts: Dict[int, List[int]],
+                       events: List[Event]) -> None:
+        """One planned verify launch: every live slot rides (lockstep),
+        speculating slots carry their drafts, the rest take 1-token rows
+        (``dlen = 0``, a decode row in effect)."""
+        # each slot writes rows [pos, pos + dlen]: make row pos writable
+        # as decode does (failure finishes the request), then the draft
+        # rows page by page, cutting the draft at the first row the pool
+        # cannot cover (speculation must not take a page a plain decode
+        # step would have had)
+        for i, st in live:
+            p = int(self._pos[i])
+            if not self.cache.ensure(i, p):
+                drafts.pop(i, None)
+                self._finish_capacity(i, st, events)
+                continue
+            d = drafts.get(i)
+            if not d:
+                continue
+            kept = 0
+            while kept < len(d) and self.cache.ensure(i, p + kept + 1):
+                kept += 1
+            drafts[i] = d[:kept]
+        live = self.sched.live()
+        if not live:
+            return
+        # ensure() may have copy-on-written a shared page
+        self._apply_copies()
+        K = max(len(drafts.get(i, [])) for i, _ in live)
+        if K == 0:                      # every draft cut: a plain step
+            self._plain_launch(live, events)
+            return
+        toks = np.zeros((self.B, K + 1), np.int64)
+        dlen = np.zeros(self.B, np.int64)
+        toks[:, 0] = self._next_token
+        t_max = 0
+        for i, _ in live:
+            d = drafts.get(i, [])
+            dlen[i] = len(d)
+            toks[i, 1:1 + len(d)] = d
+            self.cache.note_write(i, int(self._pos[i]) + len(d))
+            t_max = max(t_max, int(self._pos[i]) + len(d))
+        entry = self.sched.verify_entry(
+            K, t_max, functools.partial(self._build, self._verify_impl))
+        dev = self.device
+        out, acc = entry.step(torch.from_numpy(toks).to(dev),
+                              torch.from_numpy(self._pos).to(dev),
+                              torch.from_numpy(dlen).to(dev))
+        out, acc = out.cpu().numpy(), acc.cpu().numpy()
+        for i, st in live:
+            self._advance_verified(i, st, drafts.get(i, []), int(acc[i]),
+                                   out[i], events)
+
+    def _advance_verified(self, i: int, st: SlotState, d: List[int],
+                          a: int, row: np.ndarray,
+                          events: List[Event]) -> None:
+        """After a verify launch, for one slot: commit the accepted
+        positions, emit ``d[:a]`` and the correction or bonus token, roll
+        ``kv_len`` back over the rejected rows, and count acceptance and
+        the ``max_rejects`` streak."""
+        st.completion.steps += 1
+        if st.prompt_left:              # loop-mode prefill rider
+            self._pos[i] += 1
+            self._next_token[i] = st.prompt_left.pop(0)
+            return
+        self._pos[i] += a + 1
+        self.cache.truncate(i, int(self._pos[i]))
+        emitted = 0
+        for tok in d[:a] + [int(row[a])]:
+            self._emit_token(i, st, tok, events)
+            emitted += 1
+            if st.completion.finish_reason is not None:
+                break
+        if not d:                       # a non-speculating rider
+            return
+        spec = self._spec_cfg[i]
+        self.stats.record_spec_step(len(d), a, emitted)
+        drafter = self._drafters[i]
+        if drafter is not None:
+            drafter.observe(a, len(d))
+        if a == 0:
+            self._spec_rejects[i] += 1
+            if spec is not None and spec.max_rejects is not None \
+                    and self._spec_rejects[i] >= spec.max_rejects:
+                # this request's traffic does not draft well: stop paying
+                # for verify rows it keeps rejecting
+                self._spec_cfg[i] = None
+                self._drafters[i] = None
+                self.stats.record_spec_disabled()
+        else:
+            self._spec_rejects[i] = 0
 
     def _advance(self, i: int, st: SlotState, tok_out: int,
                  events: List[Event]) -> None:
@@ -540,10 +769,10 @@ class DecodeEngine:
 
     A thin wrapper over :class:`ServingEngine` pinned to loop admission
     (teacher-forcing the prompt through decode steps) and
-    :class:`~repro_torch.serving.sampling.GreedySampler`, as the
-    reference's; :meth:`generate` validates every request before it
-    submits any, so a bad request fails fast instead of aborting the
-    batch mid-flight.
+    :class:`~repro_torch.serving.sampling.GreedySampler` (argmax, no vocab
+    sort), as the reference's; :meth:`generate` validates every request
+    before it submits any, so a bad request fails fast instead of
+    aborting the batch mid-flight.
     """
 
     def __init__(self, model: Model, scfg: ServeConfig, *,

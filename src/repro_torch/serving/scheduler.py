@@ -11,7 +11,9 @@ engine consumes:
 - prefill plans, keyed by ``("prefill", bucket)`` with the prompt length
   rounded up to ``prefill_bucket``;
 - suffix-prefill plans (prefix sharing), keyed by ``("sprefill",
-  view_bucket, suffix_bucket)``.
+  view_bucket, suffix_bucket)``;
+- verify plans (speculative decoding), keyed by ``("verify", k,
+  bucket)``.
 
 ``num_cores`` is the machine the policy plans for: the card's SM count
 when the engine runs on one.
@@ -164,6 +166,34 @@ class Scheduler:
 
         return self.plans.get_or_build(bucket, miss)
 
+    # --- speculative verify planning ----------------------------------------
+
+    def verify_spec(self, k: int, bucket: int) -> AttentionSpec:
+        """The verify-kind spec: a ``k + 1``-row query block (current
+        token and k drafts) against the resident-length bucket."""
+        cfg = self.cfg
+        return AttentionSpec.verify(self.B, k + 1, bucket, cfg.num_heads,
+                                    cfg.num_kv_heads, cfg.resolved_head_dim,
+                                    kv_dtype=self.kv_dtype)
+
+    def verify_entry(self, k: int, t_max: int,
+                     build: Callable[[LaunchPlan], Any]) -> PlanEntry:
+        """One planned verify entry per ``("verify", k, bucket)`` key, in
+        the same PlanCache as decode and prefill plans.  ``t_max`` is the
+        largest position any row of the launch writes (each slot's
+        position plus its draft count), so the bucket covers the
+        speculative extent; the same sequence-aware policy as decode
+        plans the splits, on the k + 1-row workload."""
+        bucket = self.decode_bucket(t_max)
+        key = ("verify", k, bucket)
+
+        def miss() -> PlanEntry:
+            plan = self.planner.plan(self.verify_spec(k, bucket),
+                                     bucket=bucket)
+            return PlanEntry(key, plan, build(plan))
+
+        return self.plans.get_or_build(key, miss)
+
     # --- prefill planning ---------------------------------------------------
 
     def prefill_len(self, prompt_len: int) -> int:
@@ -227,3 +257,8 @@ class Scheduler:
         """Resident suffix-prefill (view, suffix) bucket pairs, sorted."""
         return sorted((k[1], k[2]) for k in self.plans.keys()
                       if isinstance(k, tuple) and k[0] == "sprefill")
+
+    def planned_verify_keys(self) -> List[Tuple[int, int]]:
+        """Resident verify-plan (k, bucket) pairs, sorted."""
+        return sorted((k[1], k[2]) for k in self.plans.keys()
+                      if isinstance(k, tuple) and k[0] == "verify")

@@ -58,15 +58,21 @@ def _summary(log):
     dict(cache_layout="paged", share_prefix=True),
     dict(cache_layout="paged", kv_quant="int8"),
     dict(prefill_mode="loop", policy="fa3_baseline"),
-], ids=["dense", "paged", "paged_shared", "paged_int8", "loop_fa3"])
+    dict(cache_layout="paged", speculate="prompt_lookup", speculate_k=3,
+         max_new=24),
+], ids=["dense", "paged", "paged_shared", "paged_int8", "loop_fa3",
+        "paged_speculate"])
 def test_run_serving_reports_the_reference_counts(kw):
     """``run_serving`` on the CPU over the reference's seeded request
     stream: the same prompts and completion lengths, and the same frozen
     plans, prefill buckets, page counts and prefix hits in the summary
-    lines as the reference's ``run_serving``."""
+    lines as the reference's ``run_serving``.  The two packages draw
+    other weights from the seed, so a speculating run's counts are the
+    port's own: it prints the reference's speculation line, and its
+    streams are the port's spec-off streams."""
     from repro.launch.serve import run_serving as j_run_serving
     from repro_torch.launch.serve import run_serving
-    kw = dict(num_requests=6, max_new=6, d_model=64, **kw)
+    kw = {"num_requests": 6, "max_new": 6, "d_model": 64, **kw}
     jlines, lines = [], []
     jouts = j_run_serving("qwen2.5-3b", log_fn=jlines.append, **kw)
     outs = run_serving("qwen2.5-3b", device="cpu", log_fn=lines.append, **kw)
@@ -75,12 +81,22 @@ def test_run_serving_reports_the_reference_counts(kw):
     assert _summary(lines) == _summary(jlines)
     if kw.get("share_prefix"):
         assert "prefix sharing: 5 hits" in _summary(lines)[2]
+    if kw.get("speculate"):
+        head = "speculation (prompt_lookup, k=3): "
+        spec = [x for x in lines if x.startswith(head)]
+        assert len(spec) == 1 and "verify plans [(" in spec[0]
+        assert any(x.startswith(head) for x in jlines)
+        plain = {k: v for k, v in kw.items() if not k.startswith("spec")}
+        assert [c.tokens for c in run_serving(
+            "qwen2.5-3b", device="cpu", log_fn=lambda line: None,
+            **plain)] == [c.tokens for c in outs]
 
 
 def test_serve_module_runs_and_refuses_unported_flags():
     """``python -m repro_torch.launch.serve`` runs on the CPU and prints
-    the reference's summary wording; flags for what the port does not
-    serve (sampling, speculation, tracing, mesh) are not in its parser."""
+    the reference's summary wording, also sampled and speculating; flags
+    for what the port does not serve (tuning tables, stats dumps,
+    tracing, mesh) are not in its parser."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     base = [sys.executable, "-m", "repro_torch.launch.serve",
             "--arch", "qwen2.5-3b", "--device", "cpu", "--requests", "3",
@@ -93,9 +109,16 @@ def test_serve_module_runs_and_refuses_unported_flags():
     assert "policy=paper: 3 requests, 9 tokens" in out.stdout
     assert "prefix sharing: 2 hits" in out.stdout
     assert "req 0 finished (length)" in out.stdout
-    for flag in (["--temperature", "0.5"], ["--speculate", "ngram"],
+    out = subprocess.run(base + ["--arch", "stablelm-12b", "--speculate",
+                                 "ngram", "--temperature", "0.8"],
+                         capture_output=True, text=True, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "policy=paper: 3 requests, 9 tokens" in out.stdout
+    assert "speculation (ngram, k=4): " in out.stdout
+    for flag in (["--tune-table", "t.json"], ["--stats-path", "s.json"],
                  ["--trace", "t.json"], ["--mesh", "1,1"],
-                 ["--tune-table", "t.json"]):
+                 ["--metrics", "m.json"]):
         bad = subprocess.run(base + flag, capture_output=True, text=True,
                              env=env, timeout=120)
         assert bad.returncode == 2, flag

@@ -17,6 +17,7 @@ v scale, as two bf16 terms).
 """
 import functools
 
+import numpy as np
 import pytest
 import torch
 
@@ -38,9 +39,9 @@ from repro_torch.kernels.flash_decode_quant import (
 )
 from repro_torch.kernels.flash_prefill import flash_prefill, prefill_plain
 from repro_torch.models import build_model
-from repro_torch.plan import AttentionSpec, Planner
+from repro_torch.plan import AttentionSpec, LaunchPlan, Planner
 from repro_torch.quant import AB_ATOL, QuantizedKV, Quantizer
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import CategoricalSampler, Request, ServingEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -886,3 +887,66 @@ def test_paged_decode_equals_dense_bits(cuda, kv_dtype, bucket, lens, s):
     assert ops.launch_counts_by_key(name) == {(bucket, s): 1}
     assert torch.equal(got, want)
 
+
+@pytest.mark.parametrize("b,hkv,g,d,bucket,pos,s,sharp", [
+    # rows inside the view, rows past its end, a dead slot far past it
+    (4, 2, 8, 128, 1024, (100, 1000, 1021, 3000), 8, False),
+    (4, 2, 8, 128, 512, (420, 60, 507, 0), 3, True),
+    (2, 32, 1, 128, 384, (300, 379), 1, False),    # codeqwen1.5-7b's G
+    (2, 8, 4, 160, 1024, (1000, 450), 8, True),    # stablelm-12b's G, D
+])
+def test_verify_attention_runs_each_row_on_the_decode_kernel(
+        cuda, b, hkv, g, d, bucket, pos, s, sharp):
+    """A verify block of M = 5 rows per slot: M launches of the decode
+    kernel under ("flash_decode", bucket, S), each row within 2e-2 of
+    ``decode_plain`` over ``clamp(pos + j + 1, 1, bucket)`` keys of the
+    same view, on random data and on the model's regime (K x 10, V x
+    100, a few dominant keys)."""
+    M = 5
+    k = _rand(cuda, (b, 2048, hkv, d)) * (10 if sharp else 1)
+    v = _rand(cuda, (b, 2048, hkv, d)) * (100 if sharp else 1)
+    q = _rand(cuda, (b, M, hkv * g, d)) * (0.08 * d ** 0.5 if sharp else 1)
+    pos = torch.tensor(pos, device="cuda")
+    plan = LaunchPlan(kind="verify", num_splits=s, bucket=bucket)
+    ops.reset_launch_counts()
+    ops.reset_policy_eval_count()
+    got = ops.verify_attention(q, k, v, pos, plan=plan)
+    assert ops.launch_counts_by_key("flash_decode") == {(bucket, s): M}
+    assert ops.policy_eval_count() == 0
+    qp = (q.float() * d ** -0.5).to(q.dtype).reshape(b, M, hkv, g, d)
+    for j in range(M):
+        lens = (pos + j + 1).clamp(1, bucket)
+        want = decode_plain(qp[:, j].contiguous(), k[:, :bucket],
+                            v[:, :bucket], lens, num_splits=s)
+        torch.testing.assert_close(
+            got[:, j].reshape(b, hkv, g, d).float(), want.float(),
+            rtol=2e-2, atol=2e-2)
+
+
+def test_categorical_sampler_is_reproducible_on_the_card(cuda):
+    """qwen2.5-3b's vocab, greedy and sampled rows: the same seeds and
+    positions draw the same tokens on a second call; greedy rows are the
+    argmax; sampled tokens stay inside their row's top-k; the bonus row
+    draws what ``sample`` draws at its position."""
+    B, M, V = 4, 3, 151936
+    logits = torch.randn((B, M, V), generator=cuda, device="cuda") * 3
+    st = {"temperature": np.array([0.0, 0.8, 1.0, 0.8], np.float32),
+          "top_k": np.array([0, 50, 0, 50], np.int32),
+          "top_p": np.array([1.0, 0.9, 0.9, 1.0], np.float32),
+          "seed": np.array([1, 2, 3, 4], np.int64)}
+    pos = np.array([5, 17, 400, 2])
+    sampler = CategoricalSampler()
+    first = sampler.sample(logits[:, 0], st, pos)
+    assert torch.equal(sampler.sample(logits[:, 0], st, pos), first)
+    assert first[0] == logits[0, 0].argmax()
+    for b in (1, 3):
+        assert first[b] in torch.topk(logits[b, 0], 50).indices
+    draft = logits[:, :M - 1].argmax(-1)
+    draft[2, 1] = -1                             # a padding row
+    toks, acc = sampler.verify(logits, draft, st, pos)
+    again, acc2 = sampler.verify(logits, draft, st, pos)
+    assert torch.equal(toks, again) and torch.equal(acc, acc2)
+    assert torch.equal(toks[0], logits[0].argmax(-1))
+    assert torch.equal(toks[:, M - 1],
+                       sampler.sample(logits[:, M - 1], st, pos + M - 1))
+    assert int(acc[2]) <= 1

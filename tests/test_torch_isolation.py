@@ -42,7 +42,11 @@ def test_no_module_imports_jax_or_repro():
                  "repro_torch.core.occupancy",
                  "repro_torch.core.scheduler_metadata",
                  "repro_torch.cache.manager", "repro_torch.cache.layout",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.spec.config",
+                 "repro_torch.spec.drafter", "repro_torch.spec.outcome",
+                 "repro_torch.serving.sampling",
+                 "repro_torch.configs.codeqwen15_7b",
+                 "repro_torch.configs.stablelm_12b"):
         assert want in res["modules"]
 
 

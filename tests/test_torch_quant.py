@@ -476,9 +476,9 @@ class _Recording(GreedySampler):
     def __init__(self):
         self.logits = []
 
-    def sample(self, logits):
+    def sample(self, logits, state, pos):
         self.logits.append(logits.float().numpy().copy())
-        return super().sample(logits)
+        return super().sample(logits, state, pos)
 
 
 def test_fp8_engine_on_bf16_weights_differs_only_at_a_tie(tiny):
