@@ -16,6 +16,9 @@ Run from the repository root, on a machine with the card and nvcc:
                                           # and the sampled path
     python3 chip_smoke.py --phase archs   # build + codeqwen1.5-7b and
                                           # stablelm-12b at full width
+    python3 chip_smoke.py --phase tune    # build + measured split
+                                          # autotuning, served from
+                                          # its table
 
 Phases, each fatal on failure:
 
@@ -158,6 +161,27 @@ Phases, each fatal on failure:
    launches 1 a layer a step, no policy evaluation, finite logits;
    admission-step and median decode-step ms, the parameter count and
    ``torch.cuda.max_memory_allocated`` printed.
+4e. Measured split autotuning (``phase_tune``): ``Calibrator`` times the
+   decode op (K1; K4 over int8) at every candidate split of every cell
+   of ``H100_SPEC`` (CUDA events, L2 flushed and the stream spun before
+   each repeat, 8 calls a repeat, each on its own cache copy; the median
+   of 5 repeats after 2), every time above the method's floor; each
+   ``TUNE_CELLS`` cell prints its curve, argmin, and ``paper``'s and
+   ``fa3_baseline``'s splits with t(S) / t(argmin) (a policy's S off the
+   candidate grid timed on the cell's inputs), and over the whole table
+   how often ``paper``'s, ``fa3_baseline``'s and ``tpu_adaptive``'s
+   splits are the argmin and t(S) / t(argmin); ``TUNE_STABILITY``
+   calibrated again on other inputs prints how many argmins changed, and
+   the committed table of this card (``experiments/tune/h100/``) is
+   compared with the fresh one the same way; the
+   serving cell (2 slots, the 4 prompts, bf16 then int8) under
+   ``split_policy="measured"`` from the fresh table: 0 policy
+   evaluations, each resident bucket's frozen split = ``table.choose``
+   (1152, off the grid, the nearest bucket's), launches by (view, S) =
+   the plan keys', every layer's decode attention within 2e-2 of its
+   plain version, 0 fallbacks; then the serving CLI as a subprocess with
+   ``--policy measured --tune-table experiments/tune/h100/
+   --stats-path``.  The fresh table goes to ``chiprun_out/tune/``.
 5. One JSON ``kernels`` line: per kernel its error (a decode row's at
    that row's own inputs, over NaN/Inf tails), launches on the main
    path (the bf16 run's; the quantized decode and the combine kernels'
@@ -261,6 +285,16 @@ from repro_torch.serving import (  # noqa: E402
     GreedySampler,
     Request,
     ServingEngine,
+)
+from repro_torch.core.split_policy import (  # noqa: E402
+    DecodeWorkload,
+    choose_num_splits,
+)
+from repro_torch.tune import (  # noqa: E402
+    H100_SPEC,
+    H100_TABLE_DIR,
+    Calibrator,
+    SplitTable,
 )
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
@@ -3229,6 +3263,292 @@ def phase_shapes(gen, sms: int, flush, iters: int = 100):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4e: measured split autotuning
+# ---------------------------------------------------------------------------
+
+# the cells whose measured curve is printed beside the policies' splits:
+# the paper's Table 1 changed cells (B 1, H_Q 64, H_KV 1 / 2, L_K 512),
+# then qwen2.5-3b's decode shape at B 1 / 2 and four buckets, bf16 / int8
+TUNE_CELLS = [(1, 512, 64, 1, "bfloat16"), (1, 512, 64, 2, "bfloat16")] + [
+    (b, lk, 16, 2, dt) for dt in ("bfloat16", "int8") for b in (1, 2)
+    for lk in (384, 512, 1024, 2048)]
+# the sub-grid calibrated a second time, on other seeded inputs: the
+# table's stability (48 cells)
+TUNE_STABILITY = dict(lk_buckets=(384, 512, 1024, 2048), batches=(1, 2, 4),
+                      head_shapes=((16, 2, 128), (64, 2, 128)))
+
+
+def tune_cell_lines(cal, table, sms: int):
+    """Per TUNE_CELLS cell: the measured curve, its argmin, ``paper``'s
+    and ``fa3_baseline``'s splits and t(policy's S) / t(argmin), timing a
+    policy's S that is not a candidate (S=3 over 4 blocks partitions as
+    S=2 does, plus one empty CTA) on the cell's own inputs."""
+    fams = {(e["batch"], e["lk_bucket"], e["num_heads_q"],
+             e["num_heads_kv"], e["kv_dtype"]): e for e in table.entries}
+    out = []
+    for i, (b, lk, hq, hkv, dt) in enumerate(TUNE_CELLS):
+        e = fams[(b, lk, hq, hkv, dt)]
+        lat = {int(k): v for k, v in e["latencies_us"].items()}
+        w = DecodeWorkload(b, 1, lk, hq, hkv, 128,
+                           dtype_bytes=2 if dt == "bfloat16" else 1,
+                           kv_dtype=dt)
+        pol = {p: choose_num_splits(w, policy=p, num_cores=sms)
+               for p in ("paper", "fa3_baseline")}
+        extra = sorted({s for s in pol.values() if s not in lat})
+        if extra:
+            lat.update(cal.time_splits(w, extra, cell=10_000 + i))
+        best = e["best_split"]
+        ratio = {p: lat[s] / lat[best] for p, s in pol.items()}
+        row = {"cell": f"B{b} L{lk} Hq{hq} Hkv{hkv} {dt}",
+               "curve_us": {str(k): round(v, 4) for k, v in sorted(
+                   lat.items())},
+               "argmin": best, "paper": pol["paper"],
+               "fa3_baseline": pol["fa3_baseline"],
+               "paper_over_argmin": round(ratio["paper"], 4),
+               "baseline_over_argmin": round(ratio["fa3_baseline"], 4),
+               "timed_off_grid": extra}
+        print(f"tune {row['cell']}: curve us {row['curve_us']} argmin "
+              f"S={best}; paper S={pol['paper']} x{ratio['paper']:.4f}, "
+              f"fa3_baseline S={pol['fa3_baseline']} "
+              f"x{ratio['fa3_baseline']:.4f} of the argmin's time"
+              + (f" (S {extra} timed off the grid)" if extra else ""))
+        out.append(row)
+    return out
+
+
+def tune_policy_summary(table, sms: int):
+    """Over every cell of the table: how often each analytic policy's
+    split is the measured argmin, and t(policy's S) / t(argmin) (median,
+    max) where its S is on the cell's candidate grid (``paper``'s S=3
+    over 4 blocks is not: it partitions as S=2 does)."""
+    out = {}
+    for policy in ("paper", "fa3_baseline", "tpu_adaptive"):
+        hit, off, ratios = 0, 0, []
+        for e in table.entries:
+            w = DecodeWorkload(e["batch"], 1, e["lk_bucket"],
+                               e["num_heads_q"], e["num_heads_kv"],
+                               e["head_dim"], dtype_bytes=e["dtype_bytes"],
+                               kv_dtype=e["kv_dtype"])
+            s = choose_num_splits(w, policy=policy, num_cores=sms)
+            lat = e["latencies_us"]
+            if str(s) not in lat:
+                off += 1
+                continue
+            hit += s == e["best_split"]
+            ratios.append(lat[str(s)] / lat[str(e["best_split"])])
+        ratios.sort()
+        out[policy] = {"argmin": hit, "off_grid": off,
+                       "on_grid": len(ratios),
+                       "median_over_argmin": round(median(ratios), 4),
+                       "max_over_argmin": round(ratios[-1], 4)}
+        print(f"tune {policy} over {len(table)} cells: its split is the "
+              f"argmin in {hit}, off the grid in {off}; t(S) / t(argmin) "
+              f"median {median(ratios):.4f}, max {ratios[-1]:.4f} over "
+              f"{len(ratios)}")
+    return out
+
+
+def table_agreement(a, b):
+    """Two calibrations of one grid, cell by cell: the argmins that
+    differ (each with t(b's argmin) / t(a's argmin) in ``a``) and the
+    quantiles of a's time over b's at every shared split."""
+    key = lambda e: (e["batch"], e["num_heads_q"], e["num_heads_kv"],
+                     e["head_dim"], e["kv_dtype"], e["lk_bucket"])
+    first = {key(e): e for e in a.entries}
+    changed, ratios = [], []
+    for e in b.entries:
+        f = first[key(e)]
+        lat = f["latencies_us"]
+        if f["best_split"] != e["best_split"]:
+            changed.append(round(lat[str(e["best_split"])]
+                                 / lat[str(f["best_split"])], 4))
+        ratios += [lat[s] / t for s, t in e["latencies_us"].items()]
+    ratios.sort()
+    q = {p: round(ratios[round(p * (len(ratios) - 1))], 4)
+         for p in (0.0, 0.01, 0.5, 0.99, 1.0)}
+    return {"cells": len(b.entries), "argmins_changed": len(changed),
+            "changed_ratios": sorted(changed), "time_ratio_quantiles": q}
+
+
+def tune_serve(model, params, cfg, seed: int, table, kv_quant=None):
+    """The serving cell (2 slots, the 4 prompts, 32 new tokens) under
+    ``split_policy="measured"`` from ``table``, every layer's decode
+    attention held against its plain version: 0 policy evaluations, each
+    resident bucket's frozen split = ``table.choose`` of its decode
+    workload (bucket 1152, off the grid, takes the nearest bucket),
+    launches by (view, S) = the plan keys' implied counts, no fallback."""
+    label = kv_quant or "bf16"
+    rng = np.random.default_rng(seed)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=32) for i, n in enumerate(SERVING_PROMPTS)]
+    sampler = CheckedGreedy()
+    engine = ServingEngine(model, ServeConfig(model=cfg, seed=seed,
+                                              kv_quant=kv_quant,
+                                              split_policy="measured"),
+                           max_len=2048, batch_slots=2, sampler=sampler,
+                           tune_table=table, device=DEVICE)
+    engine.load(params)
+    acc = {}
+    ops.reset_launch_counts()
+    ops.reset_policy_eval_count()
+    with checked_kernels(acc):
+        _, decode_ms, wall, done, _, _ = drive(engine, reqs)
+    torch.cuda.synchronize()
+    st = engine.stats
+    stats = {k: st.to_json()[k] for k in ("measured_lookups",
+                                          "measured_fallbacks",
+                                          "measured_fallback_trace")}
+    layers = cfg.num_layers
+    decode = "flash_decode_quant" if kv_quant else "flash_decode"
+    got = {name: ops.launch_counts_by_key(name)
+           for name in ("flash_decode", "flash_decode_quant")}
+    got = {name: by for name, by in got.items() if by}
+    want = {name: by for name, by in expected_decode_launches(
+        engine, layers, kv_quant).items() if by}
+    # a probe copy: its lookups do not count in the engine's stats
+    probe = SplitTable(table.entries, table.fingerprint)
+    splits = engine.planned_splits()
+    chosen = {bk: probe.choose(engine.sched.decode_spec(bk).workload())[0]
+              for bk in splits}
+    print(f"tune serving {label}: planned splits {splits}, table's "
+          f"{chosen}; launches by (view, S) {got[decode]}; lookups "
+          f"{stats['measured_lookups']}, fallbacks "
+          f"{stats['measured_fallbacks']} {stats['measured_fallback_trace']}"
+          f"; decode attention of {acc[decode]['checks']} layer steps: max "
+          f"abs err {acc[decode]['max_abs_err']:.4g}; median decode step "
+          f"{median(decode_ms):.3f} ms")
+    check(ops.policy_eval_count() == 0, f"tune {label}: policy evaluated")
+    check(bool(sampler.finite.item()), f"tune {label}: non-finite logits")
+    check(1152 in splits, f"tune {label}: no 1152 bucket in {splits}")
+    check(splits == chosen, f"tune {label}: frozen splits {splits} != the "
+          f"table's {chosen}")
+    check(all(e.plan.tuned and e.plan.table_version == table.version
+              for k, e in engine.sched.plans.items() if isinstance(k, int)),
+          f"tune {label}: a decode plan not from the table")
+    check(got == want, f"tune {label}: launches {got} != the plan keys' "
+          f"{want}")
+    check(acc[decode]["checks"] == sum(got[decode].values()) > 0,
+          f"tune {label}: {acc[decode]['checks']} checks")
+    check(stats["measured_lookups"] == len(splits)
+          and stats["measured_fallbacks"] == 0,
+          f"tune {label}: lookups / fallbacks {stats}")
+    check([len(c.tokens) for c in done] == [32] * 4,
+          f"tune {label}: completions")
+    return {"splits": {str(k): v for k, v in splits.items()},
+            "decode_launches": {f"{v} S{s}": n for (v, s), n in sorted(
+                got[decode].items())},
+            "checks": acc[decode], **stats,
+            "decode_step_ms": median(decode_ms), "wall_s": wall}
+
+
+def phase_tune(model, params, cfg, seed: int, sms: int):
+    """Measured split autotuning on the card: calibrate ``H100_SPEC``
+    (printing TUNE_CELLS' curves beside the policies' splits), calibrate
+    TUNE_STABILITY again on other inputs and count the changed argmins,
+    serve the serving cell from the fresh table (bf16, then int8) with
+    its checks, then run the serving CLI as a subprocess with ``--policy
+    measured --tune-table`` (the committed registry
+    ``experiments/tune/h100/``, or the fresh table before one is
+    committed) and ``--stats-path``."""
+    t0 = time.perf_counter()
+    cal = Calibrator(H100_SPEC, mode="wallclock", seed=seed)
+    table = cal.calibrate()
+    cal_s = time.perf_counter() - t0
+    floor = cal.floor_us()
+    timed = sum(len(e["latencies_us"]) for e in table.entries)
+    print(f"tune: calibrated {len(table)} cells ({timed} candidate splits) "
+          f"in {cal_s:.1f} s, version {table.version}, timing floor "
+          f"{floor:.4f} us a call; fingerprint {table.fingerprint}")
+    check(table.fingerprint["sources"] == "measured",
+          "tune: some cells were not timed")
+    check(all(t > floor for e in table.entries
+              for t in e["latencies_us"].values()),
+          "tune: a time at or below the timing floor")
+    out_dir = ROOT / "chiprun_out" / "tune"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fresh = table.save(out_dir / "h100_fresh.json")
+    hist = {}
+    for e in table.entries:
+        hist[e["best_split"]] = hist.get(e["best_split"], 0) + 1
+    print(f"tune: argmin histogram {dict(sorted(hist.items()))}")
+    cells = tune_cell_lines(cal, table, sms)
+    summary = tune_policy_summary(table, sms)
+
+    t1 = time.perf_counter()
+    again = Calibrator(H100_SPEC.replace(**TUNE_STABILITY), mode="wallclock",
+                       seed=seed + 1).calibrate()
+    first = {(e["batch"], e["num_heads_q"], e["num_heads_kv"],
+              e["kv_dtype"], e["lk_bucket"]): e for e in table.entries}
+    changed = []
+    for e in again.entries:
+        a = first[(e["batch"], e["num_heads_q"], e["num_heads_kv"],
+                   e["kv_dtype"], e["lk_bucket"])]
+        if a["best_split"] != e["best_split"]:
+            changed.append({"cell": f"B{e['batch']} L{e['lk_bucket']} "
+                                    f"Hq{e['num_heads_q']} "
+                                    f"Hkv{e['num_heads_kv']} {e['kv_dtype']}",
+                            "first": a["best_split"],
+                            "again": e["best_split"],
+                            "t_first_at_again": a["latencies_us"][str(
+                                e["best_split"])] / a["latencies_us"][str(
+                                    a["best_split"])]})
+    stab_s = time.perf_counter() - t1
+    agree = table_agreement(table, again)
+    print(f"tune stability: {len(changed)} of {len(again)} argmins changed "
+          f"in a second calibration on other inputs ({stab_s:.1f} s): "
+          f"{changed}; first over second time quantiles "
+          f"{agree['time_ratio_quantiles']}")
+    check(len(again) >= 24, "tune: stability grid under 24 cells")
+    # the committed table of this card, calibrated in another process on
+    # the same seeded inputs, against the fresh one
+    committed = None
+    for path in sorted(H100_TABLE_DIR.glob("*.json")):
+        t = SplitTable.load(path)
+        if t.fingerprint.get("device") == table.fingerprint["device"] \
+                and t.spec == table.spec:
+            committed = {"table": path.name, "version": t.version,
+                         **table_agreement(t, table)}
+            print(f"tune against the committed {path.name} ({t.version}): "
+                  f"{committed}")
+
+    serving = {}
+    for kv_quant in (None, "int8"):
+        serving[kv_quant or "bf16"] = tune_serve(model, params, cfg, seed,
+                                                 table, kv_quant)
+
+    registry = H100_TABLE_DIR if any(H100_TABLE_DIR.glob("*.json")) \
+        else fresh
+    stats_path = out_dir / "cli_stats.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "qwen2.5-3b", "--policy", "measured", "--tune-table",
+           str(registry), "--stats-path", str(stats_path)]
+    res = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ,
+                                                  PYTHONPATH=str(SRC)),
+                         capture_output=True, text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    print(f"tune cli {' '.join(cmd[1:])}: exit {res.returncode}; "
+          + " | ".join(x for x in lines if not x.startswith("req ")))
+    check(res.returncode == 0, f"tune cli failed: {res.stderr[-2000:]}")
+    check(any(x.startswith("measured policy: table ") for x in lines),
+          "tune cli: no measured policy line")
+    snap = json.loads(stats_path.read_text())
+    check(snap["policy"] == "measured" and snap["measured_lookups"] > 0,
+          f"tune cli: stats {snap}")
+    return {"calibration_s": cal_s, "cells": len(table),
+            "candidates_timed": timed, "version": table.version,
+            "fingerprint": table.fingerprint, "floor_us": floor,
+            "histogram": {str(k): v for k, v in sorted(hist.items())},
+            "tune_cells": cells, "policies": summary, "stability": {
+                "cells": len(again), "changed": changed, "seconds": stab_s,
+                **agree}, "committed": committed,
+            "serving": serving, "cli": {
+                "table": str(registry.relative_to(ROOT)),
+                "measured_lookups": snap["measured_lookups"],
+                "measured_fallbacks": snap["measured_fallbacks"],
+                "table_version": snap.get("table_version")}}
+
+
 def phase_paged_all(model, params, cfg, seed: int):
     """The slice's paths, each fatal on failure: paged against dense, the
     prefix cell (bf16 and int8), DecodeEngine, the serving CLI."""
@@ -3257,7 +3577,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phase",
                     choices=("all", "kernels", "digests", "admission",
                              "times", "table1", "shapes", "paged", "spec",
-                             "archs"),
+                             "archs", "tune"),
                     default="all",
                     help="'kernels' stops after build and kernel parity; "
                          "'digests' builds, then runs the main path's "
@@ -3273,7 +3593,9 @@ def main(argv=None) -> int:
                          "prefix sharing, DecodeEngine and the serving "
                          "CLI; 'spec' builds, then runs speculative "
                          "decoding and the sampled path; 'archs' builds, "
-                         "then serves codeqwen1.5-7b and stablelm-12b")
+                         "then serves codeqwen1.5-7b and stablelm-12b; "
+                         "'tune' builds, then calibrates H100_SPEC and "
+                         "serves qwen2.5-3b from the table")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -3310,7 +3632,7 @@ def main(argv=None) -> int:
         archs = timed("archs", phase_archs, args.seed)
         print(json.dumps({"archs": archs, "card": card}))
         return 0
-    if args.phase not in ("paged", "spec"):
+    if args.phase not in ("paged", "spec", "tune"):
         wide_gen = torch.Generator(device=DEVICE).manual_seed(args.seed + 17)
         errs = timed("parity", phase_parity, gen, sms, wide_gen)
     if args.phase == "kernels":
@@ -3335,6 +3657,10 @@ def main(argv=None) -> int:
     if args.phase == "spec":
         spec = timed("spec", phase_spec, model, params, cfg, args.seed)
         print(json.dumps({"spec": spec, "card": card}))
+        return 0
+    if args.phase == "tune":
+        tune = timed("tune", phase_tune, model, params, cfg, args.seed, sms)
+        print(json.dumps({"tune": tune, "card": card}))
         return 0
     counts, serving, bf16 = timed("serving bf16", phase_serving, model,
                                   params, cfg, args.seed)
@@ -3363,6 +3689,7 @@ def main(argv=None) -> int:
                      args.seed, kv_quant="int8")
     paged = phase_paged_all(model, params, cfg, args.seed)
     spec = timed("spec", phase_spec, model, params, cfg, args.seed)
+    tune = timed("tune", phase_tune, model, params, cfg, args.seed, sms)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3381,7 +3708,8 @@ def main(argv=None) -> int:
                       "paper_cell": paper,
                       "paper_cell_int8": qpaper, "profile": profile,
                       "profile_int8": qprofile, "paged": paged,
-                      "spec": spec, "archs": archs, "table1": table1,
+                      "spec": spec, "tune": tune, "archs": archs,
+                      "table1": table1,
                       "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -51,11 +51,21 @@ class ModelConfig:
 @dataclass(frozen=True)
 class ServeConfig:
     model: ModelConfig
-    # fa3_baseline | paper (the policies in repro_torch.core.split_policy)
+    # fa3_baseline | paper | tpu_adaptive | measured (the policies in
+    # repro_torch.core.split_policy)
     split_policy: str = "paper"
     # explicit split count (FA3's ``num_splits``): the planner freezes
     # it, clamped per shape to num_n_blocks.  None = the policy decides.
     num_splits_override: Optional[int] = None
+    # split_policy="measured": the calibrated repro_torch.tune SplitTable
+    # the engine's Planner decides from, a file or a registry directory
+    # (experiments/tune/h100/; calibrate one with `python -m
+    # repro_torch.launch.tune --h100`).  ServingEngine(tune_table=...)
+    # takes a table object, which wins.
+    tune_table_path: Optional[str] = None
+    # when set, ServingEngine.drain() writes PlanCacheStats.to_json()
+    # (with the policy and the table's version) here
+    stats_path: Optional[str] = None
     # cache-length bucket width for plan lookup; the policy reads only
     # ceil(L_K / KV_BLOCK), so any multiple of 128 loses no decision
     seqlen_bucket: int = 128

@@ -18,11 +18,14 @@ from repro_torch.core.split_policy import (  # noqa: F401
     KV_BLOCK,
     KV_DTYPES,
     DecodeWorkload,
+    analytic_policies,
     available_policies,
     choose_num_splits,
     fa3_baseline,
     get_policy,
+    measured,
     paper_policy,
+    tpu_adaptive,
 )
 
 _METADATA = ("SchedulerMetadata", "bucket_seqlen", "get_scheduler_metadata",

@@ -9,9 +9,10 @@ of :func:`repro_torch.kernels.ops.decode_attention` resolves its plan
 here, so :func:`metadata_cache_info` counts its calls as the reference's
 does.
 
-The port's decode kernels always pack the G query heads of one KV head
-into one CTA, so ``pack_gqa`` takes ``None`` or ``True`` and raises on
-``False``.
+``pack_gqa`` is planned as the reference plans it (``None`` packs when
+H_Q > H_KV) and recorded on the plan, where only the cost model reads
+it: the port's decode kernels pack the G query heads of one KV head into
+one CTA whatever the flag says, as the reference's Pallas kernel does.
 """
 from __future__ import annotations
 
@@ -45,10 +46,6 @@ def get_scheduler_metadata(
     ``num_splits_override`` mirrors FA3's explicit ``num_splits``: it
     forces a split count, where production callers leave it ``None`` and
     get the policy's choice."""
-    if pack_gqa is False:
-        raise ValueError("the port's decode kernels always pack the query "
-                         "heads of a KV head into one CTA: pack_gqa must be "
-                         "None or True")
     fn = get_policy(policy)
     if getattr(fn, "needs_table", False):
         # a table-backed policy decides from a planner's table, which this
@@ -61,7 +58,8 @@ def get_scheduler_metadata(
         spec = AttentionSpec("decode", batch, seqlen_q, seqlen_k,
                              num_heads_q, num_heads_kv, head_dim)
         return Planner(policy=policy, num_cores=num_cores,
-                       num_splits_override=num_splits_override).plan(spec)
+                       num_splits_override=num_splits_override,
+                       pack_gqa=pack_gqa).plan(spec)
 
     return _PLAN_CACHE.get_or_build(key, build)
 

@@ -1,6 +1,7 @@
 """The paper's contribution: sequence-aware split-KV scheduling policies.
 
-Counterpart of ``repro.core.split_policy``, for the H100.  Two policies:
+Counterpart of ``repro.core.split_policy``, for the H100.  Four
+policies:
 
 ``fa3_baseline``
     The flawed upstream FlashAttention-3 heuristic (``heuristics.h``
@@ -15,6 +16,21 @@ Counterpart of ``repro.core.split_policy``, for the H100.  Two policies:
     - Guard 2: ``nblk == 4 and tiles >= 4``        -> s = 1
     - Override: ``nblk == 4 and tiles < 4``        -> s = 3
     - longer contexts -> upstream efficiency loop
+
+``tpu_adaptive``
+    The reference's beyond-paper policy: the argmin of the occupancy cost
+    model over every feasible split, moving to a larger split only for a
+    modeled win of more than 2%.  The port reads the model at
+    ``hw=H100_SXM`` (the reference at ``TPU_V5E``); pass ``hw`` to
+    compare.  Kept as the reference has it: it can stop below
+    ``fa3_baseline``'s split and model slower (ROADMAP Queue 3).
+
+``measured``
+    Decides from a calibrated :class:`~repro_torch.tune.SplitTable`
+    (nearest L_K bucket in the workload's exact family), injected at
+    :class:`~repro_torch.plan.Planner` construction.  Shapes the table
+    does not cover fall back to ``paper``, counted.  Marked
+    ``needs_table``, so :func:`analytic_policies` leaves it out.
 
 On the card a split count is a count of CTAs spread over the SMs, so
 ``num_cores`` is the SM count: 132 on an H100 SXM, or what the serving
@@ -145,9 +161,52 @@ def paper_policy(w: DecodeWorkload, num_cores: int = DEFAULT_NUM_CORES) -> int:
     return _upstream_efficiency_loop(w, num_cores)
 
 
+def tpu_adaptive(w: DecodeWorkload, num_cores: int = DEFAULT_NUM_CORES,
+                 hw=None) -> int:
+    """The occupancy cost model's argmin over the feasible splits, ties
+    and wins of 2% or less going to the smaller split.  ``hw`` is the
+    model's machine (``None``: ``H100_SXM``)."""
+    from repro_torch.core.occupancy import H100_SXM, modeled_latency_us
+    hw = H100_SXM if hw is None else hw
+    max_s = min(w.num_n_blocks, num_cores, MAX_SPLITS)
+    if max_s <= 1 or w.tiles(1) >= num_cores:
+        return 1
+    best_s, best_t = 1, modeled_latency_us(w, 1, num_cores=num_cores, hw=hw)
+    for s in range(2, max_s + 1):
+        if math.ceil(w.num_n_blocks / s) == \
+                math.ceil(w.num_n_blocks / (s - 1)):
+            continue
+        t = modeled_latency_us(w, s, num_cores=num_cores, hw=hw)
+        if t < best_t * 0.98:
+            best_s, best_t = s, t
+    return best_s
+
+
+def measured(w: DecodeWorkload, num_cores: int = DEFAULT_NUM_CORES,
+             table=None, impl: Optional[str] = None) -> int:
+    """Decide from a calibrated ``SplitTable`` (``impl`` names its table
+    family; ``None`` is the port's own).  A bare ``choose_num_splits(...,
+    policy="measured")`` must pass the table."""
+    if table is None:
+        raise ValueError(
+            "split policy 'measured' decides from a repro_torch.tune "
+            "SplitTable; pass Planner(policy='measured', "
+            "table=SplitTable.load(path)) (serving: "
+            "ServeConfig.tune_table_path / serve --tune-table; calibrate "
+            "one with `python -m repro_torch.launch.tune`)")
+    s, _tuned = table.choose(w, impl=impl, num_cores=num_cores)
+    return s
+
+
+measured.needs_table = True       # left out of analytic_policies()
+measured.fallback = "paper"       # uncovered shapes, the inline path
+
+
 POLICIES: Dict[str, Callable[..., int]] = {
     "fa3_baseline": fa3_baseline,
     "paper": paper_policy,
+    "tpu_adaptive": tpu_adaptive,
+    "measured": measured,
 }
 
 
@@ -155,14 +214,24 @@ def available_policies() -> list:
     return sorted(POLICIES)
 
 
+def analytic_policies() -> list:
+    """The policies that decide from the workload alone (no table)."""
+    return sorted(n for n, fn in POLICIES.items()
+                  if not getattr(fn, "needs_table", False))
+
+
 def get_policy(name: str) -> Callable[..., int]:
     if name not in POLICIES:
-        raise KeyError(f"unknown split policy {name!r}; ported: "
+        raise KeyError(f"unknown split policy {name!r}; known: "
                        f"{available_policies()}")
     return POLICIES[name]
 
 
 def choose_num_splits(w: DecodeWorkload, policy: str = "paper",
-                      num_cores: int = DEFAULT_NUM_CORES) -> int:
-    s = get_policy(policy)(w, num_cores=num_cores)
+                      num_cores: int = DEFAULT_NUM_CORES,
+                      table=None, impl: Optional[str] = None) -> int:
+    fn = get_policy(policy)
+    kw = {"table": table, "impl": impl} \
+        if getattr(fn, "needs_table", False) else {}
+    s = fn(w, num_cores=num_cores, **kw)
     return max(1, min(int(s), w.num_n_blocks))

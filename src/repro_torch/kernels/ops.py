@@ -9,12 +9,16 @@ wrapper.
 it reads a quantized (int8 / fp8) cache through the quantized cache's
 decode kernel instead; ``decode_attention_quant`` takes the scales as a
 :class:`~repro_torch.quant.QuantizedKV`.  Its split count comes
-from a frozen :class:`~repro_torch.plan.LaunchPlan`; with no frozen plan
-the policy runs inside the call (the paper's internal-heuristic path),
-which :func:`policy_eval_count` counts.  A frozen plan's ``bucket`` cuts
-the cache to ``k[:, :bucket]`` before the split, so the splits partition
-the resident-length bucket rather than the cache's whole capacity.  Rows
-at or past ``kv_len`` are masked either way, so it is the same function.
+from a frozen :class:`~repro_torch.plan.LaunchPlan`, passed as ``plan=``
+or pushed ambiently with :func:`repro_torch.plan.plan_scope`; with no
+frozen plan in reach the policy runs inside the call (the paper's
+internal-heuristic path), which :func:`policy_eval_count` counts and
+:func:`last_inline_plan` records, with the policy and core count of
+whatever context-only plan applies (``_resolve_policy``).  A frozen
+plan's ``bucket`` cuts the cache to ``k[:, :bucket]`` before the split,
+so the splits partition the resident-length bucket rather than the
+cache's whole capacity.  Rows at or past ``kv_len`` are masked either
+way, so it is the same function.
 
 ``verify_attention`` scores a speculative verify step's query block:
 row ``j`` of slot ``b`` is split-KV decode over ``pos[b] + j + 1`` keys,
@@ -39,12 +43,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_decode_quant import flash_decode_quant
 from repro_torch.kernels.flash_prefill import flash_prefill
-from repro_torch.plan import LaunchPlan
+from repro_torch.plan import LaunchPlan, current_plan, plan_scope
+
+_DEFAULT_POLICY = "paper"
 
 # How many times the split policy ran inside a decode-attention call.
 # The metadata-enabled serving path passes frozen plans and must leave
 # it at zero; tests and chip_smoke.py assert exactly that.
 _POLICY_EVALS: int = 0
+
+# the plan the most recent inline evaluation resolved to
+_LAST_INLINE: Optional[LaunchPlan] = None
 
 
 def policy_eval_count() -> int:
@@ -52,8 +61,75 @@ def policy_eval_count() -> int:
 
 
 def reset_policy_eval_count() -> None:
-    global _POLICY_EVALS
+    global _POLICY_EVALS, _LAST_INLINE
     _POLICY_EVALS = 0
+    _LAST_INLINE = None
+
+
+def last_inline_plan() -> Optional[LaunchPlan]:
+    """The frozen plan of the most recent in-call policy evaluation (None
+    if every launch since the reset consumed a precomputed plan)."""
+    return _LAST_INLINE
+
+
+def decode_context(ctx: LaunchPlan):
+    """The reference's alias of :func:`repro_torch.plan.plan_scope`."""
+    return plan_scope(ctx)
+
+
+def attention_context(ctx: LaunchPlan):
+    """The reference's alias of :func:`repro_torch.plan.plan_scope`."""
+    return plan_scope(ctx)
+
+
+def current_decode_context() -> LaunchPlan:
+    """The ambient decode plan (or an empty one)."""
+    plan = current_plan("decode")
+    return plan if plan is not None else LaunchPlan(kind="decode")
+
+
+def current_attention_context() -> LaunchPlan:
+    """The ambient prefill plan (or an empty one)."""
+    plan = current_plan("prefill")
+    return plan if plan is not None else LaunchPlan(kind="prefill")
+
+
+def _resolve_policy(scope: Optional[LaunchPlan], plan: Optional[LaunchPlan],
+                    policy: str, num_cores: Optional[int]):
+    """Policy and core count for an inline evaluation, as the reference
+    resolves them: the call's arguments, overridden by the ambient scope,
+    overridden by an explicit context-only plan.  An override's policy
+    applies when it differs from the default or pins ``num_cores``."""
+    pol, cores = policy, num_cores
+    for over in (scope, plan):
+        if over is None:
+            continue
+        if over.num_cores is not None:
+            cores = over.num_cores
+        if over.policy != _DEFAULT_POLICY or over.num_cores is not None:
+            pol = over.policy
+    return pol, cores
+
+
+def _resolve_plan(plan: Optional[LaunchPlan], use_ctx_metadata: bool,
+                  policy: str, num_cores: Optional[int],
+                  shape: tuple) -> LaunchPlan:
+    """The frozen plan a decode-family launch of ``shape`` (B, M, Lk, Hq,
+    Hkv, D) runs: ``plan`` if frozen, else the ambient frozen decode plan
+    (unless ``use_ctx_metadata=False``), else one the policy makes here,
+    counted as an inline evaluation."""
+    global _POLICY_EVALS, _LAST_INLINE
+    scope = current_plan("decode")
+    if (plan is None or not plan.frozen) and use_ctx_metadata \
+            and scope is not None and scope.frozen:
+        plan = scope
+    if plan is not None and plan.frozen:
+        return plan
+    _POLICY_EVALS += 1
+    pol, cores = _resolve_policy(scope, plan, policy, num_cores)
+    kwargs = {} if cores is None else {"num_cores": cores}
+    _LAST_INLINE = get_scheduler_metadata(*shape, policy=pol, **kwargs)
+    return _LAST_INLINE
 
 
 def launch_counts() -> Dict[str, int]:
@@ -158,6 +234,9 @@ def decode_attention(
     k_scale=None,            # (B, Lk, Hkv) f32, or a PagedKV
     v_scale=None,
     plan: Optional[LaunchPlan] = None,
+    use_ctx_metadata: bool = True,
+    policy: str = _DEFAULT_POLICY,
+    num_cores: Optional[int] = None,
 ) -> torch.Tensor:
     """Split-KV decode attention; the split count comes from ``plan``.
 
@@ -165,22 +244,21 @@ def decode_attention(
     plan's ``num_splits`` splits over ``k[:, :plan.bucket]`` and merges
     them in a fixed order, in one launch.  With ``k_scale`` / ``v_scale``
     the cache is quantized: the quantized cache's decode kernel reads it,
-    scales cut to the same bucket, again in one launch.  A context-only
-    plan (or none, meaning ``paper`` at 132 SMs) has the policy decide
-    here, over the whole cache length.  Any of ``k``, ``v``, ``k_scale``
-    and ``v_scale`` may be a :class:`PagedKV`, gathered first.
+    scales cut to the same bucket, again in one launch.  With no frozen
+    plan, the ambient frozen decode plan
+    (:func:`~repro_torch.plan.plan_scope`) serves unless
+    ``use_ctx_metadata=False``; failing that the policy decides here,
+    over the whole cache length: ``policy`` / ``num_cores`` (``paper`` at
+    132 SMs), overridden by the scope's context-only plan, overridden by
+    ``plan``'s.  Any of ``k``, ``v``, ``k_scale`` and ``v_scale`` may be a
+    :class:`PagedKV`, gathered first.
     """
     k, v, k_scale, v_scale = (_resolve_paged(x)
                               for x in (k, v, k_scale, v_scale))
     B, Hq, D = q.shape
     Hkv = k.shape[2]
-    if plan is None or not plan.frozen:
-        global _POLICY_EVALS
-        _POLICY_EVALS += 1
-        ctx = plan if plan is not None else LaunchPlan()
-        cores = {} if ctx.num_cores is None else {"num_cores": ctx.num_cores}
-        plan = get_scheduler_metadata(B, 1, k.shape[1], Hq, Hkv, D,
-                                      policy=ctx.policy, **cores)
+    plan = _resolve_plan(plan, use_ctx_metadata, policy, num_cores,
+                         (B, 1, k.shape[1], Hq, Hkv, D))
     if plan.bucket is not None:
         k = k[:, :plan.bucket]
         v = v[:, :plan.bucket]
@@ -214,6 +292,9 @@ def verify_attention(
     pos: torch.Tensor,       # (B,) absolute position of q[:, 0]
     *,
     plan: Optional[LaunchPlan] = None,
+    use_ctx_metadata: bool = True,
+    policy: str = _DEFAULT_POLICY,
+    num_cores: Optional[int] = None,
 ) -> torch.Tensor:
     """Speculative-verify attention: the ``M = k + 1`` query rows of each
     slot (its committed current token and k drafts), causal within the
@@ -226,9 +307,10 @@ def verify_attention(
     reads the whole view and is ignored by the caller.  Each row is one
     launch of the decode kernel, ``M`` launches in all, with the plan's
     ``num_splits``, counted under ``("flash_decode", L, S)``.  The frozen
-    ``("verify", k, bucket)`` plan is consumed as :func:`decode_attention`
-    consumes its plan: without one the policy decides here on the M-row
-    workload, and that counts as a policy evaluation.  The reference
+    ``("verify", k, bucket)`` plan, or the ambient one, is consumed as
+    :func:`decode_attention` consumes its plan: without one the policy
+    decides here on the M-row workload, and that counts as a policy
+    evaluation.  The reference
     sends verify to XLA because its Pallas kernel needs static offsets;
     the decode kernel takes per-row lengths at run time.  Returns (B, M,
     Hq, D) in q's dtype.
@@ -236,13 +318,8 @@ def verify_attention(
     k, v = _resolve_paged(k), _resolve_paged(v)
     B, M, Hq, D = q.shape
     Hkv = k.shape[2]
-    if plan is None or not plan.frozen:
-        global _POLICY_EVALS
-        _POLICY_EVALS += 1
-        ctx = plan if plan is not None else LaunchPlan()
-        cores = {} if ctx.num_cores is None else {"num_cores": ctx.num_cores}
-        plan = get_scheduler_metadata(B, M, k.shape[1], Hq, Hkv, D,
-                                      policy=ctx.policy, **cores)
+    plan = _resolve_plan(plan, use_ctx_metadata, policy, num_cores,
+                         (B, M, k.shape[1], Hq, Hkv, D))
     if plan.bucket is not None:
         k = k[:, :plan.bucket]
         v = v[:, :plan.bucket]

@@ -12,14 +12,17 @@ serve from the paged cache, sharing the system prompt's pages;
 ``--kv-quant`` stores the cache in int8 or fp8;
 ``--temperature`` / ``--top-k`` / ``--top-p`` select seeded sampling
 (default greedy) through ``--sampler``; ``--speculate`` decodes through
-verify launches with a registered drafter.  It runs on the card unless
-``--device cpu`` is given.
+verify launches with a registered drafter; ``--policy measured
+--tune-table`` decides splits from a calibrated table (a file, or a
+registry directory such as ``experiments/tune/h100/``) and
+``--stats-path`` writes the plan-cache counters at drain.  It runs on the
+card unless ``--device cpu`` is given.
 
 One difference from the reference: the default ``d_model`` is 512, not
 128.  The reduced config keeps 4 query heads, so the reference's default
 gives head_dim 32, and the port's kernels take head_dim 64, 128, 160 or
-256; 512 gives 128.  The reference's tuning-table, stats, tracing,
-metrics and mesh flags are not ported yet.
+256; 512 gives 128.  The reference's tracing, metrics and mesh flags are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -55,7 +58,8 @@ def run_serving(arch: str, *, num_requests: int = 8, max_new: int = 16,
                 cache_layout: str = "dense", share_prefix: bool = False,
                 speculate: Optional[str] = None, speculate_k: int = 4,
                 speculate_max_rejects: Optional[int] = None,
-                kv_quant: Optional[str] = None, device=None, log_fn=print):
+                kv_quant: Optional[str] = None, tune_table=None,
+                stats_path=None, device=None, log_fn=print):
     """Serve the reference's request stream on a reduced ``arch`` and log
     the summary; returns the completions.  ``device=None`` is the card."""
     cfg = reduced_config(get_arch(arch), num_layers=num_layers,
@@ -68,7 +72,11 @@ def run_serving(arch: str, *, num_requests: int = 8, max_new: int = 16,
                        share_prefix=share_prefix, speculation=speculate,
                        speculation_k=speculate_k,
                        speculation_max_rejects=speculate_max_rejects,
-                       kv_quant=kv_quant)
+                       kv_quant=kv_quant,
+                       tune_table_path=(str(tune_table) if tune_table
+                                        else None),
+                       stats_path=(str(stats_path) if stats_path
+                                   else None))
     engine = ServingEngine(model, scfg, max_len=max_len,
                            batch_slots=batch_slots,
                            sampler=get_sampler(sampler), device=device)
@@ -114,6 +122,14 @@ def run_serving(arch: str, *, num_requests: int = 8, max_new: int = 16,
         log_fn(f"kv quant: {kv_quant} storage + f32 scales "
                f"(plans keyed on the {kv_quant} family, "
                f"dtype_bytes={nbytes})")
+    if engine.tune_table is not None:
+        st = engine.stats
+        log_fn(f"measured policy: table {engine.tune_table.version}, "
+               f"{st.measured_lookups} lookups, "
+               f"{st.measured_fallbacks} fallbacks to "
+               f"'{engine.tune_table.fallback_policy}'")
+    if stats_path:
+        log_fn(f"plan-cache stats snapshot: {stats_path}")
     if cache_layout == "paged":
         cs = engine.cache_stats()
         log_fn(f"paged cache: {cs['total_pages']} pages of "
@@ -148,6 +164,13 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--policy", default="paper",
                     choices=available_policies())
+    ap.add_argument("--tune-table", default=None,
+                    help="calibrated repro_torch.tune SplitTable for "
+                         "--policy measured: a JSON file or a registry "
+                         "directory (write one with `python -m "
+                         "repro_torch.launch.tune --h100`)")
+    ap.add_argument("--stats-path", default=None,
+                    help="write PlanCacheStats.to_json() here at drain")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--splits", type=int, default=None,
                     help="explicit num_splits override: the engine's "
@@ -203,7 +226,8 @@ def main(argv=None) -> None:
                 share_prefix=args.share_prefix, speculate=args.speculate,
                 speculate_k=args.speculate_k,
                 speculate_max_rejects=args.speculate_max_rejects,
-                kv_quant=args.kv_quant, device=args.device)
+                kv_quant=args.kv_quant, tune_table=args.tune_table,
+                stats_path=args.stats_path, device=args.device)
 
 
 if __name__ == "__main__":

@@ -28,6 +28,12 @@ class PlanCacheStats:
     a verify launch, the draft tokens proposed and accepted, every token
     those slots emitted (accepted drafts plus correction or bonus rows),
     and the requests that gave up after ``SpecConfig.max_rejects``.
+    ``measured_*`` count the ``measured`` policy's SplitTable lookups and
+    those the table's grid did not cover (decided by its fallback
+    policy), with each fallback's family key and L_K;
+    ``table_registry_fallbacks`` counts engines whose table registry
+    held no table matching the live device.  The serving engine routes
+    the table's counts here (``SplitTable.attach_stats``).
     """
     TRACE_CAP = 4096
 
@@ -38,11 +44,17 @@ class PlanCacheStats:
     seen_buckets: Set[Hashable] = field(default_factory=set)
     fallback_launches: int = 0
     fallback_trace: List[tuple] = field(default_factory=list)
+    measured_lookups: int = 0
+    measured_fallbacks: int = 0
+    # (batch, Hq, Hkv, head_dim, impl, dtype_bytes, kv_dtype, L_K) per
+    # fallback
+    measured_fallback_trace: List[tuple] = field(default_factory=list)
     spec_steps: int = 0
     spec_proposed: int = 0
     spec_accepted: int = 0
     spec_emitted: int = 0
     spec_disabled: int = 0
+    table_registry_fallbacks: int = 0
 
     @property
     def total_launches(self) -> int:
@@ -80,6 +92,15 @@ class PlanCacheStats:
         self.fallback_trace.append((int(resident_max), int(traced_len)))
         self._trim(self.fallback_trace)
 
+    def record_measured(self, key: tuple, fallback: bool) -> None:
+        """One ``measured`` lookup; ``fallback=True``: the table's grid
+        did not cover ``key`` (family + L_K) and the fallback decided."""
+        self.measured_lookups += 1
+        if fallback:
+            self.measured_fallbacks += 1
+            self.measured_fallback_trace.append(tuple(key))
+            self._trim(self.measured_fallback_trace)
+
     def record_spec_step(self, proposed: int, accepted: int,
                          emitted: int) -> None:
         """One speculative verify launch's drafting slot: ``proposed``
@@ -110,6 +131,10 @@ class PlanCacheStats:
             "seen_buckets": sorted(k2s(k) for k in self.seen_buckets),
             "fallback_launches": self.fallback_launches,
             "fallback_trace": [list(t) for t in self.fallback_trace],
+            "measured_lookups": self.measured_lookups,
+            "measured_fallbacks": self.measured_fallbacks,
+            "measured_fallback_trace": [
+                list(t) for t in self.measured_fallback_trace],
             "spec_steps": self.spec_steps,
             "spec_proposed": self.spec_proposed,
             "spec_accepted": self.spec_accepted,
@@ -117,6 +142,7 @@ class PlanCacheStats:
             "spec_disabled": self.spec_disabled,
             "spec_acceptance_rate": round(self.spec_acceptance_rate, 4),
             "spec_tokens_per_step": round(self.spec_tokens_per_step, 4),
+            "table_registry_fallbacks": self.table_registry_fallbacks,
         }
 
     def reset(self) -> None:
@@ -127,11 +153,15 @@ class PlanCacheStats:
         self.seen_buckets.clear()
         self.fallback_launches = 0
         self.fallback_trace.clear()
+        self.measured_lookups = 0
+        self.measured_fallbacks = 0
+        self.measured_fallback_trace.clear()
         self.spec_steps = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.spec_emitted = 0
         self.spec_disabled = 0
+        self.table_registry_fallbacks = 0
 
 
 class PlanCache:
@@ -164,6 +194,9 @@ class PlanCache:
 
     def __len__(self) -> int:
         return len(self._entries)
+
+    def __contains__(self, key: Hashable) -> bool:
+        return key in self._entries
 
     def keys(self):
         return self._entries.keys()

@@ -83,3 +83,10 @@ class AttentionSpec:
         block shifts ``num_m_blocks``, and with it the occupancy."""
         return cls("verify", batch, seqlen_q, seqlen_k, num_heads_q,
                    num_heads_kv, head_dim, **kw)
+
+    @classmethod
+    def from_workload(cls, w: DecodeWorkload, kind: str = "decode",
+                      **kw) -> "AttentionSpec":
+        kw.setdefault("kv_dtype", w.kv_dtype_name)
+        return cls(kind, w.batch, w.seqlen_q, w.seqlen_k, w.num_heads_q,
+                   w.num_heads_kv, w.head_dim, **kw)

@@ -57,13 +57,27 @@ conservation holds under any accept/reject sequence and greedy output
 is sequential greedy decode's by construction.  ``SpecConfig.max_rejects``
 consecutive zero-accept steps turn speculation off for that request.
 
+Measured splits (``repro_torch.tune``): under ``split_policy=
+"measured"`` the planner decides every decode and verify plan from a
+calibrated :class:`~repro_torch.tune.SplitTable`, passed as
+``tune_table=`` or loaded from ``ServeConfig.tune_table_path`` (a file,
+or a registry directory whose table matching the live device wins); the
+table is read when a plan freezes, never inside a launch, so the policy
+needs the metadata path.  Its lookups and fallbacks land in
+:attr:`ServingEngine.stats`, and ``ServeConfig.stats_path`` makes
+:meth:`ServingEngine.drain` write them (:meth:`dump_stats`).
+
 :class:`DecodeEngine` is the batch-synchronous facade
 (``generate(requests) -> completions``): loop admission and greedy
 sampling, as the reference's.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import json
+import os
+import tempfile
 import warnings
 from collections import deque
 from typing import Any, Deque, Dict, Iterator, List, Optional, Sequence
@@ -72,8 +86,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ServeConfig
+from repro_torch.core.split_policy import get_policy
 from repro_torch.models.registry import DeviceLike, Model, resolve_device
-from repro_torch.plan import LaunchPlan, PlanCacheStats
+from repro_torch.plan import LaunchPlan, PlanCacheStats, Planner
 from repro_torch.quant import QUANT_DTYPES
 from repro_torch.serving.events import (
     FINISH_CACHE_CAPACITY,
@@ -102,6 +117,8 @@ class ServingEngine:
                  policy: Optional[str] = None,
                  sampler: Optional[Sampler] = None,
                  prefill_mode: Optional[str] = None,
+                 tune_table: Optional[Any] = None,
+                 tune_impl: Optional[str] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -113,6 +130,26 @@ class ServingEngine:
         self.max_len = max_len
         self.B = batch_slots
         self.use_metadata = scfg.use_scheduler_metadata
+        self._stats_path = scfg.stats_path
+        # the measured policy's table, resolved once: an explicit table
+        # wins over the config's path, which may be a registry directory
+        # (the table matching this engine's device is picked, with a
+        # counted warning when none matches).  ``tune_impl`` is the table
+        # family the plans look up (None: the port's own, "cuda").
+        self.tune_table = tune_table
+        self._table_registry_fallback = False
+        if self.tune_table is None and scfg.tune_table_path:
+            from repro_torch.tune import select_table
+            self.tune_table, matched = select_table(
+                scfg.tune_table_path, device=self.device)
+            self._table_registry_fallback = not matched
+        if getattr(get_policy(self.policy), "needs_table", False) \
+                and not self.use_metadata:
+            raise ValueError(
+                f"split_policy={self.policy!r} rides the metadata-enabled "
+                "plan path (the SplitTable is read when plans freeze, "
+                "never inside a launch); set use_scheduler_metadata=True "
+                "or an analytic policy")
         # CategoricalSampler by default, so every request's SamplingParams
         # are honoured; a batch with no sampled row costs one argmax, as
         # GreedySampler's, which instead refuses sampled requests at submit
@@ -184,7 +221,10 @@ class ServingEngine:
             bucket_width=scfg.seqlen_bucket,
             prefill_bucket=scfg.prefill_bucket,
             plan_capacity=scfg.plan_cache_capacity,
-            kv_dtype=self.kv_dtype)
+            kv_dtype=self.kv_dtype, table=self.tune_table,
+            table_impl=tune_impl)
+        if self._table_registry_fallback:
+            self.stats.table_registry_fallbacks += 1
         # the internal-heuristic baseline: one context-only plan for every
         # length, so the policy runs inside each launch on max_len
         self._fallback_plan = self.sched.planner.context()
@@ -223,6 +263,10 @@ class ServingEngine:
     @property
     def stats(self) -> PlanCacheStats:
         return self.sched.plans.stats
+
+    @property
+    def planner(self) -> Planner:
+        return self.sched.planner
 
     def planned_splits(self) -> Dict[int, int]:
         """bucket -> frozen num_splits, for every resident decode plan."""
@@ -451,7 +495,9 @@ class ServingEngine:
 
     def drain(self) -> List[Completion]:
         """Run to completion; returns every not-yet-drained request's
-        :class:`Completion`, sorted by request_id, and releases them."""
+        :class:`Completion`, sorted by request_id, and releases them.
+        With ``ServeConfig.stats_path`` set, the stats snapshot is written
+        there (:meth:`dump_stats`)."""
         while self.sched.has_work():
             self.step()
         done = [self._completions.pop(h) for h in self._undrained]
@@ -459,7 +505,36 @@ class ServingEngine:
             self._queues.pop(h, None)
         self._undrained = []
         done.sort(key=lambda c: c.request_id)
+        if self._stats_path:
+            self.dump_stats(self._stats_path)
         return done
+
+    def stats_snapshot(self) -> Dict[str, Any]:
+        """``PlanCacheStats.to_json()`` plus the engine's policy and, with
+        a table, its version."""
+        snap = self.stats.to_json()
+        snap["policy"] = self.policy
+        if self.tune_table is not None:
+            snap["table_version"] = self.tune_table.version
+        return snap
+
+    def dump_stats(self, path) -> None:
+        """Write :meth:`stats_snapshot` as JSON, atomically: a temp file
+        in the target directory, then ``os.replace``."""
+        path = os.fspath(path)
+        folder = os.path.dirname(os.path.abspath(path))
+        os.makedirs(folder, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=folder, prefix=os.path.basename(
+            path) + ".", suffix=".tmp")
+        try:
+            with os.fdopen(fd, "w") as f:
+                f.write(json.dumps(self.stats_snapshot(), indent=1,
+                                   sort_keys=True) + "\n")
+            os.replace(tmp, path)
+        except BaseException:
+            with contextlib.suppress(OSError):
+                os.unlink(tmp)
+            raise
 
     # --- internals ----------------------------------------------------------
 
@@ -777,11 +852,15 @@ class DecodeEngine:
 
     def __init__(self, model: Model, scfg: ServeConfig, *,
                  max_len: int = 256, batch_slots: int = 4,
-                 policy: Optional[str] = None, device: DeviceLike = None):
+                 policy: Optional[str] = None,
+                 tune_table: Optional[Any] = None,
+                 device: DeviceLike = None):
         self.engine = ServingEngine(model, scfg, max_len=max_len,
                                     batch_slots=batch_slots, policy=policy,
                                     prefill_mode="loop",
-                                    sampler=GreedySampler(), device=device)
+                                    sampler=GreedySampler(),
+                                    tune_table=tune_table, device=device)
+        self.planner = self.engine.planner
 
     @property
     def stats(self) -> PlanCacheStats:

@@ -16,7 +16,10 @@ engine consumes:
   bucket)``.
 
 ``num_cores`` is the machine the policy plans for: the card's SM count
-when the engine runs on one.
+when the engine runs on one.  ``table`` is the calibrated
+:class:`~repro_torch.tune.SplitTable` the ``measured`` policy decides
+from (``table_impl`` its family, ``None`` the port's own); its lookups
+and fallbacks are counted in the plan cache's stats.
 """
 from __future__ import annotations
 
@@ -77,7 +80,9 @@ class Scheduler:
                  bucket_width: int = 128,
                  prefill_bucket: Optional[int] = None,
                  plan_capacity: Optional[int] = None,
-                 kv_dtype: str = "bfloat16"):
+                 kv_dtype: str = "bfloat16",
+                 table: Optional[Any] = None,
+                 table_impl: Optional[str] = None):
         self.cfg = cfg
         self.B = batch_slots
         self.max_len = max_len
@@ -85,8 +90,12 @@ class Scheduler:
         self.prefill_bucket_width = prefill_bucket or bucket_width
         self.kv_dtype = kv_dtype
         self.planner = Planner(policy=policy, num_cores=num_cores,
-                               num_splits_override=num_splits_override)
+                               num_splits_override=num_splits_override,
+                               impl=table_impl, table=table)
         self.plans = PlanCache(plan_capacity)
+        if table is not None:
+            # measured lookups land in the same stats as plan-cache hits
+            table.attach_stats(self.plans.stats)
         self.slots: List[Optional[SlotState]] = [None] * batch_slots
         self.pending: Deque[SlotState] = deque()
 
@@ -154,6 +163,11 @@ class Scheduler:
         return AttentionSpec.decode(self.B, bucket, cfg.num_heads,
                                     cfg.num_kv_heads, cfg.resolved_head_dim,
                                     kv_dtype=self.kv_dtype)
+
+    def decode_plan(self, t_max: int) -> LaunchPlan:
+        """Compute (not cache) the frozen decode plan for ``t_max``."""
+        bucket = self.decode_bucket(t_max)
+        return self.planner.plan(self.decode_spec(bucket), bucket=bucket)
 
     def decode_entry(self, t_max: int,
                      build: Callable[[LaunchPlan], Any]) -> PlanEntry:

@@ -5,6 +5,7 @@ Same weights (JAX-initialised, passed through ``repro_torch.interop``)
 or, for the CLI, the reference's own seeded request stream: the
 completions, plan counters and summary lines must be identical.
 """
+import json
 import os
 import subprocess
 import sys
@@ -92,11 +93,50 @@ def test_run_serving_reports_the_reference_counts(kw):
             **plain)] == [c.tokens for c in outs]
 
 
-def test_serve_module_runs_and_refuses_unported_flags():
+def test_run_serving_measured_policy_writes_stats(tmp_path):
+    """``run_serving`` with ``policy="measured"`` on the committed
+    reference table, in both packages: the port prints the reference's
+    "measured policy" and stats lines and writes a snapshot with the
+    reference's keys.  The port looks up its own ``cuda`` family, which
+    the reference's table does not hold, so every lookup is a counted
+    fallback to ``paper`` and the frozen plans are ``paper``'s."""
+    from repro.launch.serve import run_serving as j_run_serving
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.tune import REFERENCE_TABLE_PATH
+    kw = dict(num_requests=4, max_new=4, d_model=64, policy="measured",
+              tune_table=REFERENCE_TABLE_PATH)
+    jstats, stats = tmp_path / "j.json", tmp_path / "t.json"
+    jlines, lines, plain = [], [], []
+    j_run_serving("qwen2.5-3b", log_fn=jlines.append, stats_path=jstats,
+                  **kw)
+    outs = run_serving("qwen2.5-3b", device="cpu", log_fn=lines.append,
+                       stats_path=stats, **kw)
+    assert len(outs) == 4 and all(len(c.tokens) == 4 for c in outs)
+    snap, jsnap = (json.loads(p.read_text()) for p in (stats, jstats))
+    assert set(snap) == set(jsnap)
+    assert snap["policy"] == "measured"
+    assert snap["table_version"] == jsnap["table_version"] == \
+        "2.2cfa2296473e"
+    assert snap["measured_lookups"] == snap["measured_fallbacks"] >= 1
+    assert jsnap["measured_lookups"] >= 1
+    assert jsnap["measured_fallbacks"] == 0
+    head = "measured policy: table 2.2cfa2296473e, "
+    n = snap["measured_lookups"]
+    assert f"{head}{n} lookups, {n} fallbacks to 'paper'" in lines
+    assert any(x.startswith(head) for x in jlines)
+    assert f"plan-cache stats snapshot: {stats}" in lines
+    run_serving("qwen2.5-3b", device="cpu", log_fn=plain.append,
+                **dict(kw, policy="paper", tune_table=None))
+    frozen = [x for x in lines if x.startswith("frozen plans")]
+    assert frozen == [x for x in plain if x.startswith("frozen plans")]
+
+
+def test_serve_module_runs_and_refuses_unported_flags(tmp_path):
     """``python -m repro_torch.launch.serve`` runs on the CPU and prints
     the reference's summary wording, also sampled and speculating; flags
-    for what the port does not serve (tuning tables, stats dumps,
-    tracing, mesh) are not in its parser."""
+    for what the port does not serve yet (tracing, metrics, mesh) are not
+    in its parser, and ``--policy measured --tune-table --stats-path``
+    serves from a table and writes the snapshot."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     base = [sys.executable, "-m", "repro_torch.launch.serve",
             "--arch", "qwen2.5-3b", "--device", "cpu", "--requests", "3",
@@ -116,8 +156,16 @@ def test_serve_module_runs_and_refuses_unported_flags():
     assert out.returncode == 0, out.stderr
     assert "policy=paper: 3 requests, 9 tokens" in out.stdout
     assert "speculation (ngram, k=4): " in out.stdout
-    for flag in (["--tune-table", "t.json"], ["--stats-path", "s.json"],
-                 ["--trace", "t.json"], ["--mesh", "1,1"],
+    table = ROOT / "experiments" / "tune" / "reference_reduced.json"
+    out = subprocess.run(base + ["--policy", "measured", "--tune-table",
+                                 str(table), "--stats-path", "s.json"],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert "measured policy: table 2.2cfa2296473e, " in out.stdout
+    assert json.loads((tmp_path / "s.json").read_text())["policy"] == \
+        "measured"
+    for flag in (["--trace", "t.json"], ["--mesh", "1,1"],
                  ["--metrics", "m.json"]):
         bad = subprocess.run(base + flag, capture_output=True, text=True,
                              env=env, timeout=120)

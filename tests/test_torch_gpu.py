@@ -950,3 +950,95 @@ def test_categorical_sampler_is_reproducible_on_the_card(cuda):
     assert torch.equal(toks[:, M - 1],
                        sampler.sample(logits[:, M - 1], st, pos + M - 1))
     assert int(acc[2]) <= 1
+
+
+# ---------------------------------------------------------------------------
+# measured split autotuning on the card
+# ---------------------------------------------------------------------------
+
+
+def test_calibrator_times_the_decode_kernels_on_the_card(cuda):
+    """A tiny wallclock grid: every entry is timed (source wallclock), its
+    best split is its curve's argmin, every time lies above the timing
+    floor, and the timed calls ran the decode kernel (bf16) and the
+    quantized cache's (int8) at every candidate split."""
+    from repro_torch.tune import Calibrator, TuneSpec
+    spec = TuneSpec(lk_buckets=(384, 1024), batches=(1,),
+                    head_shapes=((16, 2, 128),), impls=("cuda",),
+                    repeats=3, warmup=1)
+    cal = Calibrator(spec, mode="wallclock", launches=4)
+    ops.reset_launch_counts()
+    table = cal.calibrate()
+    floor = cal.floor_us()
+    assert table.fingerprint["sources"] == "measured"
+    assert table.fingerprint["backend"] == "cuda"
+    runs = (spec.warmup + spec.repeats) * cal.launches
+    for e in table.entries:
+        lats = e["latencies_us"]
+        assert e["source"] == "wallclock"
+        assert e["best_split"] == int(min(sorted(lats, key=int),
+                                          key=lats.get))
+        assert all(t > floor for t in lats.values()), (e, floor)
+        name = "flash_decode_quant" if e["kv_dtype"] == "int8" \
+            else "flash_decode"
+        by = ops.launch_counts_by_key(name)
+        for s in lats:
+            assert by[(e["lk_bucket"], int(s))] == runs
+    table.validate()
+
+
+def test_wallclock_head_dim_the_kernels_lack_raises(cuda):
+    from repro_torch.tune import Calibrator, TuneSpec
+    with pytest.raises(ValueError, match=r"head_dim \[8\]"):
+        Calibrator(TuneSpec(head_shapes=((4, 1, 8),)), mode="wallclock")
+    spec = TuneSpec(head_shapes=((4, 1, 128),))
+    assert Calibrator(spec).mode == "wallclock"
+    assert Calibrator(spec, device="cpu").mode == "modeled"
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_measured_engine_launches_at_the_table_splits(cuda, kv_quant):
+    """The reduced qwen2.5-3b (head_dim 128) on the card under
+    ``split_policy="measured"`` with a table whose splits differ from
+    ``paper``'s: every decode plan is the table's (tuned), the decode
+    kernel (K4 under int8) launches at exactly those (view, S), and no
+    policy runs inside a launch."""
+    from repro_torch.tune import SplitTable
+    entries = [{"batch": 2, "num_heads_q": 4, "num_heads_kv": 1,
+                "head_dim": 128, "impl": "cuda", "dtype_bytes": nbytes,
+                "kv_dtype": name, "lk_bucket": lk, "best_split": s,
+                "source": "wallclock",
+                "latencies_us": {"1": 10.0, str(s): 5.0} if s > 1
+                else {"1": 5.0}}
+               for name, nbytes in (("bfloat16", 2), ("int8", 1))
+               for lk, s in ((128, 1), (256, 2), (384, 2), (512, 4))]
+    table = SplitTable(entries, {"backend": "cuda", "num_cores": 132})
+    table.validate()
+    cfg = reduced_config("qwen2.5-3b", num_layers=2, d_model=512)
+    model = build_model(cfg, device="cuda")
+    eng = ServingEngine(model, ServeConfig(model=cfg, split_policy="measured",
+                                           kv_quant=kv_quant),
+                        max_len=512, batch_slots=2, tune_table=table,
+                        device="cuda")
+    eng.load(model.init_params(0))
+    ops.reset_launch_counts()
+    ops.reset_policy_eval_count()
+    # both slots decode in the 384 bucket, then slot 0 alone in 128, 256
+    for i, (n, new) in enumerate(((100, 60), (300, 10))):
+        eng.submit(Request(i, [(7 * i + j) % 250 + 1 for j in range(n)],
+                           max_new_tokens=new))
+    eng.drain()
+    name = "flash_decode_quant" if kv_quant else "flash_decode"
+    probe = SplitTable(entries, table.fingerprint)    # counts apart
+    want = {}
+    for key, n in eng.stats.launches.items():
+        if isinstance(key, int):
+            s = probe.choose(eng.sched.decode_spec(key).workload())[0]
+            want[(key, s)] = want.get((key, s), 0) + cfg.num_layers * n
+            plan = dict(eng.sched.plans.items())[key].plan
+            assert plan.tuned and plan.num_splits == s
+    assert ops.launch_counts_by_key(name) == want
+    assert sorted(want) == [(128, 1), (256, 2), (384, 2)]
+    assert ops.policy_eval_count() == 0
+    assert eng.stats.measured_fallbacks == 0
+    assert eng.stats.measured_lookups == len(eng.planned_splits())

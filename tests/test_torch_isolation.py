@@ -46,7 +46,10 @@ def test_no_module_imports_jax_or_repro():
                  "repro_torch.spec.drafter", "repro_torch.spec.outcome",
                  "repro_torch.serving.sampling",
                  "repro_torch.configs.codeqwen15_7b",
-                 "repro_torch.configs.stablelm_12b"):
+                 "repro_torch.configs.stablelm_12b",
+                 "repro_torch.tune", "repro_torch.tune.spec",
+                 "repro_torch.tune.table", "repro_torch.tune.calibrator",
+                 "repro_torch.plan.scope", "repro_torch.launch.tune"):
         assert want in res["modules"]
 
 

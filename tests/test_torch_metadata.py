@@ -123,11 +123,29 @@ def test_get_scheduler_metadata_splits_equal_the_reference(policy,
 
 
 def test_get_scheduler_metadata_packs_gqa_or_raises():
+    """``pack_gqa`` None / True / False gives the reference's plan, field
+    for field on the fields both packages have (the port's kernels pack
+    either way; only the cost model reads the flag), for GQA and MHA
+    shapes; an unknown policy still raises."""
+    for shape in ((1, 1, 512, 64, 1, 128), (2, 1, 1000, 8, 8, 128)):
+        for pack in (None, True, False):
+            kw = dict(num_cores=132, pack_gqa=pack)
+            got = tmeta.get_scheduler_metadata(*shape, **kw)
+            want = jmeta.get_scheduler_metadata(*shape, **kw)
+            for name in ("kind", "num_splits", "pack_gqa", "policy",
+                         "num_cores", "bucket", "tuned", "table_version",
+                         "frozen", "uses_split"):
+                assert getattr(got, name) == getattr(want, name), \
+                    (shape, pack, name)
+            assert got.workload == TWorkload(*shape)
+            assert want.workload == JWorkload(*shape)
     a = tmeta.get_scheduler_metadata(1, 1, 512, 64, 1, 128, pack_gqa=True)
     b = tmeta.get_scheduler_metadata(1, 1, 512, 64, 1, 128)
     assert a.num_splits == b.num_splits == 3
-    with pytest.raises(ValueError, match="pack_gqa"):
-        tmeta.get_scheduler_metadata(1, 1, 512, 64, 1, 128, pack_gqa=False)
+    assert tmeta.get_scheduler_metadata(1, 1, 512, 64, 1, 128,
+                                        pack_gqa=False).pack_gqa is False
+    with pytest.raises(KeyError):
+        tmeta.get_scheduler_metadata(1, 1, 512, 64, 1, 128, policy="nope")
     assert core.get_scheduler_metadata is tmeta.get_scheduler_metadata
     assert core.SchedulerMetadata is tmeta.SchedulerMetadata
     assert core.bucket_seqlen(300) == 384

@@ -191,10 +191,16 @@ def test_rejects_bad_requests_and_sampled_requests(tiny):
 
 
 def test_unknown_policy_names_the_ported_ones(tiny):
+    """Every reference policy is ported: an unknown name raises naming
+    them, and ``tpu_adaptive`` builds an engine."""
     _, _, _, cfg, model, _ = tiny
-    with pytest.raises(KeyError, match="fa3_baseline"):
-        ServingEngine(model, ServeConfig(model=cfg), policy="tpu_adaptive",
+    with pytest.raises(KeyError,
+                       match="fa3_baseline.*measured.*paper.*tpu_adaptive"):
+        ServingEngine(model, ServeConfig(model=cfg), policy="nope",
                       device="cpu")
+    eng = ServingEngine(model, ServeConfig(model=cfg), policy="tpu_adaptive",
+                        device="cpu")
+    assert eng.planner.policy == "tpu_adaptive"
 
 
 @pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "stablelm-12b"])

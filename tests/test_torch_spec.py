@@ -484,6 +484,33 @@ def test_mixed_traffic_rides_verify_launches(pair_f32, base, scfg_kw):
     assert t == base["paged"]
 
 
+# a 16-token prefix every request opens with (four pages of 4)
+SHARED = [(3 * j) % 40 + 11 for j in range(16)]
+
+
+@pytest.mark.parametrize("layout,scfg_kw,prompts", [
+    ("paged", dict(cache_page_size=4, share_prefix=True),
+     [SHARED + p for p in PROMPTS]),
+    ("dense", dict(kv_quant="int8"), PROMPTS),
+], ids=["paged_shared_prefix", "dense_int8"])
+def test_ngram_with_shared_prefix_or_int8_matches_jax_engine(
+        pair_f32, layout, scfg_kw, prompts):
+    """``ngram`` speculation (k = 4) paged with prefix sharing over a
+    16-token shared prefix, and dense over an int8 cache: the JAX
+    engine's streams, finish reasons and spec counters."""
+    kw = dict(spec=("ngram", 4), layout=layout, scfg_kw=scfg_kw,
+              prompts=prompts)
+    jt, jreasons, jeng = _drain("jax", pair_f32, **kw)
+    t, reasons, eng = _drain("torch", pair_f32, **kw)
+    assert t == jt and reasons == jreasons
+    assert _spec_counters(eng.stats) == _spec_counters(jeng.stats)
+    assert eng.stats.spec_steps > 0
+    assert eng.sched.planned_verify_keys() == jeng.sched.planned_verify_keys()
+    if scfg_kw.get("share_prefix"):
+        assert eng.cache_stats()["prefix_hits"] == \
+            jeng.cache_stats()["prefix_hits"] > 0
+
+
 def test_spec_ab_oracle_row():
     """``benchmarks/spec_ab.py``'s full workload (reduced qwen2.5-3b at
     d_model 64, 8 mixed prompts, 32 new tokens, 4 slots, paged, k = 4):
