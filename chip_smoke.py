@@ -19,6 +19,11 @@ Run from the repository root, on a machine with the card and nvcc:
     python3 chip_smoke.py --phase tune    # build + measured split
                                           # autotuning, served from
                                           # its table
+    python3 chip_smoke.py --phase obs     # build + tracing and metrics
+                                          # on the serving cell, the CLI
+    python3 chip_smoke.py --phase moe     # build + granite-moe-3b-a800m
+                                          # and qwen3-moe-235b-a22b
+                                          # (4 of 94 layers)
 
 Phases, each fatal on failure:
 
@@ -182,6 +187,33 @@ Phases, each fatal on failure:
    plain version, 0 fallbacks; then the serving CLI as a subprocess with
    ``--policy measured --tune-table experiments/tune/h100/
    --stats-path``.  The fresh table goes to ``chiprun_out/tune/``.
+4f. Observability (``phase_obs``): the serving cell (32 new tokens) four
+   times on fresh engines with ``trace_path`` / ``metrics_path`` off, on,
+   off, on: the same greedy streams, launches by kernel and key,
+   ``PlanCacheStats.to_json()`` and 0 policy evaluations in every run;
+   each traced run's trace validates, holds one ``request`` span a
+   request with its ``queue_wait`` and ``admit`` spans and
+   ``first_token`` instant inside, and one launch span a prefill or
+   decode launch (with the plan provenance keys); its metrics count 4
+   TTFTs and one decode ``launch_ms`` a decode step.  The median decode
+   step on and off is printed, not checked.  Then the CLI as a
+   subprocess with ``--arch granite-moe-3b-a800m --trace t.json
+   --metrics m.prom`` (exit 0, a valid trace, Prometheus text that
+   parses).  Artifacts land in ``chiprun_out/obs/``.
+4g. The MoE family (``phase_moe``, after 4d, through the same
+   ``serve_configs`` as 4d): granite-moe-3b-a800m (32 layers, d_model
+   1536, 24/8 heads: G 3, D 64, 40 experts top 8, d_expert 512) at full
+   width and depth, 16 new tokens, bf16 and int8, every layer's prefill
+   and decode attention checked as in 4d, decode launches by (view, S)
+   equal to the plan keys', the timed runs with tracing and metrics on
+   (their artifacts checked as in 4f); layer 0's gather dispatch against
+   its einsum dispatch at a 1024-token prefill group and two 1-token
+   decode groups, within 2e-2, each timed beside the time to read every
+   expert's weights; then qwen3-moe-235b-a22b (64/4 heads: G 16, D 128,
+   128 experts top 8, d_expert 1536) at full width with its depth cut
+   from 94 to 4 layers (470 GB in bf16 do not fit one card), 8 new
+   tokens, bf16 and int8.  Peak memory and the median decode step are
+   printed.
 5. One JSON ``kernels`` line: per kernel its error (a decode row's at
    that row's own inputs, over NaN/Inf tails), launches on the main
    path (the bf16 run's; the quantized decode and the combine kernels'
@@ -204,8 +236,8 @@ Phases, each fatal on failure:
    the launches of phase 4's Table 1 run; the decode kernel at one
    verify row of the spec cell (B=4, view 128, the verify plan), with
    the dense ``ngram`` run's verify-row launches; and per config of
-   phase 4d the decode kernel (bf16, and int8) at B=2 view 1024 and the
-   prefill kernel at 1024, with that config's launches there.  Every
+   phases 4d and 4g the decode kernel (bf16, and int8) at B=2 view 1024
+   and the prefill kernel at 1024, with that config's launches there.  Every
    phase prints its wall seconds.
 
 ``--phase admission`` times the serving cell's admission
@@ -238,6 +270,7 @@ import hashlib
 import json
 import os
 import pstats
+import re
 import subprocess
 import sys
 import time
@@ -2045,26 +2078,38 @@ def checked_kernels(acc):
         yield acc
 
 
-def arch_run(model, params, cfg, prompts, kv_quant=None):
-    """One config's serving cell: the requests through 2 slots with a
-    bf16 cache or under ``kv_quant``, twice on fresh engines, the launch
-    counts zeroed just before each run and read just after.  The first
-    run holds every layer's prefill attention against ``prefill_plain``
-    and every layer's decode attention against ``decode_plain`` (int8:
-    ``decode_quant_plain``) on the model's own inputs; the second, which
-    is timed, must take the same path and give the same streams."""
-    label = f"{cfg.name} {kv_quant or 'bf16'}"
+def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
+             phase="archs", trace=False):
+    """One config's serving cell: the requests (``new`` tokens each)
+    through 2 slots with a bf16 cache or under ``kv_quant``, twice on
+    fresh engines, the launch counts zeroed just before each run and read
+    just after.  The first run holds every layer's prefill attention
+    against ``prefill_plain`` and every layer's decode attention against
+    ``decode_plain`` (int8: ``decode_quant_plain``) on the model's own
+    inputs; the second, which is timed, must take the same path and give
+    the same streams.  In both the decode launches by (view, S) must be
+    what the run's plan keys imply.  With ``trace`` the timed run writes
+    the trace and metrics artifacts (``ServeConfig.trace_path`` /
+    ``metrics_path``, under ``chiprun_out/obs/``), which must pass
+    ``check_obs_artifacts``."""
+    label = f"{phase} {cfg.name} {kv_quant or 'bf16'}"
     layers = cfg.num_layers
     decode = "flash_decode_quant" if kv_quant else "flash_decode"
     runs, acc = [], {}
+    paths = {}
+    if trace:
+        OBS_DIR.mkdir(parents=True, exist_ok=True)
+        stem = OBS_DIR / f"{cfg.name}_{kv_quant or 'bf16'}"
+        paths = dict(trace_path=f"{stem}_trace.json",
+                     metrics_path=f"{stem}_metrics.json")
     for checked in (True, False):
         sampler = CheckedGreedy()
-        engine = ServingEngine(model, ServeConfig(model=cfg,
-                                                  kv_quant=kv_quant),
-                               max_len=2048, batch_slots=2, policy="paper",
-                               sampler=sampler, device=DEVICE)
+        engine = ServingEngine(model, ServeConfig(
+            model=cfg, kv_quant=kv_quant, **({} if checked else paths)),
+            max_len=2048, batch_slots=2, policy="paper", sampler=sampler,
+            device=DEVICE)
         engine.load(params)
-        reqs = [Request(i, p, max_new_tokens=ARCH_NEW)
+        reqs = [Request(i, p, max_new_tokens=new)
                 for i, p in enumerate(prompts)]
         ops.reset_launch_counts()
         ops.reset_policy_eval_count()
@@ -2083,35 +2128,49 @@ def arch_run(model, params, cfg, prompts, kv_quant=None):
                                  if isinstance(k, tuple)),
                "evals": ops.policy_eval_count(), "splits":
                engine.planned_splits(), "decode_ms": decode_ms,
-               "admits": admits}
+               "admits": admits, "stats": st.to_json()}
         counts = run["counts"]
-        check(bool(sampler.finite.item()), f"archs {label}: non-finite "
-              f"logits")
+        check(bool(sampler.finite.item()), f"{label}: non-finite logits")
         check(counts[decode] == layers * run["steps"],
-              f"archs {label}: {counts[decode]} {decode} launches over "
+              f"{label}: {counts[decode]} {decode} launches over "
               f"{run['steps']} decode steps")
+        want = expected_decode_launches(engine, layers, kv_quant)[decode]
+        check(run["by_key"][decode] == want, f"{label}: {decode} launches "
+              f"by (view, S) {run['by_key'][decode]}, plan keys imply "
+              f"{want}")
         check(counts["flash_prefill"] == layers * run["admissions"]
-              == layers * len(prompts), f"archs {label}: prefill launches")
+              == layers * len(prompts), f"{label}: prefill launches")
         other = "flash_decode" if kv_quant else "flash_decode_quant"
         check(counts[other] == 0 and counts["flash_combine"] == 0,
-              f"archs {label}: launches {counts}")
-        check(run["evals"] == 0, f"archs {label}: policy evaluated")
-        check(st.misses == st.distinct_buckets, f"archs {label}: plan "
-              f"misses != buckets")
-        check([len(c.tokens) for c in done] == [ARCH_NEW] * len(prompts)
+              f"{label}: launches {counts}")
+        check(run["evals"] == 0, f"{label}: policy evaluated")
+        check(st.misses == st.distinct_buckets, f"{label}: plan misses != "
+              f"buckets")
+        check([len(c.tokens) for c in done] == [new] * len(prompts)
               and all(c.finish_reason == "length" for c in done),
-              f"archs {label}: completions")
+              f"{label}: completions")
         runs.append(run)
     first, timed_run = runs
     counts = first["counts"]
     check(acc[decode]["checks"] == counts[decode]
           and acc["flash_prefill"]["checks"] == counts["flash_prefill"],
-          f"archs {label}: {acc} checks against {first['counts']}")
-    for key in ("streams", "counts", "by_key", "splits"):
-        check(first[key] == timed_run[key], f"archs {label}: the checked "
-              f"and the timed run differ in {key}")
+          f"{label}: {acc} checks against {first['counts']}")
+    for key in ("streams", "counts", "by_key", "splits", "stats"):
+        check(first[key] == timed_run[key], f"{label}: the checked and the "
+              f"timed run differ in {key}")
+    obs = (check_obs_artifacts(f"{label} traced", paths["trace_path"],
+                               paths["metrics_path"], timed_run)
+           if trace else None)
+    if obs is not None:
+        print(f"{label}: the timed run traced (trace and metrics on): "
+              f"{obs['events']} trace events, {obs['request_spans']} "
+              f"request spans, {obs['launch_spans']} launch spans, ttft_ms "
+              f"p50 {obs['ttft_ms']['p50']} ms, decode launch_ms p50 "
+              f"{obs['launch_ms_decode']['p50']} ms")
     step_ms = median(timed_run["decode_ms"])
-    print(f"archs {label}: {first['admissions']} admissions, "
+    by_view = {f"{v} S{s}": n for (v, s), n in sorted(
+        first["by_key"][decode].items())}
+    print(f"{label}: {first['admissions']} admissions, "
           f"{first['steps']} decode steps, launches "
           f"{json.dumps(first['counts'])}, splits {first['splits']}, 0 "
           f"policy evaluations; prefill attention of "
@@ -2120,60 +2179,142 @@ def arch_run(model, params, cfg, prompts, kv_quant=None):
           f"{acc['flash_prefill']['max_abs_err']:.4g}; decode attention of "
           f"{acc[decode]['checks']} layer steps against "
           f"{'decode_quant_plain' if kv_quant else 'decode_plain'} on the "
-          f"model's inputs: max abs err {acc[decode]['max_abs_err']:.4g}")
+          f"model's inputs: max abs err {acc[decode]['max_abs_err']:.4g}; "
+          f"decode launches by (view, S) = the plan keys' "
+          f"{json.dumps(by_view)}")
     for buckets, ms in timed_run["admits"]:
-        print(f"archs {label} admission step, prompt buckets {buckets}: "
+        print(f"{label} admission step, prompt buckets {buckets}: "
               f"{ms:.3f} ms wall")
-    print(f"archs {label}: median decode step {step_ms:.3f} ms over "
+    print(f"{label}: median decode step {step_ms:.3f} ms over "
           f"{len(timed_run['decode_ms'])} steps")
     return {"admissions": first["admissions"], "decode_steps": first["steps"],
             "launches": first["counts"],
-            "decode_launches": {f"{v} S{s}": n for (v, s), n in sorted(
-                first["by_key"][decode].items())},
+            "decode_launches": by_view,
             "prefill_launches": {f"{dt} {lq}": n for (dt, lq), n in sorted(
                 first["by_key"]["flash_prefill"].items())},
             "checks": acc, "splits": first["splits"],
             "admission_steps": [{"buckets": bk, "ms": ms}
                                 for bk, ms in timed_run["admits"]],
-            "decode_step_ms": step_ms}
+            "decode_step_ms": step_ms, "obs": obs}
 
 
-def phase_archs(seed: int):
-    """codeqwen1.5-7b and stablelm-12b at full width, bf16, seeded random
-    weights, one at a time: each serves the serving cell's prompts (37,
-    300, 450, 1000 tokens, 16 new tokens, 2 slots) with a bf16 cache and
-    under int8 (``arch_run``), then is freed before the next loads."""
+def serve_configs(phase: str, cfgs, seed: int, new: int = ARCH_NEW,
+                  extra=None, trace=False):
+    """Each config at its widths, bf16, seeded random weights, one at a
+    time: it serves the serving cell's prompts (37, 300, 450, 1000 tokens,
+    ``new`` tokens each, 2 slots) with a bf16 cache and under int8
+    (``arch_run``, its timed runs traced with ``trace``),
+    ``extra(model, params, cfg)`` adds to its results, then it is freed
+    before the next loads."""
     out = {}
-    for arch in ARCHS:
-        cfg = get_arch(arch)
+    for cfg in cfgs:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = build_model(cfg, device=DEVICE)
         params = model.init_params(seed)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in params.parameters())
-        print(f"archs model {cfg.name}: {cfg.num_layers} layers d_model "
+        moe_desc = (f" experts {cfg.moe.num_experts} top {cfg.moe.top_k} "
+                    f"d_expert {cfg.moe.d_expert} capacity factor "
+                    f"{cfg.moe.capacity_factor}" if cfg.moe else "")
+        print(f"{phase} model {cfg.name}: {cfg.num_layers} layers d_model "
               f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} "
               f"(G {cfg.q_group_size}) head_dim {cfg.resolved_head_dim} "
               f"d_ff {cfg.d_ff} vocab {cfg.vocab_size} qkv_bias "
-              f"{cfg.qkv_bias} {cfg.param_dtype}: {n_params} params, init "
-              f"{time.perf_counter() - t0:.1f} s")
+              f"{cfg.qkv_bias}{moe_desc} {cfg.param_dtype}: {n_params} "
+              f"params, init {time.perf_counter() - t0:.1f} s")
         rng = np.random.default_rng(seed)
         prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                    for n in SERVING_PROMPTS]
-        res = {"params": n_params, "heads": (cfg.num_heads,
-                                             cfg.num_kv_heads,
-                                             cfg.resolved_head_dim)}
+        res = {"params": n_params, "layers": cfg.num_layers,
+               "heads": (cfg.num_heads, cfg.num_kv_heads,
+                         cfg.resolved_head_dim)}
         for kv_quant in (None, "int8"):
             res[kv_quant or "bf16"] = arch_run(model, params, cfg, prompts,
-                                               kv_quant)
+                                               kv_quant, new, phase, trace)
+        if extra is not None:
+            res.update(extra(model, params, cfg))
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        print(f"archs {cfg.name}: torch.cuda.max_memory_allocated "
+        print(f"{phase} {cfg.name}: torch.cuda.max_memory_allocated "
               f"{res['max_memory_allocated']} B")
-        out[arch] = res
+        out[cfg.name] = res
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def phase_archs(seed: int):
+    """codeqwen1.5-7b and stablelm-12b at full width (``serve_configs``)."""
+    return serve_configs("archs", [get_arch(a) for a in ARCHS], seed)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: granite-moe-3b-a800m at full width and depth,
+# qwen3-moe-235b-a22b at full width and 4 of its 94 layers
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept (None: all), new tokens a request).  qwen3-moe's 94
+# layers hold about 235e9 parameters, 470 GB in bf16: 4 layers (about
+# 19.3 GB of experts plus 2.5 GB of embedding and unembedding) fit one
+# card and keep every width
+MOE_ARCHS = (("granite-moe-3b-a800m", None, ARCH_NEW),
+             ("qwen3-moe-235b-a22b", 4, 8))
+DISPATCH_TOL = 2e-2          # bf16: the two dispatches round otherwise
+
+
+def moe_dispatch_check(model, params, cfg):
+    """Layer 0's experts on the card: the gather dispatch against the
+    einsum one at the serving cell's prefill group (one row of the 1024
+    bucket) and decode groups (two rows of one token), on normal inputs
+    of the model's dtype, within DISPATCH_TOL; each timed (CUDA events,
+    L2 flushed) beside the time to read every expert's weights once."""
+    from repro_torch.models import moe
+    ffn = params.layers[0].ffn
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    weights = sum(getattr(ffn, n).numel() * getattr(ffn, n).element_size()
+                  for n in ("wi_gate", "wi_up", "wo"))
+    out = {}
+    for name, shape in (("prefill", (1, 1024, cfg.d_model)),
+                        ("decode", (2, 1, cfg.d_model))):
+        x = torch.randn(shape, generator=gen, device=DEVICE).to(
+            ffn.wo.dtype)
+        runs = {d: functools.partial(moe.apply_moe, ffn, cfg, x,
+                                     dispatch=d)
+                for d in ("gather", "einsum")}
+        err = max_err(runs["gather"](), runs["einsum"](),
+                      DISPATCH_TOL)
+        ms = {d: time_ms(fn, 20, flush) for d, fn in runs.items()}
+        bound = weights / HBM_BYTES_PER_S * 1e3
+        print(f"moe {cfg.name} layer 0 {name} group {tuple(shape)}: gather "
+              f"against einsum dispatch max abs err {err:.4g} (tol "
+              f"{DISPATCH_TOL}); gather {ms['gather']:.6f} ms, einsum "
+              f"{ms['einsum']:.6f} ms; reading every expert's weights "
+              f"({weights} B) takes {bound:.6f} ms")
+        out[name] = {"max_abs_err": err, "gather_ms": ms["gather"],
+                     "einsum_ms": ms["einsum"], "weights_bytes": weights,
+                     "weights_bound_ms": bound}
+    return {"dispatch": out}
+
+
+def phase_moe(seed: int):
+    """The MoE family through ``serve_configs``: granite-moe-3b-a800m at
+    full width and depth (16 new tokens a request, its timed runs with
+    tracing and metrics on, and the dispatch check), then
+    qwen3-moe-235b-a22b at full width with its depth cut to 4 layers (8
+    new tokens)."""
+    out = {}
+    for arch, layers, new in MOE_ARCHS:
+        cfg = get_arch(arch)
+        if layers is not None:
+            print(f"moe {arch}: depth cut from {cfg.num_layers} to {layers} "
+                  f"layers (every width kept)")
+            cfg = cfg.replace(num_layers=layers)
+        full = layers is None
+        out.update(serve_configs(
+            "moe", [cfg], seed, new, moe_dispatch_check if full else None,
+            trace=full))
     return out
 
 
@@ -3549,6 +3690,182 @@ def phase_tune(model, params, cfg, seed: int, sms: int):
                 "table_version": snap.get("table_version")}}
 
 
+# ---------------------------------------------------------------------------
+# observability: tracing and metrics on the serving cell
+# ---------------------------------------------------------------------------
+
+OBS_NEW = 32               # the serving cell's new tokens a request
+OBS_ORDER = (False, True) * 2  # metrics and tracing off / on, in turns
+OBS_DIR = ROOT / "chiprun_out" / "obs"
+
+
+def prometheus_series(text: str) -> dict:
+    """Prometheus text exposition as {series: value}; fails on a line
+    that is neither ``# HELP`` / ``# TYPE`` nor ``name{labels} value``.
+    The port's CLI test parses the metrics file with this too."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith(("# HELP ", "# TYPE ")):
+            continue
+        name, value = line.rsplit(" ", 1)
+        check(re.fullmatch(r'[a-z_]+(\{([a-z_]+="[^"]*",?)*\})?', name)
+              is not None, f"obs: bad Prometheus line {line!r}")
+        out[name] = float(value)
+    return out
+
+
+def check_obs_artifacts(label, trace_path, metrics_path, run):
+    """One traced run's artifacts: the trace validates; it has one
+    ``request`` span a request, each containing its ``queue_wait`` and
+    ``admit`` spans and a ``first_token`` instant on its track; one launch
+    span a prefill or decode launch; the metrics snapshot's ``ttft_ms``
+    count is the requests' and its decode ``launch_ms`` count the decode
+    steps', and its plan-cache section is the run's PlanCacheStats."""
+    from repro_torch.obs import TraceArtifact, validate_trace
+    obj = json.loads(Path(trace_path).read_text())
+    validate_trace(obj)
+    art = TraceArtifact(obj["traceEvents"])
+    reqs = art.spans("request")
+    check(len(reqs) == len(SERVING_PROMPTS), f"{label}: {len(reqs)} "
+          f"request spans")
+    for r in reqs:
+        t0, t1 = r["ts"], r["ts"] + r["dur"]
+
+        def inside(e, r=r, t0=t0, t1=t1):
+            end = e["ts"] + e.get("dur", 0)
+            return e["tid"] == r["tid"] and t0 <= e["ts"] and end <= t1
+        for name in ("queue_wait", "admit"):
+            check(sum(inside(e) for e in art.spans(name)) == 1,
+                  f"{label}: request {r['args']['request_id']} has no "
+                  f"{name} span inside it")
+        check(sum(inside(e) for e in art.instants("first_token")) == 1,
+              f"{label}: request {r['args']['request_id']} has no "
+              "first_token instant")
+    launches = art.spans(cat="launch")
+    check(len(launches) == run["admissions"] + run["steps"],
+          f"{label}: {len(launches)} launch spans, {run['admissions']} "
+          f"admissions + {run['steps']} decode steps")
+    for e in launches:
+        check(all(k in e["args"] for k in ("num_splits", "mesh_splits",
+                                           "kv_dtype", "table_version")),
+              f"{label}: launch span without provenance {e}")
+    snap = json.loads(Path(metrics_path).read_text())
+    mx = snap["metrics"]
+    check(mx["ttft_ms"]["aggregate"]["count"] == len(SERVING_PROMPTS),
+          f"{label}: ttft_ms count {mx['ttft_ms']['aggregate']['count']}")
+    n_dec = mx["launch_ms"]["series"]["kind=decode"]["count"]
+    check(n_dec == run["steps"], f"{label}: launch_ms{{kind=decode}} count "
+          f"{n_dec}, {run['steps']} decode steps")
+    check(snap["plan_cache"]["launches"] == run["stats"]["launches"],
+          f"{label}: the metrics' plan-cache section is not the run's")
+    return {"events": len(obj["traceEvents"]), "request_spans": len(reqs),
+            "launch_spans": len(launches),
+            "ttft_ms": mx["ttft_ms"]["aggregate"],
+            "tpot_ms": mx["tpot_ms"]["aggregate"],
+            "launch_ms_decode": mx["launch_ms"]["series"]["kind=decode"]}
+
+
+def phase_obs(model, params, cfg, seed: int):
+    """Observability on full-width qwen2.5-3b: the serving cell (2 slots,
+    the 4 prompts, 32 new tokens each, bf16) four times in turns, with
+    ``trace_path`` and ``metrics_path`` off, on, off, on (the engine's
+    own dump at drain), each on a fresh engine with the launch counts
+    zeroed just before and read just after.  Across the runs the greedy
+    streams, the launches by kernel and key, ``PlanCacheStats.to_json()``
+    and the policy evaluations (0) must be equal; each traced run's
+    artifacts pass ``check_obs_artifacts``.  The median decode step with
+    obs on and off is printed, not checked.  Then the serving CLI as a
+    subprocess, ``--arch granite-moe-3b-a800m --trace t.json --metrics
+    m.prom``: exit 0, both files written, the trace valid, the Prometheus
+    text parsed."""
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SERVING_PROMPTS]
+    runs, arts, steps_ms = [], [], {False: [], True: []}
+    for i, on in enumerate(OBS_ORDER):
+        label = f"obs run {i} ({'on' if on else 'off'})"
+        paths = dict(trace_path=str(OBS_DIR / f"trace_{i}.json"),
+                     metrics_path=str(OBS_DIR / f"metrics_{i}.json")) \
+            if on else {}
+        sampler = CheckedGreedy()
+        engine = ServingEngine(model, ServeConfig(model=cfg, **paths),
+                               max_len=2048, batch_slots=2, policy="paper",
+                               sampler=sampler, device=DEVICE)
+        engine.load(params)
+        reqs = [Request(j, p, max_new_tokens=OBS_NEW)
+                for j, p in enumerate(prompts)]
+        ops.reset_launch_counts()
+        ops.reset_policy_eval_count()
+        _, decode_ms, wall, done, _, _ = drive(engine, reqs)
+        torch.cuda.synchronize()
+        st = engine.stats
+        check(bool(sampler.finite.item()), f"{label}: non-finite logits")
+        run = {"streams": [c.tokens for c in done],
+               "counts": ops.launch_counts(),
+               "by_key": {name: ops.launch_counts_by_key(name)
+                          for name in build.KERNELS},
+               "stats": st.to_json(), "evals": ops.policy_eval_count(),
+               "steps": sum(v for k, v in st.launches.items()
+                            if isinstance(k, int)),
+               "admissions": sum(v for k, v in st.launches.items()
+                                 if isinstance(k, tuple))}
+        check(run["evals"] == 0, f"{label}: policy evaluated")
+        check([len(t) for t in run["streams"]]
+              == [OBS_NEW] * len(prompts), f"{label}: completions")
+        if runs:
+            for key in ("streams", "counts", "by_key", "stats"):
+                check(run[key] == runs[0][key], f"{label}: {key} differ "
+                      f"from run 0's")
+        if on:
+            arts.append(check_obs_artifacts(label, paths["trace_path"],
+                                            paths["metrics_path"], run))
+        steps_ms[on] += decode_ms
+        runs.append(run)
+        print(f"{label}: {run['admissions']} admissions, {run['steps']} "
+              f"decode steps, median decode step {median(decode_ms):.3f} ms"
+              f", wall {wall:.3f} s")
+    a = arts[0]
+    print(f"obs: streams, launches by key, PlanCacheStats and 0 policy "
+          f"evaluations equal over {len(runs)} runs (on and off); trace "
+          f"{a['events']} events, {a['request_spans']} request spans, "
+          f"{a['launch_spans']} launch spans; ttft_ms count "
+          f"{a['ttft_ms']['count']} (p50 {a['ttft_ms']['p50']} ms), "
+          f"launch_ms decode count {a['launch_ms_decode']['count']} (p50 "
+          f"{a['launch_ms_decode']['p50']} ms); median decode step on "
+          f"{median(steps_ms[True]):.3f} ms, off "
+          f"{median(steps_ms[False]):.3f} ms (not a claim: the step is "
+          "host-bound)")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "granite-moe-3b-a800m", "--trace", "t.json", "--metrics",
+           "m.prom"]
+    for name in ("t.json", "m.prom"):
+        (OBS_DIR / name).unlink(missing_ok=True)
+    res = subprocess.run(cmd, cwd=OBS_DIR, env=env, capture_output=True,
+                         text=True, timeout=600)
+    print(f"obs cli {' '.join(cmd[1:])}: exit {res.returncode}; "
+          + " | ".join(res.stdout.strip().splitlines()[-6:]))
+    check(res.returncode == 0, f"obs cli failed: {res.stderr[-2000:]}")
+    from repro_torch.obs import TraceArtifact, validate_trace
+    trace = json.loads((OBS_DIR / "t.json").read_text())
+    validate_trace(trace)
+    prom = prometheus_series((OBS_DIR / "m.prom").read_text())
+    cli_reqs = len(TraceArtifact(trace["traceEvents"]).spans("request"))
+    check(cli_reqs == 8 and prom.get("repro_ttft_ms_count") == 8,
+          f"obs cli: {cli_reqs} request spans, ttft count "
+          f"{prom.get('repro_ttft_ms_count')}")
+    print(f"obs cli: trace valid ({len(trace['traceEvents'])} events, "
+          f"{cli_reqs} request spans), {len(prom)} Prometheus series")
+    return {"runs": [{k: r[k] for k in ("steps", "admissions", "counts")}
+                     for r in runs], "artifacts": arts,
+            "median_decode_ms_on": median(steps_ms[True]),
+            "median_decode_ms_off": median(steps_ms[False]),
+            "cli": {"rc": res.returncode, "events":
+                    len(trace["traceEvents"]), "prometheus_series":
+                    len(prom)}}
+
+
 def phase_paged_all(model, params, cfg, seed: int):
     """The slice's paths, each fatal on failure: paged against dense, the
     prefix cell (bf16 and int8), DecodeEngine, the serving CLI."""
@@ -3577,7 +3894,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phase",
                     choices=("all", "kernels", "digests", "admission",
                              "times", "table1", "shapes", "paged", "spec",
-                             "archs", "tune"),
+                             "archs", "tune", "moe", "obs"),
                     default="all",
                     help="'kernels' stops after build and kernel parity; "
                          "'digests' builds, then runs the main path's "
@@ -3595,7 +3912,11 @@ def main(argv=None) -> int:
                          "decoding and the sampled path; 'archs' builds, "
                          "then serves codeqwen1.5-7b and stablelm-12b; "
                          "'tune' builds, then calibrates H100_SPEC and "
-                         "serves qwen2.5-3b from the table")
+                         "serves qwen2.5-3b from the table; 'moe' builds, "
+                         "then serves granite-moe-3b-a800m and "
+                         "qwen3-moe-235b-a22b (4 layers); 'obs' builds, "
+                         "then serves qwen2.5-3b with tracing and metrics "
+                         "on and off and runs the CLI with them")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -3632,7 +3953,11 @@ def main(argv=None) -> int:
         archs = timed("archs", phase_archs, args.seed)
         print(json.dumps({"archs": archs, "card": card}))
         return 0
-    if args.phase not in ("paged", "spec", "tune"):
+    if args.phase == "moe":
+        moe = timed("moe", phase_moe, args.seed)
+        print(json.dumps({"moe": moe, "card": card}))
+        return 0
+    if args.phase not in ("paged", "spec", "tune", "obs"):
         wide_gen = torch.Generator(device=DEVICE).manual_seed(args.seed + 17)
         errs = timed("parity", phase_parity, gen, sms, wide_gen)
     if args.phase == "kernels":
@@ -3662,6 +3987,10 @@ def main(argv=None) -> int:
         tune = timed("tune", phase_tune, model, params, cfg, args.seed, sms)
         print(json.dumps({"tune": tune, "card": card}))
         return 0
+    if args.phase == "obs":
+        obs = timed("obs", phase_obs, model, params, cfg, args.seed)
+        print(json.dumps({"obs": obs, "card": card}))
+        return 0
     counts, serving, bf16 = timed("serving bf16", phase_serving, model,
                                   params, cfg, args.seed)
     qcounts, qserving, _ = timed("serving int8", phase_serving, model,
@@ -3690,14 +4019,16 @@ def main(argv=None) -> int:
     paged = phase_paged_all(model, params, cfg, args.seed)
     spec = timed("spec", phase_spec, model, params, cfg, args.seed)
     tune = timed("tune", phase_tune, model, params, cfg, args.seed, sms)
+    obs = timed("obs", phase_obs, model, params, cfg, args.seed)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     archs = timed("archs", phase_archs, args.seed)
+    moe = timed("moe", phase_moe, args.seed)
     table1, table1_rows = timed("table1", phase_table1, gen, sms, card,
                                 flush)
-    extra = [verify_kernel_row(gen, sms, spec)] + arch_kernel_rows(gen, sms,
-                                                                  archs)
+    extra = [verify_kernel_row(gen, sms, spec)] + arch_kernel_rows(
+        gen, sms, archs) + arch_kernel_rows(gen, sms, moe)
     kernels = timed("kernels line", phase_kernels_line, gen, sms, errs,
                     counts, flush, serving["prefill_launches"],
                     serving["decode_launches"], qserving["decode_launches"],
@@ -3708,8 +4039,8 @@ def main(argv=None) -> int:
                       "paper_cell": paper,
                       "paper_cell_int8": qpaper, "profile": profile,
                       "profile_int8": qprofile, "paged": paged,
-                      "spec": spec, "tune": tune, "archs": archs,
-                      "table1": table1,
+                      "spec": spec, "tune": tune, "obs": obs,
+                      "archs": archs, "moe": moe, "table1": table1,
                       "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """Architecture configs (one module per ported arch)."""
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
+    MoEConfig,
     ServeConfig,
     get_arch,
     register_arch,
@@ -8,7 +9,8 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _LOADED = False
 
-ARCH_MODULES = ("qwen25_3b", "codeqwen15_7b", "stablelm_12b")
+ARCH_MODULES = ("qwen25_3b", "codeqwen15_7b", "stablelm_12b",
+                "granite_moe_3b_a800m", "qwen3_moe_235b_a22b")
 
 
 def _load_all() -> None:

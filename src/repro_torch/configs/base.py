@@ -2,11 +2,13 @@
 
 Counterpart of ``repro.configs.base``.  Configs are frozen dataclasses,
 so they hash, print and diff cleanly and a config file is only data.
-``ModelConfig`` keeps the reference's dense-family fields; the attention
+``ModelConfig`` keeps the reference's fields of the ported families
+(dense, and moe through :class:`MoEConfig`); the attention
 implementation is not a config knob here, because the kernel follows the
 tensor's device (see ``repro_torch.kernels.ops``).  ``ServeConfig``
 carries the serving fields: planning, admission, the KV-cache format,
-its layout (dense or paged, with prefix sharing) and speculation.
+its layout (dense or paged, with prefix sharing), speculation and the
+observability artifacts (``trace_path``, ``metrics_path``).
 """
 from __future__ import annotations
 
@@ -15,10 +17,31 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 
+# the model families the port serves, and those of the reference it does
+# not serve yet: reducing a config or building a model of one raises
+PORTED_FAMILIES = ("dense", "moe")
+UNPORTED_FAMILIES = ("mla", "encdec", "vlm", "ssm", "hybrid")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_expert: int                      # per-expert FFN hidden dim
+    capacity_factor: float = 1.25      # token-dropping capacity dispatch
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01      # load-balance loss
+    # token dispatch: "gather" (slot buffers, no one-hot matmuls) |
+    # "einsum" (Switch-style one-hot dispatch and combine) |
+    # "ep_shard_map" (expert parallelism over a mesh; on one device it
+    # runs as "gather", as the reference's does without a mesh)
+    dispatch: str = "gather"
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # dense (the only family ported yet)
+    family: str                        # dense | moe (the ported families)
     num_layers: int
     d_model: int
     num_heads: int
@@ -34,6 +57,7 @@ class ModelConfig:
     max_seq_len: int = 524_288
     dtype: str = "bfloat16"            # activations (the cache: ServeConfig)
     param_dtype: str = "bfloat16"
+    moe: Optional[MoEConfig] = None    # family="moe": the FFN's experts
 
     @property
     def resolved_head_dim(self) -> int:
@@ -46,6 +70,15 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise unless the port serves ``cfg``'s family."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise ValueError(
+            f"the {cfg.family!r} family is not ported yet (ported: "
+            f"{', '.join(PORTED_FAMILIES)}; not yet: "
+            f"{', '.join(UNPORTED_FAMILIES)})")
 
 
 @dataclass(frozen=True)
@@ -66,6 +99,18 @@ class ServeConfig:
     # when set, ServingEngine.drain() writes PlanCacheStats.to_json()
     # (with the policy and the table's version) here
     stats_path: Optional[str] = None
+    # repro_torch.obs: when set, drain() writes the Chrome trace-event
+    # JSON of the serving timeline here (request lifecycle spans and
+    # per-launch spans stamped with LaunchPlan provenance); load it at
+    # https://ui.perfetto.dev.  Host-side only; None = no tracing (the
+    # zero-cost NULL_OBSERVER path).
+    trace_path: Optional[str] = None
+    # repro_torch.obs: when set, drain() writes the metrics artifact here
+    # (TTFT / TPOT / queue-wait / launch histograms, occupancy gauges,
+    # token and warning counters, plus the PlanCacheStats section).  A
+    # ".prom" / ".txt" suffix selects Prometheus text exposition; any
+    # other suffix gets the JSON snapshot.
+    metrics_path: Optional[str] = None
     # cache-length bucket width for plan lookup; the policy reads only
     # ceil(L_K / KV_BLOCK), so any multiple of 128 loses no decision
     seqlen_bucket: int = 128

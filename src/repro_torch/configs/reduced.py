@@ -1,14 +1,16 @@
 """Reduced (test-size) variants of the ported architectures.
 
 Same family, same block wiring, same GQA group ratio, tiny widths —
-the dense half of ``repro.configs.reduced.reduced_config``, so one
-call with the same arguments gives the same shape in both packages.
+the dense and moe branches of ``repro.configs.reduced.reduced_config``,
+so one call with the same arguments gives the same shape in both
+packages.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig, get_arch
+from repro_torch.configs.base import ModelConfig, MoEConfig, \
+    check_ported, get_arch
 
 
 def reduced_config(
@@ -20,14 +22,11 @@ def reduced_config(
 ) -> ModelConfig:
     cfg = (get_arch(cfg_or_name) if isinstance(cfg_or_name, str)
            else cfg_or_name)
-    if cfg.family != "dense":
-        raise ValueError(f"only the dense family is ported, got "
-                         f"{cfg.family!r}")
+    check_ported(cfg)
     # keep the GQA group ratio (it drives the paper's tile math)
     group = max(1, cfg.num_heads // max(1, cfg.num_kv_heads))
     heads = 4
-    return dataclasses.replace(
-        cfg,
+    kw = dict(
         num_layers=num_layers,
         d_model=d_model,
         num_heads=heads,
@@ -37,3 +36,9 @@ def reduced_config(
         head_dim=d_model // heads,
         max_seq_len=4096,
     )
+    if cfg.moe is not None:
+        kw["moe"] = MoEConfig(num_experts=8, top_k=2, d_expert=d_model,
+                              capacity_factor=2.0,
+                              dispatch=cfg.moe.dispatch)
+        kw["d_ff"] = d_model
+    return dataclasses.replace(cfg, **kw)

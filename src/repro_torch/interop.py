@@ -1,11 +1,13 @@
 """Weights and caches from the JAX package's trees, as numpy arrays.
 
-``params_from_numpy(tree, cfg)`` takes the reference's dense-LM param
-tree (``{"embed": ..., "final_norm": ..., "groups": ((layer_stack,),)}``
-with every leaf converted to a numpy array) and returns the port's
-:class:`~repro_torch.models.lm.LM`.  The reference stacks the layers of
-its scan group along a leading axis (``params["groups"][0][0]``); here
-they are unstacked into one :class:`~repro_torch.models.lm.Block` each.
+``params_from_numpy(tree, cfg)`` takes the reference's LM param tree of
+a dense or moe config (``{"embed": ..., "final_norm": ..., "groups":
+((layer_stack,),)}`` with every leaf converted to a numpy array; a moe
+block's ``ffn`` holds ``router``, ``wi_gate``, ``wi_up`` and ``wo``) and
+returns the port's :class:`~repro_torch.models.lm.LM`.  The reference
+stacks the layers of its scan group along a leading axis
+(``params["groups"][0][0]``); here they are unstacked into one
+:class:`~repro_torch.models.lm.Block` each.
 ``cache_from_numpy(tree, cfg)`` takes the reference's dense cache tree
 (``((layer_stack,),)`` of ``{"k", "v"}`` plus ``{"k_s", "v_s"}`` for a
 quantized cache) and returns the port's cache dict, layers still
@@ -53,7 +55,7 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""
 def _one_group(tree: Any) -> Any:
     if len(tree) != 1 or len(tree[0]) != 1:
         raise ValueError("expected one scan group of one block kind "
-                         "(a dense LM)")
+                         "(a dense or moe LM)")
     return tree[0][0]
 
 
@@ -75,8 +77,10 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
             state[f"layers.{li}.{name}"] = tensor_from_numpy(stacked[li])
     dev = resolve_device(device)
     lm = LM(cfg, dev)
-    dtype = getattr(torch, cfg.param_dtype)
-    lm.load_state_dict({k: v.to(dtype) for k, v in state.items()})
+    # each leaf in its parameter's dtype: cfg.param_dtype, except the MoE
+    # router, which stays float32 as in the reference
+    want = lm.state_dict()
+    lm.load_state_dict({k: v.to(want[k].dtype) for k, v in state.items()})
     return lm
 
 

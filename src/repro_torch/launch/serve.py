@@ -15,14 +15,17 @@ serve from the paged cache, sharing the system prompt's pages;
 verify launches with a registered drafter; ``--policy measured
 --tune-table`` decides splits from a calibrated table (a file, or a
 registry directory such as ``experiments/tune/h100/``) and
-``--stats-path`` writes the plan-cache counters at drain.  It runs on the
-card unless ``--device cpu`` is given.
+``--stats-path`` writes the plan-cache counters at drain; ``--trace``
+writes the Chrome trace-event JSON of the serving timeline and
+``--metrics`` the metrics snapshot (Prometheus text for a ``.prom`` /
+``.txt`` suffix, else JSON) at drain.  ``--arch`` takes every ported
+config, the moe ones (granite-moe-3b-a800m, qwen3-moe-235b-a22b)
+included.  It runs on the card unless ``--device cpu`` is given.
 
 One difference from the reference: the default ``d_model`` is 512, not
 128.  The reduced config keeps 4 query heads, so the reference's default
 gives head_dim 32, and the port's kernels take head_dim 64, 128, 160 or
-256; 512 gives 128.  The reference's tracing, metrics and mesh flags are
-not ported yet.
+256; 512 gives 128.  The reference's ``--mesh`` flag is not ported yet.
 """
 from __future__ import annotations
 
@@ -59,7 +62,8 @@ def run_serving(arch: str, *, num_requests: int = 8, max_new: int = 16,
                 speculate: Optional[str] = None, speculate_k: int = 4,
                 speculate_max_rejects: Optional[int] = None,
                 kv_quant: Optional[str] = None, tune_table=None,
-                stats_path=None, device=None, log_fn=print):
+                stats_path=None, trace_path=None, metrics_path=None,
+                device=None, log_fn=print):
     """Serve the reference's request stream on a reduced ``arch`` and log
     the summary; returns the completions.  ``device=None`` is the card."""
     cfg = reduced_config(get_arch(arch), num_layers=num_layers,
@@ -76,7 +80,11 @@ def run_serving(arch: str, *, num_requests: int = 8, max_new: int = 16,
                        tune_table_path=(str(tune_table) if tune_table
                                         else None),
                        stats_path=(str(stats_path) if stats_path
-                                   else None))
+                                   else None),
+                       trace_path=(str(trace_path) if trace_path
+                                   else None),
+                       metrics_path=(str(metrics_path) if metrics_path
+                                     else None))
     engine = ServingEngine(model, scfg, max_len=max_len,
                            batch_slots=batch_slots,
                            sampler=get_sampler(sampler), device=device)
@@ -130,6 +138,11 @@ def run_serving(arch: str, *, num_requests: int = 8, max_new: int = 16,
                f"'{engine.tune_table.fallback_policy}'")
     if stats_path:
         log_fn(f"plan-cache stats snapshot: {stats_path}")
+    if trace_path:
+        log_fn(f"request-lifecycle trace (load at https://ui.perfetto.dev"
+               f"): {trace_path}")
+    if metrics_path:
+        log_fn(f"serving metrics snapshot: {metrics_path}")
     if cache_layout == "paged":
         cs = engine.cache_stats()
         log_fn(f"paged cache: {cs['total_pages']} pages of "
@@ -171,6 +184,14 @@ def main(argv=None) -> None:
                          "repro_torch.launch.tune --h100`)")
     ap.add_argument("--stats-path", default=None,
                     help="write PlanCacheStats.to_json() here at drain")
+    ap.add_argument("--trace", default=None, dest="trace_path",
+                    help="write the Chrome trace-event JSON serving "
+                         "timeline here at drain (load it at "
+                         "https://ui.perfetto.dev)")
+    ap.add_argument("--metrics", default=None, dest="metrics_path",
+                    help="write the serving metrics snapshot here at drain "
+                         "(a .prom / .txt suffix selects Prometheus text "
+                         "exposition, else JSON)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--splits", type=int, default=None,
                     help="explicit num_splits override: the engine's "
@@ -227,7 +248,8 @@ def main(argv=None) -> None:
                 speculate_k=args.speculate_k,
                 speculate_max_rejects=args.speculate_max_rejects,
                 kv_quant=args.kv_quant, tune_table=args.tune_table,
-                stats_path=args.stats_path, device=args.device)
+                stats_path=args.stats_path, trace_path=args.trace_path,
+                metrics_path=args.metrics_path, device=args.device)
 
 
 if __name__ == "__main__":

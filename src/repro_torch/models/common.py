@@ -23,6 +23,7 @@ class ParamSpec:
     shape: Tuple[int, ...]
     init: str = "normal"                     # normal | zeros | ones
     fan_in: Optional[int] = None             # stddev = 1/sqrt(fan_in)
+    dtype: Optional[str] = None              # None = the module's dtype
 
     @property
     def std(self) -> float:
@@ -33,16 +34,19 @@ class ParamSpec:
 
 class SpecModule(nn.Module):
     """A module whose parameters are declared by ParamSpecs.  Parameters
-    are allocated uninitialised; :func:`init_params` or a state dict
-    fills them.  They are inference weights: no gradients."""
+    are allocated uninitialised, in the spec's dtype when it names one
+    (the MoE router's float32) and in ``dtype`` otherwise;
+    :func:`init_params` or a state dict fills them.  They are inference
+    weights: no gradients."""
 
     def __init__(self, specs: Dict[str, ParamSpec], dtype: torch.dtype,
                  device: torch.device):
         super().__init__()
         self.specs = specs
         for name, spec in specs.items():
+            dt = getattr(torch, spec.dtype) if spec.dtype else dtype
             self.register_parameter(name, nn.Parameter(
-                torch.empty(spec.shape, dtype=dtype, device=device),
+                torch.empty(spec.shape, dtype=dt, device=device),
                 requires_grad=False))
 
 

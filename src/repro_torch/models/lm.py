@@ -1,6 +1,12 @@
-"""Decoder-only LM, dense family.
+"""Decoder-only LM, dense and moe families.
 
-Counterpart of the dense path of ``repro.models.lm``.  Layers are an
+Counterpart of the dense and moe paths of ``repro.models.lm``: every
+block is attention then an FFN, a SwiGLU MLP (dense) or a
+:class:`~repro_torch.models.moe.MoE` (``cfg.moe`` set; routing groups
+are the rows each step passes: the padded prompt bucket in prefill, the
+padded suffix bucket in suffix prefill, one token per slot in decode,
+k + 1 rows per slot in verify).  Serving discards the MoE load-balance
+loss, as the reference does.  Layers are an
 ``nn.ModuleList`` walked by a Python loop (the reference scans a
 layer-stacked pytree).  Caches are dicts of dense tensors ``{"k", "v"}``
 of shape (layers, B, L, Hkv, D), plus ``{"k_s", "v_s"}`` f32 scales of
@@ -18,6 +24,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (
     MLP,
     Embed,
@@ -41,11 +48,13 @@ class Block(nn.Module):
         self.ln1 = RMSNorm(d, dtype, device)
         self.mix = attn_mod.Attention(cfg, dtype, device)
         self.ln2 = RMSNorm(d, dtype, device)
-        self.ffn = MLP(d, cfg.d_ff, dtype, device)
+        self.ffn = (moe_mod.MoE(cfg, dtype, device) if cfg.moe is not None
+                    else MLP(d, cfg.d_ff, dtype, device))
 
 
 class LM(nn.Module):
-    """All weights of a dense LM, named as the reference's param tree:
+    """All weights of a dense or moe LM, named as the reference's param
+    tree:
     ``embed``, ``final_norm`` and one :class:`Block` per layer."""
 
     def __init__(self, cfg: ModelConfig, device):
@@ -60,6 +69,8 @@ class LM(nn.Module):
 
 def _ffn(block: Block, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     h2 = rms_norm(x, block.ln2.scale, cfg.norm_eps)
+    if cfg.moe is not None:
+        return x + moe_mod.apply_moe(block.ffn, cfg, h2)
     return x + apply_mlp(block.ffn, h2, cfg.mlp_kind)
 
 

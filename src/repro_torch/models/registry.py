@@ -1,8 +1,10 @@
 """Model facade: one object per architecture, the entry point of the port.
 
-Counterpart of ``repro.models.registry`` for ``family="dense"``.
-``build_model(cfg)`` returns a :class:`Model` bound to a device: the
-CUDA card unless the caller asks for the CPU.
+Counterpart of ``repro.models.registry`` for the ported families,
+``dense`` and ``moe`` (whose FFN is a mixture of experts; attention,
+caches, prefill, decode and verify are dense's).  ``build_model(cfg)``
+returns a :class:`Model` bound to a device: the CUDA card unless the
+caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import torch
 
 from repro_torch.cache.manager import CacheManager
 from repro_torch.cache.spec import CacheSpec
-from repro_torch.configs.base import ModelConfig, get_arch
+from repro_torch.configs.base import ModelConfig, check_ported, get_arch
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.common import init_params
 from repro_torch.plan import LaunchPlan
@@ -33,13 +35,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 class Model:
-    """One dense LM on one device: params, caches, prefill, decode,
-    verify."""
+    """One dense or moe LM on one device: params, caches, prefill,
+    decode, verify."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
-        if cfg.family != "dense":
-            raise ValueError(f"only the dense family is ported, got "
-                             f"{cfg.family!r}")
+        check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -83,8 +83,9 @@ class Model:
     @property
     def supports_prefix_sharing(self) -> bool:
         """Whether ``share_prefix`` may index this model's pages: every
-        dense cache tensor is position-linear, so it pages, and suffix
-        prefill is the restartable form of fused prefill."""
+        cache tensor of a dense or moe model is position-linear, so it
+        pages, and suffix prefill is the restartable form of fused
+        prefill."""
         return self.supports_fused_prefill
 
     def cache_spec(self, batch: int, max_len: int,
@@ -117,7 +118,7 @@ class Model:
 
     @property
     def supports_fused_prefill(self) -> bool:
-        return True                     # dense, token inputs only
+        return True                     # dense and moe: token inputs only
 
     def prefill_slot_view(self, params: lm_mod.LM, tokens: torch.Tensor,
                           length: int, *,
@@ -148,8 +149,8 @@ class Model:
         """Whether the engine may run speculative verify steps against
         this model: a uniform full-attention stack over the standard k/v
         cache, whose rejected rows roll back by truncating ``kv_len``.
-        Every dense model qualifies."""
-        return self.cfg.family == "dense"
+        Every ported family (dense and moe) qualifies."""
+        return True
 
     def verify_step(self, params: lm_mod.LM, caches: lm_mod.Caches,
                     tokens: torch.Tensor, t: torch.Tensor, *,

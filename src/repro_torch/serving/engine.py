@@ -67,17 +67,27 @@ needs the metadata path.  Its lookups and fallbacks land in
 :attr:`ServingEngine.stats`, and ``ServeConfig.stats_path`` makes
 :meth:`ServingEngine.drain` write them (:meth:`dump_stats`).
 
+Observability (``repro_torch.obs``): ``ServeConfig.trace_path`` /
+``metrics_path`` resolve an :class:`~repro_torch.obs.Observer` (an
+``obs=`` argument wins, and its injector owns the dump), which the
+engine calls at the reference's sites: submit, admission start and end
+(``full`` / ``suffix`` / ``loop``, with the shared prefix rows and their
+KV bytes), each prefill, suffix-prefill, decode and verify launch
+(stamped with its plan's provenance; decode and verify also on each
+rider's request track), each token, each finish, the structured
+warnings, and the occupancy gauges at the end of every :meth:`step`.  A
+launch span closes at the host copy that already waits for the launch:
+nothing is synchronized for it.  :meth:`ServingEngine.drain` writes the
+artifacts (:meth:`dump_obs`).  Disabled, the engine holds
+``NULL_OBSERVER`` and each site costs one attribute read.
+
 :class:`DecodeEngine` is the batch-synchronous facade
 (``generate(requests) -> completions``): loop admission and greedy
 sampling, as the reference's.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
-import json
-import os
-import tempfile
 import warnings
 from collections import deque
 from typing import Any, Deque, Dict, Iterator, List, Optional, Sequence
@@ -86,8 +96,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ServeConfig
-from repro_torch.core.split_policy import get_policy
+from repro_torch.core.split_policy import KV_DTYPES, get_policy
 from repro_torch.models.registry import DeviceLike, Model, resolve_device
+from repro_torch.obs import atomic_write_json, resolve_obs
 from repro_torch.plan import LaunchPlan, PlanCacheStats, Planner
 from repro_torch.quant import QUANT_DTYPES
 from repro_torch.serving.events import (
@@ -119,7 +130,8 @@ class ServingEngine:
                  prefill_mode: Optional[str] = None,
                  tune_table: Optional[Any] = None,
                  tune_impl: Optional[str] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 obs: Optional[Any] = None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
@@ -131,6 +143,17 @@ class ServingEngine:
         self.B = batch_slots
         self.use_metadata = scfg.use_scheduler_metadata
         self._stats_path = scfg.stats_path
+        # an injected observer wins, and its injector owns the artifact
+        # dumps; otherwise the config's paths resolve one, NULL_OBSERVER
+        # when both are unset
+        self._trace_path = scfg.trace_path
+        self._metrics_path = scfg.metrics_path
+        if obs is not None:
+            self._obs = obs
+            self._owns_obs = False
+        else:
+            self._obs = resolve_obs(scfg)
+            self._owns_obs = self._obs.enabled
         # the measured policy's table, resolved once: an explicit table
         # wins over the config's path, which may be a registry directory
         # (the table matching this engine's device is picked, with a
@@ -174,6 +197,11 @@ class ServingEngine:
                              f"known: {sorted(QUANT_DTYPES)}")
         # the cache's storage dtype (a KV_DTYPES name); kv_quant wins
         self.kv_dtype = scfg.kv_quant or scfg.kv_cache_dtype
+        # KV bytes one shared prompt row saves (K and V over the layers,
+        # at the storage dtype): the prefix-shared-bytes counter
+        self._kv_row_bytes = (2 * self.cfg.num_layers * self.cfg.num_kv_heads
+                              * self.cfg.resolved_head_dim
+                              * KV_DTYPES.get(self.kv_dtype, 2))
 
         layout = scfg.cache_layout
         if layout == "paged":
@@ -225,6 +253,12 @@ class ServingEngine:
             table_impl=tune_impl)
         if self._table_registry_fallback:
             self.stats.table_registry_fallbacks += 1
+            if self._obs.enabled:
+                self._obs.on_warning(
+                    "table_registry_fallback",
+                    f"no table in {scfg.tune_table_path} matches the "
+                    "live backend fingerprint; using the registry's "
+                    "first table")
         # the internal-heuristic baseline: one context-only plan for every
         # length, so the policy runs inside each launch on max_len
         self._fallback_plan = self.sched.planner.context()
@@ -439,6 +473,8 @@ class ServingEngine:
         self._completions[handle] = st.completion
         self._queues[handle] = deque()
         self._undrained.append(handle)
+        if self._obs.enabled:
+            self._obs.on_submit(handle, req.request_id, len(req.prompt))
         return handle
 
     def has_work(self) -> bool:
@@ -458,6 +494,13 @@ class ServingEngine:
         live = self.sched.live()
         if live:
             self._decode_launch(live, events)
+        if self._obs.enabled:
+            occ, slots = self.sched.occupancy()
+            kw = (dict(free_pages=self.cache.free_pages,
+                       total_pages=self.cache.spec.total_pages)
+                  if self.cache.is_paged else {})
+            self._obs.sample_occupancy(occ, slots,
+                                       self.sched.queue_depth(), **kw)
         return events
 
     def _admissible(self, st: SlotState) -> bool:
@@ -497,7 +540,8 @@ class ServingEngine:
         """Run to completion; returns every not-yet-drained request's
         :class:`Completion`, sorted by request_id, and releases them.
         With ``ServeConfig.stats_path`` set, the stats snapshot is written
-        there (:meth:`dump_stats`)."""
+        there (:meth:`dump_stats`); with ``trace_path`` / ``metrics_path``
+        set, the observability artifacts (:meth:`dump_obs`)."""
         while self.sched.has_work():
             self.step()
         done = [self._completions.pop(h) for h in self._undrained]
@@ -507,6 +551,8 @@ class ServingEngine:
         done.sort(key=lambda c: c.request_id)
         if self._stats_path:
             self.dump_stats(self._stats_path)
+        if self._owns_obs:
+            self.dump_obs()
         return done
 
     def stats_snapshot(self) -> Dict[str, Any]:
@@ -521,24 +567,22 @@ class ServingEngine:
     def dump_stats(self, path) -> None:
         """Write :meth:`stats_snapshot` as JSON, atomically: a temp file
         in the target directory, then ``os.replace``."""
-        path = os.fspath(path)
-        folder = os.path.dirname(os.path.abspath(path))
-        os.makedirs(folder, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=folder, prefix=os.path.basename(
-            path) + ".", suffix=".tmp")
-        try:
-            with os.fdopen(fd, "w") as f:
-                f.write(json.dumps(self.stats_snapshot(), indent=1,
-                                   sort_keys=True) + "\n")
-            os.replace(tmp, path)
-        except BaseException:
-            with contextlib.suppress(OSError):
-                os.unlink(tmp)
-            raise
+        atomic_write_json(path, self.stats_snapshot())
+
+    def dump_obs(self) -> None:
+        """Write the trace and metrics artifacts the engine's own
+        ``ServeConfig`` paths ask for, the metrics with
+        :meth:`stats_snapshot` as their ``plan_cache`` section (nothing
+        when neither path is set or the observer is disabled)."""
+        if self._obs.enabled and (self._trace_path or self._metrics_path):
+            self._obs.dump(self._trace_path, self._metrics_path,
+                           plan_stats=self.stats_snapshot())
 
     # --- internals ----------------------------------------------------------
 
     def _admit(self, i: int, st: SlotState, events: List[Event]) -> None:
+        if self._obs.enabled:           # closes the queue_wait span
+            self._obs.on_admit_start(st.handle)
         # the whole prompt's pages are reserved up front (all-or-nothing;
         # _admissible already checked the free list, so this cannot fail)
         prompt = st.request.prompt
@@ -567,6 +611,8 @@ class ServingEngine:
         st.prompt_left = list(prompt)
         self._pos[i] = 0
         self._next_token[i] = st.prompt_left.pop(0)
+        if self._obs.enabled:
+            self._obs.on_admit_end(st.handle, "loop")
 
     def _admit_fused(self, i: int, st: SlotState, events: List[Event],
                      shared: int = 0) -> None:
@@ -586,14 +632,18 @@ class ServingEngine:
                 functools.partial(self._build, self._suffix_prefill_impl))
             toks = np.zeros(entry.key[2], np.int64)
             toks[:n - shared] = prompt[shared:]
-            tok = entry.step(torch.from_numpy(toks).to(self.device), i,
-                             shared, n)
+            args = (torch.from_numpy(toks).to(self.device), i, shared, n)
         else:
             entry = self.sched.prefill_entry(
                 n, functools.partial(self._build, self._prefill_impl))
             toks = np.zeros(entry.key[1], np.int64)
             toks[:n] = prompt
-            tok = entry.step(torch.from_numpy(toks).to(self.device), i, n)
+            args = (torch.from_numpy(toks).to(self.device), i, n)
+        t0 = self._obs.now_us() if self._obs.enabled else 0
+        tok = entry.step(*args)         # its host int waits for the launch
+        if self._obs.enabled:
+            self._obs.on_launch("sprefill" if shared else "prefill",
+                                entry.key, entry.plan, t0)
         self.cache.note_write(i, n - 1)
         if self.share_prefix:
             # index the now-resident full pages so the next request that
@@ -601,6 +651,12 @@ class ServingEngine:
             self.cache.register_prefix(i, prompt)
         self._pos[i] = n
         st.completion.steps += 1
+        if self._obs.enabled:
+            # the admit span closes before the first token, which may
+            # finish the request, whose span must contain it
+            self._obs.on_admit_end(st.handle,
+                                   "suffix" if shared else "full",
+                                   shared, shared * self._kv_row_bytes)
         self._emit_token(i, st, tok, events)
 
     def _decode_launch(self, live, events: List[Event]) -> None:
@@ -630,15 +686,23 @@ class ServingEngine:
         t = torch.from_numpy(self._pos).to(self.device)
         t_max = max(int(self._pos[i]) for i, _ in live)
         if self.use_metadata:
-            step = self.sched.decode_entry(
-                t_max, functools.partial(self._build, self._decode_impl)).step
+            entry = self.sched.decode_entry(
+                t_max, functools.partial(self._build, self._decode_impl))
+            step = entry.step
         else:
             # dense only (paged needs the metadata path): the whole cache
+            entry = None
             step = functools.partial(self._decode_impl,
                                      plan=self._fallback_plan,
                                      num_pages=self.cache.spec.slot_pages)
             self.stats.record_fallback(t_max + 1, self.max_len)
+        t0 = self._obs.now_us() if self._obs.enabled else 0
         out = step(tok, t).cpu().numpy()    # host copy waits for the launch
+        if self._obs.enabled:
+            self._obs.on_launch(
+                "decode", entry.key if entry is not None else None,
+                entry.plan if entry is not None else None, t0,
+                handles=[s.handle for _, s in live])
         for i, st in live:
             self._advance(i, st, int(out[i]), events)
 
@@ -717,10 +781,15 @@ class ServingEngine:
         entry = self.sched.verify_entry(
             K, t_max, functools.partial(self._build, self._verify_impl))
         dev = self.device
-        out, acc = entry.step(torch.from_numpy(toks).to(dev),
-                              torch.from_numpy(self._pos).to(dev),
-                              torch.from_numpy(dlen).to(dev))
+        args = (torch.from_numpy(toks).to(dev),
+                torch.from_numpy(self._pos).to(dev),
+                torch.from_numpy(dlen).to(dev))
+        t0 = self._obs.now_us() if self._obs.enabled else 0
+        out, acc = entry.step(*args)
         out, acc = out.cpu().numpy(), acc.cpu().numpy()
+        if self._obs.enabled:
+            self._obs.on_launch("verify", entry.key, entry.plan, t0,
+                                handles=[s.handle for _, s in live])
         for i, st in live:
             self._advance_verified(i, st, drafts.get(i, []), int(acc[i]),
                                    out[i], events)
@@ -786,6 +855,8 @@ class ServingEngine:
         self._queues[st.handle].append(fin)
         self.sched.finish(i)
         self.cache.release(i)
+        if self._obs.enabled:
+            self._obs.on_finish(st.handle, reason)
 
     def _finish_capacity(self, i: int, st: SlotState,
                          events: List[Event]) -> None:
@@ -801,6 +872,11 @@ class ServingEngine:
                 "with finish_reason='cache_capacity' (further page "
                 "exhaustions on this engine are silent)",
                 RuntimeWarning, stacklevel=3)
+            if self._obs.enabled:
+                self._obs.on_warning(
+                    "page_capacity",
+                    f"request {st.request.request_id} exhausted the "
+                    f"{self.cache.spec.total_pages}-page KV pool")
         self._finish(i, st, FINISH_CACHE_CAPACITY, events)
 
     def _finish_reason(self, i: int, st: SlotState,
@@ -821,6 +897,11 @@ class ServingEngine:
                     "with finish_reason='cache_capacity' (further "
                     "max_len hits on this engine are silent)",
                     RuntimeWarning, stacklevel=3)
+                if self._obs.enabled:
+                    self._obs.on_warning(
+                        "len_capacity",
+                        f"request {req.request_id} hit the KV cache "
+                        f"capacity (max_len={self.max_len})")
             return FINISH_CACHE_CAPACITY
         return None
 
@@ -832,6 +913,8 @@ class ServingEngine:
                    index=len(comp.tokens) - 1)
         events.append(ev)
         self._queues[st.handle].append(ev)
+        if self._obs.enabled:
+            self._obs.on_token(st.handle, ev.index)
         reason = self._finish_reason(i, st, token)
         if reason is not None:
             self._finish(i, st, reason, events)

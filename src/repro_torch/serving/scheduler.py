@@ -258,6 +258,14 @@ class Scheduler:
 
     # --- observability ------------------------------------------------------
 
+    def queue_depth(self) -> int:
+        """Requests still waiting for a slot (a repro_torch.obs gauge)."""
+        return len(self.pending)
+
+    def occupancy(self) -> Tuple[int, int]:
+        """``(live_slots, total_slots)`` (repro_torch.obs gauges)."""
+        return sum(s is not None for s in self.slots), self.B
+
     def planned_splits(self) -> Dict[int, int]:
         """bucket -> frozen num_splits, for every resident decode plan."""
         return {k: e.plan.num_splits for k, e in self.plans.items()

@@ -22,6 +22,9 @@ from repro_torch.serving import DecodeEngine, Request, SamplingParams
 from test_torch_serving import _reqs, tiny  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+from chip_smoke import prometheus_series  # noqa: E402
 
 
 def test_decode_engine_generate_matches_reference(tiny):
@@ -133,10 +136,10 @@ def test_run_serving_measured_policy_writes_stats(tmp_path):
 
 def test_serve_module_runs_and_refuses_unported_flags(tmp_path):
     """``python -m repro_torch.launch.serve`` runs on the CPU and prints
-    the reference's summary wording, also sampled and speculating; flags
-    for what the port does not serve yet (tracing, metrics, mesh) are not
-    in its parser, and ``--policy measured --tune-table --stats-path``
-    serves from a table and writes the snapshot."""
+    the reference's summary wording, also sampled and speculating; the
+    flag for what the port does not serve yet (the mesh) is not in its
+    parser, and ``--policy measured --tune-table --stats-path`` serves
+    from a table and writes the snapshot."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     base = [sys.executable, "-m", "repro_torch.launch.serve",
             "--arch", "qwen2.5-3b", "--device", "cpu", "--requests", "3",
@@ -165,9 +168,73 @@ def test_serve_module_runs_and_refuses_unported_flags(tmp_path):
     assert "measured policy: table 2.2cfa2296473e, " in out.stdout
     assert json.loads((tmp_path / "s.json").read_text())["policy"] == \
         "measured"
-    for flag in (["--trace", "t.json"], ["--mesh", "1,1"],
-                 ["--metrics", "m.json"]):
-        bad = subprocess.run(base + flag, capture_output=True, text=True,
-                             env=env, timeout=120)
-        assert bad.returncode == 2, flag
-        assert "unrecognized arguments" in bad.stderr, flag
+    bad = subprocess.run(base + ["--mesh", "1,1"], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert bad.returncode == 2
+    assert "unrecognized arguments" in bad.stderr
+
+
+def test_serve_module_writes_trace_and_metrics_for_moe(tmp_path):
+    """``--arch granite-moe-3b-a800m --trace t.json --metrics m.prom`` on
+    the CPU: exit 0, the reference's two artifact lines, a trace that
+    validates with one request span a request, and Prometheus text that
+    parses, with 3 TTFT samples and the plan-cache counters."""
+    from repro_torch.obs import TraceArtifact, validate_trace
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "granite-moe-3b-a800m", "--device", "cpu", "--requests", "3",
+         "--max-new", "3", "--slots", "2",
+         "--trace", "t.json", "--metrics", "m.prom"],
+        capture_output=True, text=True, env=env, timeout=120, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert "policy=paper: 3 requests, 9 tokens" in out.stdout
+    assert "request-lifecycle trace (load at https://ui.perfetto.dev): " \
+        "t.json" in out.stdout
+    assert "serving metrics snapshot: m.prom" in out.stdout
+    trace = json.loads((tmp_path / "t.json").read_text())
+    validate_trace(trace)
+    art = TraceArtifact(trace["traceEvents"])
+    assert len(art.spans("request")) == 3
+    assert len(art.spans("prefill", cat="launch")) == 3
+    prom = prometheus_series((tmp_path / "m.prom").read_text())
+    assert prom["repro_ttft_ms_count"] == 3
+    assert prom["repro_tokens_total"] == 9
+    assert prom['repro_requests_finished_total{reason="length"}'] == 3
+    assert prom["repro_plan_cache_total_launches"] == \
+        len(art.spans(cat="launch"))
+
+
+def test_run_serving_trace_matches_the_references_shape(tmp_path):
+    """``run_serving`` with ``trace_path`` and ``metrics_path`` (JSON) on
+    reduced granite-moe-3b-a800m in both packages: the reference's
+    artifact lines, and the same spans and launches by name (the
+    request stream and completion lengths are the reference's, the
+    weights each package's own)."""
+    from repro.launch.serve import run_serving as j_run_serving
+    from repro_torch.launch.serve import run_serving
+    kw = dict(num_requests=4, max_new=4, d_model=64, batch_slots=2)
+    arts, lines = [], []
+    for pkg, fn in (("j", j_run_serving), ("t", run_serving)):
+        log = []
+        extra = {} if pkg == "j" else dict(device="cpu")
+        fn("granite-moe-3b-a800m", log_fn=log.append,
+           trace_path=tmp_path / f"{pkg}.json",
+           metrics_path=tmp_path / f"{pkg}_m.json", **kw, **extra)
+        arts.append(json.loads((tmp_path / f"{pkg}.json").read_text()))
+        lines.append([x.replace(f"{pkg}.json", "T").replace(
+            f"{pkg}_m.json", "M") for x in log if x.startswith(
+                ("request-lifecycle trace", "serving metrics snapshot"))])
+    assert lines[0] == lines[1] and len(lines[0]) == 2
+
+    def shape(trace):
+        return sorted((e["name"], e["ph"], e.get("cat"))
+                      for e in trace["traceEvents"])
+    assert shape(arts[0]) == shape(arts[1])
+    snaps = [json.loads((tmp_path / f"{p}_m.json").read_text())
+             for p in ("j", "t")]
+    assert snaps[0]["metrics"].keys() == snaps[1]["metrics"].keys()
+    for name in ("tokens_total", "requests_finished_total",
+                 "requests_submitted_total"):
+        assert snaps[0]["metrics"][name]["series"] == \
+            snaps[1]["metrics"][name]["series"]

@@ -578,13 +578,15 @@ def _nan_tailed(x, lens, value):
     return y
 
 
-def _check_wide(gen, g, d, shapes, kv_dtype=None, mul=(1.0, 1.0, 1.0)):
+def _check_wide(gen, g, d, shapes, kv_dtype=None, mul=(1.0, 1.0, 1.0),
+                hkv=None):
     """The decode kernel over a bf16 cache with NaN / Inf tails or, with
     ``kv_dtype``, the quantized cache's over poisoned tails, at each of
     ``shapes``: within its tolerance of the plain version, and the same
     bits again.  q, K and V are drawn from normals of standard deviations
-    ``mul``."""
-    hkv = 1 if g >= 32 else 2
+    ``mul``; ``hkv`` KV heads (default 1 past G 32, else 2)."""
+    if hkv is None:
+        hkv = 1 if g >= 32 else 2
     q = _rand(gen, (2, hkv, g, d)) * mul[0]
     if kv_dtype is None:
         k = _rand(gen, (2, 4096, hkv, d)) * mul[1]
@@ -1042,3 +1044,70 @@ def test_measured_engine_launches_at_the_table_splits(cuda, kv_quant):
     assert ops.policy_eval_count() == 0
     assert eng.stats.measured_fallbacks == 0
     assert eng.stats.measured_lookups == len(eng.planned_splits())
+
+
+# The MoE family's head shapes: granite-moe-3b-a800m (24 query heads over
+# 8 KV heads: G 3, D 64) and qwen3-moe-235b-a22b (64 over 4: G 16, D 128)
+MOE_HEADS = [(24, 8, 64), (64, 4, 128)]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("hq,hkv,d", MOE_HEADS)
+def test_decode_kernels_at_the_moe_head_shapes(cuda, kv_dtype, hq, hkv, d):
+    """Both decode kernels at the serving cell's decode shapes (B 2, view
+    1024, kv_len 1000 and 450; B 1, view 384) and S 1, 3 and 8, over
+    NaN / Inf or poisoned tails: the plain version's output within the
+    tolerance, and the same bits again."""
+    _check_wide(cuda, hq // hkv, d,
+                [(2, 1024, (1000, 450), s) for s in (1, 3, 8)]
+                + [(1, 384, (300,), 3)], kv_dtype, hkv=hkv)
+
+
+@pytest.mark.parametrize("hq,hkv,d", MOE_HEADS)
+@pytest.mark.parametrize("lq,lk,offset", [(1024, 1024, 0), (384, 384, 0),
+                                          (128, 1024, 960)])
+def test_prefill_at_the_moe_head_shapes(cuda, hq, hkv, d, lq, lk, offset):
+    """The bf16 prefill kernel at the MoE heads: the serving cell's
+    buckets 1024 and 384, and a suffix prefill from q_offset 960."""
+    q, k, v = _prefill_inputs(cuda, 1, lq, lk, hq, hkv, d, torch.bfloat16)
+    kw = dict(causal=True, q_offset=offset)
+    got = flash_prefill(q, k, v, **kw)
+    torch.testing.assert_close(got.float(),
+                               prefill_plain(q, k, v, **kw).float(),
+                               rtol=3e-2, atol=3e-2)
+    assert torch.equal(flash_prefill(q, k, v, **kw), got)
+
+
+def test_moe_engine_on_the_card(cuda):
+    """Reduced granite-moe-3b-a800m (head_dim 64) served on the card in
+    float32: the kernels carry every attention launch, the tokens equal a
+    CPU run of the same weights, and the gather and einsum dispatches
+    agree on the card."""
+    from repro_torch.models import moe
+    cfg = reduced_config("granite-moe-3b-a800m", num_layers=2,
+                         d_model=256).replace(dtype="float32",
+                                              param_dtype="float32")
+    params = build_model(cfg, device="cpu").init_params(0)
+    reqs = [Request(i, [(5 * i + j) % 250 + 1 for j in range(n)],
+                    max_new_tokens=6) for i, n in enumerate((3, 140, 9))]
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(build_model(cfg, device=dev),
+                            ServeConfig(model=cfg, kv_cache_dtype="float32"),
+                            max_len=256, batch_slots=2, device=dev)
+        eng.load(params.to(dev))
+        ops.reset_launch_counts()
+        for r in reqs:
+            eng.submit(r)
+        tokens[dev] = [c.tokens for c in eng.drain()]
+        counts = ops.launch_counts()
+        steps = sum(v for k, v in eng.stats.launches.items()
+                    if isinstance(k, int))
+    assert counts["flash_prefill"] == cfg.num_layers * len(reqs)
+    assert counts["flash_decode"] == cfg.num_layers * steps
+    assert tokens["cuda"] == tokens["cpu"]
+    ffn = params.to("cuda").layers[0].ffn
+    x = _rand(cuda, (2, 64, cfg.d_model), torch.float32)
+    gather, _ = moe.apply_moe(ffn, cfg, x, dispatch="gather")
+    einsum, _ = moe.apply_moe(ffn, cfg, x, dispatch="einsum")
+    torch.testing.assert_close(gather, einsum, rtol=1e-4, atol=1e-4)

@@ -49,7 +49,13 @@ def test_no_module_imports_jax_or_repro():
                  "repro_torch.configs.stablelm_12b",
                  "repro_torch.tune", "repro_torch.tune.spec",
                  "repro_torch.tune.table", "repro_torch.tune.calibrator",
-                 "repro_torch.plan.scope", "repro_torch.launch.tune"):
+                 "repro_torch.plan.scope", "repro_torch.launch.tune",
+                 "repro_torch.obs", "repro_torch.obs.io",
+                 "repro_torch.obs.metrics", "repro_torch.obs.trace",
+                 "repro_torch.obs.observer", "repro_torch.obs.config",
+                 "repro_torch.models.moe",
+                 "repro_torch.configs.granite_moe_3b_a800m",
+                 "repro_torch.configs.qwen3_moe_235b_a22b"):
         assert want in res["modules"]
 
 
