@@ -24,6 +24,8 @@ Run from the repository root, on a machine with the card and nvcc:
     python3 chip_smoke.py --phase moe     # build + granite-moe-3b-a800m
                                           # and qwen3-moe-235b-a22b
                                           # (4 of 94 layers)
+    python3 chip_smoke.py --phase mla     # build + minicpm3-4b
+    python3 chip_smoke.py --phase vlm     # build + paligemma-3b
 
 Phases, each fatal on failure:
 
@@ -214,6 +216,20 @@ Phases, each fatal on failure:
    from 94 to 4 layers (470 GB in bf16 do not fit one card), 8 new
    tokens, bf16 and int8.  Peak memory and the median decode step are
    printed.
+4h. The single-KV-head families (``phase_mla``, ``phase_vlm``, after 4g,
+   through the same ``serve_configs``): minicpm3-4b (62 layers, d_model
+   2560, 40 heads, MLA: latent decode at H_KV 1 with K the 288-wide
+   latent row and V its first 256 columns, prefill at q / k 96, v 64) at
+   full width and depth, fused admission, bf16 dense, int8 (plans keyed
+   int8, the latent left bf16 and decoded by the bf16 kernel, as in the
+   reference) and bf16 paged; paligemma-3b (18 layers, d_model 2048, 8/1
+   heads at D 256, geglu, vocab 257,216) at full width and depth, loop
+   admission (every prompt token a decode step), bf16 and int8, then
+   ``Model.prefill`` of 256 patch embeddings and 128 tokens at B 2 and 8
+   decode steps; every layer's prefill and decode attention checked as
+   in 4d, decode launches by (view, S) equal to the plan keys', and
+   ``paper``'s splits at H_KV 1 printed beside ``fa3_baseline``'s for the
+   serving buckets.
 5. One JSON ``kernels`` line: per kernel its error (a decode row's at
    that row's own inputs, over NaN/Inf tails), launches on the main
    path (the bf16 run's; the quantized decode and the combine kernels'
@@ -237,8 +253,12 @@ Phases, each fatal on failure:
    verify row of the spec cell (B=4, view 128, the verify plan), with
    the dense ``ngram`` run's verify-row launches; and per config of
    phases 4d and 4g the decode kernel (bf16, and int8) at B=2 view 1024
-   and the prefill kernel at 1024, with that config's launches there.  Every
-   phase prints its wall seconds.
+   and the prefill kernel at 1024, with that config's launches there;
+   phase 4h's shapes: the decode kernel at minicpm3-4b's latent widths
+   (G 40, K 288, V 256) and the prefill kernel at its 96 / 64, both
+   decode kernels at paligemma-3b's G 8, D 256, H_KV 1, and the prefill
+   kernel at its ``Model.prefill`` (B 2, Lq 384).  Every phase prints its
+   wall seconds.
 
 ``--phase admission`` times the serving cell's admission
 steps alone, five runs on one engine; ``--phase times`` times the
@@ -306,6 +326,7 @@ from repro_torch.kernels.flash_prefill import (  # noqa: E402
     prefill_plain,
 )
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.plan import AttentionSpec, Planner  # noqa: E402
 from repro_torch.quant import (  # noqa: E402
     AB_ATOL,
@@ -2039,14 +2060,25 @@ ARCHS = ("codeqwen1.5-7b", "stablelm-12b")
 ARCH_NEW = 16
 
 
+def f64(x):
+    """A float tensor in float64, anything else as it is."""
+    return x.double() if x.is_floating_point() and x.element_size() > 1 \
+        else x
+
+
 @contextlib.contextmanager
 def checked_kernels(acc):
     """Within the block, every prefill-kernel launch and every decode-
     kernel launch (bf16 or quantized cache) is held against its plain
-    version on the same inputs: prefill at PREFILL_TOL, decode at
-    DECODE_TOL and QUANT_TOL.  ``acc`` gathers the largest errors and the
-    number of checks by kernel name.  Each wrapper launches its kernel
-    once, so the launch counts are the unchecked path's."""
+    version on the same inputs, evaluated in float64: prefill at
+    PREFILL_TOL, decode at DECODE_TOL and QUANT_TOL.  float64, because on
+    a random model whose K entries reach a few hundred (paligemma-3b's:
+    one KV head, so ``wk``'s fan-in rule gives it std 1) scores reach
+    thousands, and the float32 plain version's own rounding then moves an
+    output past the tolerance of the exact result, while the kernels stay
+    inside it.  ``acc`` gathers the largest errors and the number of
+    checks by kernel name.  Each wrapper launches its kernel once, so the
+    launch counts are the unchecked path's."""
     for name in ("flash_prefill", "flash_decode", "flash_decode_quant"):
         acc.setdefault(name, {"max_abs_err": 0.0, "checks": 0})
 
@@ -2058,19 +2090,22 @@ def checked_kernels(acc):
 
     def prefill(q, k, v, **kw):
         return note("flash_prefill", flash_prefill(q, k, v, **kw),
-                    prefill_plain(q, k, v, **kw), PREFILL_TOL)
+                    prefill_plain(f64(q), f64(k), f64(v), **kw),
+                    PREFILL_TOL)
 
     def decode(q, k, v, kv_len, *, num_splits, out_dtype):
-        kw = dict(num_splits=num_splits, out_dtype=out_dtype)
-        return note("flash_decode", fdec.flash_decode(q, k, v, kv_len, **kw),
-                    fdec.decode_plain(q, k, v, kv_len, **kw), DECODE_TOL)
+        return note("flash_decode", fdec.flash_decode(
+            q, k, v, kv_len, num_splits=num_splits, out_dtype=out_dtype),
+            fdec.decode_plain(f64(q), f64(k), f64(v), kv_len,
+                              num_splits=num_splits), DECODE_TOL)
 
     def decode_quant(q, k, v, k_scale, v_scale, kv_len, *, num_splits,
                      out_dtype):
-        args = (q, k, v, k_scale, v_scale, kv_len)
-        kw = dict(num_splits=num_splits, out_dtype=out_dtype)
-        return note("flash_decode_quant", fdq.flash_decode_quant(*args, **kw),
-                    fdq.decode_quant_plain(*args, **kw), QUANT_TOL)
+        return note("flash_decode_quant", fdq.flash_decode_quant(
+            q, k, v, k_scale, v_scale, kv_len, num_splits=num_splits,
+            out_dtype=out_dtype), fdq.decode_quant_plain(
+                f64(q), k, v, f64(k_scale), f64(v_scale), kv_len,
+                num_splits=num_splits), QUANT_TOL)
 
     with ops_route("flash_prefill", prefill), \
             ops_route("flash_decode", decode), \
@@ -2079,22 +2114,30 @@ def checked_kernels(acc):
 
 
 def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
-             phase="archs", trace=False):
+             phase="archs", trace=False, layout="dense"):
     """One config's serving cell: the requests (``new`` tokens each)
-    through 2 slots with a bf16 cache or under ``kv_quant``, twice on
-    fresh engines, the launch counts zeroed just before each run and read
-    just after.  The first run holds every layer's prefill attention
-    against ``prefill_plain`` and every layer's decode attention against
-    ``decode_plain`` (int8: ``decode_quant_plain``) on the model's own
-    inputs; the second, which is timed, must take the same path and give
-    the same streams.  In both the decode launches by (view, S) must be
-    what the run's plan keys imply.  With ``trace`` the timed run writes
-    the trace and metrics artifacts (``ServeConfig.trace_path`` /
+    through 2 slots with a bf16 cache or under ``kv_quant``, in the
+    ``layout`` cache layout, twice on fresh engines, the launch counts
+    zeroed just before each run and read just after.  The first run holds
+    every layer's prefill attention against ``prefill_plain`` and every
+    layer's decode attention against ``decode_plain`` (a quantized cache:
+    ``decode_quant_plain``) on the model's own inputs; the second, which
+    is timed, must take the same path and give the same streams.  In both
+    the decode launches by (view, S) must be what the run's plan keys
+    imply.  A model without fused prefill (vlm) admits through the loop:
+    no prefill launch, every prompt token a decode step.  Under
+    ``kv_quant`` an mla model's latent stays bf16 (no scales), so K1
+    decodes it under the int8-keyed plans.  With ``trace`` the timed run
+    writes the trace and metrics artifacts (``ServeConfig.trace_path`` /
     ``metrics_path``, under ``chiprun_out/obs/``), which must pass
     ``check_obs_artifacts``."""
-    label = f"{phase} {cfg.name} {kv_quant or 'bf16'}"
+    label = (f"{phase} {cfg.name} {kv_quant or 'bf16'}"
+             + ("" if layout == "dense" else f" {layout}"))
     layers = cfg.num_layers
-    decode = "flash_decode_quant" if kv_quant else "flash_decode"
+    quant_cache = kv_quant is not None and "k_s" in model.cache_shapes(
+        1, 1, kv_quant)
+    decode = "flash_decode_quant" if quant_cache else "flash_decode"
+    fused = model.supports_fused_prefill
     runs, acc = [], {}
     paths = {}
     if trace:
@@ -2105,7 +2148,8 @@ def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
     for checked in (True, False):
         sampler = CheckedGreedy()
         engine = ServingEngine(model, ServeConfig(
-            model=cfg, kv_quant=kv_quant, **({} if checked else paths)),
+            model=cfg, kv_quant=kv_quant, cache_layout=layout,
+            **({} if checked else paths)),
             max_len=2048, batch_slots=2, policy="paper", sampler=sampler,
             device=DEVICE)
         engine.load(params)
@@ -2134,13 +2178,15 @@ def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
         check(counts[decode] == layers * run["steps"],
               f"{label}: {counts[decode]} {decode} launches over "
               f"{run['steps']} decode steps")
-        want = expected_decode_launches(engine, layers, kv_quant)[decode]
+        want = expected_decode_launches(
+            engine, layers, kv_quant if quant_cache else None)[decode]
         check(run["by_key"][decode] == want, f"{label}: {decode} launches "
               f"by (view, S) {run['by_key'][decode]}, plan keys imply "
               f"{want}")
         check(counts["flash_prefill"] == layers * run["admissions"]
-              == layers * len(prompts), f"{label}: prefill launches")
-        other = "flash_decode" if kv_quant else "flash_decode_quant"
+              == (layers * len(prompts) if fused else 0),
+              f"{label}: prefill launches")
+        other = "flash_decode" if quant_cache else "flash_decode_quant"
         check(counts[other] == 0 and counts["flash_combine"] == 0,
               f"{label}: launches {counts}")
         check(run["evals"] == 0, f"{label}: policy evaluated")
@@ -2178,7 +2224,7 @@ def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
           f"prefill_plain: max abs err "
           f"{acc['flash_prefill']['max_abs_err']:.4g}; decode attention of "
           f"{acc[decode]['checks']} layer steps against "
-          f"{'decode_quant_plain' if kv_quant else 'decode_plain'} on the "
+          f"{'decode_quant_plain' if quant_cache else 'decode_plain'} on the "
           f"model's inputs: max abs err {acc[decode]['max_abs_err']:.4g}; "
           f"decode launches by (view, S) = the plan keys' "
           f"{json.dumps(by_view)}")
@@ -2199,11 +2245,14 @@ def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
 
 
 def serve_configs(phase: str, cfgs, seed: int, new: int = ARCH_NEW,
-                  extra=None, trace=False):
+                  extra=None, trace=False,
+                  runs=((None, "dense"), ("int8", "dense")),
+                  prompt_lens=SERVING_PROMPTS):
     """Each config at its widths, bf16, seeded random weights, one at a
-    time: it serves the serving cell's prompts (37, 300, 450, 1000 tokens,
-    ``new`` tokens each, 2 slots) with a bf16 cache and under int8
-    (``arch_run``, its timed runs traced with ``trace``),
+    time: it serves prompts of ``prompt_lens`` tokens (the serving cell's
+    37, 300, 450, 1000 unless cut), ``new`` tokens each, 2 slots, once
+    per (kv_quant, layout) of ``runs``, by default with a dense bf16 cache
+    and under int8 (``arch_run``, its timed runs traced with ``trace``),
     ``extra(model, params, cfg)`` adds to its results, then it is freed
     before the next loads."""
     out = {}
@@ -2217,6 +2266,12 @@ def serve_configs(phase: str, cfgs, seed: int, new: int = ARCH_NEW,
         moe_desc = (f" experts {cfg.moe.num_experts} top {cfg.moe.top_k} "
                     f"d_expert {cfg.moe.d_expert} capacity factor "
                     f"{cfg.moe.capacity_factor}" if cfg.moe else "")
+        if cfg.mla is not None:
+            moe_desc += (f" mla {vars(cfg.mla)} (latent decode at H_KV 1: "
+                         f"K {mla_mod.latent_width(cfg)}, V "
+                         f"{cfg.mla.kv_lora_rank})")
+        if cfg.frontend.kind != "none":
+            moe_desc += f" frontend {vars(cfg.frontend)} mlp {cfg.mlp_kind}"
         print(f"{phase} model {cfg.name}: {cfg.num_layers} layers d_model "
               f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} "
               f"(G {cfg.q_group_size}) head_dim {cfg.resolved_head_dim} "
@@ -2225,13 +2280,15 @@ def serve_configs(phase: str, cfgs, seed: int, new: int = ARCH_NEW,
               f"params, init {time.perf_counter() - t0:.1f} s")
         rng = np.random.default_rng(seed)
         prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-                   for n in SERVING_PROMPTS]
+                   for n in prompt_lens]
         res = {"params": n_params, "layers": cfg.num_layers,
                "heads": (cfg.num_heads, cfg.num_kv_heads,
                          cfg.resolved_head_dim)}
-        for kv_quant in (None, "int8"):
-            res[kv_quant or "bf16"] = arch_run(model, params, cfg, prompts,
-                                               kv_quant, new, phase, trace)
+        for kv_quant, layout in runs:
+            key = (kv_quant or "bf16") + ("" if layout == "dense"
+                                          else f"_{layout}")
+            res[key] = arch_run(model, params, cfg, prompts, kv_quant, new,
+                                phase, trace, layout)
         if extra is not None:
             res.update(extra(model, params, cfg))
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -2316,6 +2373,307 @@ def phase_moe(seed: int):
             "moe", [cfg], seed, new, moe_dispatch_check if full else None,
             trace=full))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the single-KV-head families: minicpm3-4b (mla: latent decode at H_KV 1,
+# K 288 / V 256, prefill at q / k 96, v 64) and paligemma-3b (vlm: MQA at
+# G 8, D 256), both at full width and depth
+# ---------------------------------------------------------------------------
+
+MLA_ARCH, VLM_ARCH = "minicpm3-4b", "paligemma-3b"
+VLM_PATCHES, VLM_TEXT, VLM_STEPS = 256, 128, 8   # Model.prefill's check
+# paligemma-3b admits through the loop, one decode step a prompt token:
+# the serving cell's prompts take 1330 steps a run, four runs about 2.5
+# minutes, past the phase's minute; the first two prompts take 315
+VLM_PROMPTS = SERVING_PROMPTS[:2]
+
+
+def policy_splits(label: str, cfg, sms: int, buckets):
+    """``paper``'s and ``fa3_baseline``'s splits for the serving cell's
+    decode buckets (B 2, ``sms`` SMs) at the plan keys' heads: H_KV 1 for
+    both families (MLA's one latent stream, paligemma's MQA), and
+    ``resolved_head_dim`` (64 for minicpm3-4b, whose launch reads 288),
+    as the reference's plan keys have it."""
+    out = {}
+    for bucket in sorted(buckets):
+        spec = AttentionSpec.decode(2, bucket, cfg.num_heads, 1,
+                                    cfg.resolved_head_dim)
+        out[bucket] = {pol: Planner(policy=pol, num_cores=sms).plan(
+            spec).num_splits for pol in ("paper", "fa3_baseline")}
+    print(f"{label}: splits at H_KV 1, B 2, {cfg.num_heads} query heads, "
+          "by decode bucket (paper / fa3_baseline): "
+          + ", ".join(f"{b}: {v['paper']} / {v['fa3_baseline']}"
+                      for b, v in out.items()))
+    return out
+
+
+def phase_mla(seed: int, sms: int):
+    """minicpm3-4b at full width and depth (62 layers) through
+    ``serve_configs``: bf16 dense, int8 (plans keyed int8, the latent
+    bf16, K1 decoding it) and bf16 paged, fused admission, every layer's
+    prefill (96 / 64) and latent decode (288 / 256) attention checked, a
+    profiled decode step at the cell's B 2, bucket 1024 shape, then the
+    H_KV 1 splits of ``paper`` beside ``fa3_baseline``'s."""
+    cfg = get_arch(MLA_ARCH)
+
+    def profile(model, params, cfg):
+        return {"profile": phase_profile(model, params, cfg, seed,
+                                         lens=(1000, 450))}
+
+    out = serve_configs("mla", [cfg], seed, extra=profile, runs=(
+        (None, "dense"), ("int8", "dense"), (None, "paged")))
+    res = out[cfg.name]
+    res["policy_splits"] = policy_splits(f"mla {cfg.name}", cfg, sms,
+                                         res["bf16"]["splits"])
+    return out
+
+
+def vlm_prefill_check(sms: int, seed: int):
+    """``extra`` of the vlm phase: ``Model.prefill`` of VLM_PATCHES patch
+    embeddings (normal, 0.1) and VLM_TEXT tokens at B 2, then VLM_STEPS
+    greedy decode steps from t = L_total under a frozen ``paper`` plan of
+    bucket 512, every layer's prefill and decode attention held against
+    the plain versions on the model's own inputs; then the same once
+    more, unchecked and timed, which must give the same tokens; then
+    profiled steps of loop admission (B 2, bucket 128)."""
+    def extra(model, params, cfg):
+        gen = torch.Generator(device=DEVICE).manual_seed(7)
+        b, total = 2, VLM_PATCHES + VLM_TEXT
+        (shape, dt), = model.frontend_inputs(b, total).values()
+        check(shape == (b, VLM_PATCHES, cfg.frontend.embed_dim)
+              and model.text_len(total) == VLM_TEXT, "vlm frontend inputs")
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, VLM_TEXT),
+                                         generator=gen, device=DEVICE),
+                 "patches": (torch.randn(shape, generator=gen,
+                                         device=DEVICE) * 0.1).to(
+                     getattr(torch, dt))}
+        plan = Planner(policy="paper", num_cores=sms).plan(
+            AttentionSpec.decode(b, 512, cfg.num_heads, cfg.num_kv_heads,
+                                 cfg.resolved_head_dim), bucket=512)
+        runs, acc = [], {}
+        for checked in (True, False):
+            ops.reset_launch_counts()
+            ops.reset_policy_eval_count()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with checked_kernels(acc) if checked \
+                    else contextlib.nullcontext():
+                logits, caches = model.prefill(params, batch, 512)
+                torch.cuda.synchronize()
+                prefill_ms = (time.perf_counter() - t0) * 1e3
+                toks, finite = [], torch.isfinite(logits).all()
+                for i in range(VLM_STEPS):
+                    nxt = logits.argmax(-1)
+                    toks.append(nxt)
+                    logits = model.decode_step(
+                        params, caches, nxt, torch.full(
+                            (b,), total + i, device=DEVICE,
+                            dtype=torch.long), plan=plan)
+                    finite &= torch.isfinite(logits).all()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            counts = ops.launch_counts()
+            check(bool(finite) and logits.shape == (b, cfg.vocab_size),
+                  "vlm prefill: logits")
+            check(counts["flash_prefill"] == cfg.num_layers
+                  and ops.launch_counts_by_key("flash_prefill")
+                  == {("bfloat16", total): cfg.num_layers}
+                  and counts["flash_decode"] == cfg.num_layers * VLM_STEPS
+                  and ops.policy_eval_count() == 0,
+                  f"vlm prefill: launches {counts}")
+            runs.append({"tokens": torch.stack(toks).tolist(),
+                         "prefill_ms": prefill_ms,
+                         "decode_ms": (wall_ms - prefill_ms) / VLM_STEPS,
+                         "counts": counts})
+        check(runs[0]["tokens"] == runs[1]["tokens"],
+              "vlm prefill: the checked and the timed run differ")
+        check(acc["flash_prefill"]["checks"] == cfg.num_layers and
+              acc["flash_decode"]["checks"] == cfg.num_layers * VLM_STEPS,
+              f"vlm prefill: checks {acc}")
+        print(f"vlm {cfg.name} Model.prefill: {VLM_PATCHES} patches + "
+              f"{VLM_TEXT} tokens at B {b} (Lq {total}, {cfg.num_heads}/"
+              f"{cfg.num_kv_heads} heads, D {cfg.resolved_head_dim}), then "
+              f"{VLM_STEPS} decode steps (S {plan.num_splits} over bucket "
+              f"512): prefill attention of {cfg.num_layers} layers against "
+              f"prefill_plain max abs err "
+              f"{acc['flash_prefill']['max_abs_err']:.4g}, decode attention "
+              f"of {acc['flash_decode']['checks']} layer steps against "
+              f"decode_plain max abs err "
+              f"{acc['flash_decode']['max_abs_err']:.4g}; the timed run: "
+              f"prefill {runs[1]['prefill_ms']:.3f} ms wall, "
+              f"{runs[1]['decode_ms']:.3f} ms a decode step")
+        # two short prompts: the profiled steps are loop admission's, and
+        # the drain after them stays short
+        prof = phase_profile(model, params, cfg, seed, lens=(37, 37))
+        return {"profile": prof,
+                "prefill_check": {"checks": acc, "splits": plan.num_splits,
+                                  "prefill_launches": {
+                                      f"bfloat16 {total}": cfg.num_layers},
+                                  "decode_launches": {
+                                      f"{v} S{sp}": n for (v, sp), n in
+                                      ops.launch_counts_by_key(
+                                          "flash_decode").items()},
+                                  "prefill_ms": runs[1]["prefill_ms"],
+                                  "decode_step_ms": runs[1]["decode_ms"]}}
+    return extra
+
+
+def phase_vlm(seed: int, sms: int):
+    """paligemma-3b at full width and depth (18 layers) through
+    ``serve_configs``: loop admission (every prompt token a decode step)
+    of the serving cell's first two prompts (``VLM_PROMPTS``), bf16 and
+    int8, every layer's decode attention checked; then
+    ``Model.prefill`` with the patch prefix and decode, and a profiled
+    step (``vlm_prefill_check``); then the H_KV 1 splits."""
+    cfg = get_arch(VLM_ARCH)
+    out = serve_configs("vlm", [cfg], seed,
+                        extra=vlm_prefill_check(sms, seed),
+                        prompt_lens=VLM_PROMPTS)
+    res = out[cfg.name]
+    res["policy_splits"] = policy_splits(f"vlm {cfg.name}", cfg, sms,
+                                         res["bf16"]["splits"])
+    return out
+
+
+def library_call(label: str, fn):
+    """``fn`` (a PyTorch call computing a row's function) if it runs on
+    these inputs, else None, printing why."""
+    try:
+        fn()
+    except RuntimeError as e:
+        print(f"library call for {label}: none ({str(e).splitlines()[0]})")
+        return None
+    return fn
+
+
+def single_kv_head_rows(gen, sms: int, mla, vlm):
+    """The kernels line's rows at the single-KV-head families' shapes,
+    each with the launches its serving run counted there: K1 at MLA's
+    latent widths (G 40, K 288, V its first 256 columns, B 2, view 1024,
+    kv_len [1000, 450], NaN tail, under the plan key's ``paper`` split)
+    and K3 at MLA's prefill widths (40 heads, q / k 96, v 64, Lq = Lk =
+    1024); paligemma's K1 and K4 at G 8, D 256, H_KV 1 at its serving
+    runs' last decode shape (B 2, view 384, kv_len [315, 53], S 1), K1
+    at ``Model.prefill``'s decode (view 512, S 3) and K3 at its prefill
+    (B 2, Lq = Lk = 384, 8 / 1 heads, D 256).  The MLA decode row's bytes count
+    the latent once: V is part of it."""
+    rows = []
+    cfg = get_arch(MLA_ARCH)
+    res = mla[MLA_ARCH]
+    hq, w, r = cfg.num_heads, mla_mod.latent_width(cfg), \
+        cfg.mla.kv_lora_rank
+    s = Planner(policy="paper", num_cores=sms).plan(AttentionSpec.decode(
+        2, 1024, hq, 1, cfg.resolved_head_dim)).num_splits
+    lat = rand(gen, (2, 2048, 1, w))
+    lens = torch.tensor([1000, 450], device=DEVICE, dtype=torch.int32)
+    q = (rand(gen, (2, 1, hq, w), torch.float32) * w ** -0.5).to(
+        torch.bfloat16)
+    kp = poison_tail(lat, lens, float("nan"))[:, :1024]
+    k, v = lat[:, :1024], lat[:, :1024, :, :r]
+    n = int(lens.sum())
+    mask = (torch.arange(1024, device=DEVICE)[None]
+            < lens[:, None])[:, None, None]
+    rows.append(dict(
+        name="flash_decode",
+        shape=f"{MLA_ARCH} latent G{hq} K{w} V{r} (a column view) B2 "
+              f"view1024 of 2048 kv_len [1000, 450] S{s} fused combine",
+        fn=functools.partial(fdec.flash_decode, q, kp, kp[..., :r], lens,
+                             num_splits=s),
+        plain=functools.partial(fdec.decode_plain, q, k, v, lens,
+                                num_splits=s),
+        lib=library_call("the MLA latent decode", functools.partial(
+            F.scaled_dot_product_attention, q.transpose(1, 2),
+            k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            scale=1.0, enable_gqa=True)),
+        nbytes=n * w * 2 + q.numel() * 2 + 2 * hq * r * 2,
+        flops=2 * n * hq * (w + r),
+        err=max_err(fdec.flash_decode(q, kp, kp[..., :r], lens,
+                                      num_splits=s),
+                    fdec.decode_plain(q, k, v, lens, num_splits=s),
+                    DECODE_TOL),
+        launches=res["bf16"]["decode_launches"].get(f"1024 S{s}", 0)))
+    dqk = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+    dv = cfg.mla.v_head_dim
+    pq = (rand(gen, (1, 1024, hq, dqk), torch.float32) * dqk ** -0.5).to(
+        torch.bfloat16)
+    pk, pv = rand(gen, (1, 1024, hq, dqk)), rand(gen, (1, 1024, hq, dv))
+    rows.append(dict(
+        name="flash_prefill",
+        shape=f"{MLA_ARCH} B1 Lq=Lk=1024 Hq{hq} Hkv{hq} Dqk{dqk} Dv{dv} "
+              f"causal bf16",
+        fn=functools.partial(flash_prefill, pq, pk, pv, causal=True),
+        plain=functools.partial(prefill_plain, pq, pk, pv, causal=True),
+        lib=library_call("the MLA prefill", functools.partial(
+            F.scaled_dot_product_attention,
+            *(t.transpose(1, 2) for t in (pq, pk, pv)), is_causal=True,
+            scale=1.0)),
+        nbytes=2 * (pq.numel() + pk.numel() + 2 * pv.numel()),
+        flops=2 * hq * (dqk + dv) * 1024 * 1025 / 2,
+        err=max_err(flash_prefill(pq, pk, pv, causal=True),
+                    prefill_plain(pq, pk, pv, causal=True), PREFILL_TOL),
+        launches=res["bf16"]["prefill_launches"].get("bfloat16 1024", 0)))
+    vcfg = get_arch(VLM_ARCH)
+    vres = vlm[VLM_ARCH]
+    hq, hkv, d = vcfg.num_heads, vcfg.num_kv_heads, vcfg.resolved_head_dim
+    lq = VLM_PATCHES + VLM_TEXT
+    k, v = (rand(gen, (2, 2048, hkv, d)) for _ in range(2))
+    q = rand(gen, (2, hq, d))
+    # the serving runs' last decode shape (the 300-token prompt's slot at
+    # its last step beside the finished slot's stale 53 rows) and
+    # Model.prefill's decode (S3 over bucket 512)
+    pre = vres["prefill_check"]
+    for bucket, kv_len, s, launches, label in (
+            (384, (315, 53), 1, vres["bf16"]["decode_launches"], "serving"),
+            (512, (lq + VLM_STEPS,) * 2, pre["splits"],
+             pre["decode_launches"], "Model.prefill's decode")):
+        c = decode_case(q, k, v, bucket, kv_len, s)
+        n = int(c["lens"].sum())
+        err, _ = check_decode(c)
+        rows.append(dict(
+            name="flash_decode",
+            shape=f"{VLM_ARCH} {label} G{hq // hkv} D{d} {c['label']} "
+                  f"fused combine",
+            fn=functools.partial(fdec.flash_decode, c["qp"], c["kp"],
+                                 c["vp"], c["lens"], num_splits=s),
+            plain=functools.partial(fdec.decode_plain, c["qp"], c["kv"],
+                                    c["vv"], c["lens"], num_splits=s),
+            lib=c["sdpa"],
+            nbytes=2 * n * hkv * d * 2 + 2 * c["qp"].numel() * 2,
+            flops=4 * n * hq * d, err=err,
+            launches=launches.get(f"{bucket} S{s}", 0)))
+    art = Quantizer.from_kv_dtype("int8").quantized_kv(k.float(), v.float())
+    qc = quant_case(q, art, 384, (315, 53), 1, "int8")
+    n = int(qc["lens"].sum())
+    qerr, _ = check_decode_quant(qc)
+    rows.append(dict(
+        name="flash_decode_quant",
+        shape=f"{VLM_ARCH} serving G{hq // hkv} D{d} {qc['label']} fused "
+              f"combine",
+        fn=functools.partial(fdq.flash_decode_quant, qc["qp"], *qc["pview"],
+                             qc["lens"], num_splits=1),
+        plain=functools.partial(fdq.decode_quant_plain, qc["qp"],
+                                *qc["view"], qc["lens"], num_splits=1),
+        lib=None, nbytes=2 * n * hkv * (d + 4) + 2 * qc["qp"].numel() * 2,
+        flops=4 * n * hq * d + 2 * n * hkv * d, peak=INT8_OPS_PER_S,
+        err=qerr, launches=vres["int8"]["decode_launches"].get("384 S1", 0)))
+    pq, pk, pv = prefill_case(gen, 2, lq, lq, hq, hkv, d)
+    rows.append(dict(
+        name="flash_prefill",
+        shape=f"{VLM_ARCH} Model.prefill B2 Lq=Lk={lq} Hq{hq} Hkv{hkv} D{d} "
+              f"causal bf16",
+        fn=functools.partial(flash_prefill, pq, pk, pv, causal=True),
+        plain=functools.partial(prefill_plain, pq, pk, pv, causal=True),
+        lib=functools.partial(F.scaled_dot_product_attention,
+                              *(t.transpose(1, 2) for t in (pq, pk, pv)),
+                              is_causal=True, scale=1.0, enable_gqa=True),
+        nbytes=2 * (2 * pq.numel() + pk.numel() + pv.numel()),
+        flops=2 * 4 * hq * d * lq * (lq + 1) / 2,
+        err=max_err(flash_prefill(pq, pk, pv, causal=True),
+                    prefill_plain(pq, pk, pv, causal=True), PREFILL_TOL),
+        launches=vres["prefill_check"]["prefill_launches"].get(
+            f"bfloat16 {lq}", 0)))
+    return rows
 
 
 def arch_kernel_rows(gen, sms: int, archs):
@@ -3894,7 +4252,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phase",
                     choices=("all", "kernels", "digests", "admission",
                              "times", "table1", "shapes", "paged", "spec",
-                             "archs", "tune", "moe", "obs"),
+                             "archs", "tune", "moe", "obs", "mla",
+                             "vlm"),
                     default="all",
                     help="'kernels' stops after build and kernel parity; "
                          "'digests' builds, then runs the main path's "
@@ -3916,7 +4275,10 @@ def main(argv=None) -> int:
                          "then serves granite-moe-3b-a800m and "
                          "qwen3-moe-235b-a22b (4 layers); 'obs' builds, "
                          "then serves qwen2.5-3b with tracing and metrics "
-                         "on and off and runs the CLI with them")
+                         "on and off and runs the CLI with them; 'mla' "
+                         "builds, then serves minicpm3-4b; 'vlm' builds, "
+                         "then serves paligemma-3b and runs its patch "
+                         "prefill")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -3956,6 +4318,11 @@ def main(argv=None) -> int:
     if args.phase == "moe":
         moe = timed("moe", phase_moe, args.seed)
         print(json.dumps({"moe": moe, "card": card}))
+        return 0
+    if args.phase in ("mla", "vlm"):
+        fn = phase_mla if args.phase == "mla" else phase_vlm
+        res = timed(args.phase, fn, args.seed, sms)
+        print(json.dumps({args.phase: res, "card": card}))
         return 0
     if args.phase not in ("paged", "spec", "tune", "obs"):
         wide_gen = torch.Generator(device=DEVICE).manual_seed(args.seed + 17)
@@ -4025,10 +4392,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     archs = timed("archs", phase_archs, args.seed)
     moe = timed("moe", phase_moe, args.seed)
+    mla = timed("mla", phase_mla, args.seed, sms)
+    vlm = timed("vlm", phase_vlm, args.seed, sms)
     table1, table1_rows = timed("table1", phase_table1, gen, sms, card,
                                 flush)
     extra = [verify_kernel_row(gen, sms, spec)] + arch_kernel_rows(
-        gen, sms, archs) + arch_kernel_rows(gen, sms, moe)
+        gen, sms, archs) + arch_kernel_rows(gen, sms, moe) + \
+        single_kv_head_rows(gen, sms, mla, vlm)
     kernels = timed("kernels line", phase_kernels_line, gen, sms, errs,
                     counts, flush, serving["prefill_launches"],
                     serving["decode_launches"], qserving["decode_launches"],
@@ -4040,7 +4410,8 @@ def main(argv=None) -> int:
                       "paper_cell_int8": qpaper, "profile": profile,
                       "profile_int8": qprofile, "paged": paged,
                       "spec": spec, "tune": tune, "obs": obs,
-                      "archs": archs, "moe": moe, "table1": table1,
+                      "archs": archs, "moe": moe, "mla": mla,
+                      "vlm": vlm, "table1": table1,
                       "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

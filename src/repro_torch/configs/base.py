@@ -3,7 +3,8 @@
 Counterpart of ``repro.configs.base``.  Configs are frozen dataclasses,
 so they hash, print and diff cleanly and a config file is only data.
 ``ModelConfig`` keeps the reference's fields of the ported families
-(dense, and moe through :class:`MoEConfig`); the attention
+(dense; moe through :class:`MoEConfig`; mla through :class:`MLAConfig`;
+vlm through :class:`FrontendConfig`'s vision stub); the attention
 implementation is not a config knob here, because the kernel follows the
 tensor's device (see ``repro_torch.kernels.ops``).  ``ServeConfig``
 carries the serving fields: planning, admission, the KV-cache format,
@@ -13,14 +14,14 @@ observability artifacts (``trace_path``, ``metrics_path``).
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
 
 # the model families the port serves, and those of the reference it does
 # not serve yet: reducing a config or building a model of one raises
-PORTED_FAMILIES = ("dense", "moe")
-UNPORTED_FAMILIES = ("mla", "encdec", "vlm", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "mla", "vlm")
+UNPORTED_FAMILIES = ("encdec", "ssm", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -39,9 +40,28 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (MiniCPM3 / DeepSeek-V2 family)."""
+    kv_lora_rank: int = 256            # compressed KV latent dim (the cache)
+    q_lora_rank: int = 768
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
+
+
+@dataclass(frozen=True)
+class FrontendConfig:
+    """Stubbed modality frontend: the caller supplies precomputed
+    embeddings (``Model.frontend_inputs``)."""
+    kind: str = "none"                 # "vision" | "none" (ported)
+    num_positions: int = 0             # patches (vision)
+    embed_dim: int = 0                 # frontend output dim (projected to d_model)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # dense | moe (the ported families)
+    family: str                        # dense | moe | mla | vlm (ported)
     num_layers: int
     d_model: int
     num_heads: int
@@ -58,6 +78,9 @@ class ModelConfig:
     dtype: str = "bfloat16"            # activations (the cache: ServeConfig)
     param_dtype: str = "bfloat16"
     moe: Optional[MoEConfig] = None    # family="moe": the FFN's experts
+    mla: Optional[MLAConfig] = None    # family="mla": latent attention
+    # family="vlm": the vision stub whose patches prefill prepends
+    frontend: FrontendConfig = field(default_factory=FrontendConfig)
 
     @property
     def resolved_head_dim(self) -> int:

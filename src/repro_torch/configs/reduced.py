@@ -1,15 +1,15 @@
 """Reduced (test-size) variants of the ported architectures.
 
 Same family, same block wiring, same GQA group ratio, tiny widths —
-the dense and moe branches of ``repro.configs.reduced.reduced_config``,
-so one call with the same arguments gives the same shape in both
+the dense, moe, mla and vision branches of
+``repro.configs.reduced.reduced_config``, so one call with the same arguments gives the same shape in both
 packages.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig, MoEConfig, \
+from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, \
     check_ported, get_arch
 
 
@@ -41,4 +41,12 @@ def reduced_config(
                               capacity_factor=2.0,
                               dispatch=cfg.moe.dispatch)
         kw["d_ff"] = d_model
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(kv_lora_rank=32, q_lora_rank=48,
+                              qk_nope_head_dim=16, qk_rope_head_dim=8,
+                              v_head_dim=16)
+        kw["num_kv_heads"] = heads            # MLA reconstructs all heads
+    if cfg.frontend.kind == "vision":
+        kw["frontend"] = dataclasses.replace(cfg.frontend, num_positions=8,
+                                             embed_dim=48)
     return dataclasses.replace(cfg, **kw)

@@ -54,6 +54,18 @@
 //    has at H_KV 1 and 2; D = 160 or 256) run decode_tc_wide_kernel: the
 //    G rows in passes of up to 64, each warp one 16-row group over a
 //    slice of every tile's keys, the tile shared by the block (below).
+//  - K and V of different widths (DK, DV) run the same wide body,
+//    templated on both: MLA's latent decode (minicpm3-4b) attends
+//    (B, 40, 288) queries over a (B, L, 1, 288) latent whose first 256
+//    columns are V, passed as a column view of the same cache (V's own
+//    pointer and strides; its rows keep K's stride).  S = Q K^T runs over
+//    DK, P V and the epilogue over DV.  A ring stage holds a 288-wide K
+//    tile and a 256-wide V tile (143,360 bytes for the two stages), Q
+//    lives in shared memory (37,888 bytes), and the launch raises the
+//    dynamic shared-memory limit to the 181,248 bytes this takes.  V is
+//    read from global memory although its bytes are the K tile's first
+//    256 columns: reading it out of the K tile would save 47% of the
+//    bytes (ROADMAP).  The f32 CUDA-core body takes DK = DV only.
 //  - Any f32 operand (an f32 model over its cache, the CPU-parity dtypes)
 //    keeps the CUDA-core body (decode_cc_kernel): K and V staged as f32 in
 //    shared memory, 64 rows per step, register-blocked scores, the G rows
@@ -248,44 +260,52 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Hkv, G, D)
 }
 
 // The tensor-core body for the shapes decode_tc_kernel does not take: more
-// than 16 query heads per KV head, or D = 160 / 256.  The G rows go in
-// passes of up to kPassRows (64): R = 1, 2 or 4 groups of 16 rows
-// (padded), and warp w owns row group w % R over key slice w / R of every
-// 64-row tile (16 R keys, in steps of 16).  So at G = 64 each warp holds
-// its own 16 rows over all keys, and at G <= 16 the four warps split the
-// keys, as decode_tc_kernel's do.  All 128 threads load each tile (K and
-// V in one commit group) through a ring of two tiles, and a block-wide
-// barrier hands it over.  Each 16-key step is decode_tc_kernel's: Q K^T
-// on mma.sync, the online softmax, P as two bf16 terms times V.  At
-// D = 256 a 16-row O alone is 128 registers a thread, so Q is staged in
-// shared memory and read by ldmatrix instead of held in registers.  A G
-// above 64 reads the split's K and V once per pass.
-template <int D>
+// than 16 query heads per KV head, D = 160 / 256, or K and V of different
+// widths (DK > DV).  The G rows go in passes of up to kPassRows (64): R =
+// 1, 2 or 4 groups of 16 rows (padded), and warp w owns row group w % R
+// over key slice w / R of every 64-row tile (16 R keys, in steps of 16).
+// So at G = 64 each warp holds its own 16 rows over all keys, and at G <=
+// 16 the four warps split the keys, as decode_tc_kernel's do.  All 128
+// threads load each tile (K and V in one commit group) through a ring of
+// two tiles, and a block-wide barrier hands it over.  Each 16-key step is
+// decode_tc_kernel's: Q K^T on mma.sync over DK, the online softmax, P as
+// two bf16 terms times V over DV.  At DV = 256 a 16-row O alone is 128
+// registers a thread, so past DK = 160 Q is staged in shared memory and
+// read by ldmatrix instead of held in registers.  A G above 64 reads the
+// split's K and V once per pass.
+template <int DK, int DV>
 struct WideShape {
-    static constexpr int kPitch = D + 8;            // bf16 per staged row
-    static constexpr int kTileElems = kTile * kPitch;
-    static constexpr int kStageElems = 2 * kTileElems;       // K, then V
+    static constexpr int kPitchK = DK + 8;          // bf16 per staged K row
+    static constexpr int kPitchV = DV + 8;          // bf16 per staged V row
+    static constexpr int kTileK = kTile * kPitchK;
+    static constexpr int kStageElems = kTileK + kTile * kPitchV;  // K, V
     static constexpr size_t kRing = sizeof(__nv_bfloat16) * kStages *
                                     kStageElems;
-    static constexpr bool kQRegs = D <= 160;        // else Q in smem
+    static constexpr bool kQRegs = DK <= 160;       // else Q in smem
     static constexpr size_t kQ =
-        kQRegs ? 0 : sizeof(__nv_bfloat16) * kPassRows * kPitch;
-    static constexpr size_t kMerge = WarpMerge<D>::kBytes;
+        kQRegs ? 0 : sizeof(__nv_bfloat16) * kPassRows * kPitchK;
+    static constexpr size_t kMerge = WarpMerge<DV>::kBytes;
     static constexpr size_t kSmem =
         kRing + kQ > kMerge ? kRing + kQ : kMerge;
 };
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
-decode_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,  // (B,Hkv,G,D)
+decode_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,  // (B,Hkv,G,DK)
                       const __nv_bfloat16* __restrict__ k,  // strided
-                      const __nv_bfloat16* __restrict__ v,
+                      const __nv_bfloat16* __restrict__ v,  // strided, DV
                       const int* __restrict__ kv_len,       // (B,)
                       Epilogue ep, int B, int Hkv, int G, int L, int S,
-                      long long stride_b, long long stride_l) {
-    using Sh = WideShape<D>;
-    constexpr int kChunks = D / 8;                  // 16-byte chunks per row
-    constexpr int kPerThread = kTile * kChunks / kThreads;
+                      long long stride_b, long long stride_l,
+                      long long vstride_b, long long vstride_l,
+                      long long vstride_h) {
+    using Sh = WideShape<DK, DV>;
+    constexpr int kChunksK = DK / 8;                // 16-byte chunks per row
+    constexpr int kChunksV = DV / 8;
+    constexpr int kPerK = kTile * kChunksK / kThreads;
+    constexpr int kPerV = kTile * kChunksV / kThreads;
+    static_assert(kTile * kChunksK % kThreads == 0 &&
+                  kTile * kChunksV % kThreads == 0, "tile loads split evenly");
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
     __nv_bfloat16* q_s =
@@ -301,24 +321,48 @@ decode_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,  // (B,Hkv,G,D)
 
     // tile t's K and V into ring slot `slot`, zero past rows.hi; one
     // commit group per call, empty past the last tile
-    const __nv_bfloat16* kb = k + b * stride_b + h * D;
-    const __nv_bfloat16* vb = v + b * stride_b + h * D;
+    // With one width V has K's layout (the wrapper requires it) and the
+    // loop is the equal-width body's as it was: a V stride, chunk count or
+    // pitch chosen per copy costs the D = 128 / 256 bodies 5-12% (timed
+    // on the card).  Narrower V brings its own strides.
+    const __nv_bfloat16* kb = k + b * stride_b + h * DK;
+    const __nv_bfloat16* vb = DK == DV ? v + b * stride_b + h * DK
+                                       : v + b * vstride_b + h * vstride_h;
     auto load = [&](int t, __nv_bfloat16* slot) {
         if (t < ntiles) {
             const int r0 = rows.lo + t * kTile;
             // rolled: unrolled, the copies' addresses stay live in
             // registers across the tile loop beside the 16-row O
+            if constexpr (DK == DV) {
 #pragma unroll 1
-            for (int i = 0; i < 2 * kPerThread; ++i) {
-                const int c = tid + (i % kPerThread) * kThreads;
-                const int r = c / kChunks, col = (c % kChunks) * 8;
-                const bool ok = r0 + r < rows.hi;
-                const __nv_bfloat16* src = i < kPerThread ? kb : vb;
-                hopper::cp_async_16(
-                    hopper::smem_u32(slot + (i < kPerThread ? 0
-                                                 : Sh::kTileElems) +
-                                     r * Sh::kPitch + col),
-                    ok ? src + (r0 + r) * stride_l + col : src, ok ? 16 : 0);
+                for (int i = 0; i < 2 * kPerK; ++i) {
+                    const int c = tid + (i % kPerK) * kThreads;
+                    const int r = c / kChunksK, col = (c % kChunksK) * 8;
+                    const bool ok = r0 + r < rows.hi;
+                    const __nv_bfloat16* src = i < kPerK ? kb : vb;
+                    hopper::cp_async_16(
+                        hopper::smem_u32(slot + (i < kPerK ? 0 : Sh::kTileK) +
+                                         r * Sh::kPitchK + col),
+                        ok ? src + (r0 + r) * stride_l + col : src,
+                        ok ? 16 : 0);
+                }
+            } else {
+#pragma unroll 1
+                for (int i = 0; i < kPerK + kPerV; ++i) {
+                    const bool is_k = i < kPerK;
+                    const int c = tid + (is_k ? i : i - kPerK) * kThreads;
+                    const int chunks = is_k ? kChunksK : kChunksV;
+                    const int r = c / chunks, col = (c % chunks) * 8;
+                    const bool ok = r0 + r < rows.hi;
+                    const __nv_bfloat16* src = is_k ? kb : vb;
+                    const long long sl = is_k ? stride_l : vstride_l;
+                    hopper::cp_async_16(
+                        hopper::smem_u32(slot + (is_k ? r * Sh::kPitchK
+                                                      : Sh::kTileK +
+                                                            r * Sh::kPitchV) +
+                                         col),
+                        ok ? src + (r0 + r) * sl + col : src, ok ? 16 : 0);
+                }
             }
         }
         hopper::cp_async_commit();
@@ -330,7 +374,7 @@ decode_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,  // (B,Hkv,G,D)
     const int k_col = ((lane >> 3) & 1) * 8;
     const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8;
     const int v_col = (lane >> 4) * 8;
-    const __nv_bfloat16* qb = q + bh * G * D;
+    const __nv_bfloat16* qb = q + bh * G * DK;
 
 #pragma unroll 1
     for (int g0 = 0; g0 < G; g0 += kPassRows) {
@@ -343,32 +387,33 @@ decode_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,  // (B,Hkv,G,D)
             load(st, ring + st * Sh::kStageElems);
 
         // Q: rows g0 + 16 rg + gq (+ 8) in registers, or the pass's rows
-        // in shared memory; zero at or past G
-        uint32_t qa[Sh::kQRegs ? D / 16 : 1][4];
+        // in shared memory; zero at or past G (the last m16 tile's
+        // padding rows, as at G = 40)
+        uint32_t qa[Sh::kQRegs ? DK / 16 : 1][4];
         if constexpr (Sh::kQRegs) {
 #pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk)
+            for (int kk = 0; kk < DK / 16; ++kk)
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     const int g = g0 + rg * 16 + gq + (i & 1) * 8;
                     const int c = kk * 16 + tq * 2 + (i >> 1) * 8;
                     qa[kk][i] = g < G ? *reinterpret_cast<const uint32_t*>(
-                                            qb + g * D + c)
+                                            qb + g * DK + c)
                                       : 0u;
                 }
         } else {
-            for (int c = tid; c < kPassRows * kChunks; c += kThreads) {
-                const int r = c / kChunks, col = (c % kChunks) * 8;
-                *reinterpret_cast<uint4*>(q_s + r * Sh::kPitch + col) =
+            for (int c = tid; c < kPassRows * kChunksK; c += kThreads) {
+                const int r = c / kChunksK, col = (c % kChunksK) * 8;
+                *reinterpret_cast<uint4*>(q_s + r * Sh::kPitchK + col) =
                     g0 + r < G ? *reinterpret_cast<const uint4*>(
-                                     qb + (g0 + r) * D + col)
+                                     qb + (g0 + r) * DK + col)
                                : make_uint4(0u, 0u, 0u, 0u);
             }
         }
 
-        float o[D / 8][4];
+        float o[DV / 8][4];
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < DV / 8; ++j)
             o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
         float m_r[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
         float l_r[2] = {0.f, 0.f};
@@ -376,7 +421,7 @@ decode_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,  // (B,Hkv,G,D)
 #pragma unroll 1
         for (int t = 0; t < ntiles; ++t) {
             __nv_bfloat16* ks = ring + (t % kStages) * Sh::kStageElems;
-            __nv_bfloat16* vs = ks + Sh::kTileElems;
+            __nv_bfloat16* vs = ks + Sh::kTileK;
             hopper::cp_async_wait<kStages - 1>();   // tile t, own copies
             __syncthreads();                        // everyone's copies
 
@@ -385,11 +430,11 @@ decode_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,  // (B,Hkv,G,D)
                 const int kb0 = (slice * R + j) * 16;   // step's first key
                 float sc[2][4] = {{0.f, 0.f, 0.f, 0.f},
                                   {0.f, 0.f, 0.f, 0.f}};
-                const __nv_bfloat16* krow = ks + (kb0 + k_row) * Sh::kPitch +
-                                            k_col;
+                const __nv_bfloat16* krow =
+                    ks + (kb0 + k_row) * Sh::kPitchK + k_col;
                 if constexpr (Sh::kQRegs) {
 #pragma unroll
-                    for (int kk = 0; kk < D / 16; ++kk) {
+                    for (int kk = 0; kk < DK / 16; ++kk) {
                         uint32_t kf[4];
                         hopper::ldmatrix_x4(
                             kf, hopper::smem_u32(krow + kk * 16));
@@ -402,10 +447,10 @@ decode_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,  // (B,Hkv,G,D)
                     // a partial unroll keeps the fragments in flight (and
                     // the registers they take) few beside the 16-row O
                     const __nv_bfloat16* qrow =
-                        q_s + (rg * 16 + (lane & 15)) * Sh::kPitch +
+                        q_s + (rg * 16 + (lane & 15)) * Sh::kPitchK +
                         (lane >> 4) * 8;
 #pragma unroll 2
-                    for (int kk = 0; kk < D / 16; ++kk) {
+                    for (int kk = 0; kk < DK / 16; ++kk) {
                         uint32_t kf[4], qf[4];
                         hopper::ldmatrix_x4(
                             kf, hopper::smem_u32(krow + kk * 16));
@@ -450,7 +495,7 @@ decode_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,  // (B,Hkv,G,D)
                         l_r[e >> 1] += p;
                     }
 #pragma unroll
-                for (int jj = 0; jj < D / 8; ++jj) {
+                for (int jj = 0; jj < DV / 8; ++jj) {
                     o[jj][0] *= alpha[0];
                     o[jj][1] *= alpha[0];
                     o[jj][2] *= alpha[1];
@@ -462,10 +507,11 @@ decode_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,  // (B,Hkv,G,D)
                 split_bf16(sc[1][0], sc[1][1], pa[2], pl[2]);
                 split_bf16(sc[1][2], sc[1][3], pa[3], pl[3]);
 #pragma unroll
-                for (int dp = 0; dp < D / 16; ++dp) {
+                for (int dp = 0; dp < DV / 16; ++dp) {
                     uint32_t vf[4];
                     hopper::ldmatrix_x4_trans(
-                        vf, hopper::smem_u32(vs + (kb0 + v_row) * Sh::kPitch +
+                        vf, hopper::smem_u32(vs +
+                                             (kb0 + v_row) * Sh::kPitchV +
                                              dp * 16 + v_col));
                     hopper::mma_m16n8k16_bf16(o[2 * dp], pa, vf[0], vf[1]);
                     hopper::mma_m16n8k16_bf16(o[2 * dp], pl, vf[0], vf[1]);
@@ -480,11 +526,11 @@ decode_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,  // (B,Hkv,G,D)
         }
         hopper::cp_async_wait<0>();
         __syncthreads();                  // the ring is free for the merge
-        finish_wide<D>(o, m_r, l_r, smem_raw, ep, B, Hkv, G, S, s, bh, g0,
-                       gp, R);
+        finish_wide<DV>(o, m_r, l_r, smem_raw, ep, B, Hkv, G, S, s, bh, g0,
+                        gp, R);
     }
-    combine_if_last<D>(ep, S, static_cast<long long>(B) * Hkv * G, bh * G, G,
-                       bh);
+    combine_if_last<DV>(ep, S, static_cast<long long>(B) * Hkv * G, bh * G,
+                        G, bh);
 }
 
 // ---------------------------------------------------------------------------
@@ -710,11 +756,13 @@ decode_cc_kernel(const TQ* __restrict__ q,  // (B, Hkv, G, D) scaled
 // launch
 // ---------------------------------------------------------------------------
 
+// K's head stride is its width; with K and V of one width V shares K's
+// layout, and only the wide body reads V's own strides
 struct Args {
     const void *q, *k, *v, *kv_len;
     Epilogue ep;
     int B, Hkv, G, L, S;
-    long long stride_b, stride_l;
+    long long stride_b, stride_l, vstride_b, vstride_l, vstride_h;
     cudaStream_t stream;
 };
 
@@ -725,6 +773,22 @@ cudaError_t launch_kernel(Kernel kernel, size_t smem, const Args& a) {
         static_cast<const TQ*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<const int*>(a.kv_len), a.ep,
         a.B, a.Hkv, a.G, a.L, a.S, a.stride_b, a.stride_l);
+    return cudaGetLastError();
+}
+
+template <int DK, int DV>
+cudaError_t launch_wide(const Args& a) {
+    auto kernel = decode_tc_wide_kernel<DK, DV>;
+    constexpr size_t smem = WideShape<DK, DV>::kSmem;
+    static const cudaError_t attr = smem_attr(kernel, smem);
+    if (attr != cudaSuccess) return attr;
+    dim3 grid(a.S, a.Hkv, a.B);
+    kernel<<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const __nv_bfloat16*>(a.q),
+        static_cast<const __nv_bfloat16*>(a.k),
+        static_cast<const __nv_bfloat16*>(a.v),
+        static_cast<const int*>(a.kv_len), a.ep, a.B, a.Hkv, a.G, a.L, a.S,
+        a.stride_b, a.stride_l, a.vstride_b, a.vstride_l, a.vstride_h);
     return cudaGetLastError();
 }
 
@@ -741,11 +805,7 @@ cudaError_t launch(const Args& a) {
                 return launch_kernel<TQ, T>(kernel, smem, a);
             }
         }
-        auto kernel = decode_tc_wide_kernel<D>;
-        constexpr size_t smem = WideShape<D>::kSmem;
-        static const cudaError_t attr = smem_attr(kernel, smem);
-        if (attr != cudaSuccess) return attr;
-        return launch_kernel<TQ, T>(kernel, smem, a);
+        return launch_wide<D, D>(a);
     } else {
         auto kernel = decode_cc_kernel<TQ, T, D>;
         constexpr size_t smem = cc_smem_bytes<D>();
@@ -755,8 +815,17 @@ cudaError_t launch(const Args& a) {
     }
 }
 
+// K and V of one width D, or the (DK, DV) pairs of the wide body, which
+// takes bf16 q over a bf16 cache only
 template <typename TQ, typename T>
-cudaError_t launch_d(const Args& a, int D) {
+cudaError_t launch_d(const Args& a, int D, int Dv) {
+    if (Dv != D) {
+        if constexpr (std::is_same<TQ, __nv_bfloat16>::value &&
+                      std::is_same<T, __nv_bfloat16>::value) {
+            if (D == 288 && Dv == 256) return launch_wide<288, 256>(a);
+        }
+        return cudaErrorInvalidValue;
+    }
     if (D == 128) return launch<TQ, T, 128>(a);
     if (D == 64) return launch<TQ, T, 64>(a);
     if (D == 160) return launch<TQ, T, 160>(a);
@@ -765,25 +834,31 @@ cudaError_t launch_d(const Args& a, int D) {
 }
 
 template <typename TQ>
-cudaError_t launch_kv(const Args& a, int D, int kv_dtype) {
-    if (kv_dtype == REPRO_DTYPE_BF16) return launch_d<TQ, __nv_bfloat16>(a, D);
-    if (kv_dtype == REPRO_DTYPE_F32) return launch_d<TQ, float>(a, D);
+cudaError_t launch_kv(const Args& a, int D, int Dv, int kv_dtype) {
+    if (kv_dtype == REPRO_DTYPE_BF16)
+        return launch_d<TQ, __nv_bfloat16>(a, D, Dv);
+    if (kv_dtype == REPRO_DTYPE_F32) return launch_d<TQ, float>(a, D, Dv);
     return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q in q_dtype, k and v in kv_dtype, out in out_dtype (each REPRO_DTYPE_F32
-// or _BF16).  acc, l, m: the (S, B, Hkv, G, D) and (S, B, Hkv, G) f32
+// q (B, Hkv, G, D) in q_dtype; k (B, L, Hkv, D) and v (B, L, Hkv, Dv) in
+// kv_dtype, k with batch and row strides stride_b, stride_l and head
+// stride D, v with its own batch, row and head strides (equal to k's
+// when Dv = D); out (B, Hkv, G, Dv) in out_dtype (each REPRO_DTYPE_F32 or
+// _BF16).  acc, l, m: the (S, B, Hkv, G, Dv) and (S, B, Hkv, G) f32
 // partials.  With counters (B * Hkv int32, all 0) and out, the launch
 // writes the combined output and leaves the counters at 0; with both null
 // it writes the partials only.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             const void* kv_len, void* acc, void* l, void* m,
                             void* counters, void* out, int B, int Hkv, int G,
-                            int L, int S, int D, long long stride_b,
-                            long long stride_l, int q_dtype, int kv_dtype,
-                            int out_dtype, void* stream) {
+                            int L, int S, int D, int Dv, long long stride_b,
+                            long long stride_l, long long vstride_b,
+                            long long vstride_l, long long vstride_h,
+                            int q_dtype, int kv_dtype, int out_dtype,
+                            void* stream) {
     if (G < 1 || S < 1 || L < 1 || B < 1 || Hkv < 1 ||
         (counters == nullptr) != (out == nullptr) ||
         (out != nullptr && out_dtype != REPRO_DTYPE_F32 &&
@@ -793,10 +868,11 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
                       static_cast<float*>(m), static_cast<int*>(counters),
                       out, out_dtype};
     const Args a{q, k, v, kv_len, ep, B, Hkv, G, L, S, stride_b, stride_l,
+                 vstride_b, vstride_l, vstride_h,
                  static_cast<cudaStream_t>(stream)};
     if (q_dtype == REPRO_DTYPE_BF16)
-        return static_cast<int>(launch_kv<__nv_bfloat16>(a, D, kv_dtype));
+        return static_cast<int>(launch_kv<__nv_bfloat16>(a, D, Dv, kv_dtype));
     if (q_dtype == REPRO_DTYPE_F32)
-        return static_cast<int>(launch_kv<float>(a, D, kv_dtype));
+        return static_cast<int>(launch_kv<float>(a, D, Dv, kv_dtype));
     return static_cast<int>(cudaErrorInvalidValue);
 }

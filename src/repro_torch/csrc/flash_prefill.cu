@@ -59,6 +59,16 @@
 //    softmax and P V run one after another.  A wider score tile or Q in
 //    registers are the next levers.
 //
+//  - K and V of different widths (DK, DV), bf16 only: MLA's prefill
+//    (minicpm3-4b) attends q and k of width 96 (64 nope + 32 rope) with v
+//    of width 64, at 40 heads over 40.  The same body, templated on both
+//    widths, at the D = 128 tiling: Q and K tiles are two 64-column boxes
+//    whose tensor maps have an inner extent of 96, so TMA zero-fills
+//    columns 96-127 in shared memory (no DRAM bytes), and Q K^T skips the
+//    k16 steps that lie wholly in them: it computes the 96 columns and no
+//    more.  V is one 64-column box and O one 64-column accumulator, stored
+//    as is.  The f32 body takes DK = DV only.
+//
 // float32 (prefill_kernel_simt): the CUDA cores, picked by dtype alone.
 // The tensor cores have no f32 path that keeps f32 numerics (TF32 keeps
 // 10 mantissa bits), so f32 stays exact here.  Q, K, V tiles are staged
@@ -301,18 +311,22 @@ constexpr int kThreads = 128 + 32;         // consumer warpgroup + producer
 constexpr int kBox = 64 * 128;             // one 64-row x 64-column bf16 box
 constexpr float kLog2e = 1.4426950408889634f;
 
-// A row of D columns is ceil(D / 64) boxes of 64; at D = 160 the third
-// box's last 32 columns lie past the tensor, so TMA fills them with zeros:
-// they add 0 to Q K^T and give output columns that are never written.
-// Two CTAs share an SM up to D = 128; at 160 and 256 the tiles take more
-// than half of its shared memory, and the minimum of one block lets a
-// thread keep the wider O (128 f32 registers at D = 256).
-template <int D>
+// A row of D columns is ceil(D / 64) boxes of 64; at D = 160 (and at
+// MLA's DK = 96) the last box's last 32 columns lie past the tensor, so
+// TMA fills them with zeros: they add 0 to Q K^T and give output columns
+// that are never written.  Two CTAs share an SM up to D = 128; at 160 and
+// 256 the tiles take more than half of its shared memory, and the minimum
+// of one block lets a thread keep the wider O (128 f32 registers at D =
+// 256).  Q and K have DK columns, V and O DV.
+template <int DK, int DV>
 struct TcShape {
-    static constexpr int kHalves = (D + 63) / 64;   // 64-column boxes a row
+    static constexpr int kHalves = (DK + 63) / 64;  // Q / K boxes a row
+    static constexpr int kHalvesV = (DV + 63) / 64; // V boxes, O blocks
     static constexpr int kQBytes = kHalves * kBox;   // the Q tile
-    static constexpr int kKVBytes = kHalves * kBox;  // one K or V tile
-    static constexpr int kTileBytes = kQBytes + 2 * kStages * kKVBytes;
+    static constexpr int kKBytes = kHalves * kBox;   // one K tile
+    static constexpr int kVBytes = kHalvesV * kBox;  // one V tile
+    static constexpr int kTileBytes =
+        kQBytes + kStages * (kKBytes + kVBytes);
     // barriers: q_full; k_full, v_full, k_empty, v_empty per stage
     static constexpr int kBarBytes = 8 * (1 + 4 * kStages);
     // + 1024 so the tiles can start on a 1024-byte boundary
@@ -320,22 +334,23 @@ struct TcShape {
     static constexpr int kMinBlocks = kHalves <= 2 ? 2 : 1;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, TcShape<D>::kMinBlocks)
-prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,D)
-                  const __grid_constant__ CUtensorMap tk,   // (B,Lk,Hkv,D)
-                  const __grid_constant__ CUtensorMap tv,
-                  __nv_bfloat16* __restrict__ out,          // (B,Lq,Hq,D)
+template <int DK, int DV>
+__global__ void __launch_bounds__(kThreads, TcShape<DK, DV>::kMinBlocks)
+prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,DK)
+                  const __grid_constant__ CUtensorMap tk,   // (B,Lk,Hkv,DK)
+                  const __grid_constant__ CUtensorMap tv,   // (B,Lk,Hkv,DV)
+                  __nv_bfloat16* __restrict__ out,          // (B,Lq,Hq,DV)
                   int Lq, int Lk, int Hq, int Hkv, int causal, int window,
                   int q_offset) {
-    using S = TcShape<D>;
+    using S = TcShape<DK, DV>;
     constexpr int kHalves = S::kHalves;
+    constexpr int kHalvesV = S::kHalvesV;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t raw = hopper::smem_u32(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;
     const uint32_t q_s = base;                              // [half]
     const uint32_t k_s = base + S::kQBytes;                 // [stage][half]
-    const uint32_t v_s = k_s + kStages * S::kKVBytes;       // [stage][half]
+    const uint32_t v_s = k_s + kStages * S::kKBytes;        // [stage][half]
     const uint32_t bars = base + S::kTileBytes;
     const uint32_t q_full = bars;
     auto k_full = [&](int s) { return bars + 8u * (1 + s); };
@@ -382,14 +397,14 @@ prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,D)
             const uint32_t ph = (j / kStages) & 1;
             const int k0 = kv_start + j * kBK;
             hopper::mbar_wait(k_empty(s), ph ^ 1);  // slot s's K was read
-            hopper::mbar_arrive_expect_tx(k_full(s), S::kKVBytes);
+            hopper::mbar_arrive_expect_tx(k_full(s), S::kKBytes);
             for (int hf = 0; hf < kHalves; ++hf)
                 hopper::tma_load_4d(k_s + (s * kHalves + hf) * kBox, &tk,
                                     k_full(s), hf * 64, hk, k0, b);
             hopper::mbar_wait(v_empty(s), ph ^ 1);
-            hopper::mbar_arrive_expect_tx(v_full(s), S::kKVBytes);
-            for (int hf = 0; hf < kHalves; ++hf)
-                hopper::tma_load_4d(v_s + (s * kHalves + hf) * kBox, &tv,
+            hopper::mbar_arrive_expect_tx(v_full(s), S::kVBytes);
+            for (int hf = 0; hf < kHalvesV; ++hf)
+                hopper::tma_load_4d(v_s + (s * kHalvesV + hf) * kBox, &tv,
                                     v_full(s), hf * 64, hk, k0, b);
         }
         return;
@@ -401,9 +416,9 @@ prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,D)
     const int c0 = 2 * (lane % 4);                // and c0 + 1, in each n8
     const int qpos0 = q_offset + q0;              // absolute position of q0
 
-    float o[kHalves][32];
+    float o[kHalvesV][32];
 #pragma unroll
-    for (int hf = 0; hf < kHalves; ++hf)
+    for (int hf = 0; hf < kHalvesV; ++hf)
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[hf][i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};          // base-2 running max
@@ -415,7 +430,8 @@ prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,D)
         const uint32_t ph = (j / kStages) & 1;
         const int k0 = kv_start + j * kBK;
 
-        // S = Q K^T over D in steps of 16 (32 bytes within a 128-byte row)
+        // S = Q K^T over DK in steps of 16 (32 bytes within a 128-byte
+        // row); steps wholly in a box's zero-filled columns are skipped
         float sc[32];
         hopper::mbar_wait(k_full(s), ph);
         hopper::fence_regs(sc);
@@ -424,12 +440,13 @@ prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,D)
         for (int hf = 0; hf < kHalves; ++hf)
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk)
-                hopper::wgmma_m64n64k16_ss(
-                    sc, hopper::desc_sw128(q_s + hf * kBox + kk * 32, 16,
-                                           1024),
-                    hopper::desc_sw128(k_s + (s * kHalves + hf) * kBox +
-                                       kk * 32, 16, 1024),
-                    hf + kk > 0);
+                if (hf * 64 + kk * 16 < DK)
+                    hopper::wgmma_m64n64k16_ss(
+                        sc, hopper::desc_sw128(q_s + hf * kBox + kk * 32, 16,
+                                               1024),
+                        hopper::desc_sw128(k_s + (s * kHalves + hf) * kBox +
+                                           kk * 32, 16, 1024),
+                        hf + kk > 0);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs(sc);
@@ -474,7 +491,7 @@ prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,D)
 #pragma unroll
         for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
 #pragma unroll
-        for (int hf = 0; hf < kHalves; ++hf)
+        for (int hf = 0; hf < kHalvesV; ++hf)
 #pragma unroll
             for (int i = 0; i < 32; ++i) o[hf][i] *= alpha[(i / 2) % 2];
 
@@ -496,21 +513,22 @@ prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,D)
             hopper::fence_regs(pl[kk]);
         }
 #pragma unroll
-        for (int hf = 0; hf < kHalves; ++hf) hopper::fence_regs(o[hf]);
+        for (int hf = 0; hf < kHalvesV; ++hf) hopper::fence_regs(o[hf]);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int hf = 0; hf < kHalves; ++hf)
+        for (int hf = 0; hf < kHalvesV; ++hf)
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk) {
                 const uint64_t vd = hopper::desc_sw128(
-                    v_s + (s * kHalves + hf) * kBox + kk * 2048, kBox, 1024);
+                    v_s + (s * kHalvesV + hf) * kBox + kk * 2048, kBox,
+                    1024);
                 hopper::wgmma_m64n64k16_rs_tb(o[hf], pa[kk], vd);
                 hopper::wgmma_m64n64k16_rs_tb(o[hf], pl[kk], vd);
             }
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
 #pragma unroll
-        for (int hf = 0; hf < kHalves; ++hf) hopper::fence_regs(o[hf]);
+        for (int hf = 0; hf < kHalvesV; ++hf) hopper::fence_regs(o[hf]);
         hopper::mbar_arrive(v_empty(s));          // V slot s read
     }
 
@@ -522,18 +540,18 @@ prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,D)
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         inv[r] = 1.f / fmaxf(l[r], 1e-30f);
     }
-    const long long q_row = static_cast<long long>(Hq) * D;
+    const long long o_row = static_cast<long long>(Hq) * DV;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int row = q0 + r0 + 8 * r;
         if (row >= Lq) continue;
         __nv_bfloat16* orow = out + (static_cast<long long>(b) * Lq + row) *
-                                        q_row + static_cast<long long>(h) * D;
+                                        o_row + static_cast<long long>(h) * DV;
 #pragma unroll
-        for (int hf = 0; hf < kHalves; ++hf)
+        for (int hf = 0; hf < kHalvesV; ++hf)
 #pragma unroll
             for (int n8 = 0; n8 < 8; ++n8) {
-                if (hf * 64 + n8 * 8 >= D) continue;    // padding columns
+                if (hf * 64 + n8 * 8 >= DV) continue;   // padding columns
                 const int i = 4 * n8 + 2 * r;
                 *reinterpret_cast<__nv_bfloat162*>(
                     orow + hf * 64 + n8 * 8 + c0) =
@@ -591,20 +609,20 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int H, int D) {
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DK, int DV = DK>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       int B, int Lq, int Lk, int Hq, int Hkv, int causal,
                       int window, int q_offset, cudaStream_t stream) {
-    using S = TcShape<D>;
-    auto kernel = prefill_kernel_tc<D>;
+    using S = TcShape<DK, DV>;
+    auto kernel = prefill_kernel_tc<DK, DV>;
     // opt in to more than 48 KB of dynamic shared memory, once per kernel
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(S::kSmem));
     if (attr != cudaSuccess) return attr;
     CUtensorMap tq, tk, tv;
-    if (!make_map(&tq, q, B, Lq, Hq, D) || !make_map(&tk, k, B, Lk, Hkv, D) ||
-        !make_map(&tv, v, B, Lk, Hkv, D))
+    if (!make_map(&tq, q, B, Lq, Hq, DK) ||
+        !make_map(&tk, k, B, Lk, Hkv, DK) || !make_map(&tv, v, B, Lk, Hkv, DV))
         return cudaErrorInvalidValue;
     dim3 grid(Hq, B, (Lq + kBQ - 1) / kBQ);
     kernel<<<grid, kThreads, S::kSmem, stream>>>(
@@ -631,14 +649,23 @@ cudaError_t launch_d(int D, Args... args) {
 
 }  // namespace
 
+// q (B, Lq, Hq, D), k (B, Lk, Hkv, D), v (B, Lk, Hkv, Dv) and out (B, Lq,
+// Hq, Dv), contiguous.  Dv = D, or (D, Dv) = (96, 64) in bf16.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              void* out, int B, int Lq, int Lk, int Hq,
-                             int Hkv, int D, int causal, int window,
+                             int Hkv, int D, int Dv, int causal, int window,
                              int q_offset, int dtype, void* stream) {
     if (B < 1 || Lq < 1 || Lk < 1 || Hkv < 1 || Hq % Hkv != 0 ||
         B > 65535 || (Lq + 63) / 64 > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (Dv != D) {
+        if (dtype == REPRO_DTYPE_BF16 && D == 96 && Dv == 64)
+            return static_cast<int>(launch_tc<96, 64>(
+                q, k, v, out, B, Lq, Lk, Hq, Hkv, causal, window, q_offset,
+                st));
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     if (dtype == REPRO_DTYPE_BF16)
         return static_cast<int>(launch_d<true>(
             D, q, k, v, out, B, Lq, Lk, Hq, Hkv, causal, window, q_offset,

@@ -1,17 +1,20 @@
 """Weights and caches from the JAX package's trees, as numpy arrays.
 
 ``params_from_numpy(tree, cfg)`` takes the reference's LM param tree of
-a dense or moe config (``{"embed": ..., "final_norm": ..., "groups":
+a ported config (``{"embed": ..., "final_norm": ..., "groups":
 ((layer_stack,),)}`` with every leaf converted to a numpy array; a moe
-block's ``ffn`` holds ``router``, ``wi_gate``, ``wi_up`` and ``wo``) and
-returns the port's :class:`~repro_torch.models.lm.LM`.  The reference
+block's ``ffn`` holds ``router``, ``wi_gate``, ``wi_up`` and ``wo``, an
+mla block's ``mix`` ``q_down``, ``q_norm``, ``q_up``, ``kv_down``,
+``kv_norm``, ``k_up``, ``v_up`` and ``wo``, and a vlm tree adds the
+top-level ``patch_proj``) and returns the port's
+:class:`~repro_torch.models.lm.LM`.  The reference
 stacks the layers of its scan group along a leading axis
 (``params["groups"][0][0]``); here they are unstacked into one
 :class:`~repro_torch.models.lm.Block` each.
 ``cache_from_numpy(tree, cfg)`` takes the reference's dense cache tree
 (``((layer_stack,),)`` of ``{"k", "v"}`` plus ``{"k_s", "v_s"}`` for a
-quantized cache) and returns the port's cache dict, layers still
-stacked.  bfloat16 arrays (dtype name ``bfloat16``) are read through a
+quantized cache, or mla's ``{"latent"}``) and returns the port's cache
+dict, layers still stacked.  bfloat16 arrays (dtype name ``bfloat16``) are read through a
 ``uint16`` view and float8_e4m3fn ones through a ``uint8`` view, so
 neither JAX nor ``ml_dtypes`` is imported.
 """
@@ -55,7 +58,7 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""
 def _one_group(tree: Any) -> Any:
     if len(tree) != 1 or len(tree[0]) != 1:
         raise ValueError("expected one scan group of one block kind "
-                         "(a dense or moe LM)")
+                         "(an LM of a ported family)")
     return tree[0][0]
 
 
@@ -65,8 +68,9 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     to ``cfg.param_dtype`` on ``device`` (the card unless asked)."""
     layers = _one_group(tree["groups"])
     state: Dict[str, torch.Tensor] = {}
-    for name, arr in _flatten({"embed": tree["embed"],
-                               "final_norm": tree["final_norm"]}):
+    top = {name: tree[name] for name in ("embed", "final_norm",
+                                         "patch_proj") if name in tree}
+    for name, arr in _flatten(top):
         state[name] = tensor_from_numpy(np.asarray(arr))
     for name, arr in _flatten(layers):
         stacked = np.asarray(arr)
@@ -89,15 +93,18 @@ def cache_from_numpy(tree: Any, cfg: ModelConfig,
     """The port's dense cache from the reference's numpy cache tree:
     ``k`` / ``v`` (layers, B, max_len, Hkv, D) in their stored dtype
     (bf16, f32, int8 or fp8) and, when present, ``k_s`` / ``v_s`` (layers,
-    B, max_len, Hkv) f32, on ``device`` (the card unless asked)."""
+    B, max_len, Hkv) f32; or mla's ``latent`` (layers, B, max_len, 1,
+    kv_lora_rank + rope); on ``device`` (the card unless asked)."""
     leaves = _one_group(tree)
-    if set(leaves) not in ({"k", "v"}, {"k", "v", "k_s", "v_s"}):
-        raise ValueError(f"expected a dense cache {{k, v[, k_s, v_s]}}, "
-                         f"got {sorted(leaves)}")
+    if set(leaves) not in ({"k", "v"}, {"k", "v", "k_s", "v_s"},
+                           {"latent"}):
+        raise ValueError(f"expected a dense cache {{k, v[, k_s, v_s]}} or "
+                         f"{{latent}}, got {sorted(leaves)}")
     dev = resolve_device(device)
     out = {name: tensor_from_numpy(np.asarray(arr)).to(dev)
            for name, arr in leaves.items()}
-    if out["k"].shape[0] != cfg.num_layers:
-        raise ValueError(f"cache has {out['k'].shape[0]} stacked layers, "
-                         f"config has {cfg.num_layers}")
+    layers = next(iter(out.values())).shape[0]
+    if layers != cfg.num_layers:
+        raise ValueError(f"cache has {layers} stacked layers, config has "
+                         f"{cfg.num_layers}")
     return out

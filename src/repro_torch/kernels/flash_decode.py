@@ -29,6 +29,10 @@ from repro_torch.kernels.flash_combine import combine_plain
 
 BLOCK_K = 128                    # KV_BLOCK: split bounds count these
 HEAD_DIMS = (64, 128, 160, 256)  # head dims the kernel is compiled for
+# (K width, V width) pairs with V narrower than K that the tensor-core
+# body is compiled for: MLA's latent decode (minicpm3-4b: K the 288-wide
+# latent row, V its first 256 columns)
+WIDTH_PAIRS = ((288, 256),)
 
 
 def split_bounds(length: int, num_splits: int, split: int):
@@ -45,13 +49,13 @@ def decode_partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain PyTorch version of the kernel: the same split partition,
     each split through :func:`ref.decode_partial`.
 
-    q: (B, Hkv, G, D) pre-scaled; k, v: (B, L, Hkv, D); kv_len: (B,),
-    clamped to L.  Returns acc (S, B, Hkv, G, D) and l, m (S, B, Hkv, G)
-    in float32.
+    q: (B, Hkv, G, D) pre-scaled; k: (B, L, Hkv, D); v: (B, L, Hkv, Dv);
+    kv_len: (B,), clamped to L.  Returns acc (S, B, Hkv, G, Dv) and l, m
+    (S, B, Hkv, G) in float32.
     """
     B, Hkv, G, D = q.shape
     L = k.shape[1]
-    qf = q.float()
+    qf = q.to(ref.acc_dtype(q))
     lens = kv_len.to(device=q.device, dtype=torch.int64).clamp(0, L)
     accs, ls, ms = [], [], []
     for s in range(num_splits):
@@ -75,7 +79,7 @@ def decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel:
     :func:`decode_partials_plain`, then :func:`combine_plain`.  Returns
-    (B, Hkv, G, D) in ``out_dtype`` (default q's dtype)."""
+    (B, Hkv, G, Dv) in ``out_dtype`` (default q's dtype)."""
     parts = decode_partials_plain(q, k, v, kv_len, num_splits=num_splits)
     return combine_plain(*parts, out_dtype=out_dtype or q.dtype)
 
@@ -83,8 +87,8 @@ def decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.load("flash_decode").flash_decode
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -125,37 +129,58 @@ def fused_workspace(device: torch.device, stream: int, num_splits: int,
             counters.data_ptr())
 
 
+def _check_widths(q: torch.Tensor, v: torch.Tensor,
+                  tensor_cores: bool) -> None:
+    """Raise unless the kernel is compiled for q's width D and v's width
+    Dv: D in HEAD_DIMS with Dv = D, or (D, Dv) in WIDTH_PAIRS, which only
+    the bf16 tensor-core body takes."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    if Dv == D:
+        if D not in HEAD_DIMS:
+            raise ValueError(f"flash_decode kernel takes head_dim in "
+                             f"{HEAD_DIMS}, got {D}")
+    elif (D, Dv) not in WIDTH_PAIRS:
+        raise ValueError(f"flash_decode kernel takes K / V widths equal in "
+                         f"{HEAD_DIMS} or in {WIDTH_PAIRS}, got ({D}, {Dv})")
+    elif not tensor_cores:
+        raise ValueError(f"flash_decode kernel takes K / V widths ({D}, "
+                         f"{Dv}) on the bf16 tensor-core body only: the f32 "
+                         "CUDA-core body (decode_cc_kernel) needs equal "
+                         "widths")
+
+
 def _launch(q, k, v, kv_len, num_splits, acc, l, m, counters=None,
             out=None) -> None:
     """Checks the operands and launches the kernel; with ``counters`` and
     ``out`` it merges the splits into ``out``, else writes the partials."""
     B, Hkv, G, D = q.shape
-    L = k.shape[1]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_decode kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {D}")
+    L, Dv = k.shape[1], v.shape[-1]
     codes = build.DTYPE_CODES
     if q.dtype not in codes or k.dtype not in codes or v.dtype != k.dtype:
         raise ValueError(f"flash_decode kernel needs q in, and k, v of one "
                          f"dtype in, {list(build.DTYPE_CODES)}; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if k.shape != (B, L, Hkv, D) or v.shape != k.shape:
+    _check_widths(q, v, q.dtype == k.dtype == torch.bfloat16)
+    if k.shape != (B, L, Hkv, D) or v.shape != (B, L, Hkv, Dv):
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} "
                          f"does not match q {tuple(q.shape)}")
     vec = 16 // k.element_size()
-    if k.stride() != v.stride() or k.stride(3) != 1 or k.stride(2) != D \
-            or k.stride(0) % vec or k.stride(1) % vec:
-        raise ValueError("k and v need one layout with contiguous "
-                         "(Hkv, D) rows 16-byte aligned, got strides "
-                         f"{k.stride()} and {v.stride()}")
+    if k.stride(3) != 1 or k.stride(2) != D or v.stride(3) != 1 \
+            or (Dv == D and v.stride() != k.stride()) \
+            or any(x.stride(i) % vec for x in (k, v) for i in range(3)):
+        raise ValueError("k needs contiguous (Hkv, D) rows and v contiguous "
+                         "columns (v = k's layout unless narrower), 16-byte "
+                         f"aligned; got strides {k.stride()} and "
+                         f"{v.stride()}")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
     build.cuda_args(q, k, v)
     lens = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
                    acc, l, m, counters, None if out is None else
-                   out.data_ptr(), B, Hkv, G, L, num_splits, D, k.stride(0),
-                   k.stride(1), codes[q.dtype], codes[k.dtype],
+                   out.data_ptr(), B, Hkv, G, L, num_splits, D, Dv,
+                   k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+                   v.stride(2), codes[q.dtype], codes[k.dtype],
                    codes[out.dtype] if out is not None else 0,
                    build.stream_ptr())
     build.check(err, "flash_decode")
@@ -168,13 +193,17 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Split-KV decode attention over ``num_splits`` splits, merged.
 
-    q: (B, Hkv, G, D), pre-scaled, f32 or bf16; k, v: (B, L, Hkv, D), f32
-    or bf16 (not necessarily q's dtype), possibly a strided view of a
-    longer cache (``cache[:, :bucket]`` is read in place, never copied);
-    kv_len: (B,) valid lengths, clamped to L.  Returns (B, Hkv, G, D) in
-    ``out_dtype`` (default q's dtype).  One launch computes the partials
-    and their combine; the launch is counted under ``"flash_decode"`` and
-    under ``("flash_decode", L, num_splits)``.
+    q: (B, Hkv, G, D), pre-scaled, f32 or bf16; k: (B, L, Hkv, D), v:
+    (B, L, Hkv, Dv), f32 or bf16 (not necessarily q's dtype), possibly
+    strided views of a longer cache (``cache[:, :bucket]`` is read in
+    place, never copied).  Dv = D, or (D, Dv) in WIDTH_PAIRS with v a
+    column view ``k[..., :Dv]`` (its rows keep k's stride) or a tensor of
+    its own, bf16 only.  kv_len: (B,) valid lengths, clamped to L.
+    Returns (B, Hkv, G, Dv) in ``out_dtype`` (default q's dtype).  One
+    launch computes the partials and their combine; the launch is
+    counted under ``"flash_decode"`` and under ``("flash_decode", L,
+    num_splits)``.  A CUDA tensor at widths the kernel does not take
+    raises.
     """
     out_dtype = out_dtype or q.dtype
     if not q.is_cuda:
@@ -183,11 +212,12 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out_dtype not in build.DTYPE_CODES:
         raise ValueError(f"flash_decode kernel writes "
                          f"{list(build.DTYPE_CODES)}, got {out_dtype}")
-    B, Hkv, G, D = q.shape
+    B, Hkv, G, _ = q.shape
+    Dv = v.shape[-1]
     S = int(num_splits)
     acc, l, m, counters = fused_workspace(q.device, build.stream_ptr(), S,
-                                          B, Hkv, G, D)
-    out = torch.empty((B, Hkv, G, D), device=q.device, dtype=out_dtype)
+                                          B, Hkv, G, Dv)
+    out = torch.empty((B, Hkv, G, Dv), device=q.device, dtype=out_dtype)
     _launch(q, k, v, kv_len, S, acc, l, m, counters, out)
     return out
 
@@ -196,13 +226,14 @@ def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_len: torch.Tensor, *, num_splits: int):
     """Split-KV partials over ``num_splits`` splits, as
     :func:`flash_decode` takes them: the same kernel, its epilogue
-    writing the partials only.  Returns acc (S, B, Hkv, G, D) and l, m
+    writing the partials only.  Returns acc (S, B, Hkv, G, Dv) and l, m
     (S, B, Hkv, G) in f32."""
     if not q.is_cuda:
         return decode_partials_plain(q, k, v, kv_len, num_splits=num_splits)
-    B, Hkv, G, D = q.shape
+    B, Hkv, G, _ = q.shape
     S = int(num_splits)
-    acc = torch.empty((S, B, Hkv, G, D), device=q.device, dtype=torch.float32)
+    acc = torch.empty((S, B, Hkv, G, v.shape[-1]), device=q.device,
+                      dtype=torch.float32)
     l = torch.empty((S, B, Hkv, G), device=q.device, dtype=torch.float32)
     m = torch.empty_like(l)
     _launch(q, k, v, kv_len, S, acc.data_ptr(), l.data_ptr(), m.data_ptr())

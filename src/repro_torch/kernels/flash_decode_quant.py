@@ -39,7 +39,7 @@ def decode_quant_partials_plain(q: torch.Tensor, k: torch.Tensor,
     """
     B, Hkv, G, D = q.shape
     L = k.shape[1]
-    qf = q.float()
+    qf = q.to(ref.acc_dtype(q))
     lens = kv_len.to(device=q.device, dtype=torch.int64).clamp(0, L)
     accs, ls, ms = [], [], []
     for s in range(num_splits):

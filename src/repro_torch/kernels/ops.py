@@ -216,10 +216,13 @@ def _resolve_paged(x):
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               q_offset: int = 0) -> torch.Tensor:
-    """Full (prefill) attention: q (B, Lq, Hq, D), k / v (B, Lk, Hkv, D).
+    """Full (prefill) attention: q (B, Lq, Hq, D), k (B, Lk, Hkv, D), v
+    (B, Lk, Hkv, Dv) -> (B, Lq, Hq, Dv).  Dv may be narrower than D
+    (MLA's prefill: D 96, Dv 64).
 
-    q is scaled by ``D ** -0.5`` in f32 and rounded to its dtype before
-    the kernel, as the reference's Pallas path does."""
+    q is scaled by ``D ** -0.5`` (q's width, also where v is narrower, as
+    the reference's ``flash_attention_xla`` does) in f32 and rounded to
+    its dtype before the kernel, as the reference's Pallas path does."""
     qs = (q.float() * q.shape[-1] ** -0.5).to(q.dtype)
     return flash_prefill(qs, k, v, causal=causal, window=window,
                          q_offset=q_offset)
@@ -237,10 +240,17 @@ def decode_attention(
     use_ctx_metadata: bool = True,
     policy: str = _DEFAULT_POLICY,
     num_cores: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Split-KV decode attention; the split count comes from ``plan``.
 
-    Returns (B, Hq, D) in q's dtype.  The decode kernel runs exactly the
+    Returns (B, Hq, Dv) in q's dtype, Dv being v's width.  q is scaled
+    by ``scale`` (None: ``D ** -0.5``, D being q's and k's width) in f32
+    and rounded to its dtype before the kernel.  v may be narrower than
+    k: MLA's latent decode passes ``v = k[..., :kv_lora_rank]``, a
+    column view of the same cache, with a pre-scaled q and ``scale=1.0``
+    (the reference's ``decode_attention_update(..., v_width=,
+    scale=)``).  The decode kernel runs exactly the
     plan's ``num_splits`` splits over ``k[:, :plan.bucket]`` and merges
     them in a fixed order, in one launch.  With ``k_scale`` / ``v_scale``
     the cache is quantized: the quantized cache's decode kernel reads it,
@@ -266,13 +276,14 @@ def decode_attention(
             k_scale = k_scale[:, :plan.bucket]
             v_scale = v_scale[:, :plan.bucket]
     s = max(1, min(plan.num_splits, k.shape[1]))
-    qp = (q.float() * D ** -0.5).to(q.dtype).reshape(B, Hkv, Hq // Hkv, D)
+    sc = D ** -0.5 if scale is None else scale
+    qp = (q.float() * sc).to(q.dtype).reshape(B, Hkv, Hq // Hkv, D)
     if k_scale is None:
         out = flash_decode(qp, k, v, kv_len, num_splits=s, out_dtype=q.dtype)
     else:
         out = flash_decode_quant(qp, k, v, k_scale, v_scale, kv_len,
                                  num_splits=s, out_dtype=q.dtype)
-    return out.reshape(B, Hq, D)
+    return out.reshape(B, Hq, v.shape[-1])
 
 
 def decode_attention_quant(q: torch.Tensor, qkv, kv_len: torch.Tensor,

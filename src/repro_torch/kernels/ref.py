@@ -2,7 +2,9 @@
 
 Counterpart of ``repro.kernels.ref``: materialising attention, one
 split's unnormalised decode partial, and the log-sum-exp combine.  All
-arithmetic is float32; outputs take the query's dtype.
+arithmetic is float32, or float64 when the query is float64 (an exact
+oracle for checks on ill-conditioned inputs); outputs take the query's
+dtype.
 """
 from __future__ import annotations
 
@@ -11,6 +13,12 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30  # finite -inf stand-in: keeps masked softmax NaN-free
+
+
+def acc_dtype(q: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic dtype for a query ``q``: float64
+    for a float64 query, else float32."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
 
 
 def naive_attention(
@@ -30,8 +38,9 @@ def naive_attention(
     Dv = v.shape[-1]
     g = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
-    qg = (q.float() * scale).reshape(B, Lq, Hkv, g, D)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    dt = acc_dtype(q)
+    qg = (q.to(dt) * scale).reshape(B, Lq, Hkv, g, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(dt))
     qpos = torch.arange(Lq, device=q.device)[:, None] + q_offset
     kpos = torch.arange(Lk, device=q.device)[None, :]
     mask = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
@@ -41,7 +50,7 @@ def naive_attention(
         mask &= kpos > qpos - window
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(dt))
     return out.reshape(B, Lq, Hq, Dv).to(q.dtype)
 
 
@@ -57,32 +66,33 @@ def naive_decode_attention(
     _, Lk, Hkv, _ = k.shape
     g = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
-    qf = (q.float() * scale).reshape(B, Hkv, g, D)
-    scores = torch.einsum("bhgd,bkhd->bhgk", qf, k.float())
+    dt = acc_dtype(q)
+    qf = (q.to(dt) * scale).reshape(B, Hkv, g, D)
+    scores = torch.einsum("bhgd,bkhd->bhgk", qf, k.to(dt))
     valid = torch.arange(Lk, device=q.device)[None, :] \
         < kv_len.to(q.device)[:, None]
     scores = torch.where(valid[:, None, None], scores,
                          torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v.to(dt))
     return out.reshape(B, Hq, v.shape[-1]).to(q.dtype)
 
 
 def decode_partial(
-    q: torch.Tensor,       # (B, Hkv, g, D) float32, pre-scaled
+    q: torch.Tensor,       # (B, Hkv, g, D) float32 or float64, pre-scaled
     k_chunk: torch.Tensor,  # (B, C, Hkv, D)
     v_chunk: torch.Tensor,  # (B, C, Hkv, Dv)
     valid: torch.Tensor,   # (B, C) bool
 ):
     """One split's unnormalised partial ``(acc, l, m)``.  A fully masked
     chunk keeps ``m`` at ``NEG_INF`` with ``l = 0`` and ``acc = 0``."""
-    s = torch.einsum("bhgd,bkhd->bhgk", q, k_chunk.float())
+    s = torch.einsum("bhgd,bkhd->bhgk", q, k_chunk.to(q.dtype))
     s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     p = torch.where(valid[:, None, None], p, torch.zeros_like(p))
     l = p.sum(dim=-1)
-    acc = torch.einsum("bhgk,bkhd->bhgd", p, v_chunk.float())
+    acc = torch.einsum("bhgk,bkhd->bhgd", p, v_chunk.to(q.dtype))
     return acc, l, m
 
 

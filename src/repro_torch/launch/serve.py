@@ -19,13 +19,21 @@ registry directory such as ``experiments/tune/h100/``) and
 writes the Chrome trace-event JSON of the serving timeline and
 ``--metrics`` the metrics snapshot (Prometheus text for a ``.prom`` /
 ``.txt`` suffix, else JSON) at drain.  ``--arch`` takes every ported
-config, the moe ones (granite-moe-3b-a800m, qwen3-moe-235b-a22b)
-included.  It runs on the card unless ``--device cpu`` is given.
+text-only config: the dense ones, the moe ones (granite-moe-3b-a800m,
+qwen3-moe-235b-a22b) and the mla one (minicpm3-4b).  A frontend-stub
+arch (paligemma-3b) is refused, as the reference's CLI refuses it.  It
+runs on the card unless ``--device cpu`` is given.
 
-One difference from the reference: the default ``d_model`` is 512, not
-128.  The reduced config keeps 4 query heads, so the reference's default
+Two differences from the reference, both so that the reduced model's
+widths are ones the kernels take.  The default ``d_model`` is 512, not
+128: the reduced config keeps 4 query heads, so the reference's default
 gives head_dim 32, and the port's kernels take head_dim 64, 128, 160 or
-256; 512 gives 128.  The reference's ``--mesh`` flag is not ported yet.
+256; 512 gives 128.  An mla arch keeps its full config's latent ranks
+(minicpm3-4b's: latent 256 + rope 32, q / k 96, v 64) in place of the
+reduced config's (40-wide latent), which no kernel takes.  Neither
+changes a plan: the reference's plan keys read heads and head_dim, and
+these equal the reference's at the same ``d_model``.  The reference's
+``--mesh`` flag is not ported yet.
 """
 from __future__ import annotations
 
@@ -66,8 +74,14 @@ def run_serving(arch: str, *, num_requests: int = 8, max_new: int = 16,
                 device=None, log_fn=print):
     """Serve the reference's request stream on a reduced ``arch`` and log
     the summary; returns the completions.  ``device=None`` is the card."""
-    cfg = reduced_config(get_arch(arch), num_layers=num_layers,
-                         d_model=d_model)
+    full = get_arch(arch)
+    cfg = reduced_config(full, num_layers=num_layers, d_model=d_model)
+    if cfg.family in ("vlm", "encdec"):
+        raise NotImplementedError(
+            "CLI serving drives text-only archs; frontend-stub archs are "
+            "exercised by the tests")
+    if cfg.mla is not None:
+        cfg = cfg.replace(mla=full.mla)
     model = build_model(cfg, device=device)
     params = model.init_params(seed)
     scfg = ServeConfig(model=cfg, split_policy=policy,

@@ -80,7 +80,7 @@ class RMSNorm(SpecModule):
 
 
 class MLP(SpecModule):
-    """Gated MLP (swiglu) weights."""
+    """Gated MLP weights (swiglu and geglu share them)."""
 
     def __init__(self, d_model: int, d_ff: int, dtype, device):
         super().__init__({
@@ -144,9 +144,17 @@ def apply_rope(x: torch.Tensor, rope: Rope) -> torch.Tensor:
 
 
 def apply_mlp(p: MLP, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
-    if kind != "swiglu":
-        raise ValueError(f"only the swiglu MLP is ported, got {kind!r}")
-    return (F.silu(x @ p.wi_gate) * (x @ p.wi_up)) @ p.wo
+    """Gated MLP: silu (swiglu) or gelu (geglu) of the gate, times the up
+    projection.  geglu's gelu is the tanh approximation, which is what
+    the reference's ``jax.nn.gelu`` computes by default."""
+    if kind == "swiglu":
+        g = F.silu(x @ p.wi_gate)
+    elif kind == "geglu":
+        g = F.gelu(x @ p.wi_gate, approximate="tanh")
+    else:
+        raise ValueError(f"only the swiglu and geglu MLPs are ported, "
+                         f"got {kind!r}")
+    return (g * (x @ p.wi_up)) @ p.wo
 
 
 def embed_tokens(p: Embed, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,25 @@
-"""Decoder-only LM, dense and moe families.
+"""Decoder-only LM: the dense, moe, mla and vlm families.
 
-Counterpart of the dense and moe paths of ``repro.models.lm``: every
-block is attention then an FFN, a SwiGLU MLP (dense) or a
+Counterpart of ``repro.models.lm`` for those families: every block is a
+mixer then an FFN.  The mixer is GQA attention
+(:mod:`~repro_torch.models.attention`), or Multi-head Latent Attention
+(:mod:`~repro_torch.models.mla`, family ``mla``).  The FFN is a gated MLP
+(swiglu, or geglu for gemma-style configs) or a
 :class:`~repro_torch.models.moe.MoE` (``cfg.moe`` set; routing groups
 are the rows each step passes: the padded prompt bucket in prefill, the
 padded suffix bucket in suffix prefill, one token per slot in decode,
 k + 1 rows per slot in verify).  Serving discards the MoE load-balance
-loss, as the reference does.  Layers are an
+loss, as the reference does.  A ``vlm`` config (PaliGemma) adds the
+``patch_proj`` weight: :func:`lm_prefill` projects a vision stub's patch
+embeddings and prepends them to the text.  Layers are an
 ``nn.ModuleList`` walked by a Python loop (the reference scans a
-layer-stacked pytree).  Caches are dicts of dense tensors ``{"k", "v"}``
-of shape (layers, B, L, Hkv, D), plus ``{"k_s", "v_s"}`` f32 scales of
-shape (layers, B, L, Hkv) for a quantized cache: the engine's static
-dense buffers (L = max_len), or a view the paged layout gathered (L =
-the resident bucket).  Decode, suffix prefill and verify update them in
-place.
+layer-stacked pytree).  Caches are dicts of dense tensors of shape
+(layers, B, L, ...): ``{"k", "v"}`` (layers, B, L, Hkv, D), plus ``{"k_s",
+"v_s"}`` f32 scales of shape (layers, B, L, Hkv) for a quantized cache,
+or MLA's one ``{"latent"}`` (layers, B, L, 1, kv_lora_rank + rope):
+the engine's static dense buffers (L = max_len), or a view the paged
+layout gathered (L = the resident bucket).  Decode, suffix prefill and
+verify update them in place.
 """
 from __future__ import annotations
 
@@ -23,13 +29,17 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (
     MLP,
     Embed,
+    ParamSpec,
     RMSNorm,
     Rope,
+    SpecModule,
     apply_mlp,
     embed_tokens,
     rms_norm,
@@ -41,30 +51,51 @@ from repro_torch.plan import LaunchPlan
 Caches = Dict[str, torch.Tensor]
 
 
+def layer_kinds(cfg: ModelConfig):
+    """Each layer's mixer kind: ``mla`` for the mla family, else ``attn``
+    (dense, moe and vlm)."""
+    return ["mla" if cfg.family == "mla" else "attn"] * cfg.num_layers
+
+
+def rope_dim(cfg: ModelConfig) -> int:
+    """The width RoPE rotates: MLA's shared rope key, else the head."""
+    return (cfg.mla.qk_rope_head_dim if cfg.mla is not None
+            else cfg.resolved_head_dim)
+
+
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    """One layer of kind ``kind`` (:func:`layer_kinds`): its mixer, the
+    norms and the FFN."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
         super().__init__()
         d = cfg.d_model
+        self.kind = kind
         self.ln1 = RMSNorm(d, dtype, device)
-        self.mix = attn_mod.Attention(cfg, dtype, device)
+        self.mix = (mla_mod.MLA(cfg, dtype, device) if kind == "mla"
+                    else attn_mod.Attention(cfg, dtype, device))
         self.ln2 = RMSNorm(d, dtype, device)
         self.ffn = (moe_mod.MoE(cfg, dtype, device) if cfg.moe is not None
                     else MLP(d, cfg.d_ff, dtype, device))
 
 
-class LM(nn.Module):
-    """All weights of a dense or moe LM, named as the reference's param
-    tree:
-    ``embed``, ``final_norm`` and one :class:`Block` per layer."""
+class LM(SpecModule):
+    """All weights of an LM, named as the reference's param tree:
+    ``embed``, ``final_norm``, one :class:`Block` per layer, and for a
+    vision frontend ``patch_proj`` (embed_dim, d_model)."""
 
     def __init__(self, cfg: ModelConfig, device):
-        super().__init__()
         dtype = getattr(torch, cfg.param_dtype)
+        specs = {}
+        if cfg.frontend.kind == "vision":
+            specs["patch_proj"] = ParamSpec((cfg.frontend.embed_dim,
+                                             cfg.d_model))
+        super().__init__(specs, dtype, device)
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings,
                            dtype, device)
         self.final_norm = RMSNorm(cfg.d_model, dtype, device)
-        self.layers = nn.ModuleList(Block(cfg, dtype, device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(Block(cfg, kind, dtype, device)
+                                    for kind in layer_kinds(cfg))
 
 
 def _ffn(block: Block, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -77,10 +108,15 @@ def _ffn(block: Block, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def block_prefill(block: Block, cfg: ModelConfig, x: torch.Tensor,
                   rope: Rope, kv_dtype: str
                   ) -> Tuple[torch.Tensor, attn_mod.LayerCache]:
-    """One block over a whole prompt: (x, the block's cache rows)."""
+    """One block over a whole prompt: (x, the block's cache rows).  An
+    MLA block's latent rows ignore ``kv_dtype``, as the reference's
+    ``mla_cache_specs`` does."""
     h = rms_norm(x, block.ln1.scale, cfg.norm_eps)
-    mix, rows = attn_mod.attention_prefill(block.mix, cfg, h, rope,
-                                           kv_dtype=kv_dtype)
+    if block.kind == "mla":
+        mix, rows = mla_mod.mla_prefill(block.mix, cfg, h, rope)
+    else:
+        mix, rows = attn_mod.attention_prefill(block.mix, cfg, h, rope,
+                                               kv_dtype=kv_dtype)
     return _ffn(block, cfg, x + mix), rows
 
 
@@ -89,8 +125,9 @@ def block_decode(block: Block, cfg: ModelConfig, x: torch.Tensor,
                  plan: LaunchPlan = None) -> torch.Tensor:
     """One block, one token per slot; x: (B, 1, d)."""
     h = rms_norm(x, block.ln1.scale, cfg.norm_eps)
-    mix = attn_mod.attention_decode(block.mix, cfg, h, cache, t, rope,
-                                    plan=plan)
+    decode = (mla_mod.mla_decode if block.kind == "mla"
+              else attn_mod.attention_decode)
+    mix = decode(block.mix, cfg, h, cache, t, rope, plan=plan)
     return _ffn(block, cfg, x + mix)
 
 
@@ -115,16 +152,52 @@ def lm_prefill_view(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     and then overwrites them.  ``plan`` is the prefill-kind plan of the
     bucket; prefill never splits, so nothing in it changes the math.
     """
-    x = embed_tokens(params.embed, tokens[None])
-    lb = x.shape[1]
-    rope = rope_angles(torch.arange(lb, device=x.device)[None],
-                       cfg.resolved_head_dim, cfg.rope_theta)
+    x, view = _prefill_layers(params, cfg, embed_tokens(params.embed,
+                                                        tokens[None]),
+                              kv_dtype)
+    return _logits(params, cfg, x[:, length - 1:length])[0, 0], view
+
+
+def _prefill_layers(params: LM, cfg: ModelConfig, x: torch.Tensor,
+                    kv_dtype: str) -> Tuple[torch.Tensor, Caches]:
+    """Every block over the embedded rows ``x`` (B, L, d) at positions
+    [0, L): (the last block's output, the cache rows of every layer
+    stacked, (layers, B, L, ...) a tensor)."""
+    L = x.shape[1]
+    rope = rope_angles(torch.arange(L, device=x.device)[None],
+                       rope_dim(cfg), cfg.rope_theta)
     kv = []
     for block in params.layers:
         x, rows = block_prefill(block, cfg, x, rope, kv_dtype)
         kv.append(rows)
-    view = {name: torch.stack([rows[name] for rows in kv]) for name in kv[0]}
-    return _logits(params, cfg, x[:, length - 1:length])[0, 0], view
+    return x, {name: torch.stack([rows[name] for rows in kv])
+               for name in kv[0]}
+
+
+@torch.no_grad()
+def lm_prefill(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+               caches: Caches, *, patches: Optional[torch.Tensor] = None,
+               kv_dtype: str = "bfloat16") -> torch.Tensor:
+    """Batched prefill of whole prompts (the reference's ``lm_prefill``).
+
+    ``tokens`` (B, L_text); a vision config also takes ``patches`` (B, P,
+    embed_dim), projected by ``patch_proj`` and prepended, so the
+    sequence is L_total = P + L_text rows.  Writes every layer's cache
+    rows [0, L_total) of the B slots of ``caches`` (dense, (layers, B,
+    max_len, ...), zeroed past L_total) in place, laid out for
+    :func:`lm_decode_step` to continue at t = L_total, and returns the
+    last position's logits (B, vocab) f32."""
+    x = embed_tokens(params.embed, tokens)
+    if cfg.frontend.kind == "vision":
+        if patches is None:
+            raise ValueError("a vision config's prefill needs patches")
+        pp = patches.to(x.dtype) @ params.patch_proj.to(x.dtype)
+        x = torch.cat([pp, x], dim=1)
+    x, rows = _prefill_layers(params, cfg, x, kv_dtype)
+    for name, c in caches.items():
+        ops.bit_view(c)[:, :, :rows[name].shape[2]] = ops.bit_view(
+            rows[name].to(c.dtype))
+    return _logits(params, cfg, x[:, -1:])[:, 0]
 
 
 def block_suffix_prefill(block: Block, cfg: ModelConfig, x: torch.Tensor,
@@ -175,7 +248,7 @@ def lm_decode_step(params: LM, cfg: ModelConfig, caches: Caches,
     into ``caches`` in place and returns the logits (B, vocab) f32.
     ``plan`` is the frozen decode plan every layer launches from."""
     x = embed_tokens(params.embed, token[:, None])
-    rope = rope_angles(t[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+    rope = rope_angles(t[:, None], rope_dim(cfg), cfg.rope_theta)
     for li, block in enumerate(params.layers):
         x = block_decode(block, cfg, x,
                          {name: c[li] for name, c in caches.items()}, t,

@@ -1,10 +1,14 @@
 """Model facade: one object per architecture, the entry point of the port.
 
-Counterpart of ``repro.models.registry`` for the ported families,
-``dense`` and ``moe`` (whose FFN is a mixture of experts; attention,
-caches, prefill, decode and verify are dense's).  ``build_model(cfg)``
-returns a :class:`Model` bound to a device: the CUDA card unless the
-caller asks for the CPU.
+Counterpart of ``repro.models.registry`` for the ported families:
+``dense``; ``moe`` (whose FFN is a mixture of experts; attention, caches,
+prefill, decode and verify are dense's); ``mla`` (latent attention over
+one ``latent`` cache leaf: fused prefill and paging, neither prefix
+sharing nor speculation); ``vlm`` (a vision stub's patches prepended by
+:meth:`Model.prefill`; serving admits through the teacher-forcing loop
+and pages, nothing more).  The family predicates are the reference's.
+``build_model(cfg)`` returns a :class:`Model` bound to a device: the CUDA
+card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from repro_torch.cache.manager import CacheManager
 from repro_torch.cache.spec import CacheSpec
 from repro_torch.configs.base import ModelConfig, check_ported, get_arch
 from repro_torch.models import lm as lm_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models.common import init_params
 from repro_torch.plan import LaunchPlan
 from repro_torch.quant import QUANT_DTYPES
@@ -35,7 +40,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 class Model:
-    """One dense or moe LM on one device: params, caches, prefill,
+    """One LM of a ported family on one device: params, caches, prefill,
     decode, verify."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
@@ -59,9 +64,15 @@ class Model:
         batch, max_len, Hkv, D) in ``kv_dtype`` (a KV_DTYPES name); a
         quantized ``kv_dtype`` ("int8" | "fp8") stores its storage dtype
         plus ``k_s`` / ``v_s`` f32 scales of shape (layers, batch,
-        max_len, Hkv), as the reference's ``kv_cache_specs``.  Every one
-        is position-linear (row t holds position t), so every one pages."""
+        max_len, Hkv), as the reference's ``kv_cache_specs``.  An mla
+        model has one ``latent`` (layers, batch, max_len, 1, kv_lora_rank
+        + rope) in bfloat16 whatever ``kv_dtype`` says, as the
+        reference's ``mla_cache_specs``.  Every one is position-linear
+        (row t holds position t), so every one pages."""
         cfg = self.cfg
+        if cfg.family == "mla":
+            return {"latent": ((cfg.num_layers, batch, max_len, 1,
+                                mla_mod.latent_width(cfg)), torch.bfloat16)}
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
         if kv_dtype in QUANT_DTYPES:
@@ -81,12 +92,22 @@ class Model:
                     batch, max_len, kv_dtype).items()}
 
     @property
+    def supports_paged_cache(self) -> bool:
+        """Whether the paged layout may hold this family's caches: every
+        cache tensor of a ported family is position-linear (row t holds
+        position t).  The reference's recurrent families, not ported,
+        would stay dense."""
+        return self.cfg.family in ("dense", "moe", "mla", "vlm", "encdec")
+
+    @property
     def supports_prefix_sharing(self) -> bool:
-        """Whether ``share_prefix`` may index this model's pages: every
-        cache tensor of a dense or moe model is position-linear, so it
-        pages, and suffix prefill is the restartable form of fused
-        prefill."""
-        return self.supports_fused_prefill
+        """Whether ``share_prefix`` may index this model's pages: paged
+        caches, fused prefill (suffix prefill is its restartable form)
+        and a uniform full-attention stack over the standard k/v cache,
+        which excludes mla's latent cache (suffix prefill does not write
+        it) and vlm (no fused prefill)."""
+        return (self.supports_paged_cache and self.supports_fused_prefill
+                and self.cfg.family in ("dense", "moe"))
 
     def cache_spec(self, batch: int, max_len: int,
                    kv_dtype: str = "bfloat16", *, layout: str = "dense",
@@ -116,9 +137,29 @@ class Model:
         return CacheManager(self, self.cache_spec(batch, max_len, kv_dtype,
                                                   **layout_kw))
 
+    def prefill(self, params: lm_mod.LM, batch: Dict[str, torch.Tensor],
+                max_len: int, kv_dtype: str = "bfloat16"
+                ) -> Tuple[torch.Tensor, lm_mod.Caches]:
+        """Batched prefill of whole prompts in one pass: ``batch`` holds
+        ``tokens`` (B, L_text) and, for a vision config, ``patches`` (B,
+        P, embed_dim), prepended after ``patch_proj``.  Returns (the last
+        position's logits (B, vocab) f32, dense caches of ``max_len``
+        rows laid out for :meth:`decode_step` at t = L_total)."""
+        tokens = batch["tokens"]
+        caches = self.init_cache(tokens.shape[0], max_len, kv_dtype)
+        logits = lm_mod.lm_prefill(params, self.cfg, tokens, caches,
+                                   patches=batch.get("patches"),
+                                   kv_dtype=kv_dtype)
+        return logits, caches
+
     @property
     def supports_fused_prefill(self) -> bool:
-        return True                     # dense and moe: token inputs only
+        """Whether :meth:`prefill_slot_view` can consume a bucket-padded
+        prompt: token-input families only (dense, moe, mla).  A vision
+        frontend prepends non-token positions, so a vlm model admits
+        through the teacher-forcing loop."""
+        return (self.cfg.family in ("dense", "moe", "mla")
+                and self.cfg.frontend.kind == "none")
 
     def prefill_slot_view(self, params: lm_mod.LM, tokens: torch.Tensor,
                           length: int, *,
@@ -128,6 +169,10 @@ class Model:
         at row ``length - 1`` (vocab,) f32, the prompt's batch-1 cache
         rows (layers, 1, Lb, ...)), written nowhere; the cache layout's
         ``write_slot`` lands them in a slot."""
+        if not self.supports_fused_prefill:
+            raise NotImplementedError(
+                f"{self.cfg.family} models cannot fused-prefill a padded "
+                "prompt; use the loop (teacher-forcing) admission path")
         return lm_mod.lm_prefill_view(params, self.cfg, tokens, length,
                                       plan=plan, kv_dtype=kv_dtype)
 
@@ -140,6 +185,10 @@ class Model:
         unshared suffix, ``length`` the whole prompt's length.  Writes
         the suffix rows into ``view`` in place and returns the logits at
         prompt row ``length - 1``."""
+        if not self.supports_prefix_sharing:
+            raise NotImplementedError(
+                f"{self.cfg.family} models cannot suffix-prefill a "
+                "shared prefix; admit with the full prefill path")
         return lm_mod.lm_prefill_suffix_view(params, self.cfg, view, tokens,
                                              start, length, plan=plan,
                                              kv_dtype=kv_dtype)
@@ -148,9 +197,11 @@ class Model:
     def supports_speculation(self) -> bool:
         """Whether the engine may run speculative verify steps against
         this model: a uniform full-attention stack over the standard k/v
-        cache, whose rejected rows roll back by truncating ``kv_len``.
-        Every ported family (dense and moe) qualifies."""
-        return True
+        cache, whose rejected rows roll back by truncating ``kv_len``, and
+        token inputs.  dense and moe qualify; mla's latent cache is not
+        what the verify placement writes, and vlm has a frontend."""
+        return (self.cfg.family in ("dense", "moe")
+                and self.cfg.frontend.kind == "none")
 
     def verify_step(self, params: lm_mod.LM, caches: lm_mod.Caches,
                     tokens: torch.Tensor, t: torch.Tensor, *,
@@ -164,7 +215,8 @@ class Model:
         if not self.supports_speculation:
             raise NotImplementedError(
                 f"{self.cfg.family} models cannot run speculative verify "
-                "steps")
+                "steps (needs a uniform full-attention stack with "
+                "truncation-rollbackable caches)")
         return lm_mod.lm_verify_step(params, self.cfg, caches, tokens, t,
                                      plan=plan)
 
@@ -175,6 +227,23 @@ class Model:
         returns logits (B, vocab) f32."""
         return lm_mod.lm_decode_step(params, self.cfg, caches, token, t,
                                      plan=plan)
+
+    # --- frontend stubs -----------------------------------------------------
+
+    def frontend_inputs(self, batch: int, seq_len: int
+                        ) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+        """Extra (non-token) inputs: name -> (shape, dtype name)."""
+        cfg = self.cfg
+        if cfg.frontend.kind == "vision":
+            return {"patches": ((batch, cfg.frontend.num_positions,
+                                 cfg.frontend.embed_dim), cfg.dtype)}
+        return {}
+
+    def text_len(self, seq_len: int) -> int:
+        """Token count for a total sequence budget (vlm reserves patches)."""
+        if self.cfg.frontend.kind == "vision":
+            return max(1, seq_len - self.cfg.frontend.num_positions)
+        return seq_len
 
 
 def build_model(cfg_or_name: Union[ModelConfig, str],

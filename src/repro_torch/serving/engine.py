@@ -13,7 +13,9 @@ Counterpart of ``repro.serving.engine`` on one device.  A fixed pool of
 
 Admission runs fused bucketed prefill: the prompt is padded to its
 ``prefill_bucket`` and computed in one planned launch, keyed
-``("prefill", bucket)`` in the scheduler's :class:`PlanCache`.  Every
+``("prefill", bucket)`` in the scheduler's :class:`PlanCache`; a model
+without fused prefill (vlm) admits through the teacher-forcing loop,
+one decode step a prompt token.  Every
 decode launch takes its split count from the frozen
 :class:`~repro_torch.plan.LaunchPlan` of the live slots' resident-length
 bucket, so the policy runs zero times inside a launch
@@ -186,11 +188,17 @@ class ServingEngine:
         if mode == "auto":
             mode = "fused" if (self.use_metadata
                                and model.supports_fused_prefill) else "loop"
-        elif mode == "fused" and not self.use_metadata:
-            raise ValueError(
-                "fused prefill admission rides the metadata-enabled plan "
-                "path; set use_scheduler_metadata=True or "
-                "prefill_mode='loop'")
+        elif mode == "fused":
+            if not model.supports_fused_prefill:
+                raise ValueError(
+                    f"{self.cfg.family} models cannot fused-prefill a "
+                    "padded prompt (recurrent state / non-token "
+                    "frontend); use prefill_mode='loop'")
+            if not self.use_metadata:
+                raise ValueError(
+                    "fused prefill admission rides the metadata-enabled "
+                    "plan path; set use_scheduler_metadata=True or "
+                    "prefill_mode='loop'")
         self.prefill_mode = mode
         if scfg.kv_quant is not None and scfg.kv_quant not in QUANT_DTYPES:
             raise ValueError(f"unknown kv_quant {scfg.kv_quant!r}; "
@@ -198,8 +206,10 @@ class ServingEngine:
         # the cache's storage dtype (a KV_DTYPES name); kv_quant wins
         self.kv_dtype = scfg.kv_quant or scfg.kv_cache_dtype
         # KV bytes one shared prompt row saves (K and V over the layers,
-        # at the storage dtype): the prefix-shared-bytes counter
-        self._kv_row_bytes = (2 * self.cfg.num_layers * self.cfg.num_kv_heads
+        # at the storage dtype; MLA at one KV head, as the reference
+        # counts it): the prefix-shared-bytes counter
+        kvh = 1 if self.cfg.mla else self.cfg.num_kv_heads
+        self._kv_row_bytes = (2 * self.cfg.num_layers * kvh
                               * self.cfg.resolved_head_dim
                               * KV_DTYPES.get(self.kv_dtype, 2))
 
@@ -228,6 +238,11 @@ class ServingEngine:
                     "prefix sharing admits through the fused prefill "
                     "path (suffix prefill is its restartable form); "
                     "prefill_mode='loop' cannot start from adopted pages")
+            if not model.supports_prefix_sharing:
+                raise ValueError(
+                    f"{self.cfg.family} models cannot share prefix pages "
+                    "(needs a uniform full-attention stack over the "
+                    "standard k/v cache)")
         self._cache_kw = dict(kv_dtype=self.kv_dtype, layout=layout,
                               page_size=scfg.cache_page_size,
                               page_budget=scfg.cache_page_budget,
@@ -435,7 +450,8 @@ class ServingEngine:
         if not self.model.supports_speculation:
             raise ValueError(
                 f"{who}: {self.cfg.family} models cannot run speculative "
-                "verify steps (see Model.supports_speculation)")
+                "verify steps (needs a uniform full-attention stack over "
+                "the standard k/v cache; see Model.supports_speculation)")
         if not self.use_metadata:
             raise ValueError(
                 f"{who}: speculative decoding rides the metadata-enabled "

@@ -152,6 +152,13 @@ class Scheduler:
 
     # --- decode planning ----------------------------------------------------
 
+    def _kv_heads(self) -> int:
+        """H_KV as the decode workload sees it (MLA: one shared latent).
+        The plan keys keep ``cfg.resolved_head_dim`` (minicpm3-4b: 64)
+        although MLA's launch reads 288-wide latent rows, as the
+        reference's do."""
+        return 1 if self.cfg.mla else self.cfg.num_kv_heads
+
     def decode_bucket(self, t_max: int) -> int:
         """Resident-length bucket of the longest live position: what keys
         decode plans, never the engine's padded ``max_len``."""
@@ -161,7 +168,7 @@ class Scheduler:
     def decode_spec(self, bucket: int) -> AttentionSpec:
         cfg = self.cfg
         return AttentionSpec.decode(self.B, bucket, cfg.num_heads,
-                                    cfg.num_kv_heads, cfg.resolved_head_dim,
+                                    self._kv_heads(), cfg.resolved_head_dim,
                                     kv_dtype=self.kv_dtype)
 
     def decode_plan(self, t_max: int) -> LaunchPlan:
@@ -187,7 +194,7 @@ class Scheduler:
         token and k drafts) against the resident-length bucket."""
         cfg = self.cfg
         return AttentionSpec.verify(self.B, k + 1, bucket, cfg.num_heads,
-                                    cfg.num_kv_heads, cfg.resolved_head_dim,
+                                    self._kv_heads(), cfg.resolved_head_dim,
                                     kv_dtype=self.kv_dtype)
 
     def verify_entry(self, k: int, t_max: int,
@@ -219,7 +226,7 @@ class Scheduler:
     def prefill_spec(self, bucket: int) -> AttentionSpec:
         cfg = self.cfg
         return AttentionSpec.prefill(1, bucket, cfg.num_heads,
-                                     cfg.num_kv_heads, cfg.resolved_head_dim)
+                                     self._kv_heads(), cfg.resolved_head_dim)
 
     def prefill_entry(self, prompt_len: int,
                       build: Callable[[LaunchPlan], Any]) -> PlanEntry:
@@ -250,7 +257,7 @@ class Scheduler:
         def miss() -> PlanEntry:
             cfg = self.cfg
             spec = AttentionSpec("prefill", 1, mb, vb, cfg.num_heads,
-                                 cfg.num_kv_heads, cfg.resolved_head_dim)
+                                 self._kv_heads(), cfg.resolved_head_dim)
             plan = self.planner.plan(spec, bucket=vb)
             return PlanEntry(key, plan, build(plan))
 

@@ -7,6 +7,7 @@ completions, plan counters and summary lines must be identical.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -94,6 +95,34 @@ def test_run_serving_reports_the_reference_counts(kw):
         assert [c.tokens for c in run_serving(
             "qwen2.5-3b", device="cpu", log_fn=lambda line: None,
             **plain)] == [c.tokens for c in outs]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(cache_layout="paged",
+                                            kv_quant="int8")],
+                         ids=["dense", "paged_int8"])
+def test_run_serving_mla_reports_the_reference_counts(kw):
+    """``run_serving("minicpm3-4b")`` on the CPU: the reference's prompts,
+    completion lengths and summary lines (frozen plans at H_KV 1, fused
+    prefill buckets, pages, the int8 plan family).  The port keeps the
+    full config's latent ranks (a 288-wide latent row where the reduced
+    config's is 40 wide), which only the weights and the cache's bytes
+    see: the paged line's bytes are the port's own."""
+    from repro.launch.serve import run_serving as j_run_serving
+    from repro_torch.launch.serve import run_serving
+    kw = {"num_requests": 4, "max_new": 4, "d_model": 64, **kw}
+    jlines, lines = [], []
+    jouts = j_run_serving("minicpm3-4b", log_fn=jlines.append, **kw)
+    outs = run_serving("minicpm3-4b", device="cpu", log_fn=lines.append,
+                       **kw)
+    assert [c.prompt for c in outs] == [c.prompt for c in jouts]
+    assert [len(c.tokens) for c in outs] == [len(c.tokens) for c in jouts]
+    nbytes = re.compile(r" \((\d+) B vs dense (\d+) B\)")
+    assert [nbytes.sub("", x) for x in _summary(lines)] == \
+        [nbytes.sub("", x) for x in _summary(jlines)]
+    assert any(x.startswith("fused prefill buckets") for x in lines)
+    for x in _summary(lines):
+        if nbytes.search(x):     # 2 layers x 4 slots x 256 rows, bf16
+            assert int(nbytes.search(x)[2]) == 2 * 4 * 256 * 288 * 2
 
 
 def test_run_serving_measured_policy_writes_stats(tmp_path):

@@ -55,7 +55,10 @@ def test_no_module_imports_jax_or_repro():
                  "repro_torch.obs.observer", "repro_torch.obs.config",
                  "repro_torch.models.moe",
                  "repro_torch.configs.granite_moe_3b_a800m",
-                 "repro_torch.configs.qwen3_moe_235b_a22b"):
+                 "repro_torch.configs.qwen3_moe_235b_a22b",
+                 "repro_torch.models.mla",
+                 "repro_torch.configs.minicpm3_4b",
+                 "repro_torch.configs.paligemma_3b"):
         assert want in res["modules"]
 
 
