@@ -26,6 +26,8 @@ Run from the repository root, on a machine with the card and nvcc:
                                           # (4 of 94 layers)
     python3 chip_smoke.py --phase mla     # build + minicpm3-4b
     python3 chip_smoke.py --phase vlm     # build + paligemma-3b
+    python3 chip_smoke.py --phase encdec  # build + whisper-large-v3
+    python3 chip_smoke.py --phase hybrid  # build + recurrentgemma-9b
 
 Phases, each fatal on failure:
 
@@ -230,6 +232,28 @@ Phases, each fatal on failure:
    in 4d, decode launches by (view, S) equal to the plan keys', and
    ``paper``'s splits at H_KV 1 printed beside ``fa3_baseline``'s for the
    serving buckets.
+4i. The decode launches over another length than the frozen plan's
+   (``phase_encdec``, ``phase_hybrid``, after 4h, through the same
+   ``serve_configs``): whisper-large-v3 (32 + 32 layers, d_model 1280,
+   20 / 20 heads at D 64, LayerNorm, gelu MLP, no RoPE) at full width
+   and depth, the serving cell's prompts, fused admission, bf16, dense
+   and paged (page 64): a decode step launches K1 over the self cache at
+   the bucket's plan and over the 1500-row cross cache (zero, as the
+   reference's: admission resets the slot) at the scheduler's cross side
+   plan; then ``Model.prefill`` of 1500 seeded frames and 128 tokens at
+   B 2 (the encoder's K3 non-causal at Lq = Lk = 1500, the decoder's
+   self and cross K3) and 8 decode steps, where the cross launches read
+   the encoder's K / V.  recurrentgemma-9b (38 layers: 26 RG-LRU, 12
+   local attention at 16 / 1 heads, D 256, over a 2048-row ring; vocab
+   256,000) at full width and depth, loop admission of the serving
+   cell's first two prompts, bf16 and int8 (the ring read by K4); then
+   ``Model.prefill`` of 2100 tokens at B 2 (windowed K3, the ring
+   wrapped) and 8 decode steps over the wrapped ring.  Every layer's
+   prefill and decode attention is held against the plain versions in
+   float64, launches by (view, S) against the plan keys and side plans,
+   no policy evaluation in a step; peak memory, the median decode step
+   and a profiled serving step are printed, and the side plans' splits
+   under ``paper`` and ``fa3_baseline`` at B 1 and 2.
 5. One JSON ``kernels`` line: per kernel its error (a decode row's at
    that row's own inputs, over NaN/Inf tails), launches on the main
    path (the bf16 run's; the quantized decode and the combine kernels'
@@ -257,8 +281,13 @@ Phases, each fatal on failure:
    phase 4h's shapes: the decode kernel at minicpm3-4b's latent widths
    (G 40, K 288, V 256) and the prefill kernel at its 96 / 64, both
    decode kernels at paligemma-3b's G 8, D 256, H_KV 1, and the prefill
-   kernel at its ``Model.prefill`` (B 2, Lq 384).  Every phase prints its
-   wall seconds.
+   kernel at its ``Model.prefill`` (B 2, Lq 384); phase 4i's shapes: the
+   decode kernel over whisper-large-v3's self cache (G 1, H_KV 20, D 64)
+   and its 1500-row cross cache, the prefill kernel as its encoder (non-
+   causal, 1500) and its decoder's self and cross prefill run, both
+   decode kernels over recurrentgemma-9b's 2048-row ring (G 16, D 256,
+   H_KV 1) and the prefill kernel windowed at Lq 2100.  Every phase
+   prints its wall seconds.
 
 ``--phase admission`` times the serving cell's admission
 steps alone, five runs on one engine; ``--phase times`` times the
@@ -326,6 +355,7 @@ from repro_torch.kernels.flash_prefill import (  # noqa: E402
     prefill_plain,
 )
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.plan import AttentionSpec, Planner  # noqa: E402
 from repro_torch.quant import (  # noqa: E402
@@ -340,6 +370,7 @@ from repro_torch.serving import (  # noqa: E402
     Request,
     ServingEngine,
 )
+from repro_torch.serving.scheduler import Scheduler  # noqa: E402
 from repro_torch.core.split_policy import (  # noqa: E402
     DecodeWorkload,
     choose_num_splits,
@@ -476,6 +507,13 @@ def max_err(got, want, tol: float) -> float:
     check(bool((diff <= tol + tol * w.abs()).all()),
           f"max abs err {diff.max().item():.3e} over tolerance {tol}")
     return diff.max().item()
+
+
+def tol_ratio(got, want, tol: float) -> float:
+    """The largest share of the tolerance an output uses: max |got -
+    want| / (tol + tol |want|), 1 at the limit ``max_err`` allows."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / (tol + tol * w.abs())).max())
 
 
 # device cycles the stream spins before each timed call (about 5 ms), so
@@ -2076,28 +2114,59 @@ def checked_kernels(acc):
     one KV head, so ``wk``'s fan-in rule gives it std 1) scores reach
     thousands, and the float32 plain version's own rounding then moves an
     output past the tolerance of the exact result, while the kernels stay
-    inside it.  ``acc`` gathers the largest errors and the number of
-    checks by kernel name.  Each wrapper launches its kernel once, so the
-    launch counts are the unchecked path's."""
+    inside it.  ``acc`` gathers the largest errors, the largest share of
+    the tolerance an output used (``max_tol_ratio``: |got - want| / (tol
+    + tol |want|), 1 at the limit) and the number of checks by kernel
+    name.  A failing check prints the launch (shapes, kv_len, splits, the
+    inputs' largest magnitudes) and the float32 plain version's share of
+    the tolerance on the same inputs, and saves the inputs to
+    ``chiprun_out/failed_check.pt``.  Each wrapper launches its kernel
+    once, so the launch counts are the unchecked path's."""
     for name in ("flash_prefill", "flash_decode", "flash_decode_quant"):
-        acc.setdefault(name, {"max_abs_err": 0.0, "checks": 0})
+        acc.setdefault(name, {"max_abs_err": 0.0, "max_tol_ratio": 0.0,
+                              "checks": 0})
 
-    def note(name, got, want, tol):
-        acc[name]["max_abs_err"] = max(acc[name]["max_abs_err"],
-                                       max_err(got, want, tol))
+    def note(name, got, want, tol, plain, args, kw):
+        try:
+            err = max_err(got, want, tol)
+        except SmokeFailure:
+            f32 = plain(*(x.float() if isinstance(x, torch.Tensor)
+                          and x.is_floating_point() and x.element_size() > 1
+                          else x for x in args), **kw)
+            mags = {i: float(x.float().abs().max()) for i, x in
+                    enumerate(args) if isinstance(x, torch.Tensor)
+                    and x.is_floating_point()}
+            print(f"failed check {name}: shapes "
+                  f"{[tuple(x.shape) for x in args if hasattr(x, 'shape')]}"
+                  f" {kw}, kv_len "
+                  f"{args[-1].tolist() if name != 'flash_prefill' else '-'}"
+                  f", largest |input| by argument {mags}; share of the "
+                  f"tolerance: kernel {tol_ratio(got, want, tol):.4g}, "
+                  f"float32 plain {tol_ratio(f32, want, tol):.4g}")
+            out = ROOT / "chiprun_out"
+            out.mkdir(exist_ok=True)
+            torch.save({"name": name, "args": [a.cpu() if isinstance(
+                a, torch.Tensor) else a for a in args], "kw": kw},
+                out / "failed_check.pt")
+            raise
+        acc[name]["max_abs_err"] = max(acc[name]["max_abs_err"], err)
+        acc[name]["max_tol_ratio"] = max(acc[name]["max_tol_ratio"],
+                                         tol_ratio(got, want, tol))
         acc[name]["checks"] += 1
         return got
 
     def prefill(q, k, v, **kw):
         return note("flash_prefill", flash_prefill(q, k, v, **kw),
                     prefill_plain(f64(q), f64(k), f64(v), **kw),
-                    PREFILL_TOL)
+                    PREFILL_TOL, prefill_plain, (q, k, v), kw)
 
     def decode(q, k, v, kv_len, *, num_splits, out_dtype):
         return note("flash_decode", fdec.flash_decode(
             q, k, v, kv_len, num_splits=num_splits, out_dtype=out_dtype),
             fdec.decode_plain(f64(q), f64(k), f64(v), kv_len,
-                              num_splits=num_splits), DECODE_TOL)
+                              num_splits=num_splits), DECODE_TOL,
+            fdec.decode_plain, (q, k, v, kv_len),
+            {"num_splits": num_splits})
 
     def decode_quant(q, k, v, k_scale, v_scale, kv_len, *, num_splits,
                      out_dtype):
@@ -2105,7 +2174,8 @@ def checked_kernels(acc):
             q, k, v, k_scale, v_scale, kv_len, num_splits=num_splits,
             out_dtype=out_dtype), fdq.decode_quant_plain(
                 f64(q), k, v, f64(k_scale), f64(v_scale), kv_len,
-                num_splits=num_splits), QUANT_TOL)
+                num_splits=num_splits), QUANT_TOL, fdq.decode_quant_plain,
+            (q, k, v, k_scale, v_scale, kv_len), {"num_splits": num_splits})
 
     with ops_route("flash_prefill", prefill), \
             ops_route("flash_decode", decode), \
@@ -2133,7 +2203,11 @@ def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
     ``check_obs_artifacts``."""
     label = (f"{phase} {cfg.name} {kv_quant or 'bf16'}"
              + ("" if layout == "dense" else f" {layout}"))
-    layers = cfg.num_layers
+    layers, side = decode_layers(cfg)
+    per_step = layers + sum(side.values())
+    # prefill launches an admission: an encdec decoder layer's self and
+    # cross attention (its encoder does not run in serving)
+    prefills = cfg.num_layers * (2 if cfg.family == "encdec" else 1)
     quant_cache = kv_quant is not None and "k_s" in model.cache_shapes(
         1, 1, kv_quant)
     decode = "flash_decode_quant" if quant_cache else "flash_decode"
@@ -2171,11 +2245,14 @@ def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
                "admissions": sum(v for k, v in st.launches.items()
                                  if isinstance(k, tuple)),
                "evals": ops.policy_eval_count(), "splits":
-               engine.planned_splits(), "decode_ms": decode_ms,
+               engine.planned_splits(), "side_splits": {
+                   name: p.num_splits
+                   for name, p in engine.sched.side_plans().items()},
+               "decode_ms": decode_ms,
                "admits": admits, "stats": st.to_json()}
         counts = run["counts"]
         check(bool(sampler.finite.item()), f"{label}: non-finite logits")
-        check(counts[decode] == layers * run["steps"],
+        check(counts[decode] == per_step * run["steps"],
               f"{label}: {counts[decode]} {decode} launches over "
               f"{run['steps']} decode steps")
         want = expected_decode_launches(
@@ -2183,8 +2260,8 @@ def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
         check(run["by_key"][decode] == want, f"{label}: {decode} launches "
               f"by (view, S) {run['by_key'][decode]}, plan keys imply "
               f"{want}")
-        check(counts["flash_prefill"] == layers * run["admissions"]
-              == (layers * len(prompts) if fused else 0),
+        check(counts["flash_prefill"] == prefills * run["admissions"]
+              == (prefills * len(prompts) if fused else 0),
               f"{label}: prefill launches")
         other = "flash_decode" if quant_cache else "flash_decode_quant"
         check(counts[other] == 0 and counts["flash_combine"] == 0,
@@ -2201,7 +2278,8 @@ def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
     check(acc[decode]["checks"] == counts[decode]
           and acc["flash_prefill"]["checks"] == counts["flash_prefill"],
           f"{label}: {acc} checks against {first['counts']}")
-    for key in ("streams", "counts", "by_key", "splits", "stats"):
+    for key in ("streams", "counts", "by_key", "splits", "side_splits",
+                "stats"):
         check(first[key] == timed_run[key], f"{label}: the checked and the "
               f"timed run differ in {key}")
     obs = (check_obs_artifacts(f"{label} traced", paths["trace_path"],
@@ -2216,10 +2294,12 @@ def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
     step_ms = median(timed_run["decode_ms"])
     by_view = {f"{v} S{s}": n for (v, s), n in sorted(
         first["by_key"][decode].items())}
+    side_desc = "".join(f", {name} side plan S{s}" for name, s in
+                        first["side_splits"].items())
     print(f"{label}: {first['admissions']} admissions, "
           f"{first['steps']} decode steps, launches "
-          f"{json.dumps(first['counts'])}, splits {first['splits']}, 0 "
-          f"policy evaluations; prefill attention of "
+          f"{json.dumps(first['counts'])}, splits {first['splits']}"
+          f"{side_desc}, 0 policy evaluations; prefill attention of "
           f"{acc['flash_prefill']['checks']} layer prompts against "
           f"prefill_plain: max abs err "
           f"{acc['flash_prefill']['max_abs_err']:.4g}; decode attention of "
@@ -2239,6 +2319,7 @@ def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
             "prefill_launches": {f"{dt} {lq}": n for (dt, lq), n in sorted(
                 first["by_key"]["flash_prefill"].items())},
             "checks": acc, "splits": first["splits"],
+            "side_splits": first["side_splits"],
             "admission_steps": [{"buckets": bk, "ms": ms}
                                 for bk, ms in timed_run["admits"]],
             "decode_step_ms": step_ms, "obs": obs}
@@ -2536,6 +2617,226 @@ def phase_vlm(seed: int, sms: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# decode launches over a length that is not the frozen plan's:
+# whisper-large-v3 (encdec: cross attention over a 1500-frame memory) and
+# recurrentgemma-9b (hybrid: local attention over a 2048-row ring), both
+# at full width and depth
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH, HYBRID_ARCH = "whisper-large-v3", "recurrentgemma-9b"
+SIDE_STEPS = 8                # decode steps after each Model.prefill check
+ENCDEC_TEXT = 128             # Model.prefill's tokens beside 1500 frames
+HYBRID_TEXT = 2100            # past the 2048-row ring, so the ring wraps
+# recurrentgemma-9b admits through the loop, a decode step a prompt token,
+# as paligemma-3b does: the serving cell's first two prompts
+HYBRID_PROMPTS = SERVING_PROMPTS[:2]
+
+
+def side_prefill_check(label: str, make_batch, max_len: int, sms: int,
+                       prefill_keys, decode_keys):
+    """``extra`` of the encdec and hybrid phases: ``Model.prefill`` of
+    ``make_batch(model, cfg, gen)`` at B 2 into ``max_len``-row caches,
+    then SIDE_STEPS greedy decode steps under the scheduler's frozen
+    ``paper`` plans at ``sms`` SMs (the bucket's and the side plans: the
+    decode launches over another length take those, and the policy runs
+    in none of them), every layer's prefill and decode attention held
+    against the plain versions in float64; then the same once more,
+    unchecked and timed, which must give the same tokens.  The launches
+    by key must be ``prefill_keys(cfg, side)`` and ``decode_keys(cfg,
+    side, plan)``; then profiled steps of serving (B 2, two 37-token
+    prompts)."""
+    def extra(model, params, cfg):
+        gen = torch.Generator(device=DEVICE).manual_seed(7)
+        b = 2
+        batch = make_batch(model, cfg, gen)
+        total = batch["tokens"].shape[1]
+        sched = Scheduler(cfg, batch_slots=b, max_len=max_len,
+                          policy="paper", num_cores=sms)
+        plan = sched.decode_plan(total + SIDE_STEPS - 1)
+        side = sched.side_plans()
+        want_prefill = prefill_keys(cfg)
+        want_decode = decode_keys(cfg, side, plan)
+        runs, acc = [], {}
+        for checked in (True, False):
+            ops.reset_launch_counts()
+            ops.reset_policy_eval_count()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with checked_kernels(acc) if checked \
+                    else contextlib.nullcontext():
+                logits, caches = model.prefill(params, batch, max_len)
+                torch.cuda.synchronize()
+                prefill_ms = (time.perf_counter() - t0) * 1e3
+                toks, finite = [], torch.isfinite(logits).all()
+                for i in range(SIDE_STEPS):
+                    nxt = logits.argmax(-1)
+                    toks.append(nxt)
+                    logits = model.decode_step(
+                        params, caches, nxt, torch.full(
+                            (b,), total + i, device=DEVICE,
+                            dtype=torch.long), plan=plan, side_plans=side)
+                    finite &= torch.isfinite(logits).all()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            by_prefill = ops.launch_counts_by_key("flash_prefill")
+            by_decode = ops.launch_counts_by_key("flash_decode")
+            check(bool(finite) and logits.shape == (b, cfg.vocab_size),
+                  f"{label} prefill: logits")
+            check(by_prefill == want_prefill and by_decode == want_decode
+                  and ops.launch_counts()["flash_decode_quant"] == 0
+                  and ops.policy_eval_count() == 0,
+                  f"{label} prefill: launches {by_prefill} / {by_decode}, "
+                  f"want {want_prefill} / {want_decode}, "
+                  f"{ops.policy_eval_count()} policy evaluations")
+            runs.append({"tokens": torch.stack(toks).tolist(),
+                         "prefill_ms": prefill_ms,
+                         "decode_ms": (wall_ms - prefill_ms) / SIDE_STEPS})
+        check(runs[0]["tokens"] == runs[1]["tokens"],
+              f"{label} prefill: the checked and the timed run differ")
+        check(acc["flash_prefill"]["checks"] == sum(want_prefill.values())
+              and acc["flash_decode"]["checks"] == sum(want_decode.values()),
+              f"{label} prefill: checks {acc}")
+        side_desc = ", ".join(f"{name} S{p.num_splits} over "
+                              f"{p.spec.seqlen_k} rows"
+                              for name, p in side.items())
+        print(f"{label} {cfg.name} Model.prefill: {total} tokens at B {b}, "
+              f"then {SIDE_STEPS} decode steps (bucket {plan.bucket} S"
+              f"{plan.num_splits}, {side_desc}): prefill attention of "
+              f"{acc['flash_prefill']['checks']} launches against "
+              f"prefill_plain (float64) max abs err "
+              f"{acc['flash_prefill']['max_abs_err']:.4g}, decode attention "
+              f"of {acc['flash_decode']['checks']} launches against "
+              f"decode_plain (float64) max abs err "
+              f"{acc['flash_decode']['max_abs_err']:.4g}; launches by key "
+              f"prefill {by_prefill}, decode {by_decode}; 0 policy "
+              f"evaluations; the timed run: prefill "
+              f"{runs[1]['prefill_ms']:.3f} ms wall, "
+              f"{runs[1]['decode_ms']:.3f} ms a decode step")
+        prof = phase_profile(model, params, cfg, 0, lens=(37, 37))
+        return {"profile": prof,
+                "prefill_check": {
+                    "checks": acc, "splits": plan.num_splits,
+                    "side_splits": {n: p.num_splits
+                                    for n, p in side.items()},
+                    "prefill_launches": {f"{dt} {lq}": n for (dt, lq), n
+                                         in by_prefill.items()},
+                    "decode_launches": {f"{v} S{sp}": n for (v, sp), n
+                                        in by_decode.items()},
+                    "prefill_ms": runs[1]["prefill_ms"],
+                    "decode_step_ms": runs[1]["decode_ms"]}}
+    return extra
+
+
+def encdec_batch(model, cfg, gen):
+    """ENCDEC_TEXT tokens and 1500 frame embeddings (normal, 0.1) at B
+    2, the audio stub's frames."""
+    (shape, dt), = model.frontend_inputs(2, ENCDEC_TEXT).values()
+    check(shape == (2, cfg.encoder_positions, cfg.d_model),
+          "encdec frontend inputs")
+    return {"tokens": torch.randint(0, cfg.vocab_size, (2, ENCDEC_TEXT),
+                                    generator=gen, device=DEVICE),
+            "frames": (torch.randn(shape, generator=gen, device=DEVICE)
+                       * 0.1).to(getattr(torch, dt))}
+
+
+def phase_encdec(seed: int, sms: int):
+    """whisper-large-v3 at full width and depth (32 + 32 layers) through
+    ``serve_configs``: the serving cell's prompts with fused admission,
+    bf16, dense and paged (page 64); the cross cache is zero there, as
+    in the reference (admission resets the slot), and each decode step
+    launches K1 twice a layer, over the self cache at the bucket's plan
+    and over the 1500-row cross cache at the cross side plan.  Then
+    ``Model.prefill`` of 1500 frames and ENCDEC_TEXT tokens at B 2 and
+    SIDE_STEPS decode steps, where the cross launches read the encoder's
+    K / V: the encoder's K3 (non-causal, Lq = Lk = 1500), the decoder's
+    self and cross K3 and both K1 launches checked layer by layer."""
+    cfg = get_arch(ENCDEC_ARCH)
+    layers = cfg.num_layers
+
+    def prefill_keys(cfg):
+        return {("bfloat16", cfg.encoder_positions): cfg.num_encoder_layers,
+                ("bfloat16", ENCDEC_TEXT): 2 * layers}
+
+    def decode_keys(cfg, side, plan):
+        cross = side["cross"]
+        return {(plan.bucket, plan.num_splits): layers * SIDE_STEPS,
+                (cross.spec.seqlen_k, cross.num_splits): layers * SIDE_STEPS}
+
+    out = serve_configs("encdec", [cfg], seed, extra=side_prefill_check(
+        "encdec", encdec_batch, 256, sms, prefill_keys, decode_keys),
+        runs=((None, "dense"), (None, "paged")))
+    res = out[cfg.name]
+    res["policy_splits"] = side_splits(f"encdec {cfg.name}", cfg, sms,
+                                       res["bf16"]["splits"])
+    return out
+
+
+def hybrid_batch(model, cfg, gen):
+    """HYBRID_TEXT tokens at B 2: past the 2048-row ring."""
+    return {"tokens": torch.randint(0, cfg.vocab_size, (2, HYBRID_TEXT),
+                                    generator=gen, device=DEVICE)}
+
+
+def phase_hybrid(seed: int, sms: int):
+    """recurrentgemma-9b at full width and depth (38 layers: 26 RG-LRU,
+    12 local attention over a 2048-row ring) through ``serve_configs``:
+    loop admission (every prompt token a decode step) of the serving
+    cell's first two prompts (``HYBRID_PROMPTS``), bf16 and int8 (the
+    ring quantized, read by K4); each decode step launches the decode
+    kernel once a windowed layer, over the whole ring at the ring side
+    plan.  Then ``Model.prefill`` of HYBRID_TEXT tokens at B 2 (windowed
+    K3 at Lq 2100, the ring wrapped) and SIDE_STEPS decode steps over the
+    wrapped ring, every windowed layer's K3 and K1 checked."""
+    cfg = get_arch(HYBRID_ARCH)
+    n_attn = lm_mod.layer_kinds(cfg).count("attn_window")
+
+    def prefill_keys(cfg):
+        return {("bfloat16", HYBRID_TEXT): n_attn}
+
+    def decode_keys(cfg, side, plan):
+        ring = side["ring"]
+        return {(ring.spec.seqlen_k, ring.num_splits): n_attn * SIDE_STEPS}
+
+    out = serve_configs("hybrid", [cfg], seed, extra=side_prefill_check(
+        "hybrid", hybrid_batch, 4096, sms, prefill_keys, decode_keys),
+        prompt_lens=HYBRID_PROMPTS)
+    res = out[cfg.name]
+    res["policy_splits"] = side_splits(f"hybrid {cfg.name}", cfg, sms,
+                                       res["bf16"]["splits"])
+    return out
+
+
+def side_splits(label: str, cfg, sms: int, buckets):
+    """``paper``'s and ``fa3_baseline``'s splits at ``sms`` SMs for the
+    launches over another length (B 1 and 2: encdec's cross attention
+    over the encoder length, a hybrid's windowed layers over the 2048-row
+    ring), beside the self-attention buckets' (B 2) a run planned; a
+    hybrid has no full-attention layer, so its bucket plans launch
+    nothing."""
+    out = {"side": {}, "buckets": {}}
+    for b in (1, 2):
+        for pol in ("paper", "fa3_baseline"):
+            sched = Scheduler(cfg, batch_slots=b, max_len=2048, policy=pol,
+                              num_cores=sms)
+            for name, plan in sched.side_plans().items():
+                out["side"].setdefault(f"{name} B{b}", {})[pol] = \
+                    plan.num_splits
+    for bucket in sorted(buckets):
+        spec = AttentionSpec.decode(2, bucket, cfg.num_heads,
+                                    cfg.num_kv_heads, cfg.resolved_head_dim)
+        out["buckets"][bucket] = {pol: Planner(policy=pol,
+                                               num_cores=sms).plan(
+            spec).num_splits for pol in ("paper", "fa3_baseline")}
+    print(f"{label}: side plans (paper / fa3_baseline): "
+          + ", ".join(f"{k}: {v['paper']} / {v['fa3_baseline']}"
+                      for k, v in out["side"].items())
+          + "; decode buckets at B 2: "
+          + ", ".join(f"{k}: {v['paper']} / {v['fa3_baseline']}"
+                      for k, v in out["buckets"].items()))
+    return out
+
+
 def library_call(label: str, fn):
     """``fn`` (a PyTorch call computing a row's function) if it runs on
     these inputs, else None, printing why."""
@@ -2673,6 +2974,147 @@ def single_kv_head_rows(gen, sms: int, mla, vlm):
                     prefill_plain(pq, pk, pv, causal=True), PREFILL_TOL),
         launches=vres["prefill_check"]["prefill_launches"].get(
             f"bfloat16 {lq}", 0)))
+    return rows
+
+
+def side_shape_rows(gen, sms: int, encdec, hybrid):
+    """The kernels line's rows at the shapes of the encdec and hybrid
+    phases, each with the launches its runs counted there.  whisper-large-
+    v3 (20 / 20 heads, D 64): K1 over the self cache at the serving runs'
+    second wave (B 2, view 1024, kv_len [1000, 450]) at its plan's split;
+    K1 over the 1500-row cross cache (12 blocks, the last 92 rows: B 2,
+    kv_len 1500 each, the cross side plan's S); K3 as the encoder runs it
+    (B 2, Lq = Lk = 1500, non-causal); K3 as the decoder's self (causal)
+    and cross (Lk 1500, non-causal) prefill run a 1024-token bucket (the
+    serving runs count both under Lq 1024, half each).  recurrentgemma-9b
+    (16 / 1 heads, D 256): K1 and K4 over the 2048-row ring at the
+    serving runs' last decode shape (kv_len [315, 53], the ring side
+    plan's S), K1 over the wrapped ring (kv_len 2048 each, the Model.prefill
+    check's decode), and K3 windowed (B 2, Lq = Lk = 2100, window 2048,
+    causal).  Bytes count each K / V row below kv_len once; the
+    windowed K3's operations count the keys each query row attends."""
+    rows = []
+    cfg = get_arch(ENCDEC_ARCH)
+    res = encdec[ENCDEC_ARCH]
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    enc_len = cfg.encoder_positions
+    s_self = Planner(policy="paper", num_cores=sms).plan(
+        AttentionSpec.decode(2, 1024, hq, hkv, d)).num_splits
+    s_cross = res["bf16"]["side_splits"]["cross"]
+    k, v = (rand(gen, (2, 2048, hkv, d)) for _ in range(2))
+    q = rand(gen, (2, hq, d))
+    xk, xv = (rand(gen, (2, enc_len, hkv, d)) for _ in range(2))
+    pre = res["prefill_check"]
+    for kk, vv, bucket, kv_len, s, launches, label in (
+            (k, v, 1024, (1000, 450), s_self,
+             res["bf16"]["decode_launches"].get(f"1024 S{s_self}", 0),
+             "self"),
+            (xk, xv, enc_len, (enc_len, enc_len), s_cross,
+             res["bf16"]["decode_launches"].get(f"{enc_len} S{s_cross}", 0)
+             + pre["decode_launches"].get(f"{enc_len} S{s_cross}", 0),
+             "cross (the 12th KV block holds 92 rows)")):
+        c = decode_case(q, kk, vv, bucket, kv_len, s)
+        n = int(c["lens"].sum())
+        err, _ = check_decode(c)
+        rows.append(dict(
+            name="flash_decode",
+            shape=f"{ENCDEC_ARCH} {label} G{hq // hkv} D{d} Hkv{hkv} "
+                  f"{c['label']} fused combine",
+            fn=functools.partial(fdec.flash_decode, c["qp"], c["kp"][
+                :, :bucket], c["vp"][:, :bucket], c["lens"], num_splits=s),
+            plain=functools.partial(fdec.decode_plain, c["qp"], c["kv"],
+                                    c["vv"], c["lens"], num_splits=s),
+            lib=c["sdpa"],
+            nbytes=2 * n * hkv * d * 2 + 2 * c["qp"].numel() * 2,
+            flops=4 * n * hq * d, err=err, launches=launches))
+    served = res["bf16"]["prefill_launches"].get("bfloat16 1024", 0) // 2
+    for b, lq, lk, causal, launches, label in (
+            (2, enc_len, enc_len, False,
+             pre["prefill_launches"].get(f"bfloat16 {enc_len}", 0),
+             "encoder"),
+            (1, 1024, 1024, True, served, "decoder self prefill"),
+            (1, 1024, enc_len, False, served, "decoder cross prefill")):
+        pq, pk, pv = prefill_case(gen, b, lq, lk, hq, hkv, d)
+        rows.append(dict(
+            name="flash_prefill",
+            shape=f"{ENCDEC_ARCH} {label} B{b} Lq={lq} Lk={lk} Hq{hq} "
+                  f"Hkv{hkv} D{d} {'causal' if causal else 'non-causal'} "
+                  f"bf16",
+            fn=functools.partial(flash_prefill, pq, pk, pv, causal=causal),
+            plain=functools.partial(prefill_plain, pq, pk, pv,
+                                    causal=causal),
+            lib=functools.partial(F.scaled_dot_product_attention,
+                                  *(t.transpose(1, 2) for t in (pq, pk, pv)),
+                                  is_causal=causal, scale=1.0),
+            nbytes=2 * (2 * pq.numel() + pk.numel() + pv.numel()),
+            flops=4 * b * hq * d * (lq * (lq + 1) / 2 if causal
+                                    else lq * lk),
+            err=max_err(flash_prefill(pq, pk, pv, causal=causal),
+                        prefill_plain(pq, pk, pv, causal=causal),
+                        PREFILL_TOL),
+            launches=launches))
+    cfg = get_arch(HYBRID_ARCH)
+    res = hybrid[HYBRID_ARCH]
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    ring = cfg.hybrid.window
+    s = res["bf16"]["side_splits"]["ring"]
+    pre = res["prefill_check"]
+    k, v = (rand(gen, (2, ring, hkv, d)) for _ in range(2))
+    q = rand(gen, (2, hq, d))
+    for kv_len, launches, label in (
+            ((315, 53), res["bf16"]["decode_launches"].get(
+                f"{ring} S{s}", 0), "serving"),
+            ((ring, ring), pre["decode_launches"].get(f"{ring} S{s}", 0),
+             "wrapped ring")):
+        c = decode_case(q, k, v, ring, kv_len, s)
+        n = int(c["lens"].sum())
+        err, _ = check_decode(c)
+        rows.append(dict(
+            name="flash_decode",
+            shape=f"{HYBRID_ARCH} {label} G{hq // hkv} D{d} Hkv{hkv} "
+                  f"ring {c['label']} fused combine",
+            fn=functools.partial(fdec.flash_decode, c["qp"], c["kp"],
+                                 c["vp"], c["lens"], num_splits=s),
+            plain=functools.partial(fdec.decode_plain, c["qp"], c["kv"],
+                                    c["vv"], c["lens"], num_splits=s),
+            lib=c["sdpa"],
+            nbytes=2 * n * hkv * d * 2 + 2 * c["qp"].numel() * 2,
+            flops=4 * n * hq * d, err=err, launches=launches))
+    art = Quantizer.from_kv_dtype("int8").quantized_kv(k.float(), v.float())
+    qc = quant_case(q, art, ring, (315, 53), s, "int8")
+    n = int(qc["lens"].sum())
+    qerr, _ = check_decode_quant(qc)
+    rows.append(dict(
+        name="flash_decode_quant",
+        shape=f"{HYBRID_ARCH} serving G{hq // hkv} D{d} Hkv{hkv} ring "
+              f"{qc['label']} fused combine",
+        fn=functools.partial(fdq.flash_decode_quant, qc["qp"], *qc["pview"],
+                             qc["lens"], num_splits=s),
+        plain=functools.partial(fdq.decode_quant_plain, qc["qp"],
+                                *qc["view"], qc["lens"], num_splits=s),
+        lib=None, nbytes=2 * n * hkv * (d + 4) + 2 * qc["qp"].numel() * 2,
+        flops=4 * n * hq * d + 2 * n * hkv * d, peak=INT8_OPS_PER_S,
+        err=qerr,
+        launches=res["int8"]["decode_launches"].get(f"{ring} S{s}", 0)))
+    lq = HYBRID_TEXT
+    pq, pk, pv = prefill_case(gen, 2, lq, lq, hq, hkv, d)
+    pos = torch.arange(lq, device=DEVICE)
+    mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - ring)
+    kw = dict(causal=True, window=ring)
+    rows.append(dict(
+        name="flash_prefill",
+        shape=f"{HYBRID_ARCH} Model.prefill B2 Lq=Lk={lq} window {ring} "
+              f"Hq{hq} Hkv{hkv} D{d} causal bf16",
+        fn=functools.partial(flash_prefill, pq, pk, pv, **kw),
+        plain=functools.partial(prefill_plain, pq, pk, pv, **kw),
+        lib=functools.partial(F.scaled_dot_product_attention,
+                              *(t.transpose(1, 2) for t in (pq, pk, pv)),
+                              attn_mask=mask, scale=1.0, enable_gqa=True),
+        nbytes=2 * (2 * pq.numel() + pk.numel() + pv.numel()),
+        flops=2 * 4 * hq * d * sum(min(i + 1, ring) for i in range(lq)),
+        err=max_err(flash_prefill(pq, pk, pv, **kw),
+                    prefill_plain(pq, pk, pv, **kw), PREFILL_TOL),
+        launches=pre["prefill_launches"].get(f"bfloat16 {lq}", 0)))
     return rows
 
 
@@ -2881,25 +3323,52 @@ def drive_steps(engine, requests):
     return steps, engine.drain()
 
 
+def decode_layers(cfg):
+    """A plain decode step's decode launches: (the layers that attend at
+    the bucket's plan, {side plan name: the layers that attend under
+    it}): encdec's cross attention over its encoder memory, a hybrid's
+    windowed layers over their ring (its only attention layers)."""
+    if cfg.family == "hybrid":
+        return 0, {"ring": lm_mod.layer_kinds(cfg).count("attn_window")}
+    if cfg.family == "encdec":
+        return cfg.num_layers, {"cross": cfg.num_layers}
+    return cfg.num_layers, {}
+
+
 def expected_decode_launches(engine, layers: int, kv_quant=None):
     """The decode-kernel launches a run's plan keys imply, by kernel and
     (view, S): a plain step launches the decode kernel (the quantized
-    cache's under ``kv_quant``) once a layer at its bucket's plan; a
-    verify step of k drafts launches the bf16 decode kernel k + 1 times a
-    layer (one per row), at its ("verify", k, bucket) plan."""
+    cache's under ``kv_quant``) once a layer at its bucket's plan, and
+    once a layer of ``decode_layers``' side plans at the side plan's
+    length and split (encdec's cross cache is bf16 always, so the bf16
+    kernel); a verify step of k drafts launches the bf16 decode kernel k
+    + 1 times a layer (one per row), at its ("verify", k, bucket)
+    plan."""
     plans = dict(engine.sched.plans.items())
     plain = "flash_decode_quant" if kv_quant else "flash_decode"
     want = {plain: {}, "flash_decode": {}}
+    side = [(("flash_decode" if name == "cross" else plain), n,
+             engine.sched.side_plans()[name])
+            for name, n in decode_layers(engine.cfg)[1].items()]
+
+    def add(name, view, s, n):
+        by = want[name]
+        by[(view, s)] = by.get((view, s), 0) + n
+
     for key, n in engine.stats.launches.items():
         if isinstance(key, int):
             name, bucket, rows = plain, key, 1
+            for kernel, per, plan in side:
+                view = plan.spec.seqlen_k
+                add(kernel, view, max(1, min(plan.num_splits, view)),
+                    per * n)
         elif key[0] == "verify":
             name, bucket, rows = "flash_decode", key[2], key[1] + 1
         else:
             continue
-        s = max(1, min(plans[key].plan.num_splits, bucket))
-        by = want[name]
-        by[(bucket, s)] = by.get((bucket, s), 0) + layers * rows * n
+        if layers:
+            add(name, bucket, max(1, min(plans[key].plan.num_splits,
+                                         bucket)), layers * rows * n)
     return want
 
 
@@ -4253,7 +4722,7 @@ def main(argv=None) -> int:
                     choices=("all", "kernels", "digests", "admission",
                              "times", "table1", "shapes", "paged", "spec",
                              "archs", "tune", "moe", "obs", "mla",
-                             "vlm"),
+                             "vlm", "encdec", "hybrid"),
                     default="all",
                     help="'kernels' stops after build and kernel parity; "
                          "'digests' builds, then runs the main path's "
@@ -4278,7 +4747,10 @@ def main(argv=None) -> int:
                          "on and off and runs the CLI with them; 'mla' "
                          "builds, then serves minicpm3-4b; 'vlm' builds, "
                          "then serves paligemma-3b and runs its patch "
-                         "prefill")
+                         "prefill; 'encdec' builds, then serves "
+                         "whisper-large-v3 and runs its frame prefill; "
+                         "'hybrid' builds, then serves recurrentgemma-9b "
+                         "and runs a prefill past its ring")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -4319,8 +4791,9 @@ def main(argv=None) -> int:
         moe = timed("moe", phase_moe, args.seed)
         print(json.dumps({"moe": moe, "card": card}))
         return 0
-    if args.phase in ("mla", "vlm"):
-        fn = phase_mla if args.phase == "mla" else phase_vlm
+    if args.phase in ("mla", "vlm", "encdec", "hybrid"):
+        fn = {"mla": phase_mla, "vlm": phase_vlm, "encdec": phase_encdec,
+              "hybrid": phase_hybrid}[args.phase]
         res = timed(args.phase, fn, args.seed, sms)
         print(json.dumps({args.phase: res, "card": card}))
         return 0
@@ -4394,11 +4867,14 @@ def main(argv=None) -> int:
     moe = timed("moe", phase_moe, args.seed)
     mla = timed("mla", phase_mla, args.seed, sms)
     vlm = timed("vlm", phase_vlm, args.seed, sms)
+    encdec = timed("encdec", phase_encdec, args.seed, sms)
+    hybrid = timed("hybrid", phase_hybrid, args.seed, sms)
     table1, table1_rows = timed("table1", phase_table1, gen, sms, card,
                                 flush)
     extra = [verify_kernel_row(gen, sms, spec)] + arch_kernel_rows(
         gen, sms, archs) + arch_kernel_rows(gen, sms, moe) + \
-        single_kv_head_rows(gen, sms, mla, vlm)
+        single_kv_head_rows(gen, sms, mla, vlm) + \
+        side_shape_rows(gen, sms, encdec, hybrid)
     kernels = timed("kernels line", phase_kernels_line, gen, sms, errs,
                     counts, flush, serving["prefill_launches"],
                     serving["decode_launches"], qserving["decode_launches"],
@@ -4411,7 +4887,8 @@ def main(argv=None) -> int:
                       "profile_int8": qprofile, "paged": paged,
                       "spec": spec, "tune": tune, "obs": obs,
                       "archs": archs, "moe": moe, "mla": mla,
-                      "vlm": vlm, "table1": table1,
+                      "vlm": vlm, "encdec": encdec, "hybrid": hybrid,
+                      "table1": table1,
                       "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

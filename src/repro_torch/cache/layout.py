@@ -22,13 +22,19 @@ tensors and every write lands in place:
 
 The engine drives both layouts through these calls alone.
 
+A cache tensor pages unless the model names it in
+``Model.unpaged_caches()`` (the reference's ``paged=False`` leaves):
+encdec's cross K / V, read whole every step.  The paged layout keeps
+those dense, ``(layers, B, rows, ...)``, passes them through its gathers
+and page writes untouched, and zeroes their slot column at
+:meth:`~PagedKVCache.zero_slot`.
+
 :class:`DenseLayout` keeps ``Model.init_cache``'s tensors.
 :class:`PagedKVCache` stores every cache tensor ``(layers, B, max_len,
 *rest)`` as a pool ``(layers, pool_pages, page_size, *rest)``; one page
-table ``(B, slot_pages)`` serves every tensor and every layer, so a
-decode step's gather is one ``index_select`` per tensor over the whole
-layer stack (:func:`repro_torch.kernels.ops.gather_pages`).  Every
-cache tensor of a dense model is position-linear, so every one pages.
+table ``(B, slot_pages)`` serves every tensor that pages and every
+layer, so a decode step's gather is one ``index_select`` per tensor over
+the whole layer stack (:func:`repro_torch.kernels.ops.gather_pages`).
 """
 from __future__ import annotations
 
@@ -60,6 +66,9 @@ class CacheLayout:
         # name -> ((layers, B, max_len, *rest), dtype)
         self.shapes = model.cache_shapes(spec.batch, spec.max_len,
                                          spec.kv_dtype)
+        # the tensors that page: the position-linear ones
+        self.paged = tuple(name for name in self.shapes
+                           if name not in model.unpaged_caches())
 
     # --- sizing (observability) ---------------------------------------------
 
@@ -71,9 +80,11 @@ class CacheLayout:
         raise NotImplementedError
 
     def row_bytes(self) -> int:
-        """Cache bytes per resident row per slot (all layers)."""
+        """Bytes per resident row per slot (all layers) of the tensors
+        that page."""
         return sum(_nbytes(s, dt) // (s[1] * s[2])
-                   for s, dt in self.shapes.values())
+                   for name, (s, dt) in self.shapes.items()
+                   if name in self.paged)
 
     def attended_bytes(self, view_len: int) -> int:
         """K/V bytes one decode launch reads for a ``view_len``-row view.
@@ -122,11 +133,11 @@ class DenseLayout(CacheLayout):
                    first_page: int = 0) -> None:
         """Copy rows [first_page * page, Lb) of a batch-1 view ``(layers,
         1, Lb, ...)`` into the same rows of slot ``slot``, one copy per
-        tensor over every layer."""
+        tensor of the view over every layer (an encdec view holds the
+        self cache alone: the cross cache stays as it is)."""
         lo = first_page * self.spec.page_size
-        for name, leaf in storage.items():
-            rows = view[name]
-            leaf[:, slot, lo:rows.shape[2]] = rows[:, 0, lo:]
+        for name, rows in view.items():
+            storage[name][:, slot, lo:rows.shape[2]] = rows[:, 0, lo:]
 
     def zero_slot(self, storage: Storage, slot: int) -> None:
         """Zero slot ``slot``'s rows of every tensor (data and scales)."""
@@ -151,20 +162,25 @@ class PagedKVCache(CacheLayout):
         return ((shape[0], self.spec.pool_pages, self.spec.page_size)
                 + tuple(shape[3:]))
 
+    def _shape(self, name: str):
+        s = self.shapes[name][0]
+        return self._paged_shape(s) if name in self.paged else s
+
     def init_storage(self) -> Storage:
         dev = self.model.device
-        return {name: torch.zeros(self._paged_shape(s), dtype=dt,
-                                  device=dev)
-                for name, (s, dt) in self.shapes.items()}
+        return {name: torch.zeros(self._shape(name), dtype=dt, device=dev)
+                for name, (_, dt) in self.shapes.items()}
 
     # --- full-batch decode view ---------------------------------------------
 
     def gather_view(self, storage: Storage, table: torch.Tensor,
                     num_pages: int) -> Storage:
         """Every slot's first ``num_pages`` pages, as new dense tensors
-        ``(layers, B, num_pages * page_size, *rest)``."""
-        return {name: ops.gather_pages(leaf, table, num_pages=num_pages,
-                                       axis=1)
+        ``(layers, B, num_pages * page_size, *rest)``; a tensor that does
+        not page is its own view."""
+        return {name: (ops.gather_pages(leaf, table, num_pages=num_pages,
+                                        axis=1)
+                       if name in self.paged else leaf)
                 for name, leaf in storage.items()}
 
     def scatter_view(self, storage: Storage, view: Storage,
@@ -174,9 +190,9 @@ class PagedKVCache(CacheLayout):
         engine writes back only what a launch produced
         (:meth:`write_token`, :meth:`write_slot`); this is the general
         form."""
-        for name, leaf in storage.items():
-            ops.scatter_pages(leaf, view[name], table, num_pages=num_pages,
-                              axis=1)
+        for name in self.paged:
+            ops.scatter_pages(storage[name], view[name], table,
+                              num_pages=num_pages, axis=1)
 
     def decode_positions(self, positions: torch.Tensor,
                          num_pages: int) -> torch.Tensor:
@@ -197,11 +213,11 @@ class PagedKVCache(CacheLayout):
         pidx = positions.long() // ps                            # (B,)
         dst = table.gather(1, pidx[:, None])[:, 0].long()
         rows = torch.arange(pidx.shape[0], device=pidx.device)
-        for name, leaf in storage.items():
+        for name in self.paged:
             v = view[name]
             vp = v.view(v.shape[:2] + (num_pages, ps) + v.shape[3:])
             sel = ops.bit_view(vp)[:, rows, pidx]   # (layers, B, ps, ...)
-            ops.bit_view(leaf).index_copy_(1, dst, sel)
+            ops.bit_view(storage[name]).index_copy_(1, dst, sel)
 
     def write_rows(self, storage: Storage, view: Storage,
                    table: torch.Tensor, start: torch.Tensor,
@@ -227,20 +243,23 @@ class PagedKVCache(CacheLayout):
         pidx = pidx.clamp(max=num_pages - 1)
         dst = torch.where(commit, table.gather(1, pidx).long(), TRASH_PAGE)
         rows = torch.arange(pidx.shape[0], device=table.device)[:, None]
-        for name, leaf in storage.items():
+        for name in self.paged:
             v = view[name]
             vp = v.view(v.shape[:2] + (num_pages, ps) + v.shape[3:])
             sel = ops.bit_view(vp)[:, rows, pidx]   # (layers, B, span, ps..)
-            ops.bit_view(leaf).index_copy_(
+            ops.bit_view(storage[name]).index_copy_(
                 1, dst.reshape(-1), sel.flatten(1, 2))
 
     # --- batch-1 slot view (fused and suffix prefill) -----------------------
 
     def slot_view(self, storage: Storage, table: torch.Tensor, slot: int,
                   num_pages: int) -> Storage:
+        """Slot ``slot``'s batch-1 view: its first ``num_pages`` pages of
+        every tensor that pages, its column of every other."""
         row = table[slot:slot + 1]
-        return {name: ops.gather_pages(leaf, row, num_pages=num_pages,
-                                       axis=1)
+        return {name: (ops.gather_pages(leaf, row, num_pages=num_pages,
+                                        axis=1)
+                       if name in self.paged else leaf[:, slot:slot + 1])
                 for name, leaf in storage.items()}
 
     def write_slot(self, storage: Storage, view: Storage,
@@ -251,11 +270,14 @@ class PagedKVCache(CacheLayout):
         that ends inside its last page (a prompt bucket cut at a
         ``max_len`` the page size does not divide) is zero-padded to it.
         Suffix prefill passes the page holding its first row, so the
-        adopted prefix pages, which other owners read, are not written."""
+        adopted prefix pages, which other owners read, are not written.
+        Only the tensors that page are written (an encdec view holds the
+        self cache alone)."""
         ps = self.spec.page_size
         row = table[slot:slot + 1, first_page:num_pages]
         lo, hi = first_page * ps, num_pages * ps
-        for name, leaf in storage.items():
+        for name in self.paged:
+            leaf = storage[name]
             part = view[name][:, :, lo:hi]
             short = hi - lo - part.shape[2]
             if short:
@@ -272,20 +294,24 @@ class PagedKVCache(CacheLayout):
         tensor.  Backs copy-on-write and copy-on-adopt: the manager
         queues (src, dst) pairs and the engine applies them before any
         gather can read ``dst``."""
-        for leaf in storage.values():
-            raw = ops.bit_view(leaf)
+        for name in self.paged:
+            raw = ops.bit_view(storage[name])
             raw[:, dst].copy_(raw[:, src])
 
     # --- admission reset ----------------------------------------------------
 
     def zero_slot(self, storage: Storage, slot: int) -> None:
-        """Nothing to reset: a freshly allocated page holds stale rows
+        """Zero slot ``slot``'s column of every tensor that does not page
+        (encdec's cross K / V must not leak across requests).  Paged
+        tensors need no reset: a freshly allocated page holds stale rows
         only at positions >= the new request's ``kv_len``, which every
-        consumer masks (the reference zeroes only tensors that do not
-        page, and a dense model has none)."""
+        consumer masks."""
+        for name, leaf in storage.items():
+            if name not in self.paged:
+                leaf[:, slot].zero_()
 
     # --- sizing -------------------------------------------------------------
 
     def storage_bytes(self) -> int:
-        return sum(_nbytes(self._paged_shape(s), dt)
-                   for s, dt in self.shapes.values())
+        return sum(_nbytes(self._shape(name), dt)
+                   for name, (_, dt) in self.shapes.items())

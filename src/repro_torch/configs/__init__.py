@@ -1,6 +1,7 @@
 """Architecture configs (one module per ported arch)."""
 from repro_torch.configs.base import (  # noqa: F401
     FrontendConfig,
+    HybridConfig,
     MLAConfig,
     ModelConfig,
     MoEConfig,
@@ -13,7 +14,8 @@ _LOADED = False
 
 ARCH_MODULES = ("qwen25_3b", "codeqwen15_7b", "stablelm_12b",
                 "granite_moe_3b_a800m", "qwen3_moe_235b_a22b",
-                "minicpm3_4b", "paligemma_3b")
+                "minicpm3_4b", "paligemma_3b", "whisper_large_v3",
+                "recurrentgemma_9b")
 
 
 def _load_all() -> None:

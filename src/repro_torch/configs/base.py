@@ -4,7 +4,9 @@ Counterpart of ``repro.configs.base``.  Configs are frozen dataclasses,
 so they hash, print and diff cleanly and a config file is only data.
 ``ModelConfig`` keeps the reference's fields of the ported families
 (dense; moe through :class:`MoEConfig`; mla through :class:`MLAConfig`;
-vlm through :class:`FrontendConfig`'s vision stub); the attention
+vlm through :class:`FrontendConfig`'s vision stub; encdec through the
+encoder fields and the audio stub; hybrid through
+:class:`HybridConfig`); the attention
 implementation is not a config knob here, because the kernel follows the
 tensor's device (see ``repro_torch.kernels.ops``).  ``ServeConfig``
 carries the serving fields: planning, admission, the KV-cache format,
@@ -15,13 +17,13 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 
 # the model families the port serves, and those of the reference it does
 # not serve yet: reducing a config or building a model of one raises
-PORTED_FAMILIES = ("dense", "moe", "mla", "vlm")
-UNPORTED_FAMILIES = ("encdec", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "mla", "vlm", "encdec", "hybrid")
+UNPORTED_FAMILIES = ("ssm",)
 
 
 @dataclass(frozen=True)
@@ -50,18 +52,28 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class HybridConfig:
+    """RecurrentGemma-style hybrid: a repeating pattern of recurrent
+    (RG-LRU) and local-attention blocks."""
+    pattern: Tuple[str, ...] = ("rglru", "rglru", "attn")
+    window: int = 2048                 # local-attention window
+    lru_width: Optional[int] = None    # defaults to d_model
+    conv_width: int = 4
+
+
+@dataclass(frozen=True)
 class FrontendConfig:
     """Stubbed modality frontend: the caller supplies precomputed
     embeddings (``Model.frontend_inputs``)."""
-    kind: str = "none"                 # "vision" | "none" (ported)
-    num_positions: int = 0             # patches (vision)
+    kind: str = "none"                 # "vision" | "audio" | "none"
+    num_positions: int = 0             # patches (vision) / frames (audio)
     embed_dim: int = 0                 # frontend output dim (projected to d_model)
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # dense | moe | mla | vlm (ported)
+    family: str                        # one of PORTED_FAMILIES
     num_layers: int
     d_model: int
     num_heads: int
@@ -69,7 +81,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None     # default d_model // num_heads
-    mlp_kind: str = "swiglu"
+    mlp_kind: str = "swiglu"           # swiglu | geglu | gelu
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
@@ -79,8 +91,15 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     moe: Optional[MoEConfig] = None    # family="moe": the FFN's experts
     mla: Optional[MLAConfig] = None    # family="mla": latent attention
-    # family="vlm": the vision stub whose patches prefill prepends
+    hybrid: Optional[HybridConfig] = None   # family="hybrid"
+    # family="vlm": the vision stub whose patches prefill prepends;
+    # family="encdec": the audio stub whose frames the encoder reads
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
+    # encoder-decoder (Whisper): encoder layer count (decoder =
+    # num_layers) and the fixed encoder length the cross caches hold
+    num_encoder_layers: int = 0
+    cross_attention: bool = False
+    encoder_positions: int = 0
 
     @property
     def resolved_head_dim(self) -> int:

@@ -1,16 +1,16 @@
 """Reduced (test-size) variants of the ported architectures.
 
 Same family, same block wiring, same GQA group ratio, tiny widths —
-the dense, moe, mla and vision branches of
-``repro.configs.reduced.reduced_config``, so one call with the same arguments gives the same shape in both
-packages.
+the dense, moe, mla, vision, hybrid and encdec branches of
+``repro.configs.reduced.reduced_config``, so one call with the same
+arguments gives the same shape in both packages.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, \
-    check_ported, get_arch
+from repro_torch.configs.base import HybridConfig, MLAConfig, \
+    ModelConfig, MoEConfig, check_ported, get_arch
 
 
 def reduced_config(
@@ -46,7 +46,17 @@ def reduced_config(
                               qk_nope_head_dim=16, qk_rope_head_dim=8,
                               v_head_dim=16)
         kw["num_kv_heads"] = heads            # MLA reconstructs all heads
+    if cfg.hybrid is not None:
+        kw["hybrid"] = HybridConfig(pattern=cfg.hybrid.pattern, window=64,
+                                    lru_width=d_model, conv_width=4)
+        kw["num_layers"] = max(num_layers, 4)  # cover pattern + remainder
     if cfg.frontend.kind == "vision":
         kw["frontend"] = dataclasses.replace(cfg.frontend, num_positions=8,
                                              embed_dim=48)
+    if cfg.family == "encdec":
+        kw["num_encoder_layers"] = 2
+        kw["encoder_positions"] = 16
+        kw["frontend"] = dataclasses.replace(cfg.frontend, num_positions=16,
+                                             embed_dim=d_model)
+        kw["max_seq_len"] = 512
     return dataclasses.replace(cfg, **kw)

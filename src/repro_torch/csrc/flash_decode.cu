@@ -259,6 +259,25 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Hkv, G, D)
     finish_tc<D>(o, m_r, l_r, smem_raw, ep, B, Hkv, G, S, s, bh);
 }
 
+// q . k of two staged bf16 rows of DK columns, summed in double: every
+// product of two bf16 values is exact there, so the score is the exact
+// one rounded once to float.
+template <int DK>
+__device__ __forceinline__ float exact_score(const __nv_bfloat16* q,
+                                             const __nv_bfloat16* k) {
+    double acc = 0.0;
+#pragma unroll 4
+    for (int c = 0; c < DK; c += 2) {
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(q + c));
+        const float2 b = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(k + c));
+        acc = fma(static_cast<double>(a.x), static_cast<double>(b.x), acc);
+        acc = fma(static_cast<double>(a.y), static_cast<double>(b.y), acc);
+    }
+    return static_cast<float>(acc);
+}
+
 // The tensor-core body for the shapes decode_tc_kernel does not take: more
 // than 16 query heads per KV head, D = 160 / 256, or K and V of different
 // widths (DK > DV).  The G rows go in passes of up to kPassRows (64): R =
@@ -268,11 +287,12 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q,  // (B, Hkv, G, D)
 // 16 the four warps split the keys, as decode_tc_kernel's do.  All 128
 // threads load each tile (K and V in one commit group) through a ring of
 // two tiles, and a block-wide barrier hands it over.  Each 16-key step is
-// decode_tc_kernel's: Q K^T on mma.sync over DK, the online softmax, P as
-// two bf16 terms times V over DV.  At DV = 256 a 16-row O alone is 128
-// registers a thread, so past DK = 160 Q is staged in shared memory and
-// read by ldmatrix instead of held in registers.  A G above 64 reads the
-// split's K and V once per pass.
+// decode_tc_kernel's: Q K^T on mma.sync over DK (past DK = 160 the scores
+// near a large running max summed again exactly: see the step), the
+// online softmax, P as two bf16 terms times V over DV.  At DV = 256 a
+// 16-row O alone is 128 registers a thread, so past DK = 160 Q is staged
+// in shared memory and read by ldmatrix instead of held in registers.  A
+// G above 64 reads the split's K and V once per pass.
 template <int DK, int DV>
 struct WideShape {
     static constexpr int kPitchK = DK + 8;          // bf16 per staged K row
@@ -473,13 +493,66 @@ decode_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,  // (B,Hkv,G,DK)
                             sc[n][e] = REPRO_NEG_INF;
                         mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
                     }
+                auto quad_max = [&]() {
+#pragma unroll
+                    for (int i = 0; i < 2; ++i) {
+                        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu,
+                                                             mx[i], 1));
+                        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu,
+                                                             mx[i], 2));
+                    }
+                };
+                quad_max();
+                if constexpr (!Sh::kQRegs) {
+                    // past DK = 160 (16 or more steps of 16 columns) the
+                    // tensor core's running sum drops low bits of every
+                    // step's products, by up to about 1e-6 of the score:
+                    // at scores in the thousands (a 256-wide K of std 64,
+                    // as one KV head at full width gives) two keys within
+                    // that of each other then take visibly wrong shares.
+                    // So every score within kRefineGap of its row's
+                    // running max, where that max is past kRefineFrom, is
+                    // summed again exactly (products of bf16 are exact in
+                    // double) from the staged Q and K rows, and the max
+                    // taken again; the other keys' shares stay below
+                    // exp(-kRefineGap).  One loop over the lane's marked
+                    // scores keeps one copy of the sum in the code: the
+                    // common step, which marks none, runs as before
+                    constexpr float kRefineGap = 16.f, kRefineFrom = 64.f;
+                    unsigned need = 0u;
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        const int i = (j & 3) >> 1;
+                        if (fabsf(mx[i]) > kRefineFrom &&
+                            sc[j >> 2][j & 3] > mx[i] - kRefineGap)
+                            need |= 1u << j;
+                    }
+                    if (__any_sync(0xffffffffu, need != 0u)) {
+                        while (need) {
+                            const int j = __ffs(need) - 1;
+                            need &= need - 1u;
+                            const float r = exact_score<DK>(
+                                q_s + (rg * 16 + gq + 8 * ((j & 3) >> 1)) *
+                                          Sh::kPitchK,
+                                ks + (kb0 + (j >> 2) * 8 + tq * 2 + (j & 1)) *
+                                         Sh::kPitchK);
+#pragma unroll
+                            for (int jj = 0; jj < 8; ++jj)
+                                if (jj == j) sc[jj >> 2][jj & 3] = r;
+                        }
+                        mx[0] = m_r[0];
+                        mx[1] = m_r[1];
+#pragma unroll
+                        for (int n = 0; n < 2; ++n)
+#pragma unroll
+                            for (int e = 0; e < 4; ++e)
+                                mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+                        quad_max();
+                    }
+                }
                 float alpha[2];
 #pragma unroll
                 for (int i = 0; i < 2; ++i) {
-                    mx[i] = fmaxf(mx[i],
-                                  __shfl_xor_sync(0xffffffffu, mx[i], 1));
-                    mx[i] = fmaxf(mx[i],
-                                  __shfl_xor_sync(0xffffffffu, mx[i], 2));
                     alpha[i] = expf(m_r[i] - mx[i]);
                     m_r[i] = mx[i];
                     l_r[i] *= alpha[i];

@@ -332,6 +332,8 @@ struct TcShape {
     // + 1024 so the tiles can start on a 1024-byte boundary
     static constexpr size_t kSmem = kTileBytes + kBarBytes + 1024;
     static constexpr int kMinBlocks = kHalves <= 2 ? 2 : 1;
+    // S as one chain a box, added in f32 (see the S loop)
+    static constexpr bool kSplitS = kHalves >= 4;
 };
 
 template <int DK, int DV>
@@ -431,25 +433,63 @@ prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,DK)
         const int k0 = kv_start + j * kBK;
 
         // S = Q K^T over DK in steps of 16 (32 bytes within a 128-byte
-        // row); steps wholly in a box's zero-filled columns are skipped
-        float sc[32];
+        // row); steps wholly in a box's zero-filled columns are skipped.
+        // At DK = 256 each 64-column box is a chain of its own (boxes 0
+        // and 1 in flight together, then 2 and 3 in turn), added in f32
+        // as each completes: the tensor core adds a step's products to
+        // the running sum aligned to the larger and drops the bits
+        // shifted out, and one chain of 16 steps over a large score (a K
+        // of std 64: scores in the thousands) drifts past the tolerance
+        // of the exact result (recurrentgemma-9b's windowed layers)
+        float sc[32], sc2[S::kSplitS ? 32 : 1];
         hopper::mbar_wait(k_full(s), ph);
         hopper::fence_regs(sc);
         hopper::wgmma_fence();
+        if constexpr (S::kSplitS) {
+            auto box = [&](float (&acc)[32], int hf) {
 #pragma unroll
-        for (int hf = 0; hf < kHalves; ++hf)
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk)
-                if (hf * 64 + kk * 16 < DK)
+                for (int kk = 0; kk < 4; ++kk)
                     hopper::wgmma_m64n64k16_ss(
-                        sc, hopper::desc_sw128(q_s + hf * kBox + kk * 32, 16,
-                                               1024),
+                        acc, hopper::desc_sw128(q_s + hf * kBox + kk * 32,
+                                                16, 1024),
                         hopper::desc_sw128(k_s + (s * kHalves + hf) * kBox +
                                            kk * 32, 16, 1024),
-                        hf + kk > 0);
-        hopper::wgmma_commit();
-        hopper::wgmma_wait<0>();
-        hopper::fence_regs(sc);
+                        kk > 0);
+            };
+            hopper::fence_regs(sc2);
+            box(sc, 0);
+            box(sc2, 1);
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+#pragma unroll
+            for (int hf = 2; hf <= kHalves; ++hf) {
+                hopper::fence_regs(sc);
+                hopper::fence_regs(sc2);
+#pragma unroll
+                for (int i = 0; i < 32; ++i) sc[i] += sc2[i];
+                if (hf == kHalves) break;
+                hopper::fence_regs(sc2);
+                hopper::wgmma_fence();
+                box(sc2, hf);
+                hopper::wgmma_commit();
+                hopper::wgmma_wait<0>();
+            }
+        } else {
+#pragma unroll
+            for (int hf = 0; hf < kHalves; ++hf)
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                    if (hf * 64 + kk * 16 < DK)
+                        hopper::wgmma_m64n64k16_ss(
+                            sc, hopper::desc_sw128(q_s + hf * kBox + kk * 32,
+                                                   16, 1024),
+                            hopper::desc_sw128(k_s + (s * kHalves + hf) *
+                                               kBox + kk * 32, 16, 1024),
+                            hf + kk > 0);
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(sc);
+        }
         hopper::mbar_arrive(k_empty(s));          // K slot s read
 
 #pragma unroll

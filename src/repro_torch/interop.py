@@ -1,22 +1,32 @@
 """Weights and caches from the JAX package's trees, as numpy arrays.
 
-``params_from_numpy(tree, cfg)`` takes the reference's LM param tree of
-a ported config (``{"embed": ..., "final_norm": ..., "groups":
-((layer_stack,),)}`` with every leaf converted to a numpy array; a moe
+``params_from_numpy(tree, cfg)`` takes the reference's param tree of a
+ported config, every leaf converted to a numpy array, and returns the
+port's weights.  An LM tree is ``{"embed": ..., "final_norm": ...,
+"groups": ...}``: the reference stacks the layers of each scan group
+along a leading axis, one stack per kind of its pattern
+(``groups[g][k]``, :func:`repro_torch.models.lm.layer_groups`: one group
+of one kind for the uniform families; the hybrid's repeated (rglru,
+rglru, attn_window) pattern and its remainder), and here they are
+unstacked into one :class:`~repro_torch.models.lm.Block` a layer.  A moe
 block's ``ffn`` holds ``router``, ``wi_gate``, ``wi_up`` and ``wo``, an
 mla block's ``mix`` ``q_down``, ``q_norm``, ``q_up``, ``kv_down``,
-``kv_norm``, ``k_up``, ``v_up`` and ``wo``, and a vlm tree adds the
-top-level ``patch_proj``) and returns the port's
-:class:`~repro_torch.models.lm.LM`.  The reference
-stacks the layers of its scan group along a leading axis
-(``params["groups"][0][0]``); here they are unstacked into one
-:class:`~repro_torch.models.lm.Block` each.
+``kv_norm``, ``k_up``, ``v_up`` and ``wo``, an rglru block's ``mix`` the
+RG-LRU weights, and a vlm tree adds the top-level ``patch_proj``.  An
+encdec tree (``embed``, ``pos_dec``, ``enc_layers``, ``enc_norm``,
+``dec_layers`` with ``self`` / ``lnx`` / ``cross``, ``final_norm``)
+gives an :class:`~repro_torch.models.encdec.EncDec`, its two stacks
+unstacked likewise.
 ``cache_from_numpy(tree, cfg)`` takes the reference's dense cache tree
-(``((layer_stack,),)`` of ``{"k", "v"}`` plus ``{"k_s", "v_s"}`` for a
-quantized cache, or mla's ``{"latent"}``) and returns the port's cache
-dict, layers still stacked.  bfloat16 arrays (dtype name ``bfloat16``) are read through a
-``uint16`` view and float8_e4m3fn ones through a ``uint8`` view, so
-neither JAX nor ``ml_dtypes`` is imported.
+and returns the port's cache dict, layers still stacked: from groups of
+``{"k", "v"}`` (plus ``{"k_s", "v_s"}`` for a quantized cache), mla's
+``{"latent"}``, or the hybrid's ring ``{"k", "v"...}`` and recurrent
+``{"state", "conv"}`` (each leaf stacked over the layers that hold it,
+in layer order); or encdec's ``{"self": {"k", "v"}, "cross": {"k",
+"v"}}`` as ``k`` / ``v`` / ``cross_k`` / ``cross_v``.  bfloat16 arrays
+(dtype name ``bfloat16``) are read through a ``uint16`` view and
+float8_e4m3fn ones through a ``uint8`` view, so neither JAX nor
+``ml_dtypes`` is imported.
 """
 from __future__ import annotations
 
@@ -26,7 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import LM
+from repro_torch.models.encdec import EncDec
+from repro_torch.models.lm import LM, layer_groups
 from repro_torch.models.registry import DeviceLike, resolve_device
 
 
@@ -55,56 +66,96 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""
             yield f"{prefix}{key}", val
 
 
-def _one_group(tree: Any) -> Any:
-    if len(tree) != 1 or len(tree[0]) != 1:
-        raise ValueError("expected one scan group of one block kind "
-                         "(an LM of a ported family)")
-    return tree[0][0]
+def _unstack(stack: Mapping[str, Any], n: int, what: str
+             ) -> Iterator[Tuple[int, str, np.ndarray]]:
+    """(layer, leaf name, array) of ``n`` layers stacked along axis 0."""
+    for name, arr in _flatten(stack):
+        stacked = np.asarray(arr)
+        if stacked.shape[0] != n:
+            raise ValueError(f"{what} {name}: {stacked.shape[0]} stacked "
+                             f"layers, expected {n}")
+        for li in range(n):
+            yield li, name, stacked[li]
+
+
+def _grouped_layers(groups: Any, cfg: ModelConfig
+                    ) -> Iterator[Tuple[int, str, np.ndarray]]:
+    """(layer, leaf name, array) of every layer of the reference's scan
+    groups: ``groups[g][k]`` stacks repeat r of pattern position k of
+    group g, which is layer ``offset_g + r * len(pattern) + k``."""
+    plan = layer_groups(cfg)
+    if len(groups) != len(plan) or any(
+            len(g) != len(p) for g, (p, _) in zip(groups, plan)):
+        raise ValueError(f"expected the scan groups {plan} of "
+                         f"{cfg.name}, got {len(groups)} groups")
+    offset = 0
+    for g, (pattern, reps) in zip(groups, plan):
+        for k, stack in enumerate(g):
+            for r, name, arr in _unstack(stack, reps, pattern[k]):
+                yield offset + r * len(pattern) + k, name, arr
+        offset += reps * len(pattern)
 
 
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
-                      device: DeviceLike = None) -> LM:
+                      device: DeviceLike = None):
     """The port's parameters from the reference's numpy param tree, cast
-    to ``cfg.param_dtype`` on ``device`` (the card unless asked)."""
-    layers = _one_group(tree["groups"])
+    to ``cfg.param_dtype`` on ``device`` (the card unless asked): an
+    :class:`EncDec` for an encdec config, else an :class:`LM`."""
     state: Dict[str, torch.Tensor] = {}
-    top = {name: tree[name] for name in ("embed", "final_norm",
-                                         "patch_proj") if name in tree}
-    for name, arr in _flatten(top):
+    stacks = ("enc_layers", "dec_layers") if cfg.family == "encdec" \
+        else ("groups",)
+    for name, arr in _flatten({k: v for k, v in tree.items()
+                               if k not in stacks}):
         state[name] = tensor_from_numpy(np.asarray(arr))
-    for name, arr in _flatten(layers):
-        stacked = np.asarray(arr)
-        if stacked.shape[0] != cfg.num_layers:
-            raise ValueError(f"{name}: {stacked.shape[0]} stacked layers, "
-                             f"config has {cfg.num_layers}")
-        for li in range(cfg.num_layers):
-            state[f"layers.{li}.{name}"] = tensor_from_numpy(stacked[li])
+    if cfg.family == "encdec":
+        for stack, n in (("enc_layers", cfg.num_encoder_layers),
+                         ("dec_layers", cfg.num_layers)):
+            for li, name, arr in _unstack(tree[stack], n, stack):
+                state[f"{stack}.{li}.{name}"] = tensor_from_numpy(arr)
+    else:
+        for li, name, arr in _grouped_layers(tree["groups"], cfg):
+            state[f"layers.{li}.{name}"] = tensor_from_numpy(arr)
     dev = resolve_device(device)
-    lm = LM(cfg, dev)
+    module = (EncDec if cfg.family == "encdec" else LM)(cfg, dev)
     # each leaf in its parameter's dtype: cfg.param_dtype, except the MoE
     # router, which stays float32 as in the reference
-    want = lm.state_dict()
-    lm.load_state_dict({k: v.to(want[k].dtype) for k, v in state.items()})
-    return lm
+    want = module.state_dict()
+    module.load_state_dict({k: v.to(want[k].dtype)
+                            for k, v in state.items()})
+    return module
 
 
 def cache_from_numpy(tree: Any, cfg: ModelConfig,
                      device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """The port's dense cache from the reference's numpy cache tree:
-    ``k`` / ``v`` (layers, B, max_len, Hkv, D) in their stored dtype
-    (bf16, f32, int8 or fp8) and, when present, ``k_s`` / ``v_s`` (layers,
-    B, max_len, Hkv) f32; or mla's ``latent`` (layers, B, max_len, 1,
-    kv_lora_rank + rope); on ``device`` (the card unless asked)."""
-    leaves = _one_group(tree)
-    if set(leaves) not in ({"k", "v"}, {"k", "v", "k_s", "v_s"},
-                           {"latent"}):
-        raise ValueError(f"expected a dense cache {{k, v[, k_s, v_s]}} or "
-                         f"{{latent}}, got {sorted(leaves)}")
+    """The port's dense cache from the reference's numpy cache tree, in
+    the stored dtypes (bf16, f32, int8 or fp8), on ``device`` (the card
+    unless asked): ``k`` / ``v`` (layers, B, max_len, Hkv, D) and, when
+    present, ``k_s`` / ``v_s`` (layers, B, max_len, Hkv) f32; mla's
+    ``latent`` (layers, B, max_len, 1, kv_lora_rank + rope); encdec's
+    ``k`` / ``v`` and ``cross_k`` / ``cross_v``; a hybrid's ring ``k`` /
+    ``v`` (scales) over its windowed layers and ``state`` / ``conv`` over
+    its recurrent ones."""
     dev = resolve_device(device)
-    out = {name: tensor_from_numpy(np.asarray(arr)).to(dev)
-           for name, arr in leaves.items()}
-    layers = next(iter(out.values())).shape[0]
-    if layers != cfg.num_layers:
-        raise ValueError(f"cache has {layers} stacked layers, config has "
-                         f"{cfg.num_layers}")
-    return out
+    if cfg.family == "encdec":
+        flat = {("cross_" if part == "cross" else "") + name: arr
+                for part in ("self", "cross")
+                for name, arr in tree[part].items()}
+        out = {name: tensor_from_numpy(np.asarray(arr)).to(dev)
+               for name, arr in flat.items()}
+        bad = [n for n, t in out.items() if t.shape[0] != cfg.num_layers]
+        if set(out) != {"k", "v", "cross_k", "cross_v"} or bad:
+            raise ValueError(f"expected an encdec cache of {cfg.num_layers}"
+                             f" layers, got {sorted(out)}")
+        return out
+    per_name: Dict[str, Dict[int, np.ndarray]] = {}
+    for li, name, arr in _grouped_layers(tree, cfg):
+        per_name.setdefault(name, {})[li] = arr
+    names = set(per_name)
+    if names not in ({"k", "v"}, {"k", "v", "k_s", "v_s"}, {"latent"},
+                     {"k", "v", "state", "conv"},
+                     {"k", "v", "k_s", "v_s", "state", "conv"}):
+        raise ValueError(f"expected a dense cache {{k, v[, k_s, v_s]}}, "
+                         f"{{latent}} or a hybrid's, got {sorted(names)}")
+    return {name: tensor_from_numpy(np.stack(
+        [rows[li] for li in sorted(rows)])).to(dev)
+        for name, rows in per_name.items()}

@@ -20,9 +20,10 @@ writes the Chrome trace-event JSON of the serving timeline and
 ``--metrics`` the metrics snapshot (Prometheus text for a ``.prom`` /
 ``.txt`` suffix, else JSON) at drain.  ``--arch`` takes every ported
 text-only config: the dense ones, the moe ones (granite-moe-3b-a800m,
-qwen3-moe-235b-a22b) and the mla one (minicpm3-4b).  A frontend-stub
-arch (paligemma-3b) is refused, as the reference's CLI refuses it.  It
-runs on the card unless ``--device cpu`` is given.
+qwen3-moe-235b-a22b), the mla one (minicpm3-4b) and the hybrid one
+(recurrentgemma-9b, which admits through the loop).  A frontend-stub
+arch (paligemma-3b, whisper-large-v3) is refused, as the reference's CLI
+refuses them.  It runs on the card unless ``--device cpu`` is given.
 
 Two differences from the reference, both so that the reduced model's
 widths are ones the kernels take.  The default ``d_model`` is 512, not

@@ -1,15 +1,24 @@
 """GQA attention block over a KV cache.
 
-Counterpart of ``repro.models.attention`` (full attention).  A layer's
-cache is a dict of tensors: ``k`` / ``v`` of shape ``(B, L, H_kv, D)``
-in the KV dtype, plus ``k_s`` / ``v_s`` f32 scales of shape ``(B, L,
-H_kv)`` when the cache is quantized (int8 or fp8), as in the reference.
-They are views of the engine's static tensors (L = max_len) or of a view
-the paged layout gathered (L = the resident bucket).
+Counterpart of ``repro.models.attention``: full attention, local
+(windowed) attention over a ring cache, and encoder-decoder cross
+attention.  A layer's cache is a dict of tensors: ``k`` / ``v`` of shape
+``(B, L, H_kv, D)`` in the KV dtype, plus ``k_s`` / ``v_s`` f32 scales of
+shape ``(B, L, H_kv)`` when the cache is quantized (int8 or fp8), as in
+the reference.  They are views of the engine's static tensors (L =
+max_len, or the ring's ``min(window, max_len)`` rows) or of a view the
+paged layout gathered (L = the resident bucket).
+
+Two decode launches attend a length that is not the one the frozen
+decode plan was made for: cross attention reads the whole fixed-length
+encoder memory, and a windowed layer its whole ring.  Each takes a plan
+frozen for its own length (the scheduler's side plans), or else drops
+the frozen decision and lets the policy decide inside the launch over
+that length, as the reference does (:func:`plan_for_length`).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -67,17 +76,53 @@ def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
     return out.flatten(-2) @ p.wo.reshape(-1, p.wo.shape[-1])
 
 
+def plan_for_length(plan: LaunchPlan, length: int) -> LaunchPlan:
+    """The plan a decode launch over exactly ``length`` cache rows takes
+    from ``plan``: ``plan`` itself when it was frozen for that length with
+    no bucket cut (a side plan, see
+    :meth:`repro_torch.serving.scheduler.Scheduler.side_plans`), else its
+    policy overrides alone, so the policy decides inside the launch over
+    ``length`` (the reference's ``plan.context_only()``)."""
+    if plan is None or not plan.frozen:
+        return plan
+    if plan.bucket is None and plan.spec is not None \
+            and plan.spec.seqlen_k == length:
+        return plan
+    return plan.context_only()
+
+
+def ring_rows(x: torch.Tensor, ring: int) -> torch.Tensor:
+    """A prompt's rows ``x`` (B, L, ...) laid out in a ``ring``-row ring
+    cache: for L < ring the rows themselves, at rows [0, L); for L >=
+    ring the last ``ring`` positions, position p at row p % ring."""
+    L = x.shape[1]
+    if L < ring:
+        return x
+    base = L - ring
+    src = base + torch.remainder(
+        torch.arange(ring, device=x.device) - base, ring)
+    return x[:, src]
+
+
 def attention_prefill(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                      rope: Rope, *, kv_dtype: str = "bfloat16"
+                      rope: Rope, *, kv_dtype: str = "bfloat16",
+                      window: Optional[int] = None,
+                      ring: Optional[int] = None
                       ) -> Tuple[torch.Tensor, LayerCache]:
     """Causal attention over a whole prompt.  Returns (y (B, L, d), the
     prompt's cache rows): ``k`` / ``v`` (B, L, Hkv, D) in the activation
     dtype, which the caller's write casts to the cache dtype, or, for a
     quantized ``kv_dtype``, quantized rows plus ``k_s`` / ``v_s`` scales.
-    Attention itself reads the unquantized K/V."""
+    Attention itself reads the unquantized K/V.  With a ``window`` the
+    attention is local (key positions > query position - window) and the
+    rows come in the ``ring``-row ring layout of :func:`ring_rows` (L
+    rows for L < ring, else ring rows), which the windowed decode
+    continues."""
     q, k, v = _project_qkv(p, cfg, x, rope)
-    out = ops.attention(q, k, v, causal=True)
+    out = ops.attention(q, k, v, causal=True, window=window)
     y = _out_proj(p, out)
+    if window is not None:
+        k, v = ring_rows(k, ring), ring_rows(v, ring)
     if kv_dtype in QUANT_DTYPES:
         qz = Quantizer.from_kv_dtype(kv_dtype)
         kq, ks = qz.quantize(k)
@@ -89,7 +134,8 @@ def attention_prefill(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 
 def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                      cache: LayerCache, t: torch.Tensor, rope: Rope, *,
-                     plan: LaunchPlan = None) -> torch.Tensor:
+                     plan: LaunchPlan = None,
+                     window: Optional[int] = None) -> torch.Tensor:
     """One decode step for every slot.  Returns (B, 1, d).
 
     ``t`` (B,) int64 holds each slot's position and ``rope`` its angles.
@@ -98,11 +144,23 @@ def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     the engine's static buffers) IN PLACE at row ``t``, then attends over
     rows ``[0, t]`` through the frozen ``plan``.  A quantized cache gets
     the row quantized, data and scales written, and is read through the
-    fused-dequant kernel.
+    fused-dequant kernel.  With a ``window`` the cache is a ring of W
+    rows: the row lands at ``t % W`` and attention reads ``min(t + 1,
+    W)`` rows, every resident one (RoPE was applied at absolute
+    positions, so ring order does not matter), over the whole ring under
+    :func:`plan_for_length` of W.
     """
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(p, cfg, x, rope)
     rows = torch.arange(B, device=x.device)
+    kv_len = t + 1
+    extra = {}
+    if window is not None:
+        W = cache["k"].shape[1]
+        t = torch.remainder(t, W)
+        kv_len = kv_len.clamp(max=W)
+        plan = plan_for_length(plan, W)
+        extra["use_ctx_metadata"] = False
     qz = Quantizer.for_cache(cache)
     if qz is not None:
         kq, kns = qz.quantize(k_new[:, 0])
@@ -115,12 +173,67 @@ def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         cache["v_s"][rows, t] = vns
         out = ops.decode_attention_quant(
             q[:, 0], QuantizedKV(cache["k"], cache["v"], cache["k_s"],
-                                 cache["v_s"]), t + 1, plan=plan)
+                                 cache["v_s"]), kv_len, plan=plan, **extra)
     else:
         cache["k"][rows, t] = k_new[:, 0].to(cache["k"].dtype)
         cache["v"][rows, t] = v_new[:, 0].to(cache["v"].dtype)
-        out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], t + 1,
-                                   plan=plan)
+        out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], kv_len,
+                                   plan=plan, **extra)
+    return _out_proj(p, out)[:, None]
+
+
+def _project_q(p: Attention, cfg: ModelConfig,
+               x: torch.Tensor) -> torch.Tensor:
+    q = _proj(x, p.wq)
+    return q + p.bq.to(q.dtype) if cfg.qkv_bias else q
+
+
+def precompute_cross_kv(p: Attention, cfg: ModelConfig,
+                        memory: torch.Tensor) -> LayerCache:
+    """Project the encoder output ``memory`` (B, Lk, d) to cross K / V
+    (B, Lk, Hkv, D), once a request: what the decode steps read."""
+    k, v = _proj(memory, p.wk), _proj(memory, p.wv)
+    if cfg.qkv_bias:
+        k = k + p.bk.to(k.dtype)
+        v = v + p.bv.to(v.dtype)
+    return {"k": k, "v": v}
+
+
+def cross_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                    kv: LayerCache) -> torch.Tensor:
+    """Cross attention of the decoder stream ``x`` (B, Lq, d) over
+    precomputed cross K / V (:func:`precompute_cross_kv`, or a slot's
+    resident bfloat16 ones, read in q's dtype): no mask, no RoPE.
+    Returns (B, Lq, d)."""
+    q = _project_q(p, cfg, x)
+    out = ops.attention(q, kv["k"].to(q.dtype), kv["v"].to(q.dtype),
+                        causal=False)
+    return _out_proj(p, out)
+
+
+def cross_attention_train(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                          memory: torch.Tensor) -> torch.Tensor:
+    """Encoder-decoder cross attention over the encoder output ``memory``
+    (B, Lk, d): (B, Lq, d)."""
+    return cross_attention(p, cfg, x, precompute_cross_kv(p, cfg, memory))
+
+
+def cross_attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                           cache: LayerCache, *,
+                           plan: LaunchPlan = None) -> torch.Tensor:
+    """Decode-time cross attention of ``x`` (B, 1, d) against a fixed-
+    length memory: ``cache`` holds the precomputed cross ``k`` / ``v`` (B,
+    Lk, Hkv, D), every row of which is attended (kv_len = Lk).  That is
+    the paper's shape family (Whisper: 1500 frames, 12 KV blocks), split
+    under :func:`plan_for_length` of Lk, outside any ambient frozen plan.
+    Returns (B, 1, d)."""
+    B = x.shape[0]
+    k, v = cache["k"], cache["v"]
+    Lk = k.shape[1]
+    kv_len = torch.full((B,), Lk, dtype=torch.int64, device=x.device)
+    out = ops.decode_attention(_project_q(p, cfg, x)[:, 0], k, v, kv_len,
+                               plan=plan_for_length(plan, Lk),
+                               use_ctx_metadata=False)
     return _out_proj(p, out)[:, None]
 
 

@@ -79,6 +79,15 @@ class RMSNorm(SpecModule):
                          device)
 
 
+class LayerNorm(SpecModule):
+    """LayerNorm weights, scale and bias (the encdec family's norm)."""
+
+    def __init__(self, d: int, dtype, device):
+        super().__init__({"scale": ParamSpec((d,), init="ones"),
+                          "bias": ParamSpec((d,), init="zeros")}, dtype,
+                         device)
+
+
 class MLP(SpecModule):
     """Gated MLP weights (swiglu and geglu share them)."""
 
@@ -88,6 +97,25 @@ class MLP(SpecModule):
             "wi_up": ParamSpec((d_model, d_ff)),
             "wo": ParamSpec((d_ff, d_model)),
         }, dtype, device)
+
+
+class GeluMLP(SpecModule):
+    """Plain gelu MLP weights with biases (Whisper's)."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype, device):
+        super().__init__({
+            "wi": ParamSpec((d_model, d_ff)),
+            "bi": ParamSpec((d_ff,), init="zeros"),
+            "wo": ParamSpec((d_ff, d_model)),
+            "bo": ParamSpec((d_model,), init="zeros"),
+        }, dtype, device)
+
+
+def mlp_module(d_model: int, d_ff: int, kind: str, dtype, device):
+    """The MLP weights of ``kind``: gated for swiglu / geglu, plain with
+    biases for gelu."""
+    cls = GeluMLP if kind == "gelu" else MLP
+    return cls(d_model, d_ff, dtype, device)
 
 
 class Embed(SpecModule):
@@ -104,6 +132,36 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(p: SpecModule, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm when the norm has a bias, RMSNorm otherwise, as the
+    reference's ``apply_norm`` branches."""
+    if "bias" in p.specs:
+        return layer_norm(x, p.scale, p.bias, eps)
+    return rms_norm(x, p.scale, eps)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None
+                         ) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (length, dim) float32,
+    the reference's: frequencies ``exp(-ln(1e4) i / max(1, half - 1))``."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=device) / max(1, half - 1))
+    ang = torch.arange(length, dtype=torch.float32,
+                       device=device)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def rope_frequencies(head_dim: int, theta: float,
@@ -143,17 +201,24 @@ def apply_rope(x: torch.Tensor, rope: Rope) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def apply_mlp(p: MLP, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+def apply_mlp(p: SpecModule, x: torch.Tensor,
+              kind: str = "swiglu") -> torch.Tensor:
     """Gated MLP: silu (swiglu) or gelu (geglu) of the gate, times the up
-    projection.  geglu's gelu is the tanh approximation, which is what
-    the reference's ``jax.nn.gelu`` computes by default."""
+    projection; or, for ``kind="gelu"`` over :class:`GeluMLP` weights,
+    the plain ``gelu(x wi + bi) wo + bo``.  Every gelu is the tanh
+    approximation, which is what the reference's ``jax.nn.gelu``
+    computes by default."""
+    if kind == "gelu" and isinstance(p, GeluMLP):
+        h = F.gelu(x @ p.wi + p.bi.to(x.dtype), approximate="tanh")
+        return h @ p.wo + p.bo.to(x.dtype)
     if kind == "swiglu":
         g = F.silu(x @ p.wi_gate)
     elif kind == "geglu":
         g = F.gelu(x @ p.wi_gate, approximate="tanh")
     else:
-        raise ValueError(f"only the swiglu and geglu MLPs are ported, "
-                         f"got {kind!r}")
+        raise ValueError(f"gated MLP weights take only the swiglu and "
+                         f"geglu kinds (gelu takes GeluMLP's), got "
+                         f"{kind!r}")
     return (g * (x @ p.wi_up)) @ p.wo
 
 

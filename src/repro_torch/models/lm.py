@@ -1,10 +1,13 @@
-"""Decoder-only LM: the dense, moe, mla and vlm families.
+"""Decoder-only LM: the dense, moe, mla, vlm and hybrid families.
 
 Counterpart of ``repro.models.lm`` for those families: every block is a
 mixer then an FFN.  The mixer is GQA attention
-(:mod:`~repro_torch.models.attention`), or Multi-head Latent Attention
-(:mod:`~repro_torch.models.mla`, family ``mla``).  The FFN is a gated MLP
-(swiglu, or geglu for gemma-style configs) or a
+(:mod:`~repro_torch.models.attention`), Multi-head Latent Attention
+(:mod:`~repro_torch.models.mla`, family ``mla``), or, in the hybrid
+family (RecurrentGemma), a repeating pattern of RG-LRU blocks
+(:mod:`~repro_torch.models.rglru`) and local attention over a ring
+cache of ``min(window, max_len)`` rows (kind ``attn_window``).  The FFN
+is a gated MLP (swiglu, or geglu for gemma-style configs) or a
 :class:`~repro_torch.models.moe.MoE` (``cfg.moe`` set; routing groups
 are the rows each step passes: the padded prompt bucket in prefill, the
 padded suffix bucket in suffix prefill, one token per slot in decode,
@@ -18,12 +21,15 @@ layer-stacked pytree).  Caches are dicts of dense tensors of shape
 "v_s"}`` f32 scales of shape (layers, B, L, Hkv) for a quantized cache,
 or MLA's one ``{"latent"}`` (layers, B, L, 1, kv_lora_rank + rope):
 the engine's static dense buffers (L = max_len), or a view the paged
-layout gathered (L = the resident bucket).  Decode, suffix prefill and
-verify update them in place.
+layout gathered (L = the resident bucket).  A hybrid model's ``k`` / ``v``
+stack its attention layers only, over the ring (L = the ring's rows),
+and its recurrent layers stack ``{"state", "conv"}`` (:data:`REC_LEAVES`)
+of their own; :func:`layer_caches` hands each layer its rows.  Decode,
+suffix prefill and verify update them in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -33,8 +39,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.common import (
-    MLP,
     Embed,
     ParamSpec,
     RMSNorm,
@@ -42,6 +48,7 @@ from repro_torch.models.common import (
     SpecModule,
     apply_mlp,
     embed_tokens,
+    mlp_module,
     rms_norm,
     rope_angles,
     unembed,
@@ -49,12 +56,61 @@ from repro_torch.models.common import (
 from repro_torch.plan import LaunchPlan
 
 Caches = Dict[str, torch.Tensor]
+SidePlans = Optional[Dict[str, LaunchPlan]]
+
+# the recurrent (rglru) layers' cache leaves; every other leaf belongs to
+# the attention layers
+REC_LEAVES = ("state", "conv")
 
 
-def layer_kinds(cfg: ModelConfig):
-    """Each layer's mixer kind: ``mla`` for the mla family, else ``attn``
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """Each layer's mixer kind: the hybrid pattern repeated (``attn``
+    there is ``attn_window``), ``mla`` for the mla family, else ``attn``
     (dense, moe and vlm)."""
+    if cfg.family == "hybrid":
+        p = cfg.hybrid.pattern
+        return [("attn_window" if p[i % len(p)] == "attn"
+                 else p[i % len(p)]) for i in range(cfg.num_layers)]
     return ["mla" if cfg.family == "mla" else "attn"] * cfg.num_layers
+
+
+def layer_groups(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    """[(pattern, repeats), ...] covering the layers in order, the
+    reference's scan groups: the hybrid pattern repeated, then its
+    remainder as a group of one; one group otherwise."""
+    if cfg.family == "hybrid":
+        p = tuple("attn_window" if k == "attn" else k
+                  for k in cfg.hybrid.pattern)
+        n_full, rem = divmod(cfg.num_layers, len(p))
+        groups = [(p, n_full)] if n_full else []
+        return groups + ([(p[:rem], 1)] if rem else [])
+    return [((layer_kinds(cfg)[0],), cfg.num_layers)]
+
+
+def ring_len(cfg: ModelConfig, max_len: int) -> int:
+    """Rows of a windowed layer's ring cache."""
+    return min(cfg.hybrid.window, max_len)
+
+
+def cache_rows(cfg: ModelConfig) -> List[int]:
+    """Each layer's index in the stacked cache leaves of its kind: a
+    recurrent layer counts among the recurrent layers, any other among
+    the others."""
+    seen = {True: 0, False: 0}
+    out = []
+    for kind in layer_kinds(cfg):
+        rec = kind == "rglru"
+        out.append(seen[rec])
+        seen[rec] += 1
+    return out
+
+
+def layer_caches(cfg: ModelConfig, caches: Caches
+                 ) -> List[attn_mod.LayerCache]:
+    """Each layer's cache: its row of the stacked leaves of its kind."""
+    return [{name: c[i] for name, c in caches.items()
+             if (name in REC_LEAVES) == (kind == "rglru")}
+            for kind, i in zip(layer_kinds(cfg), cache_rows(cfg))]
 
 
 def rope_dim(cfg: ModelConfig) -> int:
@@ -72,11 +128,16 @@ class Block(nn.Module):
         d = cfg.d_model
         self.kind = kind
         self.ln1 = RMSNorm(d, dtype, device)
-        self.mix = (mla_mod.MLA(cfg, dtype, device) if kind == "mla"
-                    else attn_mod.Attention(cfg, dtype, device))
+        if kind == "mla":
+            self.mix = mla_mod.MLA(cfg, dtype, device)
+        elif kind == "rglru":
+            self.mix = rglru_mod.RGLRU(cfg, dtype, device)
+        else:
+            self.mix = attn_mod.Attention(cfg, dtype, device)
         self.ln2 = RMSNorm(d, dtype, device)
         self.ffn = (moe_mod.MoE(cfg, dtype, device) if cfg.moe is not None
-                    else MLP(d, cfg.d_ff, dtype, device))
+                    else mlp_module(d, cfg.d_ff, cfg.mlp_kind, dtype,
+                                    device))
 
 
 class LM(SpecModule):
@@ -106,14 +167,23 @@ def _ffn(block: Block, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def block_prefill(block: Block, cfg: ModelConfig, x: torch.Tensor,
-                  rope: Rope, kv_dtype: str
+                  rope: Rope, kv_dtype: str, ring: Optional[int] = None
                   ) -> Tuple[torch.Tensor, attn_mod.LayerCache]:
     """One block over a whole prompt: (x, the block's cache rows).  An
     MLA block's latent rows ignore ``kv_dtype``, as the reference's
-    ``mla_cache_specs`` does."""
+    ``mla_cache_specs`` does; a windowed block's rows come in the layout
+    of a ``ring``-row ring cache; a recurrent block's are its ``state``
+    and ``conv`` after the prompt."""
     h = rms_norm(x, block.ln1.scale, cfg.norm_eps)
     if block.kind == "mla":
         mix, rows = mla_mod.mla_prefill(block.mix, cfg, h, rope)
+    elif block.kind == "rglru":
+        mix, rows = rglru_mod.apply_rglru_train(block.mix, cfg, h,
+                                                return_cache=True)
+    elif block.kind == "attn_window":
+        mix, rows = attn_mod.attention_prefill(
+            block.mix, cfg, h, rope, kv_dtype=kv_dtype,
+            window=cfg.hybrid.window, ring=ring)
     else:
         mix, rows = attn_mod.attention_prefill(block.mix, cfg, h, rope,
                                                kv_dtype=kv_dtype)
@@ -122,12 +192,25 @@ def block_prefill(block: Block, cfg: ModelConfig, x: torch.Tensor,
 
 def block_decode(block: Block, cfg: ModelConfig, x: torch.Tensor,
                  cache: attn_mod.LayerCache, t: torch.Tensor, rope: Rope, *,
-                 plan: LaunchPlan = None) -> torch.Tensor:
-    """One block, one token per slot; x: (B, 1, d)."""
+                 plan: LaunchPlan = None,
+                 side_plans: SidePlans = None) -> torch.Tensor:
+    """One block, one token per slot; x: (B, 1, d).  ``plan`` is the
+    frozen plan of the full-attention layers; a windowed layer attends
+    its ring under ``side_plans["ring"]`` when the scheduler froze one,
+    else the policy decides inside the launch over the ring's length,
+    as the reference's does."""
     h = rms_norm(x, block.ln1.scale, cfg.norm_eps)
-    decode = (mla_mod.mla_decode if block.kind == "mla"
-              else attn_mod.attention_decode)
-    mix = decode(block.mix, cfg, h, cache, t, rope, plan=plan)
+    if block.kind == "rglru":
+        mix = rglru_mod.apply_rglru_decode(block.mix, cfg, h, cache)
+    elif block.kind == "attn_window":
+        mix = attn_mod.attention_decode(
+            block.mix, cfg, h, cache, t, rope,
+            plan=(side_plans or {}).get("ring", plan),
+            window=cfg.hybrid.window)
+    else:
+        decode = (mla_mod.mla_decode if block.kind == "mla"
+                  else attn_mod.attention_decode)
+        mix = decode(block.mix, cfg, h, cache, t, rope, plan=plan)
     return _ffn(block, cfg, x + mix)
 
 
@@ -159,19 +242,22 @@ def lm_prefill_view(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _prefill_layers(params: LM, cfg: ModelConfig, x: torch.Tensor,
-                    kv_dtype: str) -> Tuple[torch.Tensor, Caches]:
+                    kv_dtype: str, ring: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, Caches]:
     """Every block over the embedded rows ``x`` (B, L, d) at positions
     [0, L): (the last block's output, the cache rows of every layer
-    stacked, (layers, B, L, ...) a tensor)."""
+    stacked, (layers, B, L, ...) a tensor; a hybrid model's leaves stack
+    the layers that hold them, in layer order, its windowed rows in the
+    layout of a ``ring``-row ring)."""
     L = x.shape[1]
     rope = rope_angles(torch.arange(L, device=x.device)[None],
                        rope_dim(cfg), cfg.rope_theta)
-    kv = []
+    kv: Dict[str, List[torch.Tensor]] = {}
     for block in params.layers:
-        x, rows = block_prefill(block, cfg, x, rope, kv_dtype)
-        kv.append(rows)
-    return x, {name: torch.stack([rows[name] for rows in kv])
-               for name in kv[0]}
+        x, rows = block_prefill(block, cfg, x, rope, kv_dtype, ring)
+        for name, r in rows.items():
+            kv.setdefault(name, []).append(r)
+    return x, {name: torch.stack(r) for name, r in kv.items()}
 
 
 @torch.no_grad()
@@ -193,8 +279,11 @@ def lm_prefill(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             raise ValueError("a vision config's prefill needs patches")
         pp = patches.to(x.dtype) @ params.patch_proj.to(x.dtype)
         x = torch.cat([pp, x], dim=1)
-    x, rows = _prefill_layers(params, cfg, x, kv_dtype)
+    ring = caches["k"].shape[2] if cfg.family == "hybrid" else None
+    x, rows = _prefill_layers(params, cfg, x, kv_dtype, ring)
     for name, c in caches.items():
+        # rows [0, L) of a position-indexed leaf; a recurrent leaf
+        # (state, conv tail) whole
         ops.bit_view(c)[:, :, :rows[name].shape[2]] = ops.bit_view(
             rows[name].to(c.dtype))
     return _logits(params, cfg, x[:, -1:])[:, 0]
@@ -242,17 +331,19 @@ def lm_prefill_suffix_view(params: LM, cfg: ModelConfig, view: Caches,
 @torch.no_grad()
 def lm_decode_step(params: LM, cfg: ModelConfig, caches: Caches,
                    token: torch.Tensor, t: torch.Tensor, *,
-                   plan: Optional[LaunchPlan] = None) -> torch.Tensor:
+                   plan: Optional[LaunchPlan] = None,
+                   side_plans: SidePlans = None) -> torch.Tensor:
     """One decode step for every slot.  ``token`` (B,) and ``t`` (B,) are
     each slot's fed token and its position.  Writes each slot's K/V row
-    into ``caches`` in place and returns the logits (B, vocab) f32.
-    ``plan`` is the frozen decode plan every layer launches from."""
+    (and a recurrent layer's state) into ``caches`` in place and returns
+    the logits (B, vocab) f32.  ``plan`` is the frozen decode plan the
+    full-attention layers launch from, ``side_plans`` the hybrid's ring
+    plan (:func:`block_decode`)."""
     x = embed_tokens(params.embed, token[:, None])
     rope = rope_angles(t[:, None], rope_dim(cfg), cfg.rope_theta)
-    for li, block in enumerate(params.layers):
-        x = block_decode(block, cfg, x,
-                         {name: c[li] for name, c in caches.items()}, t,
-                         rope, plan=plan)
+    for block, cache in zip(params.layers, layer_caches(cfg, caches)):
+        x = block_decode(block, cfg, x, cache, t, rope, plan=plan,
+                         side_plans=side_plans)
     return _logits(params, cfg, x)[:, 0]
 
 

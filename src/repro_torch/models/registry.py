@@ -6,7 +6,12 @@ prefill, decode and verify are dense's); ``mla`` (latent attention over
 one ``latent`` cache leaf: fused prefill and paging, neither prefix
 sharing nor speculation); ``vlm`` (a vision stub's patches prepended by
 :meth:`Model.prefill`; serving admits through the teacher-forcing loop
-and pages, nothing more).  The family predicates are the reference's.
+and pages, nothing more); ``encdec`` (Whisper: an encoder over an audio
+stub's frames, a decoder with cross attention, :mod:`~repro_torch.models.
+encdec`; fused admission and paging, its cross cache never paged);
+``hybrid`` (RecurrentGemma: RG-LRU blocks and local attention over a
+ring; dense caches and loop admission only).  The family predicates are
+the reference's.
 ``build_model(cfg)`` returns a :class:`Model` bound to a device: the CUDA
 card unless the caller asks for the CPU.
 """
@@ -19,8 +24,10 @@ import torch
 from repro_torch.cache.manager import CacheManager
 from repro_torch.cache.spec import CacheSpec
 from repro_torch.configs.base import ModelConfig, check_ported, get_arch
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import mla as mla_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.common import init_params
 from repro_torch.plan import LaunchPlan
 from repro_torch.quant import QUANT_DTYPES
@@ -48,14 +55,16 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
 
-    def init_params(self, seed: Union[int, torch.Generator] = 0
-                    ) -> lm_mod.LM:
-        """Random weights from a seed or a generator on this device."""
+    def init_params(self, seed: Union[int, torch.Generator] = 0):
+        """Random weights from a seed or a generator on this device: an
+        :class:`~repro_torch.models.encdec.EncDec` for the encdec family,
+        an :class:`~repro_torch.models.lm.LM` otherwise."""
         gen = seed
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(seed))
-        return init_params(lm_mod.LM(self.cfg, self.device), gen)
+        cls = encdec_mod.EncDec if self.cfg.family == "encdec" else lm_mod.LM
+        return init_params(cls(self.cfg, self.device), gen)
 
     def cache_shapes(self, batch: int, max_len: int,
                      kv_dtype: str = "bfloat16"
@@ -67,13 +76,28 @@ class Model:
         max_len, Hkv), as the reference's ``kv_cache_specs``.  An mla
         model has one ``latent`` (layers, batch, max_len, 1, kv_lora_rank
         + rope) in bfloat16 whatever ``kv_dtype`` says, as the
-        reference's ``mla_cache_specs``.  Every one is position-linear
-        (row t holds position t), so every one pages."""
+        reference's ``mla_cache_specs``.  An encdec model has bfloat16
+        self ``k`` / ``v`` and cross ``cross_k`` / ``cross_v`` (layers,
+        batch, encoder_positions, Hkv, D), whatever ``kv_dtype`` says
+        (:func:`repro_torch.models.encdec.cache_shapes`).  A hybrid
+        model's ``k`` / ``v`` (and scales) stack its windowed layers over
+        the ring's ``min(window, max_len)`` rows, and its ``state`` /
+        ``conv`` its recurrent layers
+        (:func:`repro_torch.models.rglru.cache_shapes`).  Which tensors
+        never page: :meth:`unpaged_caches`."""
         cfg = self.cfg
         if cfg.family == "mla":
             return {"latent": ((cfg.num_layers, batch, max_len, 1,
                                 mla_mod.latent_width(cfg)), torch.bfloat16)}
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+        if cfg.family == "encdec":
+            return encdec_mod.cache_shapes(cfg, batch, max_len)
+        layers, rows, rec = cfg.num_layers, max_len, {}
+        if cfg.family == "hybrid":
+            n_rec = lm_mod.layer_kinds(cfg).count("rglru")
+            layers, rows = layers - n_rec, lm_mod.ring_len(cfg, max_len)
+            rec = {name: ((n_rec,) + shape, dt) for name, (shape, dt) in
+                   rglru_mod.cache_shapes(cfg, batch).items()}
+        shape = (layers, batch, rows, cfg.num_kv_heads,
                  cfg.resolved_head_dim)
         if kv_dtype in QUANT_DTYPES:
             dt = QUANT_DTYPES[kv_dtype].torch_dtype
@@ -82,7 +106,18 @@ class Model:
         else:
             dt = getattr(torch, kv_dtype)
             scales = {}
-        return {"k": (shape, dt), "v": (shape, dt), **scales}
+        return {"k": (shape, dt), "v": (shape, dt), **scales, **rec}
+
+    def unpaged_caches(self) -> Tuple[str, ...]:
+        """The cache tensors the paged layout keeps dense (the reference's
+        ``paged=False`` leaves): encdec's cross K / V, read whole every
+        step; every hybrid tensor (a ring, recurrent state), which the
+        paged layout never holds anyway."""
+        if self.cfg.family == "encdec":
+            return encdec_mod.CROSS_LEAVES
+        if self.cfg.family == "hybrid":
+            return tuple(self.cache_shapes(1, 1))
+        return ()
 
     def init_cache(self, batch: int, max_len: int,
                    kv_dtype: str = "bfloat16") -> lm_mod.Caches:
@@ -93,10 +128,10 @@ class Model:
 
     @property
     def supports_paged_cache(self) -> bool:
-        """Whether the paged layout may hold this family's caches: every
-        cache tensor of a ported family is position-linear (row t holds
-        position t).  The reference's recurrent families, not ported,
-        would stay dense."""
+        """Whether the paged layout may hold this family's caches: its
+        self-attention caches are position-linear (row t holds position
+        t).  The hybrid family's ring and recurrent state are not, so its
+        caches stay dense."""
         return self.cfg.family in ("dense", "moe", "mla", "vlm", "encdec")
 
     @property
@@ -118,6 +153,10 @@ class Model:
         this model's caches, the input a
         :class:`~repro_torch.cache.manager.CacheManager` resolves into a
         layout."""
+        if layout == "paged" and not self.supports_paged_cache:
+            raise ValueError(
+                f"{self.cfg.family} caches are not position-linear "
+                "(recurrent state / ring buffers); use layout='dense'")
         if share_prefix and not self.supports_prefix_sharing:
             raise ValueError(
                 f"{self.cfg.family} models cannot share prefix pages "
@@ -137,42 +176,87 @@ class Model:
         return CacheManager(self, self.cache_spec(batch, max_len, kv_dtype,
                                                   **layout_kw))
 
-    def prefill(self, params: lm_mod.LM, batch: Dict[str, torch.Tensor],
+    def forward(self, params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced logits (B, L, vocab) f32 and the auxiliary loss
+        (0), for the encdec family: ``batch`` holds ``tokens`` and
+        ``frames``.  The decoder-only families' train path comes with
+        training (ROADMAP Queue 1 item 7)."""
+        if self.cfg.family != "encdec":
+            raise NotImplementedError(
+                f"the {self.cfg.family} family's train-path forward is not "
+                "ported yet")
+        logits = encdec_mod.encdec_forward(params, self.cfg,
+                                           batch["tokens"], batch["frames"])
+        return logits, torch.zeros((), device=logits.device)
+
+    def prefill(self, params, batch: Dict[str, torch.Tensor],
                 max_len: int, kv_dtype: str = "bfloat16"
                 ) -> Tuple[torch.Tensor, lm_mod.Caches]:
         """Batched prefill of whole prompts in one pass: ``batch`` holds
         ``tokens`` (B, L_text) and, for a vision config, ``patches`` (B,
-        P, embed_dim), prepended after ``patch_proj``.  Returns (the last
-        position's logits (B, vocab) f32, dense caches of ``max_len``
-        rows laid out for :meth:`decode_step` at t = L_total)."""
+        P, embed_dim), prepended after ``patch_proj``, or, for an encdec
+        config, ``frames`` (B, encoder_positions, d_model), encoded
+        first.  Returns (the last position's logits (B, vocab) f32, dense
+        caches of ``max_len`` rows laid out for :meth:`decode_step` at t
+        = L_total).  As the reference's prefill emits them, encdec's
+        caches and a hybrid's conv tails are in the activation dtype."""
+        cfg = self.cfg
         tokens = batch["tokens"]
         caches = self.init_cache(tokens.shape[0], max_len, kv_dtype)
-        logits = lm_mod.lm_prefill(params, self.cfg, tokens, caches,
-                                   patches=batch.get("patches"),
-                                   kv_dtype=kv_dtype)
+        act = getattr(torch, cfg.dtype)
+        for name in (tuple(caches) if cfg.family == "encdec" else
+                     ("conv",) if cfg.family == "hybrid" else ()):
+            caches[name] = caches[name].to(act)
+        if cfg.family == "encdec":
+            logits = encdec_mod.encdec_prefill(params, cfg, tokens,
+                                               batch["frames"], caches)
+        else:
+            logits = lm_mod.lm_prefill(params, cfg, tokens, caches,
+                                       patches=batch.get("patches"),
+                                       kv_dtype=kv_dtype)
         return logits, caches
 
     @property
     def supports_fused_prefill(self) -> bool:
         """Whether :meth:`prefill_slot_view` can consume a bucket-padded
-        prompt: token-input families only (dense, moe, mla).  A vision
-        frontend prepends non-token positions, so a vlm model admits
+        prompt: the token-input families (dense, moe, mla) and encdec
+        (its decoder prefills tokens; the frames stay a stub).  A vision
+        frontend prepends non-token positions, and a hybrid's recurrent
+        state would fold the padding in, so vlm and hybrid models admit
         through the teacher-forcing loop."""
+        if self.cfg.family == "encdec":
+            return True
         return (self.cfg.family in ("dense", "moe", "mla")
                 and self.cfg.frontend.kind == "none")
 
-    def prefill_slot_view(self, params: lm_mod.LM, tokens: torch.Tensor,
-                          length: int, *,
-                          plan: Optional[LaunchPlan] = None,
+    @property
+    def prefill_writes_full_slot(self) -> bool:
+        """Whether :meth:`prefill_slot_view`'s rows cover every cache
+        tensor of the slot, so that fused admission needs no slot reset.
+        encdec's prefill leaves the cross cache alone, so its slots are
+        reset (zeroed) at admission, as the reference's are."""
+        return self.cfg.family != "encdec"
+
+    def prefill_slot_view(self, params, tokens: torch.Tensor, length: int,
+                          *, caches: Optional[lm_mod.Caches] = None,
+                          slot: int = 0, plan: Optional[LaunchPlan] = None,
                           kv_dtype: str = "bfloat16"):
         """Prefill the bucket-padded prompt ``tokens`` (Lb,): (the logits
         at row ``length - 1`` (vocab,) f32, the prompt's batch-1 cache
         rows (layers, 1, Lb, ...)), written nowhere; the cache layout's
-        ``write_slot`` lands them in a slot."""
+        ``write_slot`` lands them in a slot.  ``caches`` (the engine's
+        storage) and ``slot`` are read only where a family's prefill
+        consumes resident state: encdec's cross attention reads the
+        slot's cross cache, and its rows are the self cache's alone
+        (bfloat16 whatever ``kv_dtype`` says)."""
         if not self.supports_fused_prefill:
             raise NotImplementedError(
                 f"{self.cfg.family} models cannot fused-prefill a padded "
                 "prompt; use the loop (teacher-forcing) admission path")
+        if self.cfg.family == "encdec":
+            return encdec_mod.encdec_prefill_view(params, self.cfg, tokens,
+                                                  length, caches, slot)
         return lm_mod.lm_prefill_view(params, self.cfg, tokens, length,
                                       plan=plan, kv_dtype=kv_dtype)
 
@@ -220,13 +304,24 @@ class Model:
         return lm_mod.lm_verify_step(params, self.cfg, caches, tokens, t,
                                      plan=plan)
 
-    def decode_step(self, params: lm_mod.LM, caches: lm_mod.Caches,
+    def decode_step(self, params, caches: lm_mod.Caches,
                     token: torch.Tensor, t: torch.Tensor, *,
-                    plan: Optional[LaunchPlan] = None) -> torch.Tensor:
+                    plan: Optional[LaunchPlan] = None,
+                    side_plans: Optional[Dict[str, LaunchPlan]] = None
+                    ) -> torch.Tensor:
         """One decode step for every slot, caches updated in place;
-        returns logits (B, vocab) f32."""
+        returns logits (B, vocab) f32.  ``plan`` is the frozen plan of the
+        self-attention launches; ``side_plans`` those of the launches over
+        another length (encdec's ``"cross"``, a hybrid's ``"ring"``:
+        :meth:`repro_torch.serving.scheduler.Scheduler.side_plans`).
+        Without them, those launches evaluate the policy inside, over
+        their own length, as the reference's do."""
+        if self.cfg.family == "encdec":
+            return encdec_mod.encdec_decode_step(
+                params, self.cfg, caches, token, t, plan=plan,
+                side_plans=side_plans)
         return lm_mod.lm_decode_step(params, self.cfg, caches, token, t,
-                                     plan=plan)
+                                     plan=plan, side_plans=side_plans)
 
     # --- frontend stubs -----------------------------------------------------
 
@@ -237,6 +332,9 @@ class Model:
         if cfg.frontend.kind == "vision":
             return {"patches": ((batch, cfg.frontend.num_positions,
                                  cfg.frontend.embed_dim), cfg.dtype)}
+        if cfg.family == "encdec":
+            return {"frames": ((batch, cfg.encoder_positions, cfg.d_model),
+                               cfg.dtype)}
         return {}
 
     def text_len(self, seq_len: int) -> int:

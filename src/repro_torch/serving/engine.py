@@ -14,11 +14,16 @@ Counterpart of ``repro.serving.engine`` on one device.  A fixed pool of
 Admission runs fused bucketed prefill: the prompt is padded to its
 ``prefill_bucket`` and computed in one planned launch, keyed
 ``("prefill", bucket)`` in the scheduler's :class:`PlanCache`; a model
-without fused prefill (vlm) admits through the teacher-forcing loop,
-one decode step a prompt token.  Every
-decode launch takes its split count from the frozen
-:class:`~repro_torch.plan.LaunchPlan` of the live slots' resident-length
-bucket, so the policy runs zero times inside a launch
+without fused prefill (vlm, hybrid) admits through the teacher-forcing
+loop, one decode step a prompt token.  A slot is reset (its tensors
+that do not page zeroed) before loop admission, and before fused
+admission when the model's prefill leaves part of the slot unwritten
+(encdec's cross cache).  Every decode launch takes its split count from
+the frozen :class:`~repro_torch.plan.LaunchPlan` of the live slots'
+resident-length bucket, or, where a launch reads another length
+(encdec's cross attention, a hybrid's ring), from the scheduler's side
+plan for it (:meth:`~repro_torch.serving.scheduler.Scheduler.
+side_plans`), so the policy runs zero times inside a launch
 (``kernels.ops.policy_eval_count`` stays flat).  On the card the plans
 are made for the card's SM count.
 
@@ -349,17 +354,20 @@ class ServingEngine:
     # --- bound steps --------------------------------------------------------
 
     def _decode_impl(self, token: torch.Tensor, t: torch.Tensor,
-                     plan: LaunchPlan, num_pages: int) -> torch.Tensor:
+                     plan: LaunchPlan, num_pages: int,
+                     side_plans=None) -> torch.Tensor:
         """Lockstep decode over the resident bucket's view.  Paged: one
-        gather per cache tensor (every layer at once), the planned step
-        on the view, then only the page holding each slot's new row goes
-        back.  Dense: the storage is the view and the step writes it."""
+        gather per cache tensor that pages (every layer at once), the
+        planned step on the view, then only the page holding each slot's
+        new row goes back.  Dense: the storage is the view and the step
+        writes it.  ``side_plans`` are the launches over another length
+        (:meth:`Scheduler.side_plans`)."""
         lay = self.cache.layout
         table = self.cache.table_device()
         t = lay.decode_positions(t, num_pages)
         view = lay.gather_view(self._caches, table, num_pages)
         logits = self.model.decode_step(self._params, view, token, t,
-                                        plan=plan)
+                                        plan=plan, side_plans=side_plans)
         lay.write_token(self._caches, view, table, t, num_pages)
         return self.sampler.sample(logits, self._state, self._pos)
 
@@ -367,7 +375,8 @@ class ServingEngine:
                       plan: LaunchPlan, num_pages: int) -> int:
         """Fused single-slot prefill; the layout lands the rows."""
         logits, view = self.model.prefill_slot_view(
-            self._params, tokens, length, plan=plan, kv_dtype=self.kv_dtype)
+            self._params, tokens, length, caches=self._caches, slot=slot,
+            plan=plan, kv_dtype=self.kv_dtype)
         self.cache.layout.write_slot(self._caches, view,
                                      self.cache.table_device(), slot,
                                      num_pages)
@@ -422,12 +431,18 @@ class ServingEngine:
                        tokens.shape[1], num_pages)
         return toks, acc
 
-    def _build(self, impl, plan: LaunchPlan):
+    def _build(self, impl, plan: LaunchPlan, **kw):
         # plan.bucket spans the whole view: the resident length for
         # decode, the prompt for prefill and suffix prefill
         return functools.partial(impl, plan=plan,
                                  num_pages=self.cache.spec.view_pages(
-                                     plan.bucket))
+                                     plan.bucket), **kw)
+
+    def _build_decode(self, plan: LaunchPlan):
+        """A decode step bound to its plan and to the side plans, which
+        are resolved here, once, never inside a step."""
+        return self._build(self._decode_impl, plan,
+                           side_plans=self.sched.side_plans())
 
     def _apply_copies(self) -> None:
         """Apply the cache manager's queued (src, dst) page copies.  Runs
@@ -617,13 +632,16 @@ class ServingEngine:
         self._spec_cfg[i] = spec
         self._drafters[i] = get_drafter(spec.method)() if spec else None
         self._spec_rejects[i] = 0
+        # the slot is reset when admission leaves any of its rows
+        # unwritten: always for the loop, which teacher-forces the prompt
+        # through decode steps, and for fused prefill when the model says
+        # so (encdec's cross cache), as the reference does
+        if (self.prefill_mode != "fused"
+                or not self.model.prefill_writes_full_slot):
+            self.cache.layout.zero_slot(self._caches, i)
         if self.prefill_mode == "fused":
             self._admit_fused(i, st, events, shared)
             return
-        # loop admission teacher-forces the prompt through decode steps;
-        # the slot's rows (data and scales) are reset first, as the
-        # reference does
-        self.cache.layout.zero_slot(self._caches, i)
         st.prompt_left = list(prompt)
         self._pos[i] = 0
         self._next_token[i] = st.prompt_left.pop(0)
@@ -702,8 +720,7 @@ class ServingEngine:
         t = torch.from_numpy(self._pos).to(self.device)
         t_max = max(int(self._pos[i]) for i, _ in live)
         if self.use_metadata:
-            entry = self.sched.decode_entry(
-                t_max, functools.partial(self._build, self._decode_impl))
+            entry = self.sched.decode_entry(t_max, self._build_decode)
             step = entry.step
         else:
             # dense only (paged needs the metadata path): the whole cache

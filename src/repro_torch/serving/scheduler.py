@@ -13,7 +13,13 @@ engine consumes:
 - suffix-prefill plans (prefix sharing), keyed by ``("sprefill",
   view_bucket, suffix_bucket)``;
 - verify plans (speculative decoding), keyed by ``("verify", k,
-  bucket)``.
+  bucket)``;
+- side plans (:meth:`Scheduler.side_plans`), one per decode launch of
+  the family that attends a length other than the bucket's: encdec's
+  cross attention over the encoder length, a hybrid's windowed layers
+  over the ring.  The reference evaluates the policy for them inside
+  each compiled step; here each is frozen once, when the first decode
+  step is built, so no decode step evaluates the policy.
 
 ``num_cores`` is the machine the policy plans for: the card's SM count
 when the engine runs on one.  ``table`` is the calibrated
@@ -28,6 +34,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.split_policy import get_policy
 from repro_torch.plan import AttentionSpec, LaunchPlan, PlanCache, Planner, \
     bucket_seqlen
 from repro_torch.serving.sampling import GREEDY, SamplingParams
@@ -98,6 +105,7 @@ class Scheduler:
             table.attach_stats(self.plans.stats)
         self.slots: List[Optional[SlotState]] = [None] * batch_slots
         self.pending: Deque[SlotState] = deque()
+        self._side: Optional[Dict[str, LaunchPlan]] = None
 
     # --- admission ----------------------------------------------------------
 
@@ -186,6 +194,37 @@ class Scheduler:
             return PlanEntry(bucket, plan, build(plan))
 
         return self.plans.get_or_build(bucket, miss)
+
+    # --- side plans: decode launches over another length -------------------
+
+    def side_plans(self) -> Dict[str, LaunchPlan]:
+        """Frozen plans of the decode launches of a step whose L_K is not
+        the bucket's, by name: encdec's ``"cross"`` (the whole encoder
+        memory) and a hybrid's ``"ring"`` (the whole ring, ``min(window,
+        max_len)`` rows); none for the other families.  Made once, with
+        the decisions the reference's inline evaluation makes: the
+        engine's policy and core count (a table-backed policy's analytic
+        fallback, as ``get_scheduler_metadata`` takes it), no
+        ``num_splits_override`` (the reference keeps only a plan's policy
+        overrides there), a bfloat16 key also over an int8 ring, and no
+        bucket, so the launch splits the whole cache it reads."""
+        if self._side is None:
+            cfg = self.cfg
+            lengths = {}
+            if cfg.family == "encdec":
+                lengths["cross"] = cfg.encoder_positions
+            elif cfg.family == "hybrid":
+                lengths["ring"] = min(cfg.hybrid.window, self.max_len)
+            policy = self.planner.policy
+            fn = get_policy(policy)
+            if getattr(fn, "needs_table", False):
+                policy = getattr(fn, "fallback", "paper")
+            planner = Planner(policy=policy,
+                              num_cores=self.planner.num_cores)
+            self._side = {name: planner.plan(AttentionSpec.decode(
+                self.B, length, cfg.num_heads, cfg.num_kv_heads,
+                cfg.resolved_head_dim)) for name, length in lengths.items()}
+        return self._side
 
     # --- speculative verify planning ----------------------------------------
 

@@ -1291,3 +1291,100 @@ def test_single_kv_head_engines_on_the_card(cuda, arch, kv_quant, layout):
             want[(key, s)] = want.get((key, s), 0) + cfg.num_layers * n
     assert ops.launch_counts_by_key(decode) == want
     assert eng.sched.decode_spec(128).num_heads_kv == 1
+
+
+# The decode launches over another length than the frozen plan's:
+# whisper-large-v3's 1500-row cross cache (12 KV blocks, the last 92 rows)
+# at G 1, H_KV 20, D 64, and recurrentgemma-9b's 2048-row ring at G 16,
+# H_KV 1, D 256
+
+
+@pytest.mark.parametrize("b,s", [(1, 6), (2, 3), (2, 1), (2, 12)])
+def test_decode_over_the_encdec_cross_cache(cuda, b, s):
+    """The decode kernel over every row of a 1500-row cross cache (kv_len
+    1500: the ragged last block read to its end) at the cross side plan's
+    splits (S 6 at B 1, S 3 at B 2) and at S 1 and one block a split:
+    within 2e-2 of the plain version, and the same bits again."""
+    q = _rand(cuda, (b, 20, 1, 64))
+    k, v = (_rand(cuda, (b, 1500, 20, 64)) for _ in range(2))
+    lens = torch.full((b,), 1500, device="cuda", dtype=torch.int32)
+    run = functools.partial(flash_decode, q, k, v, lens, num_splits=s)
+    got = run()
+    torch.testing.assert_close(
+        got.float(), decode_plain(q, k, v, lens, num_splits=s).float(),
+        rtol=2e-2, atol=2e-2)
+    assert torch.equal(run(), got)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_decode_kernels_over_the_hybrid_ring(cuda, kv_dtype):
+    """Both decode kernels over a 2048-row ring at the ring side plan's S
+    16: before the wrap (kv_len 315 and 53, the untouched rows NaN / Inf
+    or poisoned) and after it (every row live)."""
+    _check_wide(cuda, 16, 256, [(2, 2048, (315, 53), 16),
+                                (2, 2048, (2048, 2048), 16),
+                                (1, 2048, (2047,), 16)], kv_dtype, hkv=1)
+
+
+@pytest.mark.parametrize("b,lq,lk,causal,window,hq,hkv,d", [
+    (2, 1500, 1500, False, None, 20, 20, 64),   # whisper's encoder
+    (1, 128, 1500, False, None, 20, 20, 64),    # its cross prefill
+    (1, 37, 1500, False, None, 20, 20, 64),     # a ragged prompt
+    (1, 1024, 1024, True, None, 20, 20, 64),    # its self prefill
+    (1, 2100, 2100, True, 2048, 16, 1, 256),    # the ring wraps
+    (1, 300, 300, True, 2048, 16, 1, 256)])     # inside the window
+def test_prefill_at_the_encdec_and_hybrid_shapes(cuda, b, lq, lk, causal,
+                                                 window, hq, hkv, d):
+    """The bf16 prefill kernel non-causal at Lq not a multiple of 64 and
+    Lk 1500, and causal with the 2048-row window at D 256 (its KV loop
+    starting past row 0): within 3e-2 of the plain version, same bits
+    again."""
+    q, k, v = _prefill_inputs(cuda, b, lq, lk, hq, hkv, d, torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    got = flash_prefill(q, k, v, **kw)
+    torch.testing.assert_close(got.float(),
+                               prefill_plain(q, k, v, **kw).float(),
+                               rtol=3e-2, atol=3e-2)
+    assert torch.equal(flash_prefill(q, k, v, **kw), got)
+
+
+@pytest.mark.parametrize("arch,d_model", [("whisper-large-v3", 256),
+                                          ("recurrentgemma-9b", 1024)])
+def test_side_plan_engines_on_the_card(cuda, arch, d_model):
+    """Reduced whisper-large-v3 (head_dim 64, 16 frames) and
+    recurrentgemma-9b (head_dim 256, a 64-row ring, one prompt past it)
+    served on the card in float32: the kernels carry every attention
+    launch, the launches over the cross cache and the ring at their side
+    plan's (view, S), no policy evaluation, and the tokens of a CPU run of
+    the same weights."""
+    cfg = reduced_config(arch, num_layers=2, d_model=d_model).replace(
+        dtype="float32", param_dtype="float32")
+    params = build_model(cfg, device="cpu").init_params(0)
+    reqs = [Request(i, [(5 * i + j) % 250 + 1 for j in range(n)],
+                    max_new_tokens=6) for i, n in enumerate((3, 70, 9))]
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        eng = ServingEngine(model, ServeConfig(model=cfg,
+                                               kv_cache_dtype="float32"),
+                            max_len=256, batch_slots=2, device=dev)
+        eng.load(params.to(dev))
+        ops.reset_launch_counts()
+        ops.reset_policy_eval_count()
+        for r in reqs:
+            eng.submit(r)
+        tokens[dev] = [c.tokens for c in eng.drain()]
+    (name, side), = eng.sched.side_plans().items()
+    steps = sum(v for k, v in eng.stats.launches.items()
+                if isinstance(k, int))
+    by_key = ops.launch_counts_by_key("flash_decode")
+    view = side.spec.seqlen_k
+    if cfg.family == "encdec":
+        assert (name, view) == ("cross", 16)
+        assert by_key[(view, side.num_splits)] == cfg.num_layers * steps
+    else:
+        assert (name, view) == ("ring", 64)
+        assert by_key == {(view, side.num_splits): steps}   # 1 ring layer
+    assert ops.policy_eval_count() == 0
+    assert tokens["cuda"] == tokens["cpu"]
+

@@ -58,7 +58,10 @@ def test_no_module_imports_jax_or_repro():
                  "repro_torch.configs.qwen3_moe_235b_a22b",
                  "repro_torch.models.mla",
                  "repro_torch.configs.minicpm3_4b",
-                 "repro_torch.configs.paligemma_3b"):
+                 "repro_torch.configs.paligemma_3b",
+                 "repro_torch.models.encdec", "repro_torch.models.rglru",
+                 "repro_torch.configs.whisper_large_v3",
+                 "repro_torch.configs.recurrentgemma_9b"):
         assert want in res["modules"]
 
 

@@ -197,14 +197,15 @@ def test_bf16_interop_keeps_the_router_float32(moe_pair):
 
 
 def test_unported_families_name_themselves():
-    encdec = ModelConfig(name="x", family="encdec", num_layers=1,
-                         d_model=32, num_heads=4, num_kv_heads=4, d_ff=32,
-                         vocab_size=64)
-    for fn in (lambda: reduced_config(encdec),
-               lambda: build_model(encdec, device="cpu")):
-        with pytest.raises(ValueError, match="'encdec' family is not "
+    ssm = ModelConfig(name="x", family="ssm", num_layers=1,
+                      d_model=32, num_heads=4, num_kv_heads=4, d_ff=32,
+                      vocab_size=64)
+    for fn in (lambda: reduced_config(ssm),
+               lambda: build_model(ssm, device="cpu")):
+        with pytest.raises(ValueError, match="'ssm' family is not "
                                              "ported yet .*ported: dense, "
-                                             "moe, mla, vlm"):
+                                             "moe, mla, vlm, encdec, "
+                                             "hybrid; not yet: ssm"):
             fn()
     model = build_model(reduced_config("granite-moe-3b-a800m"),
                         device="cpu")
