@@ -28,8 +28,19 @@ Run from the repository root, on a machine with the card and nvcc:
     python3 chip_smoke.py --phase vlm     # build + paligemma-3b
     python3 chip_smoke.py --phase encdec  # build + whisper-large-v3
     python3 chip_smoke.py --phase hybrid  # build + recurrentgemma-9b
+    python3 chip_smoke.py --phase ssm     # build + mamba2-780m
+    python3 chip_smoke.py --phase shard   # build + qwen2.5-3b at dp 4
+                                          # and sequence-sharded at sp 4
 
-Phases, each fatal on failure:
+Phases, each fatal on failure.  A phase run alone (``--phase``) serves
+its models at full width and depth; the default run, to stay well inside
+its 1200 s call on a slow host, serves every model after the main
+path's phases (3, 4 and Table 1 keep qwen2.5-3b's 36 layers, as do 4c
+and 4j) at full width and the depth of ``DEFAULT_RUN_LAYERS``:
+qwen2.5-3b 18 layers in 4b, 4e and 4f, codeqwen1.5-7b, stablelm-12b and
+granite-moe-3b-a800m 16, minicpm3-4b 16, paligemma-3b 9,
+whisper-large-v3 16 + 16, recurrentgemma-9b 11 (3 windowed); mamba2-780m
+keeps its 48.
 
 1. Environment and build: the card's name and power limit, CUDA version,
    SM count; all kernels built from ``src/repro_torch/csrc`` (one nvcc per
@@ -254,6 +265,32 @@ Phases, each fatal on failure:
    no policy evaluation in a step; peak memory, the median decode step
    and a profiled serving step are printed, and the side plans' splits
    under ``paper`` and ``fa3_baseline`` at B 1 and 2.
+4j. Mesh-native serving (``phase_shard``, after the obs phase, on the
+   main path's qwen2.5-3b): dp 4 x sp 1 with 2 slots a shard, every
+   shard on the card (``devices=[cuda:0] * 4``), the serving cell's 4
+   prompts and 4 seeded ones, 16 new tokens each: routing [2, 2, 2, 2],
+   and each shard's streams bit for bit those of a single-device 2-slot
+   engine fed the requests routed to it.  Then dp 1 x sp 4 at max_len
+   4096, one 4000-token prompt, 8 new tokens, bf16 and int8: every
+   decode plan carries ``mesh_splits`` 4 and the grid; each layer of
+   each decode step launches the decode kernel's partials-only epilogue
+   (the quantized one's under int8) 4 times at (1024, S1) and the
+   combine kernel once, with the counts zeroed just before the run and
+   read just after; each layer's sharded output is held against the
+   plain version over the whole view in float64 and bit for bit against
+   one fused launch at S 4 (whose launches are taken back out of the
+   counts), each prefill launch as ``checked_kernels`` does.
+4k. The ssm family (``phase_ssm``, after 4i): mamba2-780m (48 SSD
+   layers, d_model 1536, 48 heads of P 64, N 128) at full width and
+   depth, bf16, loop admission of the serving cell's first two prompts,
+   16 new tokens, one run (no kernel to check): no kernel launch and no
+   policy evaluation in any step.
+   On the model's own inputs (512 seeded tokens), at the first and the
+   last layer, the chunked scan (two 256-row chunks) against the
+   recurrence row by row in float64 (y and the final state within 1e-3
+   of its largest entry), and ``Model.prefill``'s layer-0 state against
+   512 decode steps of that layer (within 2e-2); peak memory and the
+   median step are printed.
 5. One JSON ``kernels`` line: per kernel its error (a decode row's at
    that row's own inputs, over NaN/Inf tails), launches on the main
    path (the bf16 run's; the quantized decode and the combine kernels'
@@ -286,8 +323,12 @@ Phases, each fatal on failure:
    and its 1500-row cross cache, the prefill kernel as its encoder (non-
    causal, 1500) and its decoder's self and cross prefill run, both
    decode kernels over recurrentgemma-9b's 2048-row ring (G 16, D 256,
-   H_KV 1) and the prefill kernel windowed at Lq 2100.  Every phase
-   prints its wall seconds.
+   H_KV 1) and the prefill kernel windowed at Lq 2100; phase 4j's shape:
+   the combine kernel over 4 partials (S 4, B 1, H_KV 2, G 8, D 128)
+   with the sp 4 bf16 run's launches, the first serving launches it
+   has, and the decode kernel's and the quantized one's partials-only
+   epilogue over one 1024-row chunk at S 1 with the sp 4 runs' launches.
+   Every phase prints its wall seconds.
 
 ``--phase admission`` times the serving cell's admission
 steps alone, five runs on one engine; ``--phase times`` times the
@@ -357,6 +398,8 @@ from repro_torch.kernels.flash_prefill import (  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import mla as mla_mod  # noqa: E402
+from repro_torch.models import ssd as ssd_mod  # noqa: E402
+from repro_torch.models.common import embed_tokens, rms_norm  # noqa: E402
 from repro_torch.plan import AttentionSpec, Planner  # noqa: E402
 from repro_torch.quant import (  # noqa: E402
     AB_ATOL,
@@ -371,6 +414,7 @@ from repro_torch.serving import (  # noqa: E402
     ServingEngine,
 )
 from repro_torch.serving.scheduler import Scheduler  # noqa: E402
+from repro_torch.shard import ShardedServingEngine, ShardSpec  # noqa: E402
 from repro_torch.core.split_policy import (  # noqa: E402
     DecodeWorkload,
     choose_num_splits,
@@ -2104,6 +2148,15 @@ def f64(x):
         else x
 
 
+def save_failed(name: str, args, kw) -> None:
+    """Save a failed check's inputs to ``chiprun_out/failed_check.pt``."""
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    torch.save({"name": name, "args": [a.cpu() if isinstance(
+        a, torch.Tensor) else a for a in args], "kw": kw},
+        out / "failed_check.pt")
+
+
 @contextlib.contextmanager
 def checked_kernels(acc):
     """Within the block, every prefill-kernel launch and every decode-
@@ -2143,11 +2196,7 @@ def checked_kernels(acc):
                   f", largest |input| by argument {mags}; share of the "
                   f"tolerance: kernel {tol_ratio(got, want, tol):.4g}, "
                   f"float32 plain {tol_ratio(f32, want, tol):.4g}")
-            out = ROOT / "chiprun_out"
-            out.mkdir(exist_ok=True)
-            torch.save({"name": name, "args": [a.cpu() if isinstance(
-                a, torch.Tensor) else a for a in args], "kw": kw},
-                out / "failed_check.pt")
+            save_failed(name, args, kw)
             raise
         acc[name]["max_abs_err"] = max(acc[name]["max_abs_err"], err)
         acc[name]["max_tol_ratio"] = max(acc[name]["max_tol_ratio"],
@@ -2184,7 +2233,7 @@ def checked_kernels(acc):
 
 
 def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
-             phase="archs", trace=False, layout="dense"):
+             phase="archs", trace=False, layout="dense", checked_run=True):
     """One config's serving cell: the requests (``new`` tokens each)
     through 2 slots with a bf16 cache or under ``kv_quant``, in the
     ``layout`` cache layout, twice on fresh engines, the launch counts
@@ -2200,7 +2249,8 @@ def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
     decodes it under the int8-keyed plans.  With ``trace`` the timed run
     writes the trace and metrics artifacts (``ServeConfig.trace_path`` /
     ``metrics_path``, under ``chiprun_out/obs/``), which must pass
-    ``check_obs_artifacts``."""
+    ``check_obs_artifacts``.  Without ``checked_run`` (a model that
+    launches no kernel, so nothing to check) only the timed run runs."""
     label = (f"{phase} {cfg.name} {kv_quant or 'bf16'}"
              + ("" if layout == "dense" else f" {layout}"))
     layers, side = decode_layers(cfg)
@@ -2219,7 +2269,9 @@ def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
         stem = OBS_DIR / f"{cfg.name}_{kv_quant or 'bf16'}"
         paths = dict(trace_path=f"{stem}_trace.json",
                      metrics_path=f"{stem}_metrics.json")
-    for checked in (True, False):
+    for name in ("flash_prefill", "flash_decode", "flash_decode_quant"):
+        acc[name] = {"max_abs_err": 0.0, "max_tol_ratio": 0.0, "checks": 0}
+    for checked in (True, False) if checked_run else (False,):
         sampler = CheckedGreedy()
         engine = ServingEngine(model, ServeConfig(
             model=cfg, kv_quant=kv_quant, cache_layout=layout,
@@ -2273,7 +2325,7 @@ def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
               and all(c.finish_reason == "length" for c in done),
               f"{label}: completions")
         runs.append(run)
-    first, timed_run = runs
+    first, timed_run = runs if checked_run else runs * 2
     counts = first["counts"]
     check(acc[decode]["checks"] == counts[decode]
           and acc["flash_prefill"]["checks"] == counts["flash_prefill"],
@@ -2328,7 +2380,7 @@ def arch_run(model, params, cfg, prompts, kv_quant=None, new=ARCH_NEW,
 def serve_configs(phase: str, cfgs, seed: int, new: int = ARCH_NEW,
                   extra=None, trace=False,
                   runs=((None, "dense"), ("int8", "dense")),
-                  prompt_lens=SERVING_PROMPTS):
+                  prompt_lens=SERVING_PROMPTS, checked_run=True):
     """Each config at its widths, bf16, seeded random weights, one at a
     time: it serves prompts of ``prompt_lens`` tokens (the serving cell's
     37, 300, 450, 1000 unless cut), ``new`` tokens each, 2 slots, once
@@ -2369,7 +2421,7 @@ def serve_configs(phase: str, cfgs, seed: int, new: int = ARCH_NEW,
             key = (kv_quant or "bf16") + ("" if layout == "dense"
                                           else f"_{layout}")
             res[key] = arch_run(model, params, cfg, prompts, kv_quant, new,
-                                phase, trace, layout)
+                                phase, trace, layout, checked_run)
         if extra is not None:
             res.update(extra(model, params, cfg))
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -2382,9 +2434,11 @@ def serve_configs(phase: str, cfgs, seed: int, new: int = ARCH_NEW,
     return out
 
 
-def phase_archs(seed: int):
-    """codeqwen1.5-7b and stablelm-12b at full width (``serve_configs``)."""
-    return serve_configs("archs", [get_arch(a) for a in ARCHS], seed)
+def phase_archs(seed: int, layers=None):
+    """codeqwen1.5-7b and stablelm-12b at full width (``serve_configs``),
+    at most ``layers`` deep."""
+    return serve_configs("archs", [cut_depth(get_arch(a), layers)
+                                   for a in ARCHS], seed)
 
 
 # ---------------------------------------------------------------------------
@@ -2436,20 +2490,16 @@ def moe_dispatch_check(model, params, cfg):
     return {"dispatch": out}
 
 
-def phase_moe(seed: int):
+def phase_moe(seed: int, layers=None):
     """The MoE family through ``serve_configs``: granite-moe-3b-a800m at
     full width and depth (16 new tokens a request, its timed runs with
     tracing and metrics on, and the dispatch check), then
     qwen3-moe-235b-a22b at full width with its depth cut to 4 layers (8
-    new tokens)."""
+    new tokens).  ``layers`` cuts granite's depth too."""
     out = {}
-    for arch, layers, new in MOE_ARCHS:
-        cfg = get_arch(arch)
-        if layers is not None:
-            print(f"moe {arch}: depth cut from {cfg.num_layers} to {layers} "
-                  f"layers (every width kept)")
-            cfg = cfg.replace(num_layers=layers)
-        full = layers is None
+    for arch, cut, new in MOE_ARCHS:
+        full = cut is None
+        cfg = cut_depth(get_arch(arch), layers if full else cut)
         out.update(serve_configs(
             "moe", [cfg], seed, new, moe_dispatch_check if full else None,
             trace=full))
@@ -2463,6 +2513,26 @@ def phase_moe(seed: int):
 # ---------------------------------------------------------------------------
 
 MLA_ARCH, VLM_ARCH = "minicpm3-4b", "paligemma-3b"
+# the depth the default run serves each path after the main path's at,
+# every width kept, so that the whole run stays well inside its 1200 s
+# call on a slow host (a phase run alone serves every layer): qwen2.5-3b
+# 18 of 36 in the paged, prefix, tune and obs paths; the configs' phases
+# as named (recurrentgemma-9b 11 layers: 3 windowed)
+DEFAULT_RUN_LAYERS = {"qwen": 18, "archs": 16, "moe": 16, "mla": 16,
+                      "vlm": 9, "encdec": 16, "hybrid": 11}
+
+
+def cut_depth(cfg, layers):
+    """``cfg`` with at most ``layers`` layers (an encdec config: decoder
+    and encoder), every width kept; ``None`` keeps it whole."""
+    if layers is None or layers >= cfg.num_layers:
+        return cfg
+    kw = {"num_layers": layers}
+    if cfg.num_encoder_layers:
+        kw["num_encoder_layers"] = min(layers, cfg.num_encoder_layers)
+    print(f"{cfg.name}: depth cut from {cfg.num_layers} to {layers} layers "
+          f"(every width kept)")
+    return cfg.replace(**kw)
 VLM_PATCHES, VLM_TEXT, VLM_STEPS = 256, 128, 8   # Model.prefill's check
 # paligemma-3b admits through the loop, one decode step a prompt token:
 # the serving cell's prompts take 1330 steps a run, four runs about 2.5
@@ -2489,14 +2559,15 @@ def policy_splits(label: str, cfg, sms: int, buckets):
     return out
 
 
-def phase_mla(seed: int, sms: int):
-    """minicpm3-4b at full width and depth (62 layers) through
-    ``serve_configs``: bf16 dense, int8 (plans keyed int8, the latent
-    bf16, K1 decoding it) and bf16 paged, fused admission, every layer's
-    prefill (96 / 64) and latent decode (288 / 256) attention checked, a
-    profiled decode step at the cell's B 2, bucket 1024 shape, then the
-    H_KV 1 splits of ``paper`` beside ``fa3_baseline``'s."""
-    cfg = get_arch(MLA_ARCH)
+def phase_mla(seed: int, sms: int, layers=None):
+    """minicpm3-4b at full width and depth (62 layers; ``layers`` cuts
+    the depth) through ``serve_configs``: bf16 dense, int8 (plans keyed
+    int8, the latent bf16, K1 decoding it) and bf16 paged, fused
+    admission, every layer's prefill (96 / 64) and latent decode (288 /
+    256) attention checked, a profiled decode step at the cell's B 2,
+    bucket 1024 shape, then the H_KV 1 splits of ``paper`` beside
+    ``fa3_baseline``'s."""
+    cfg = cut_depth(get_arch(MLA_ARCH), layers)
 
     def profile(model, params, cfg):
         return {"profile": phase_profile(model, params, cfg, seed,
@@ -2600,14 +2671,15 @@ def vlm_prefill_check(sms: int, seed: int):
     return extra
 
 
-def phase_vlm(seed: int, sms: int):
+def phase_vlm(seed: int, sms: int, layers=None):
     """paligemma-3b at full width and depth (18 layers) through
     ``serve_configs``: loop admission (every prompt token a decode step)
     of the serving cell's first two prompts (``VLM_PROMPTS``), bf16 and
     int8, every layer's decode attention checked; then
     ``Model.prefill`` with the patch prefix and decode, and a profiled
-    step (``vlm_prefill_check``); then the H_KV 1 splits."""
-    cfg = get_arch(VLM_ARCH)
+    step (``vlm_prefill_check``); then the H_KV 1 splits.  ``layers``
+    cuts the depth."""
+    cfg = cut_depth(get_arch(VLM_ARCH), layers)
     out = serve_configs("vlm", [cfg], seed,
                         extra=vlm_prefill_check(sms, seed),
                         prompt_lens=VLM_PROMPTS)
@@ -2740,7 +2812,7 @@ def encdec_batch(model, cfg, gen):
                        * 0.1).to(getattr(torch, dt))}
 
 
-def phase_encdec(seed: int, sms: int):
+def phase_encdec(seed: int, sms: int, layers=None):
     """whisper-large-v3 at full width and depth (32 + 32 layers) through
     ``serve_configs``: the serving cell's prompts with fused admission,
     bf16, dense and paged (page 64); the cross cache is zero there, as
@@ -2750,8 +2822,9 @@ def phase_encdec(seed: int, sms: int):
     ``Model.prefill`` of 1500 frames and ENCDEC_TEXT tokens at B 2 and
     SIDE_STEPS decode steps, where the cross launches read the encoder's
     K / V: the encoder's K3 (non-causal, Lq = Lk = 1500), the decoder's
-    self and cross K3 and both K1 launches checked layer by layer."""
-    cfg = get_arch(ENCDEC_ARCH)
+    self and cross K3 and both K1 launches checked layer by layer.
+    ``layers`` cuts the depth of the encoder and of the decoder."""
+    cfg = cut_depth(get_arch(ENCDEC_ARCH), layers)
     layers = cfg.num_layers
 
     def prefill_keys(cfg):
@@ -2778,7 +2851,7 @@ def hybrid_batch(model, cfg, gen):
                                     generator=gen, device=DEVICE)}
 
 
-def phase_hybrid(seed: int, sms: int):
+def phase_hybrid(seed: int, sms: int, layers=None):
     """recurrentgemma-9b at full width and depth (38 layers: 26 RG-LRU,
     12 local attention over a 2048-row ring) through ``serve_configs``:
     loop admission (every prompt token a decode step) of the serving
@@ -2787,8 +2860,9 @@ def phase_hybrid(seed: int, sms: int):
     kernel once a windowed layer, over the whole ring at the ring side
     plan.  Then ``Model.prefill`` of HYBRID_TEXT tokens at B 2 (windowed
     K3 at Lq 2100, the ring wrapped) and SIDE_STEPS decode steps over the
-    wrapped ring, every windowed layer's K3 and K1 checked."""
-    cfg = get_arch(HYBRID_ARCH)
+    wrapped ring, every windowed layer's K3 and K1 checked.  ``layers``
+    cuts the depth (the pattern kept: 11 layers hold 3 windowed ones)."""
+    cfg = cut_depth(get_arch(HYBRID_ARCH), layers)
     n_attn = lm_mod.layer_kinds(cfg).count("attn_window")
 
     def prefill_keys(cfg):
@@ -3327,11 +3401,14 @@ def decode_layers(cfg):
     """A plain decode step's decode launches: (the layers that attend at
     the bucket's plan, {side plan name: the layers that attend under
     it}): encdec's cross attention over its encoder memory, a hybrid's
-    windowed layers over their ring (its only attention layers)."""
+    windowed layers over their ring (its only attention layers); an ssm
+    model attends nowhere."""
     if cfg.family == "hybrid":
         return 0, {"ring": lm_mod.layer_kinds(cfg).count("attn_window")}
     if cfg.family == "encdec":
         return cfg.num_layers, {"cross": cfg.num_layers}
+    if cfg.family == "ssm":
+        return 0, {}
     return cfg.num_layers, {}
 
 
@@ -4693,6 +4770,397 @@ def phase_obs(model, params, cfg, seed: int):
                     len(prom)}}
 
 
+# ---------------------------------------------------------------------------
+# the ssm family: mamba2-780m at full width and depth
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-780m"
+SSM_PROMPTS = SERVING_PROMPTS[:2]
+SSM_CHECK_LEN = 512           # two 256-row chunks: the carry between them
+SSM_SCAN_TOL = 1e-3           # chunked f32 scan vs the float64 recurrence
+SSM_STATE_TOL = 2e-2          # bf16 prefill's state vs 512 decode steps
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def ssm_numerics(model, params, cfg, seed: int):
+    """On the model's own inputs (SSM_CHECK_LEN seeded tokens, B 1): at
+    the first and the last SSD layer, ``ssd_chunked`` (f32, two chunks)
+    against ``ssd_recurrent`` in float64 on the same operands, y and the
+    final state each within SSM_SCAN_TOL of the recurrence's largest
+    entry; and ``Model.prefill``'s final state of layer 0 against
+    SSM_CHECK_LEN ``apply_ssd_decode`` steps of that layer from a zero
+    cache, within SSM_STATE_TOL of its largest entry.  No kernel
+    launches."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SSM_CHECK_LEN),
+                           generator=gen, device=DEVICE)
+    s = cfg.ssm
+    heads = s.expand * cfg.d_model // s.head_dim
+    ops.reset_launch_counts()
+    out = {"scan": {}}
+    with torch.no_grad():
+        x = embed_tokens(params.embed, tokens)
+        last = cfg.num_layers - 1
+        for li, block in enumerate(params.layers):
+            if li in (0, last):
+                h = rms_norm(x, block.ln1.scale, cfg.norm_eps)
+                _, _, xs, dt, A, B_, C_ = ssd_mod.scan_inputs(block.mix,
+                                                              cfg, h)
+                xh = xs.float().reshape(1, SSM_CHECK_LEN, heads, s.head_dim)
+                y, st = ssd_mod.ssd_chunked(xh, dt, A, B_, C_,
+                                            chunk=s.chunk_size)
+                y64, st64 = ssd_mod.ssd_recurrent(
+                    xh.double(), dt.double(), A.double(), B_.double(),
+                    C_.double())
+                errs = {"y": rel_err(y, y64), "state": rel_err(st, st64)}
+                if max(errs.values()) >= SSM_SCAN_TOL:
+                    save_failed("ssd_chunked", (xh, dt, A, B_, C_),
+                                {"chunk": s.chunk_size, "layer": li})
+                check(max(errs.values()) < SSM_SCAN_TOL,
+                      f"ssm layer {li}: chunked scan against the float64 "
+                      f"recurrence {errs}")
+                out["scan"][li] = errs
+            if li < last:
+                x, _ = lm_mod.block_prefill(block, cfg, x, None, "bfloat16")
+        _, caches = model.prefill(params, {"tokens": tokens},
+                                  SSM_CHECK_LEN + 1)
+        block = params.layers[0]
+        h = rms_norm(embed_tokens(params.embed, tokens), block.ln1.scale,
+                     cfg.norm_eps)
+        rec = ssd_mod.init_ssd_cache(cfg, 1, torch.bfloat16, DEVICE)
+        for i in range(SSM_CHECK_LEN):
+            ssd_mod.apply_ssd_decode(block.mix, cfg, h[:, i:i + 1], rec)
+        out["state_prefill_vs_decode"] = rel_err(caches["state"][0],
+                                                 rec["state"])
+    check(out["state_prefill_vs_decode"] < SSM_STATE_TOL,
+          f"ssm: Model.prefill's layer-0 state against {SSM_CHECK_LEN} "
+          f"decode steps: {out['state_prefill_vs_decode']}")
+    check(sum(ops.launch_counts().values()) == 0,
+          f"ssm numerics launched {ops.launch_counts()}")
+    print(f"ssm {cfg.name}: chunked scan over {SSM_CHECK_LEN} rows "
+          f"({SSM_CHECK_LEN // s.chunk_size} chunks) against the float64 "
+          f"recurrence (share of the largest entry, tolerance "
+          f"{SSM_SCAN_TOL}): {json.dumps(out['scan'])}; Model.prefill's "
+          f"layer-0 state against {SSM_CHECK_LEN} decode steps: "
+          f"{out['state_prefill_vs_decode']:.4g} (tolerance "
+          f"{SSM_STATE_TOL})")
+    return {"ssm_numerics": out}
+
+
+def phase_ssm(seed: int, sms: int):
+    """mamba2-780m at full width and depth (48 SSD layers, d_model 1536,
+    48 heads of P 64, N 128; bf16) through ``serve_configs``: loop
+    admission of the serving cell's first two prompts (SSM_PROMPTS), 2
+    slots, ARCH_NEW new tokens, with no kernel launch and no policy
+    evaluation in any step (it has no attention, so the serving run runs
+    once: no kernel to check); then ``ssm_numerics``."""
+    cfg = get_arch(SSM_ARCH)
+    out = serve_configs("ssm", [cfg], seed, runs=((None, "dense"),),
+                        prompt_lens=SSM_PROMPTS, checked_run=False,
+                        extra=functools.partial(ssm_numerics, seed=seed))
+    res = out[cfg.name]["bf16"]
+    check(sum(res["launches"].values()) == 0,
+          f"ssm serving launched {res['launches']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# mesh-native serving: dp 4 x sp 1 and dp 1 x sp 4 on one card
+# ---------------------------------------------------------------------------
+
+SHARD_NEW = 16                # new tokens a request at dp 4
+SHARD_SP_LEN = 4000           # the sp 4 prompt
+SHARD_SP_MAX = 4096           # its cache: 4 chunks of 1024 rows
+SHARD_SP_NEW = 8
+
+
+def shard_prompts(vocab: int, seed: int):
+    """The serving cell's 4 prompts and 4 more seeded ones (20 to 400
+    tokens)."""
+    rng = np.random.default_rng(seed)
+    lens = list(SERVING_PROMPTS) + rng.integers(20, 400, 4).tolist()
+    return [rng.integers(0, vocab, n).tolist() for n in lens]
+
+
+def timed_steps(engine):
+    """Step ``engine`` to completion: (the drained completions, the wall
+    ms of each step)."""
+    ms = []
+    while engine.has_work():
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return engine.drain(), ms
+
+
+@contextlib.contextmanager
+def checked_seqsharded(acc):
+    """Within the block, every sequence-sharded decode
+    (``ops.decode_seqsharded``: one partials launch a shard, then the
+    combine) is held against ``decode_plain`` (``decode_quant_plain``)
+    over the chunks joined into the whole view, in float64, at
+    DECODE_TOL (QUANT_TOL), and its bits against one fused launch of the
+    decode kernel at S = shards over that view; the comparison launches
+    leave the launch counts as they were."""
+    run = ops.decode_seqsharded
+    acc.update(checks=0, max_abs_err=0.0, max_tol_ratio=0.0,
+               bits_equal=0)
+
+    def checked(q, k, v, kv_len, *, k_scale=None, v_scale=None,
+                scale=None):
+        out = run(q, k, v, kv_len, k_scale=k_scale, v_scale=v_scale,
+                  scale=scale)
+        saved = build.LAUNCHES.copy()
+        B, Hq, D = q.shape
+        n, dev = len(k.chunks), q.device
+        kv, vv = k.join(dev), v.join(dev)
+        hkv = kv.shape[2]
+        sc = D ** -0.5 if scale is None else scale
+        qp = (q.float() * sc).to(q.dtype).reshape(B, hkv, Hq // hkv, D)
+        if k_scale is None:
+            fused = fdec.flash_decode(qp, kv, vv, kv_len, num_splits=n,
+                                      out_dtype=q.dtype)
+            want = fdec.decode_plain(f64(qp), f64(kv), f64(vv), kv_len,
+                                     num_splits=n)
+            tol = DECODE_TOL
+        else:
+            ks, vs = k_scale.join(dev), v_scale.join(dev)
+            fused = fdq.flash_decode_quant(qp, kv, vv, ks, vs, kv_len,
+                                           num_splits=n, out_dtype=q.dtype)
+            want = fdq.decode_quant_plain(f64(qp), kv, vv, f64(ks), f64(vs),
+                                          kv_len, num_splits=n)
+            tol = QUANT_TOL
+        build.LAUNCHES.clear()
+        build.LAUNCHES.update(saved)
+        got = out.reshape(fused.shape)
+        same = torch.equal(got, fused)
+        try:
+            acc["max_abs_err"] = max(acc["max_abs_err"],
+                                     max_err(got, want, tol))
+            check(same, "the sharded decode's bits differ from the fused "
+                  f"kernel's at S {n}")
+        except SmokeFailure:
+            save_failed("decode_seqsharded", (q, kv, vv, kv_len) + (
+                () if k_scale is None else (ks, vs)), {"shards": n})
+            raise
+        acc["max_tol_ratio"] = max(acc["max_tol_ratio"],
+                                   tol_ratio(got, want, tol))
+        acc["bits_equal"] += int(same)
+        acc["checks"] += 1
+        return out
+
+    ops.decode_seqsharded = checked
+    try:
+        yield acc
+    finally:
+        ops.decode_seqsharded = run
+
+
+def shard_dp4(model, params, cfg, seed: int):
+    """dp 4 x sp 1, 2 slots a shard, every shard on the card
+    (``devices=[cuda:0] * 4``): the serving cell's 4 prompts and 4 seeded
+    ones route [2, 2, 2, 2], and each shard's streams are, bit for bit,
+    those of a single-device 2-slot engine fed the requests routed to it
+    (same code, shapes and card).  No combine launch (sp 1)."""
+    prompts = shard_prompts(cfg.vocab_size, seed)
+    reqs = [Request(i, p, max_new_tokens=SHARD_NEW)
+            for i, p in enumerate(prompts)]
+    eng = ShardedServingEngine(
+        model, ServeConfig(model=cfg), spec=ShardSpec(dp=4,
+                                                      slots_per_shard=2),
+        max_len=2048, sampler=GreedySampler(),
+        devices=[torch.device(DEVICE, 0)] * 4)
+    eng.load(params)
+    for r in reqs:
+        eng.submit(r)
+    routes = [eng.routed(d) for d in range(4)]
+    check([len(r) for r in routes] == [2, 2, 2, 2],
+          f"shard dp4: routing {routes}")
+    ops.reset_launch_counts()
+    ops.reset_policy_eval_count()
+    done, ms = timed_steps(eng)
+    counts = ops.launch_counts()
+    streams = {c.request_id: c.tokens for c in done}
+    check(ops.policy_eval_count() == 0, "shard dp4: policy evaluated")
+    check(counts["flash_combine"] == 0, f"shard dp4: launches {counts}")
+    check(all(len(t) == SHARD_NEW for t in streams.values()),
+          "shard dp4: completions")
+    for d in range(4):
+        oracle = ServingEngine(model, ServeConfig(model=cfg), max_len=2048,
+                               batch_slots=2, sampler=GreedySampler(),
+                               device=DEVICE)
+        oracle.load(params)
+        for i in routes[d]:
+            oracle.submit(reqs[i])
+        want = {c.request_id: c.tokens for c in oracle.drain()}
+        check(all(streams[i] == want[i] for i in routes[d]),
+              f"shard dp4: shard {d}'s streams differ from its "
+              f"single-device oracle's")
+        check(eng.cores[d].planned_splits() == oracle.planned_splits(),
+              f"shard dp4: shard {d}'s splits")
+    agg = eng.aggregate_stats()
+    res = {"routes": routes, "launches": counts,
+           "step_ms": median(ms), "steps": len(ms),
+           "total_launches": agg["total_launches"],
+           "splits": eng.planned_splits()}
+    print(f"shard dp4 x sp1 {cfg.name}: routes {routes}, every shard's "
+          f"streams equal its single-device oracle's bit for bit, "
+          f"launches {json.dumps(counts)}, splits {res['splits']}; median "
+          f"step (all 4 shards) {res['step_ms']:.3f} ms over {len(ms)} "
+          f"steps")
+    return res
+
+
+def shard_sp4(model, params, cfg, seed: int, kv_quant=None):
+    """dp 1 x sp 4 (``devices=[cuda:0] * 4``), max_len SHARD_SP_MAX, one
+    SHARD_SP_LEN-token prompt, SHARD_SP_NEW new tokens, with a bf16 cache
+    or under ``kv_quant``: every decode plan carries mesh_splits 4 and
+    the grid; each layer of each decode step launches the decode kernel's
+    partials (the quantized one's under int8) 4 times at (1024, 1) and
+    the combine once (``checked_seqsharded``: each against the plain
+    version in float64 and bit for bit against the fused kernel at S 4);
+    the prefill launches are checked as ``checked_kernels`` does."""
+    label = f"shard dp1 x sp4 {cfg.name} {kv_quant or 'bf16'}"
+    rng = np.random.default_rng(seed + 4)
+    prompt = rng.integers(0, cfg.vocab_size, SHARD_SP_LEN).tolist()
+    eng = ShardedServingEngine(
+        model, ServeConfig(model=cfg, kv_quant=kv_quant),
+        spec=ShardSpec(sp=4, slots_per_shard=1), max_len=SHARD_SP_MAX,
+        sampler=GreedySampler(), devices=[torch.device(DEVICE, 0)] * 4)
+    eng.load(params)
+    core = eng.cores[0]
+    part = "flash_decode_quant" if kv_quant else "flash_decode"
+    acc, kacc = {}, {}
+    eng.submit(Request(0, prompt, max_new_tokens=SHARD_SP_NEW))
+    ops.reset_launch_counts()
+    ops.reset_policy_eval_count()
+    with checked_seqsharded(acc), checked_kernels(kacc):
+        done, ms = timed_steps(eng)
+    counts = ops.launch_counts()
+    by_key = ops.launch_counts_by_key(part)
+    plans = {k: e.plan for k, e in core.sched.plans.items()
+             if isinstance(k, int)}
+    steps = sum(core.stats.launches[k] for k in plans)
+    L = cfg.num_layers
+    check(plans and all(p.mesh_splits == 4 and p.seq_shard_mesh is not None
+                        for p in plans.values()),
+          f"{label}: decode plans {[p.describe() for p in plans.values()]}")
+    check(by_key == {(SHARD_SP_MAX // 4, 1): 4 * L * steps}
+          and counts[part] == 4 * L * steps,
+          f"{label}: {part} launches {by_key} over {steps} steps")
+    check(counts["flash_combine"] == L * steps,
+          f"{label}: {counts['flash_combine']} combine launches over "
+          f"{steps} steps")
+    check(acc["checks"] == L * steps and acc["bits_equal"] == acc["checks"],
+          f"{label}: sharded decode checks {acc}")
+    check(kacc["flash_prefill"]["checks"] == counts["flash_prefill"] == L,
+          f"{label}: prefill checks {kacc}")
+    check(ops.policy_eval_count() == 0, f"{label}: policy evaluated")
+    check(len(done[0].tokens) == SHARD_SP_NEW, f"{label}: completion")
+    decode_ms = ms[1:]               # the first step admits the prompt
+    res = {"steps": steps, "launches": counts,
+           "partials_launches": {f"{v} S{s}": n
+                                 for (v, s), n in by_key.items()},
+           "plans": {k: p.describe() for k, p in plans.items()},
+           "checks": acc, "prefill_checks": kacc["flash_prefill"],
+           "admission_ms": ms[0], "decode_step_ms": median(decode_ms)}
+    keys = [(k, p.mesh_splits, p.num_splits) for k, p in plans.items()]
+    print(f"{label}: plans {keys} (bucket, mesh_splits, num_splits); "
+          f"{steps} decode steps, "
+          f"launches {json.dumps(counts)}, {part} by (view, S) "
+          f"{res['partials_launches']}; {acc['checks']} layer steps "
+          f"against the float64 plain version: max abs err "
+          f"{acc['max_abs_err']:.4g} (share of the tolerance "
+          f"{acc['max_tol_ratio']:.4g}), {acc['bits_equal']} bit for bit "
+          f"the fused kernel's at S 4; prefill max abs err "
+          f"{kacc['flash_prefill']['max_abs_err']:.4g}; admission "
+          f"{ms[0]:.3f} ms, median decode step {res['decode_step_ms']:.3f}"
+          f" ms over {len(decode_ms)} steps")
+    return res
+
+
+def shard_kernel_rows(gen, sms: int, shard):
+    """The kernels line's rows of the sequence-sharded path, at its shape
+    (B 1, H_KV 2, G 8, D 128, 4 shards of 1024 rows, kv_len 4000): the
+    combine kernel over 4 partials, the decode kernel's and the quantized
+    one's partials-only epilogue over one 1024-row chunk at one split,
+    each with its launches of the sp 4 runs (bf16; int8)."""
+    hkv, g, d, n, c = 2, 8, 128, 4, SHARD_SP_MAX // 4
+    hq = hkv * g
+    q = rand(gen, (1, hkv, g, d))
+    k = rand(gen, (1, SHARD_SP_MAX, hkv, d))
+    v = rand(gen, (1, SHARD_SP_MAX, hkv, d))
+    lens = torch.tensor([SHARD_SP_LEN], device=DEVICE, dtype=torch.int32)
+    parts = [flash_decode_partials(q, k[:, i * c:(i + 1) * c],
+                                   v[:, i * c:(i + 1) * c],
+                                   (lens - i * c).clamp(0, c), num_splits=1)
+             for i in range(n)]
+    acc, l, m = (torch.cat(x) for x in zip(*parts))
+    want = fdec.decode_plain(f64(q), f64(k), f64(v), lens, num_splits=n)
+    qz = Quantizer.from_kv_dtype("int8")
+    kq, ks = qz.quantize(k)
+    vq, vs = qz.quantize(v)
+    k0, v0 = k[:, :c], v[:, :c]
+    rows = [dict(
+        name="flash_combine",
+        shape=f"S{n} B1 Hkv{hkv} G{g} D{d} sequence-sharded merge",
+        fn=lambda: flash_combine(acc, l, m, out_dtype=torch.bfloat16),
+        plain=lambda: combine_plain(acc, l, m, out_dtype=torch.bfloat16),
+        lib=None, nbytes=n * hkv * g * (d + 2) * 4 + hq * d * 2,
+        flops=6 * n * hq * d,
+        err=max_err(flash_combine(acc, l, m, out_dtype=torch.bfloat16),
+                    want, DECODE_TOL),
+        launches=shard["sp4_bf16"]["launches"]["flash_combine"]), dict(
+        name="flash_decode",
+        shape=f"B1 view {c} S1 Hkv{hkv} G{g} D{d} partials only, one "
+              f"shard of 4",
+        fn=functools.partial(flash_decode_partials, q, k0, v0, lens.clamp(
+            max=c), num_splits=1),
+        plain=functools.partial(fdec.decode_partials_plain, q, k0, v0,
+                                lens.clamp(max=c), num_splits=1),
+        lib=None, nbytes=2 * c * hkv * d * 2 + q.numel() * 2
+        + hkv * g * (d + 2) * 4, flops=4 * c * hkv * g * d,
+        err=max_err(combine_plain(acc, l, m, out_dtype=torch.float32),
+                    want, DECODE_TOL),
+        launches=shard["sp4_bf16"]["launches"]["flash_decode"]), dict(
+        name="flash_decode_quant",
+        shape=f"B1 view {c} S1 Hkv{hkv} G{g} D{d} int8 partials only, "
+              f"one shard of 4",
+        fn=functools.partial(flash_decode_quant_partials, q, kq[:, :c],
+                             vq[:, :c], ks[:, :c], vs[:, :c],
+                             lens.clamp(max=c), num_splits=1),
+        plain=functools.partial(decode_quant_partials_plain, q, kq[:, :c],
+                                vq[:, :c], ks[:, :c], vs[:, :c],
+                                lens.clamp(max=c), num_splits=1),
+        lib=None, nbytes=2 * c * hkv * (d + 4) + q.numel() * 2
+        + hkv * g * (d + 2) * 4,
+        flops=4 * c * hkv * g * d + 2 * c * hkv * d, peak=INT8_OPS_PER_S,
+        err=max_err(combine_plain(*flash_decode_quant_partials(
+            q, kq, vq, ks, vs, lens, num_splits=n),
+            out_dtype=torch.float32), fdq.decode_quant_plain(
+            f64(q), kq, vq, f64(ks), f64(vs), lens, num_splits=n),
+            QUANT_TOL),
+        launches=shard["sp4_int8"]["launches"]["flash_decode_quant"])]
+    return rows
+
+
+def phase_shard(model, params, cfg, seed: int):
+    """Mesh-native serving of qwen2.5-3b at full width and depth on the
+    card: ``shard_dp4`` (bf16), then ``shard_sp4`` with a bf16 cache and
+    under int8."""
+    return {"dp4": shard_dp4(model, params, cfg, seed),
+            "sp4_bf16": shard_sp4(model, params, cfg, seed),
+            "sp4_int8": shard_sp4(model, params, cfg, seed,
+                                  kv_quant="int8")}
+
+
 def phase_paged_all(model, params, cfg, seed: int):
     """The slice's paths, each fatal on failure: paged against dense, the
     prefix cell (bf16 and int8), DecodeEngine, the serving CLI."""
@@ -4722,7 +5190,7 @@ def main(argv=None) -> int:
                     choices=("all", "kernels", "digests", "admission",
                              "times", "table1", "shapes", "paged", "spec",
                              "archs", "tune", "moe", "obs", "mla",
-                             "vlm", "encdec", "hybrid"),
+                             "vlm", "encdec", "hybrid", "ssm", "shard"),
                     default="all",
                     help="'kernels' stops after build and kernel parity; "
                          "'digests' builds, then runs the main path's "
@@ -4750,7 +5218,10 @@ def main(argv=None) -> int:
                          "prefill; 'encdec' builds, then serves "
                          "whisper-large-v3 and runs its frame prefill; "
                          "'hybrid' builds, then serves recurrentgemma-9b "
-                         "and runs a prefill past its ring")
+                         "and runs a prefill past its ring; 'ssm' builds, "
+                         "then serves mamba2-780m and checks its scan; "
+                         "'shard' builds, then serves qwen2.5-3b at dp 4 "
+                         "and sequence-sharded at sp 4")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -4791,13 +5262,13 @@ def main(argv=None) -> int:
         moe = timed("moe", phase_moe, args.seed)
         print(json.dumps({"moe": moe, "card": card}))
         return 0
-    if args.phase in ("mla", "vlm", "encdec", "hybrid"):
+    if args.phase in ("mla", "vlm", "encdec", "hybrid", "ssm"):
         fn = {"mla": phase_mla, "vlm": phase_vlm, "encdec": phase_encdec,
-              "hybrid": phase_hybrid}[args.phase]
+              "hybrid": phase_hybrid, "ssm": phase_ssm}[args.phase]
         res = timed(args.phase, fn, args.seed, sms)
         print(json.dumps({args.phase: res, "card": card}))
         return 0
-    if args.phase not in ("paged", "spec", "tune", "obs"):
+    if args.phase not in ("paged", "spec", "tune", "obs", "shard"):
         wide_gen = torch.Generator(device=DEVICE).manual_seed(args.seed + 17)
         errs = timed("parity", phase_parity, gen, sms, wide_gen)
     if args.phase == "kernels":
@@ -4831,6 +5302,10 @@ def main(argv=None) -> int:
         obs = timed("obs", phase_obs, model, params, cfg, args.seed)
         print(json.dumps({"obs": obs, "card": card}))
         return 0
+    if args.phase == "shard":
+        shard = timed("shard", phase_shard, model, params, cfg, args.seed)
+        print(json.dumps({"shard": shard, "card": card}))
+        return 0
     counts, serving, bf16 = timed("serving bf16", phase_serving, model,
                                   params, cfg, args.seed)
     qcounts, qserving, _ = timed("serving int8", phase_serving, model,
@@ -4856,25 +5331,42 @@ def main(argv=None) -> int:
                     args.seed)
     qprofile = timed("profile int8", phase_profile, model, params, cfg,
                      args.seed, kv_quant="int8")
-    paged = phase_paged_all(model, params, cfg, args.seed)
+    shard = timed("shard", phase_shard, model, params, cfg, args.seed)
+    # speculation keeps the full depth: how many verify steps its cell
+    # takes depends on the streams, and its check counts 4 of them
     spec = timed("spec", phase_spec, model, params, cfg, args.seed)
-    tune = timed("tune", phase_tune, model, params, cfg, args.seed, sms)
-    obs = timed("obs", phase_obs, model, params, cfg, args.seed)
+    # the later qwen2.5-3b paths on a model cut in depth, from the seed
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    archs = timed("archs", phase_archs, args.seed)
-    moe = timed("moe", phase_moe, args.seed)
-    mla = timed("mla", phase_mla, args.seed, sms)
-    vlm = timed("vlm", phase_vlm, args.seed, sms)
-    encdec = timed("encdec", phase_encdec, args.seed, sms)
-    hybrid = timed("hybrid", phase_hybrid, args.seed, sms)
+    cut = cut_depth(cfg, DEFAULT_RUN_LAYERS["qwen"])
+    model = build_model(cut, device=DEVICE)
+    params = model.init_params(args.seed)
+    paged = phase_paged_all(model, params, cut, args.seed)
+    tune = timed("tune", phase_tune, model, params, cut, args.seed, sms)
+    obs = timed("obs", phase_obs, model, params, cut, args.seed)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    archs = timed("archs", phase_archs, args.seed,
+                  DEFAULT_RUN_LAYERS["archs"])
+    moe = timed("moe", phase_moe, args.seed, DEFAULT_RUN_LAYERS["moe"])
+    mla = timed("mla", phase_mla, args.seed, sms,
+                DEFAULT_RUN_LAYERS["mla"])
+    vlm = timed("vlm", phase_vlm, args.seed, sms,
+                DEFAULT_RUN_LAYERS["vlm"])
+    encdec = timed("encdec", phase_encdec, args.seed, sms,
+                   DEFAULT_RUN_LAYERS["encdec"])
+    hybrid = timed("hybrid", phase_hybrid, args.seed, sms,
+                   DEFAULT_RUN_LAYERS["hybrid"])
+    ssm = timed("ssm", phase_ssm, args.seed, sms)
     table1, table1_rows = timed("table1", phase_table1, gen, sms, card,
                                 flush)
     extra = [verify_kernel_row(gen, sms, spec)] + arch_kernel_rows(
         gen, sms, archs) + arch_kernel_rows(gen, sms, moe) + \
         single_kv_head_rows(gen, sms, mla, vlm) + \
-        side_shape_rows(gen, sms, encdec, hybrid)
+        side_shape_rows(gen, sms, encdec, hybrid) + \
+        shard_kernel_rows(gen, sms, shard)
     kernels = timed("kernels line", phase_kernels_line, gen, sms, errs,
                     counts, flush, serving["prefill_launches"],
                     serving["decode_launches"], qserving["decode_launches"],
@@ -4888,7 +5380,7 @@ def main(argv=None) -> int:
                       "spec": spec, "tune": tune, "obs": obs,
                       "archs": archs, "moe": moe, "mla": mla,
                       "vlm": vlm, "encdec": encdec, "hybrid": hybrid,
-                      "table1": table1,
+                      "ssm": ssm, "shard": shard, "table1": table1,
                       "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

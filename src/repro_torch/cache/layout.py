@@ -94,7 +94,10 @@ class CacheLayout:
 
 
 class DenseLayout(CacheLayout):
-    """``Model.init_cache``'s tensors: the storage is the view."""
+    """``Model.init_cache``'s tensors: the storage is the view.  A
+    sequence-sharded engine holds each tensor as
+    :class:`~repro_torch.kernels.ops.SeqShards`, one chunk of rows a
+    device, which the slot writes and resets here land chunk by chunk."""
 
     kind = "dense"
 
@@ -137,12 +140,19 @@ class DenseLayout(CacheLayout):
         self cache alone: the cross cache stays as it is)."""
         lo = first_page * self.spec.page_size
         for name, rows in view.items():
-            storage[name][:, slot, lo:rows.shape[2]] = rows[:, 0, lo:]
+            leaf = storage[name]
+            if isinstance(leaf, ops.SeqShards):
+                leaf.write_slot(slot, lo, rows[:, 0, lo:])
+            else:
+                leaf[:, slot, lo:rows.shape[2]] = rows[:, 0, lo:]
 
     def zero_slot(self, storage: Storage, slot: int) -> None:
         """Zero slot ``slot``'s rows of every tensor (data and scales)."""
         for t in storage.values():
-            t[:, slot].zero_()
+            if isinstance(t, ops.SeqShards):
+                t.zero_slot(slot)
+            else:
+                t[:, slot].zero_()
 
     def storage_bytes(self) -> int:
         return self.dense_bytes()

@@ -57,8 +57,11 @@ _LAYOUTS = {"dense": DenseLayout, "paged": PagedKVCache}
 class CacheManager:
     """Residency bookkeeping + layout resolution for one engine."""
 
-    def __init__(self, model, spec: CacheSpec):
+    def __init__(self, model, spec: CacheSpec, *, label: str = ""):
         self.spec = spec
+        # names the owner in conservation messages and describe() (a
+        # sharded engine's shard: "shard{d}")
+        self.label = label
         self.layout: CacheLayout = _LAYOUTS[spec.layout](model, spec)
         self.B = spec.batch
         self.kv_len = np.zeros(self.B, np.int32)
@@ -390,35 +393,36 @@ class CacheManager:
         - the trash page is never refcounted, never free-listed, never
           inside an allocated prefix.
         """
+        who = f"[{self.label}] " if self.label else ""
         rc = np.zeros_like(self.refcount)
         owners: Dict[int, int] = {}
         for i in range(self.B):
             for j in range(int(self._allocated[i])):
                 p = int(self._table[i, j])
                 assert p != TRASH_PAGE, \
-                    f"slot {i} allocated prefix holds the trash page"
+                    f"{who}slot {i} allocated prefix holds the trash page"
                 rc[p] += 1
                 owners[p] = owners.get(p, 0) + 1
         if self.trie is not None:
             for p in self.trie.pages():
                 rc[p] += 1
         assert (rc == self.refcount).all(), \
-            f"refcount drift: expected {rc.tolist()}, " \
+            f"{who}refcount drift: expected {rc.tolist()}, " \
             f"have {self.refcount.tolist()}"
         for p, k in owners.items():
             if k >= 2:
                 assert self.refcount[p] >= 2, \
-                    f"page {p} in {k} slots with refcount " \
+                    f"{who}page {p} in {k} slots with refcount " \
                     f"{int(self.refcount[p])}"
         live = {int(p) for p in np.nonzero(self.refcount)[0]}
         free = set(self._free)
         assert len(free) == len(self._free), \
-            "free list holds duplicates"
+            f"{who}free list holds duplicates"
         assert not (live & free), \
-            f"pages both live and free: {live & free}"
+            f"{who}pages both live and free: {live & free}"
         assert TRASH_PAGE not in free and TRASH_PAGE not in live
         assert len(live) + len(free) == self.spec.total_pages, \
-            f"pool leak: {len(live)} live + {len(free)} free != " \
+            f"{who}pool leak: {len(live)} live + {len(free)} free != " \
             f"{self.spec.total_pages}"
 
     # --- observability ------------------------------------------------------
@@ -428,6 +432,8 @@ class CacheManager:
             "layout": self.spec.layout,
             "kv_dtype": self.spec.kv_dtype,
         }
+        if self.label:
+            d["label"] = self.label
         d.update({
             "storage_bytes": self.layout.storage_bytes(),
             "dense_bytes": self.layout.dense_bytes(),

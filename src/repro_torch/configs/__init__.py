@@ -5,6 +5,7 @@ from repro_torch.configs.base import (  # noqa: F401
     MLAConfig,
     ModelConfig,
     MoEConfig,
+    SSMConfig,
     ServeConfig,
     get_arch,
     register_arch,
@@ -15,7 +16,7 @@ _LOADED = False
 ARCH_MODULES = ("qwen25_3b", "codeqwen15_7b", "stablelm_12b",
                 "granite_moe_3b_a800m", "qwen3_moe_235b_a22b",
                 "minicpm3_4b", "paligemma_3b", "whisper_large_v3",
-                "recurrentgemma_9b")
+                "recurrentgemma_9b", "mamba2_780m")
 
 
 def _load_all() -> None:

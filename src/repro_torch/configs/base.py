@@ -6,12 +6,13 @@ so they hash, print and diff cleanly and a config file is only data.
 (dense; moe through :class:`MoEConfig`; mla through :class:`MLAConfig`;
 vlm through :class:`FrontendConfig`'s vision stub; encdec through the
 encoder fields and the audio stub; hybrid through
-:class:`HybridConfig`); the attention
+:class:`HybridConfig`; ssm through :class:`SSMConfig`); the attention
 implementation is not a config knob here, because the kernel follows the
 tensor's device (see ``repro_torch.kernels.ops``).  ``ServeConfig``
 carries the serving fields: planning, admission, the KV-cache format,
-its layout (dense or paged, with prefix sharing), speculation and the
-observability artifacts (``trace_path``, ``metrics_path``).
+its layout (dense or paged, with prefix sharing), speculation, the
+observability artifacts (``trace_path``, ``metrics_path``) and the
+mesh-native topology (``shard``).
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 # the model families the port serves, and those of the reference it does
 # not serve yet: reducing a config or building a model of one raises
-PORTED_FAMILIES = ("dense", "moe", "mla", "vlm", "encdec", "hybrid")
-UNPORTED_FAMILIES = ("ssm",)
+PORTED_FAMILIES = ("dense", "moe", "mla", "vlm", "encdec", "hybrid", "ssm")
+UNPORTED_FAMILIES: Tuple[str, ...] = ()
 
 
 @dataclass(frozen=True)
@@ -49,6 +50,17 @@ class MLAConfig:
     qk_nope_head_dim: int = 64
     qk_rope_head_dim: int = 32
     v_head_dim: int = 64
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD block parameters."""
+    state_dim: int = 128
+    head_dim: int = 64
+    expand: int = 2                    # d_inner = expand * d_model
+    ngroups: int = 1
+    chunk_size: int = 256
+    conv_width: int = 4
 
 
 @dataclass(frozen=True)
@@ -92,6 +104,7 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None    # family="moe": the FFN's experts
     mla: Optional[MLAConfig] = None    # family="mla": latent attention
     hybrid: Optional[HybridConfig] = None   # family="hybrid"
+    ssm: Optional[SSMConfig] = None    # family="ssm": Mamba-2 SSD blocks
     # family="vlm": the vision stub whose patches prefill prepends;
     # family="encdec": the audio stub whose frames the encoder reads
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
@@ -120,7 +133,7 @@ def check_ported(cfg: ModelConfig) -> None:
         raise ValueError(
             f"the {cfg.family!r} family is not ported yet (ported: "
             f"{', '.join(PORTED_FAMILIES)}; not yet: "
-            f"{', '.join(UNPORTED_FAMILIES)})")
+            f"{', '.join(UNPORTED_FAMILIES) or 'none'})")
 
 
 @dataclass(frozen=True)
@@ -210,6 +223,12 @@ class ServeConfig:
     # consecutive zero-accept verify steps before the engine stops
     # speculating for that request (None = never)
     speculation_max_rejects: Optional[int] = None
+    # repro_torch.shard: the mesh-native serving topology as a ShardSpec
+    # string, "dp,sp" positional (e.g. "4,2") or "dp=4,sp=2" named,
+    # parsed by ShardSpec.parse: dp data-parallel slot shards x sp
+    # sequence shards each, over dp * sp devices.  None = one
+    # ServingEngine on one device (serve --mesh sets this).
+    shard: Optional[str] = None
     seed: int = 0
 
 

@@ -1,7 +1,7 @@
 """Reduced (test-size) variants of the ported architectures.
 
 Same family, same block wiring, same GQA group ratio, tiny widths —
-the dense, moe, mla, vision, hybrid and encdec branches of
+the dense, moe, mla, ssm, vision, hybrid and encdec branches of
 ``repro.configs.reduced.reduced_config``, so one call with the same
 arguments gives the same shape in both packages.
 """
@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs.base import HybridConfig, MLAConfig, \
-    ModelConfig, MoEConfig, check_ported, get_arch
+    ModelConfig, MoEConfig, SSMConfig, check_ported, get_arch
 
 
 def reduced_config(
@@ -46,6 +46,12 @@ def reduced_config(
                               qk_nope_head_dim=16, qk_rope_head_dim=8,
                               v_head_dim=16)
         kw["num_kv_heads"] = heads            # MLA reconstructs all heads
+    if cfg.ssm is not None:
+        kw["ssm"] = SSMConfig(state_dim=16, head_dim=16, expand=2,
+                              ngroups=1, chunk_size=32, conv_width=4)
+        kw["num_heads"] = 2 * d_model // 16   # d_inner / head_dim
+        kw["num_kv_heads"] = kw["num_heads"]
+        kw["d_ff"] = 0
     if cfg.hybrid is not None:
         kw["hybrid"] = HybridConfig(pattern=cfg.hybrid.pattern, window=64,
                                     lru_width=d_model, conv_width=4)

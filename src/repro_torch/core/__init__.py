@@ -20,6 +20,7 @@ from repro_torch.core.split_policy import (  # noqa: F401
     DecodeWorkload,
     analytic_policies,
     available_policies,
+    choose_mesh_splits,
     choose_num_splits,
     fa3_baseline,
     get_policy,

@@ -235,3 +235,24 @@ def choose_num_splits(w: DecodeWorkload, policy: str = "paper",
         if getattr(fn, "needs_table", False) else {}
     s = fn(w, num_cores=num_cores, **kw)
     return max(1, min(int(s), w.num_n_blocks))
+
+
+# ---------------------------------------------------------------------------
+# Mesh-level variant: the same decision, lifted to devices on a mesh axis
+# ---------------------------------------------------------------------------
+
+
+def choose_mesh_splits(w: DecodeWorkload, chips_on_axis: int,
+                       policy: str = "tpu_adaptive", table=None,
+                       impl: Optional[str] = None) -> int:
+    """How many ways to sequence-shard the KV cache over the devices of a
+    mesh axis: the policy's split decision with the axis's devices in
+    place of SMs (when the ``B x H_KV`` tiles are fewer than the devices,
+    sequence-sharding recovers the idle ones), rounded down to a divisor
+    of ``chips_on_axis`` so every device holds an equal chunk."""
+    s = choose_num_splits(w, policy=policy, num_cores=chips_on_axis,
+                          table=table, impl=impl)
+    for d in range(min(s, chips_on_axis), 0, -1):
+        if chips_on_axis % d == 0:
+            return d
+    return 1

@@ -12,7 +12,9 @@ unstacked into one :class:`~repro_torch.models.lm.Block` a layer.  A moe
 block's ``ffn`` holds ``router``, ``wi_gate``, ``wi_up`` and ``wo``, an
 mla block's ``mix`` ``q_down``, ``q_norm``, ``q_up``, ``kv_down``,
 ``kv_norm``, ``k_up``, ``v_up`` and ``wo``, an rglru block's ``mix`` the
-RG-LRU weights, and a vlm tree adds the top-level ``patch_proj``.  An
+RG-LRU weights, an ssd block only ``ln1`` and a ``mix`` of ``in_proj``,
+``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``, ``norm`` and
+``out_proj``, and a vlm tree adds the top-level ``patch_proj``.  An
 encdec tree (``embed``, ``pos_dec``, ``enc_layers``, ``enc_norm``,
 ``dec_layers`` with ``self`` / ``lnx`` / ``cross``, ``final_norm``)
 gives an :class:`~repro_torch.models.encdec.EncDec`, its two stacks
@@ -20,10 +22,11 @@ unstacked likewise.
 ``cache_from_numpy(tree, cfg)`` takes the reference's dense cache tree
 and returns the port's cache dict, layers still stacked: from groups of
 ``{"k", "v"}`` (plus ``{"k_s", "v_s"}`` for a quantized cache), mla's
-``{"latent"}``, or the hybrid's ring ``{"k", "v"...}`` and recurrent
+``{"latent"}``, the hybrid's ring ``{"k", "v"...}`` and recurrent
 ``{"state", "conv"}`` (each leaf stacked over the layers that hold it,
-in layer order); or encdec's ``{"self": {"k", "v"}, "cross": {"k",
-"v"}}`` as ``k`` / ``v`` / ``cross_k`` / ``cross_v``.  bfloat16 arrays
+in layer order), an ssm model's ``{"state", "conv"}``; or encdec's
+``{"self": {"k", "v"}, "cross": {"k", "v"}}`` as ``k`` / ``v`` /
+``cross_k`` / ``cross_v``.  bfloat16 arrays
 (dtype name ``bfloat16``) are read through a ``uint16`` view and
 float8_e4m3fn ones through a ``uint8`` view, so neither JAX nor
 ``ml_dtypes`` is imported.
@@ -134,7 +137,7 @@ def cache_from_numpy(tree: Any, cfg: ModelConfig,
     ``latent`` (layers, B, max_len, 1, kv_lora_rank + rope); encdec's
     ``k`` / ``v`` and ``cross_k`` / ``cross_v``; a hybrid's ring ``k`` /
     ``v`` (scales) over its windowed layers and ``state`` / ``conv`` over
-    its recurrent ones."""
+    its recurrent ones; an ssm model's ``state`` / ``conv``."""
     dev = resolve_device(device)
     if cfg.family == "encdec":
         flat = {("cross_" if part == "cross" else "") + name: arr
@@ -152,10 +155,11 @@ def cache_from_numpy(tree: Any, cfg: ModelConfig,
         per_name.setdefault(name, {})[li] = arr
     names = set(per_name)
     if names not in ({"k", "v"}, {"k", "v", "k_s", "v_s"}, {"latent"},
-                     {"k", "v", "state", "conv"},
+                     {"state", "conv"}, {"k", "v", "state", "conv"},
                      {"k", "v", "k_s", "v_s", "state", "conv"}):
         raise ValueError(f"expected a dense cache {{k, v[, k_s, v_s]}}, "
-                         f"{{latent}} or a hybrid's, got {sorted(names)}")
+                         f"{{latent}}, {{state, conv}} or a hybrid's, got "
+                         f"{sorted(names)}")
     return {name: tensor_from_numpy(np.stack(
         [rows[li] for li in sorted(rows)])).to(dev)
         for name, rows in per_name.items()}

@@ -25,6 +25,14 @@ row ``j`` of slot ``b`` is split-KV decode over ``pos[b] + j + 1`` keys,
 each row one launch of the decode kernel at the verify plan's split
 count.
 
+``decode_seqsharded`` is the sequence-sharded decode of a mesh-native
+shard (a plan whose ``seq_shard_mesh`` is set): the cache's sequence is
+cut into one chunk a device (:class:`SeqShards`), each device launches
+the decode kernel's partials-only epilogue over its chunk at one split,
+and one combine-kernel launch on the lead device merges the partials.
+:func:`decode_update_seqsharded` first writes each slot's new row into
+the chunk that holds it.
+
 The paged cache's gather path lives here too: :class:`PagedKV` names one
 tensor's page pool, page table and page count, :func:`gather_pages`
 reads the pages of every slot into a dense view with one indexing op
@@ -34,14 +42,17 @@ reads the pages of every slot into a dense view with one indexing op
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence, Union
 
 import torch
 
 from repro_torch.core.scheduler_metadata import get_scheduler_metadata
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.kernels.flash_decode_quant import flash_decode_quant
+from repro_torch.kernels.flash_combine import flash_combine
+from repro_torch.kernels.flash_decode import flash_decode, \
+    flash_decode_partials
+from repro_torch.kernels.flash_decode_quant import flash_decode_quant, \
+    flash_decode_quant_partials
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.plan import LaunchPlan, current_plan, plan_scope
 
@@ -346,3 +357,189 @@ def verify_attention(
     rows = [flash_decode(qp[j], k, v, lens[j], num_splits=s,
                          out_dtype=q.dtype) for j in range(M)]
     return torch.stack(rows, dim=1).reshape(B, M, Hq, D)
+
+
+# ---------------------------------------------------------------------------
+# Sequence-sharded decode (mesh-native serving)
+# ---------------------------------------------------------------------------
+
+
+class SeqShards:
+    """A cache tensor held as ``n`` equal chunks of its sequence dim
+    ``dim``: chunk ``i`` holds rows ``[i * C, (i + 1) * C)`` on its own
+    device (the devices may repeat).  Indexing an integer takes one layer
+    of a layer-stacked tensor, chunk by chunk, as indexing a tensor's
+    first dim does, so ``caches[name][layer]`` works on either."""
+
+    def __init__(self, chunks: Sequence[torch.Tensor], dim: int):
+        self.chunks = tuple(chunks)
+        self.dim = dim
+
+    @classmethod
+    def split(cls, x: torch.Tensor, devices: Sequence[torch.device],
+              dim: int) -> "SeqShards":
+        """Cut ``x`` into ``len(devices)`` chunks along ``dim``, chunk i
+        moved to ``devices[i]``: a view where the device is x's own (a
+        paged view cut per launch), else a copy."""
+        n = len(devices)
+        if x.shape[dim] % n:
+            raise ValueError(f"sequence length {x.shape[dim]} does not "
+                             f"divide over {n} shards")
+        c = x.shape[dim] // n
+        return cls([x.narrow(dim, i * c, c).to(d)
+                    for i, d in enumerate(devices)], dim)
+
+    @classmethod
+    def place(cls, x: torch.Tensor, devices: Sequence[torch.device],
+              dim: int) -> "SeqShards":
+        """Like :meth:`split`, each chunk a contiguous tensor of its own
+        (dense storage, physically chunked)."""
+        return cls([ch.clone(memory_format=torch.contiguous_format)
+                    for ch in cls.split(x, devices, dim).chunks], dim)
+
+    @property
+    def chunk_len(self) -> int:
+        return self.chunks[0].shape[self.dim]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.chunks[0].dtype
+
+    def __getitem__(self, i: int) -> "SeqShards":
+        return SeqShards([c[i] for c in self.chunks], self.dim - 1)
+
+    def cols(self, width: int) -> "SeqShards":
+        """Each chunk's first ``width`` columns of its last dim (MLA's V,
+        a column view of its latent K)."""
+        return SeqShards([c[..., :width] for c in self.chunks], self.dim)
+
+    def join(self, device: torch.device) -> torch.Tensor:
+        """The whole tensor on ``device``."""
+        return torch.cat([c.to(device) for c in self.chunks], self.dim)
+
+    def copy_(self, x: torch.Tensor) -> None:
+        """Overwrite every chunk with its rows of the whole tensor ``x``."""
+        c = self.chunk_len
+        for i, ch in enumerate(self.chunks):
+            bit_view(ch).copy_(bit_view(x.narrow(self.dim, i * c, c)))
+
+    def write_slot(self, slot: int, lo: int, rows: torch.Tensor) -> None:
+        """Layer-stacked storage (layers, B, L, ...): write ``rows``
+        (layers, n, ...) into slot ``slot``'s rows [lo, lo + n), each part
+        into the chunk that holds it."""
+        c, hi = self.chunk_len, lo + rows.shape[1]
+        for i, ch in enumerate(self.chunks):
+            a, b = max(lo, i * c), min(hi, (i + 1) * c)
+            if a < b:
+                ch[:, slot, a - i * c:b - i * c] = \
+                    rows[:, a - lo:b - lo].to(ch.device)
+
+    def zero_slot(self, slot: int) -> None:
+        """Layer-stacked storage: zero slot ``slot`` in every chunk."""
+        for ch in self.chunks:
+            ch[:, slot].zero_()
+
+
+CacheLeaf = Union[torch.Tensor, SeqShards]
+
+
+def _write_row(leaf: SeqShards, t: torch.Tensor, new: torch.Tensor) -> None:
+    """Write ``new[b]`` at row ``t[b]`` of one layer's (B, L, ...) leaf
+    for every slot b, in the one chunk that holds the row.  A chunk
+    rewrites its clamped row with its own value where the row is not
+    its own (the reference's ``where``), so no launch waits on the
+    host."""
+    c = leaf.chunk_len
+    for i, ch in enumerate(leaf.chunks):
+        dev = ch.device
+        local = t.to(dev) - i * c
+        own = (local >= 0) & (local < c)
+        lt = local.clamp(0, c - 1)
+        rows = torch.arange(ch.shape[0], device=dev)
+        raw = bit_view(ch)
+        old = raw[rows, lt]
+        val = bit_view(new.to(ch.dtype)).to(dev)
+        mask = own.view((-1,) + (1,) * (old.dim() - 1))
+        raw[rows, lt] = torch.where(mask, val, old)
+
+
+def decode_seqsharded(q: torch.Tensor, k: SeqShards, v: SeqShards,
+                      kv_len: torch.Tensor, *,
+                      k_scale: Optional[SeqShards] = None,
+                      v_scale: Optional[SeqShards] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention over a sequence-sharded cache: the counterpart of
+    the reference's ``_decode_seqsharded`` body.
+
+    q (B, Hq, D); k, v (and the quantized cache's ``k_scale`` /
+    ``v_scale``) one layer's :class:`SeqShards` of (B, L, Hkv, ...)
+    cut into ``n`` chunks of ``C = L / n`` rows.  Shard ``i`` launches the
+    decode kernel's partials-only epilogue (the quantized cache's kernel
+    with scales) over its chunk at one split, with ``kv_len_i =
+    clamp(kv_len - i C, 0, C)``: a slot whose prompt ends before the
+    chunk gives the empty partial (acc 0, l 0, m NEG_INF).  The
+    partials go to q's device, and one combine-kernel launch merges the
+    ``n`` of them in shard order, the reference's ``pmax`` / ``psum``.
+    q is scaled by ``scale`` (None: ``D ** -0.5``) in f32 and rounded to
+    its dtype, as :func:`decode_attention` does, so where the chunks
+    meet the fused kernel's split bounds the result is that launch's at
+    S = n.  Returns (B, Hq, Dv) in q's dtype."""
+    B, Hq, D = q.shape
+    c = k.chunk_len
+    Hkv = k.chunks[0].shape[2]
+    sc = D ** -0.5 if scale is None else scale
+    qp = (q.float() * sc).to(q.dtype).reshape(B, Hkv, Hq // Hkv, D)
+    lens = kv_len.to(device=q.device, dtype=torch.int64)
+    parts: List[tuple] = []
+    for i, kc in enumerate(k.chunks):
+        dev = kc.device
+        qi = qp.to(dev)
+        li = (lens - i * c).clamp(0, c).to(dev)
+        if k_scale is None:
+            part = flash_decode_partials(qi, kc, v.chunks[i], li,
+                                         num_splits=1)
+        else:
+            part = flash_decode_quant_partials(
+                qi, kc, v.chunks[i], k_scale.chunks[i], v_scale.chunks[i],
+                li, num_splits=1)
+        parts.append(tuple(x.to(q.device) for x in part))
+    acc, l, m = (torch.cat(x) for x in zip(*parts))
+    out = flash_combine(acc, l, m, out_dtype=q.dtype)
+    return out.reshape(B, Hq, out.shape[-1])
+
+
+def decode_update_seqsharded(q: torch.Tensor, cache: Dict[str, CacheLeaf],
+                             new: Dict[str, torch.Tensor], t: torch.Tensor,
+                             kv_len: torch.Tensor, *, devices: Sequence,
+                             v_width: Optional[int] = None,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """Write each slot's new row, then :func:`decode_seqsharded`.
+
+    ``cache`` is one layer's cache: ``k`` / ``v`` (``k_s`` / ``v_s`` for a
+    quantized cache) or MLA's ``latent``, each a :class:`SeqShards` (dense
+    storage, chunked on ``devices``) or a tensor (B, V, ...) on q's device
+    (the paged layout's gathered view, cut into ``len(devices)`` chunks
+    here, after the write, as the reference re-partitions it a launch).
+    ``new`` holds the rows (B, ...) under the same names.  MLA's V is the
+    first ``v_width`` columns of its latent K."""
+    rows = torch.arange(q.shape[0], device=q.device)
+    shards: Dict[str, SeqShards] = {}
+    for name, leaf in cache.items():
+        if isinstance(leaf, SeqShards):
+            _write_row(leaf, t, new[name])
+            shards[name] = leaf
+        else:
+            bit_view(leaf)[rows, t] = bit_view(new[name].to(leaf.dtype))
+            shards[name] = SeqShards.split(leaf, devices, 1)
+    if "latent" in shards:
+        k = shards["latent"]
+        return decode_seqsharded(q, k, k.cols(v_width), kv_len,
+                                 scale=scale)
+    return decode_seqsharded(q, shards["k"], shards["v"], kv_len,
+                             k_scale=shards.get("k_s"),
+                             v_scale=shards.get("v_s"), scale=scale)
+
+
+def seq_sharded(storage: Dict[str, CacheLeaf]) -> bool:
+    """Whether a cache dict holds :class:`SeqShards` leaves."""
+    return any(isinstance(x, SeqShards) for x in storage.values())

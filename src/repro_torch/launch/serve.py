@@ -18,10 +18,14 @@ registry directory such as ``experiments/tune/h100/``) and
 ``--stats-path`` writes the plan-cache counters at drain; ``--trace``
 writes the Chrome trace-event JSON of the serving timeline and
 ``--metrics`` the metrics snapshot (Prometheus text for a ``.prom`` /
-``.txt`` suffix, else JSON) at drain.  ``--arch`` takes every ported
+``.txt`` suffix, else JSON) at drain; ``--mesh dp,sp`` serves the
+mesh-native topology (:class:`~repro_torch.shard.ShardedServingEngine`,
+``--slots`` then counts slots per shard) over the visible GPUs, or over
+``--device`` repeated dp * sp times.  ``--arch`` takes every ported
 text-only config: the dense ones, the moe ones (granite-moe-3b-a800m,
-qwen3-moe-235b-a22b), the mla one (minicpm3-4b) and the hybrid one
-(recurrentgemma-9b, which admits through the loop).  A frontend-stub
+qwen3-moe-235b-a22b), the mla one (minicpm3-4b), the hybrid one
+(recurrentgemma-9b) and the ssm one (mamba2-780m), the last two
+admitting through the loop.  A frontend-stub
 arch (paligemma-3b, whisper-large-v3) is refused, as the reference's CLI
 refuses them.  It runs on the card unless ``--device cpu`` is given.
 
@@ -33,8 +37,7 @@ gives head_dim 32, and the port's kernels take head_dim 64, 128, 160 or
 (minicpm3-4b's: latent 256 + rope 32, q / k 96, v 64) in place of the
 reduced config's (40-wide latent), which no kernel takes.  Neither
 changes a plan: the reference's plan keys read heads and head_dim, and
-these equal the reference's at the same ``d_model``.  The reference's
-``--mesh`` flag is not ported yet.
+these equal the reference's at the same ``d_model``.
 """
 from __future__ import annotations
 
@@ -72,9 +75,12 @@ def run_serving(arch: str, *, num_requests: int = 8, max_new: int = 16,
                 speculate_max_rejects: Optional[int] = None,
                 kv_quant: Optional[str] = None, tune_table=None,
                 stats_path=None, trace_path=None, metrics_path=None,
-                device=None, log_fn=print):
+                mesh: Optional[str] = None, device=None, log_fn=print):
     """Serve the reference's request stream on a reduced ``arch`` and log
-    the summary; returns the completions.  ``device=None`` is the card."""
+    the summary; returns the completions.  ``device=None`` is the card.
+    ``mesh`` ("dp,sp") serves the mesh-native topology with
+    ``batch_slots`` slots a shard, over the visible CUDA devices, or over
+    ``device`` repeated when one is given."""
     full = get_arch(arch)
     cfg = reduced_config(full, num_layers=num_layers, d_model=d_model)
     if cfg.family in ("vlm", "encdec"):
@@ -99,10 +105,20 @@ def run_serving(arch: str, *, num_requests: int = 8, max_new: int = 16,
                        trace_path=(str(trace_path) if trace_path
                                    else None),
                        metrics_path=(str(metrics_path) if metrics_path
-                                     else None))
-    engine = ServingEngine(model, scfg, max_len=max_len,
-                           batch_slots=batch_slots,
-                           sampler=get_sampler(sampler), device=device)
+                                     else None),
+                       shard=mesh)
+    if mesh:
+        from repro_torch.shard import ShardedServingEngine, ShardSpec
+        spec = ShardSpec.parse(mesh, slots_per_shard=batch_slots)
+        engine = ShardedServingEngine(
+            model, scfg, spec=spec, max_len=max_len,
+            sampler=get_sampler(sampler),
+            devices=(None if device is None
+                     else [device] * spec.num_devices))
+    else:
+        engine = ServingEngine(model, scfg, max_len=max_len,
+                               batch_slots=batch_slots,
+                               sampler=get_sampler(sampler), device=device)
     engine.load(params)
 
     rng = np.random.default_rng(seed)
@@ -140,6 +156,19 @@ def run_serving(arch: str, *, num_requests: int = 8, max_new: int = 16,
            f"in {dt:.2f}s ({1e3 * dt / max(1, total_new):.1f} ms/token)")
     log_fn("frozen plans (bucket -> num_splits): "
            f"{engine.planned_splits()}")
+    if mesh:
+        spec_d = engine.spec.describe()
+        log_fn(f"shard topology dp={spec_d['dp']} x sp={spec_d['sp']} "
+               f"({spec_d['total_slots']} slots over "
+               f"{spec_d['num_devices']} devices, "
+               f"{engine.plan.fingerprint})")
+        for row in engine.describe():
+            budget = (f", pages {row['free_pages']}/"
+                      f"{row['total_pages']} free"
+                      if "total_pages" in row else "")
+            log_fn(f"  shard {row['shard']}: {row['routed']} requests "
+                   f"over {row['slots']} slots, {row['launches']} "
+                   f"launches{budget}")
     if kv_quant:
         nbytes = engine.sched.decode_spec(128).workload().dtype_bytes
         log_fn(f"kv quant: {kv_quant} storage + f32 scales "
@@ -246,6 +275,12 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-quant", default=None, choices=["int8", "fp8"],
                     help="quantized KV cache: int8 or fp8 storage + f32 "
                          "scales, read by the quantized decode kernel")
+    ap.add_argument("--mesh", default=None,
+                    help="mesh-native topology 'dp,sp' (repro_torch.shard):"
+                         " dp data-parallel slot shards x sp sequence "
+                         "shards each; --slots becomes slots PER SHARD.  "
+                         "Needs dp*sp visible GPUs, or --device, which is "
+                         "repeated over the grid")
     ap.add_argument("--stream", action="store_true",
                     help="print TOKEN/FINISHED events as they happen")
     ap.add_argument("--device", default=None,
@@ -264,7 +299,8 @@ def main(argv=None) -> None:
                 speculate_max_rejects=args.speculate_max_rejects,
                 kv_quant=args.kv_quant, tune_table=args.tune_table,
                 stats_path=args.stats_path, trace_path=args.trace_path,
-                metrics_path=args.metrics_path, device=args.device)
+                metrics_path=args.metrics_path, mesh=args.mesh,
+                device=args.device)
 
 
 if __name__ == "__main__":

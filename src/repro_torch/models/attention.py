@@ -144,16 +144,30 @@ def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     the engine's static buffers) IN PLACE at row ``t``, then attends over
     rows ``[0, t]`` through the frozen ``plan``.  A quantized cache gets
     the row quantized, data and scales written, and is read through the
-    fused-dequant kernel.  With a ``window`` the cache is a ring of W
-    rows: the row lands at ``t % W`` and attention reads ``min(t + 1,
-    W)`` rows, every resident one (RoPE was applied at absolute
-    positions, so ring order does not matter), over the whole ring under
-    :func:`plan_for_length` of W.
+    fused-dequant kernel.  Under a plan whose ``seq_shard_mesh`` is set
+    (a sequence-sharded shard) the write and the attention go through
+    :func:`repro_torch.kernels.ops.decode_update_seqsharded`, one
+    partials launch a device of the shard, merged.  With a ``window`` the
+    cache is a ring of W rows: the row lands at ``t % W`` and attention
+    reads ``min(t + 1, W)`` rows, every resident one (RoPE was applied at
+    absolute positions, so ring order does not matter), over the whole
+    ring under :func:`plan_for_length` of W.
     """
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(p, cfg, x, rope)
     rows = torch.arange(B, device=x.device)
     kv_len = t + 1
+    qz = Quantizer.for_cache(cache)
+    if plan is not None and plan.seq_shard_mesh is not None:
+        # a sequence-sharded shard: one partials launch a device, merged
+        new = {"k": k_new[:, 0], "v": v_new[:, 0]}
+        if qz is not None:
+            new["k"], new["k_s"] = qz.quantize(k_new[:, 0])
+            new["v"], new["v_s"] = qz.quantize(v_new[:, 0])
+        out = ops.decode_update_seqsharded(
+            q[:, 0], cache, new, t, kv_len,
+            devices=plan.seq_shard_mesh.rows[0])
+        return _out_proj(p, out)[:, None]
     extra = {}
     if window is not None:
         W = cache["k"].shape[1]
@@ -161,7 +175,6 @@ def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         kv_len = kv_len.clamp(max=W)
         plan = plan_for_length(plan, W)
         extra["use_ctx_metadata"] = False
-    qz = Quantizer.for_cache(cache)
     if qz is not None:
         kq, kns = qz.quantize(k_new[:, 0])
         vq, vns = qz.quantize(v_new[:, 0])

@@ -1,10 +1,12 @@
-"""Decoder-only LM: the dense, moe, mla, vlm and hybrid families.
+"""Decoder-only LM: the dense, moe, mla, vlm, hybrid and ssm families.
 
 Counterpart of ``repro.models.lm`` for those families: every block is a
-mixer then an FFN.  The mixer is GQA attention
+mixer then an FFN, except the ssm family's, whose Mamba-2 SSD block
+(:mod:`~repro_torch.models.ssd`, kind ``ssd``) carries the FFN's role
+and has no MLP.  The mixer is GQA attention
 (:mod:`~repro_torch.models.attention`), Multi-head Latent Attention
-(:mod:`~repro_torch.models.mla`, family ``mla``), or, in the hybrid
-family (RecurrentGemma), a repeating pattern of RG-LRU blocks
+(:mod:`~repro_torch.models.mla`, family ``mla``), an SSD block, or, in
+the hybrid family (RecurrentGemma), a repeating pattern of RG-LRU blocks
 (:mod:`~repro_torch.models.rglru`) and local attention over a ring
 cache of ``min(window, max_len)`` rows (kind ``attn_window``).  The FFN
 is a gated MLP (swiglu, or geglu for gemma-style configs) or a
@@ -24,8 +26,9 @@ the engine's static dense buffers (L = max_len), or a view the paged
 layout gathered (L = the resident bucket).  A hybrid model's ``k`` / ``v``
 stack its attention layers only, over the ring (L = the ring's rows),
 and its recurrent layers stack ``{"state", "conv"}`` (:data:`REC_LEAVES`)
-of their own; :func:`layer_caches` hands each layer its rows.  Decode,
-suffix prefill and verify update them in place.
+of their own, as every layer of an ssm model does (its ``state`` is the
+SSD state (B, H, P, N)); :func:`layer_caches` hands each layer its
+rows.  Decode, suffix prefill and verify update them in place.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.common import (
     Embed,
     ParamSpec,
@@ -58,19 +62,22 @@ from repro_torch.plan import LaunchPlan
 Caches = Dict[str, torch.Tensor]
 SidePlans = Optional[Dict[str, LaunchPlan]]
 
-# the recurrent (rglru) layers' cache leaves; every other leaf belongs to
-# the attention layers
+# the recurrent (rglru, ssd) layers' cache leaves; every other leaf
+# belongs to the attention layers
 REC_LEAVES = ("state", "conv")
+REC_KINDS = ("rglru", "ssd")
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
     """Each layer's mixer kind: the hybrid pattern repeated (``attn``
-    there is ``attn_window``), ``mla`` for the mla family, else ``attn``
-    (dense, moe and vlm)."""
+    there is ``attn_window``), ``ssd`` for the ssm family, ``mla`` for
+    the mla family, else ``attn`` (dense, moe and vlm)."""
     if cfg.family == "hybrid":
         p = cfg.hybrid.pattern
         return [("attn_window" if p[i % len(p)] == "attn"
                  else p[i % len(p)]) for i in range(cfg.num_layers)]
+    if cfg.family == "ssm":
+        return ["ssd"] * cfg.num_layers
     return ["mla" if cfg.family == "mla" else "attn"] * cfg.num_layers
 
 
@@ -99,7 +106,7 @@ def cache_rows(cfg: ModelConfig) -> List[int]:
     seen = {True: 0, False: 0}
     out = []
     for kind in layer_kinds(cfg):
-        rec = kind == "rglru"
+        rec = kind in REC_KINDS
         out.append(seen[rec])
         seen[rec] += 1
     return out
@@ -109,7 +116,7 @@ def layer_caches(cfg: ModelConfig, caches: Caches
                  ) -> List[attn_mod.LayerCache]:
     """Each layer's cache: its row of the stacked leaves of its kind."""
     return [{name: c[i] for name, c in caches.items()
-             if (name in REC_LEAVES) == (kind == "rglru")}
+             if (name in REC_LEAVES) == (kind in REC_KINDS)}
             for kind, i in zip(layer_kinds(cfg), cache_rows(cfg))]
 
 
@@ -119,9 +126,14 @@ def rope_dim(cfg: ModelConfig) -> int:
             else cfg.resolved_head_dim)
 
 
+def has_mlp(kind: str) -> bool:
+    """Whether a layer of ``kind`` has an FFN (an SSD block has none)."""
+    return kind != "ssd"
+
+
 class Block(nn.Module):
     """One layer of kind ``kind`` (:func:`layer_kinds`): its mixer, the
-    norms and the FFN."""
+    norms and, unless :func:`has_mlp` says otherwise, the FFN."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
         super().__init__()
@@ -132,8 +144,12 @@ class Block(nn.Module):
             self.mix = mla_mod.MLA(cfg, dtype, device)
         elif kind == "rglru":
             self.mix = rglru_mod.RGLRU(cfg, dtype, device)
+        elif kind == "ssd":
+            self.mix = ssd_mod.SSD(cfg, dtype, device)
         else:
             self.mix = attn_mod.Attention(cfg, dtype, device)
+        if not has_mlp(kind):
+            return
         self.ln2 = RMSNorm(d, dtype, device)
         self.ffn = (moe_mod.MoE(cfg, dtype, device) if cfg.moe is not None
                     else mlp_module(d, cfg.d_ff, cfg.mlp_kind, dtype,
@@ -160,6 +176,8 @@ class LM(SpecModule):
 
 
 def _ffn(block: Block, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if not has_mlp(block.kind):
+        return x
     h2 = rms_norm(x, block.ln2.scale, cfg.norm_eps)
     if cfg.moe is not None:
         return x + moe_mod.apply_moe(block.ffn, cfg, h2)
@@ -180,6 +198,9 @@ def block_prefill(block: Block, cfg: ModelConfig, x: torch.Tensor,
     elif block.kind == "rglru":
         mix, rows = rglru_mod.apply_rglru_train(block.mix, cfg, h,
                                                 return_cache=True)
+    elif block.kind == "ssd":
+        mix, rows = ssd_mod.apply_ssd_train(block.mix, cfg, h,
+                                            return_cache=True)
     elif block.kind == "attn_window":
         mix, rows = attn_mod.attention_prefill(
             block.mix, cfg, h, rope, kv_dtype=kv_dtype,
@@ -202,6 +223,8 @@ def block_decode(block: Block, cfg: ModelConfig, x: torch.Tensor,
     h = rms_norm(x, block.ln1.scale, cfg.norm_eps)
     if block.kind == "rglru":
         mix = rglru_mod.apply_rglru_decode(block.mix, cfg, h, cache)
+    elif block.kind == "ssd":
+        mix = ssd_mod.apply_ssd_decode(block.mix, cfg, h, cache)
     elif block.kind == "attn_window":
         mix = attn_mod.attention_decode(
             block.mix, cfg, h, cache, t, rope,

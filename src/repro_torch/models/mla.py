@@ -122,21 +122,29 @@ def mla_decode(p: MLA, cfg: ModelConfig, x: torch.Tensor, cache: LayerCache,
     IN PLACE at row ``t``, then attends the pre-scaled latent query
     ``[q_nope W_uk^T, q_rope] * (nope + rope) ** -0.5`` over rows
     ``[0, t]`` with K the whole latent and V its first ``kv_lora_rank``
-    columns, at ``scale=1.0``, through the frozen ``plan``; ``W_uv`` and
+    columns, at ``scale=1.0``, through the frozen ``plan`` (sequence-
+    sharded when its ``seq_shard_mesh`` is set); ``W_uv`` and
     ``wo`` then map the latent output back to d_model."""
     m = cfg.mla
     B = x.shape[0]
     q_nope, q_rope = _queries(p, cfg, x, rope)                # (B, 1, H, .)
     c_kv, k_rope = _latents(p, cfg, x, rope)                  # (B, 1, .)
     lat = cache["latent"]
-    rows = torch.arange(B, device=x.device)
-    lat[rows, t] = torch.cat([c_kv, k_rope], dim=-1).to(lat.dtype)
+    row = torch.cat([c_kv, k_rope], dim=-1)
     # absorb W_uk into q: q_nope . (c W_uk) = (q_nope W_uk^T) . c
     q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p.k_up)
     q_cat = torch.cat([q_lat, q_rope[:, 0]], dim=-1)          # (B, H, w)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    out_lat = ops.decode_attention(q_cat * scale, lat,
-                                   lat[..., :m.kv_lora_rank], t + 1,
-                                   scale=1.0, plan=plan)      # (B, H, r)
+    if plan is not None and plan.seq_shard_mesh is not None:
+        out_lat = ops.decode_update_seqsharded(
+            q_cat * scale, {"latent": lat}, {"latent": row}, t, t + 1,
+            devices=plan.seq_shard_mesh.rows[0], v_width=m.kv_lora_rank,
+            scale=1.0)
+    else:
+        rows = torch.arange(B, device=x.device)
+        lat[rows, t] = row.to(lat.dtype)
+        out_lat = ops.decode_attention(q_cat * scale, lat,
+                                       lat[..., :m.kv_lora_rank], t + 1,
+                                       scale=1.0, plan=plan)  # (B, H, r)
     out = torch.einsum("bhr,rhk->bhk", out_lat, p.v_up)      # absorb W_uv
     return torch.einsum("bhk,hkd->bd", out, p.wo)[:, None]

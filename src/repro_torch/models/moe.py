@@ -13,8 +13,10 @@ slots.  Two dispatches compute the same function:
 - ``einsum``: Switch-style one-hot dispatch and combine tensors.
 
 ``ep_shard_map``, the reference's expert-parallel dispatch over a mesh,
-runs as ``gather`` here, as the reference's does without a mesh; the
-mesh dispatch waits for multi-device serving.
+runs as ``gather`` here, as the reference's does without a mesh: the
+mesh-native engine replicates a shard's weights (``param_policy=
+"replicated"``), and the expert-parallel dispatch comes with the
+tensor- and expert-parallel slice (``param_policy="tp"``).
 
 Assignments queue k-major: every token's first choice takes a slot
 before any second choice, so capacity overflow drops the least
@@ -167,7 +169,7 @@ def apply_moe(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
         raise ValueError(f"unknown MoE dispatch {dispatch!r}; known: "
                          f"{DISPATCHES}")
     if dispatch == "ep_shard_map":
-        dispatch = "gather"                 # one device: no mesh
+        dispatch = "gather"                 # replicated experts: no mesh
     if group_size and group_size < L:
         xg = x.reshape(B * (L // group_size), group_size, d)
     else:

@@ -10,8 +10,10 @@ and pages, nothing more); ``encdec`` (Whisper: an encoder over an audio
 stub's frames, a decoder with cross attention, :mod:`~repro_torch.models.
 encdec`; fused admission and paging, its cross cache never paged);
 ``hybrid`` (RecurrentGemma: RG-LRU blocks and local attention over a
-ring; dense caches and loop admission only).  The family predicates are
-the reference's.
+ring; dense caches and loop admission only); ``ssm`` (Mamba-2: SSD
+blocks, no attention and so no kernel launch; dense caches of recurrent
+state and loop admission only).  The family predicates are the
+reference's.
 ``build_model(cfg)`` returns a :class:`Model` bound to a device: the CUDA
 card unless the caller asks for the CPU.
 """
@@ -28,6 +30,7 @@ from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.common import init_params
 from repro_torch.plan import LaunchPlan
 from repro_torch.quant import QUANT_DTYPES
@@ -83,9 +86,17 @@ class Model:
         model's ``k`` / ``v`` (and scales) stack its windowed layers over
         the ring's ``min(window, max_len)`` rows, and its ``state`` /
         ``conv`` its recurrent layers
-        (:func:`repro_torch.models.rglru.cache_shapes`).  Which tensors
-        never page: :meth:`unpaged_caches`."""
+        (:func:`repro_torch.models.rglru.cache_shapes`).  An ssm model
+        has only ``state`` (layers, batch, H, P, N) float32 and ``conv``
+        (layers, batch, conv_width - 1, conv_dim) bfloat16
+        (:func:`repro_torch.models.ssd.cache_shapes`), whatever
+        ``kv_dtype`` says.  Which tensors never page:
+        :meth:`unpaged_caches`."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            return {name: ((cfg.num_layers,) + shape, dt)
+                    for name, (shape, dt) in
+                    ssd_mod.cache_shapes(cfg, batch).items()}
         if cfg.family == "mla":
             return {"latent": ((cfg.num_layers, batch, max_len, 1,
                                 mla_mod.latent_width(cfg)), torch.bfloat16)}
@@ -111,11 +122,11 @@ class Model:
     def unpaged_caches(self) -> Tuple[str, ...]:
         """The cache tensors the paged layout keeps dense (the reference's
         ``paged=False`` leaves): encdec's cross K / V, read whole every
-        step; every hybrid tensor (a ring, recurrent state), which the
-        paged layout never holds anyway."""
+        step; every hybrid or ssm tensor (a ring, recurrent state), which
+        the paged layout never holds anyway."""
         if self.cfg.family == "encdec":
             return encdec_mod.CROSS_LEAVES
-        if self.cfg.family == "hybrid":
+        if self.cfg.family in ("hybrid", "ssm"):
             return tuple(self.cache_shapes(1, 1))
         return ()
 
@@ -130,8 +141,8 @@ class Model:
     def supports_paged_cache(self) -> bool:
         """Whether the paged layout may hold this family's caches: its
         self-attention caches are position-linear (row t holds position
-        t).  The hybrid family's ring and recurrent state are not, so its
-        caches stay dense."""
+        t).  The hybrid family's ring and the recurrent state of the hybrid
+        and ssm families are not, so their caches stay dense."""
         return self.cfg.family in ("dense", "moe", "mla", "vlm", "encdec")
 
     @property
@@ -168,13 +179,15 @@ class Model:
                          prefix_capacity=prefix_capacity)
 
     def cache_manager(self, batch: int, max_len: int,
-                      kv_dtype: str = "bfloat16",
+                      kv_dtype: str = "bfloat16", label: str = "",
                       **layout_kw) -> CacheManager:
         """Resolve :meth:`cache_spec` into a
         :class:`~repro_torch.cache.manager.CacheManager` (the owner of
-        residency and page tables; the engine holds the storage)."""
+        residency and page tables; the engine holds the storage).
+        ``label`` names the owner in its messages (a sharded engine's
+        ``shard{d}``)."""
         return CacheManager(self, self.cache_spec(batch, max_len, kv_dtype,
-                                                  **layout_kw))
+                                                  **layout_kw), label=label)
 
     def forward(self, params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -200,13 +213,15 @@ class Model:
         first.  Returns (the last position's logits (B, vocab) f32, dense
         caches of ``max_len`` rows laid out for :meth:`decode_step` at t
         = L_total).  As the reference's prefill emits them, encdec's
-        caches and a hybrid's conv tails are in the activation dtype."""
+        caches and a hybrid's or an ssm model's conv tails are in the
+        activation dtype."""
         cfg = self.cfg
         tokens = batch["tokens"]
         caches = self.init_cache(tokens.shape[0], max_len, kv_dtype)
         act = getattr(torch, cfg.dtype)
         for name in (tuple(caches) if cfg.family == "encdec" else
-                     ("conv",) if cfg.family == "hybrid" else ()):
+                     ("conv",) if cfg.family in ("hybrid", "ssm")
+                     else ()):
             caches[name] = caches[name].to(act)
         if cfg.family == "encdec":
             logits = encdec_mod.encdec_prefill(params, cfg, tokens,
@@ -222,9 +237,9 @@ class Model:
         """Whether :meth:`prefill_slot_view` can consume a bucket-padded
         prompt: the token-input families (dense, moe, mla) and encdec
         (its decoder prefills tokens; the frames stay a stub).  A vision
-        frontend prepends non-token positions, and a hybrid's recurrent
-        state would fold the padding in, so vlm and hybrid models admit
-        through the teacher-forcing loop."""
+        frontend prepends non-token positions, and the recurrent state of
+        a hybrid or ssm model would fold the padding in, so vlm, hybrid
+        and ssm models admit through the teacher-forcing loop."""
         if self.cfg.family == "encdec":
             return True
         return (self.cfg.family in ("dense", "moe", "mla")

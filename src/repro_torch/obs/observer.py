@@ -38,10 +38,12 @@ def plan_provenance(key: Any, plan: Any) -> Dict[str, Any]:
 
     The four acceptance-critical keys — ``num_splits``, ``mesh_splits``,
     ``kv_dtype``, ``table_version`` — are ALWAYS present (null when the
-    launch rode the internal-heuristic fallback and had no plan).  The
-    port's plans carry no mesh fields, so ``mesh_splits`` and
-    ``seq_shard_axis`` stay null on one device, and no ``impl`` is
-    stamped (the kernel follows the tensor's device)."""
+    launch rode the internal-heuristic fallback and had no plan).  A
+    plan made for a mesh (``Planner.mesh_plan``, a sequence-sharded
+    shard's) stamps its ``mesh_splits``, and its ``seq_shard_axis`` where
+    it runs sequence-sharded (``seq_shard_mesh`` set), as the
+    reference's; a plan made without a mesh leaves both null.  No
+    ``impl`` is stamped (the kernel follows the tensor's device)."""
     d: Dict[str, Any] = {
         "key": ("/".join(map(str, key)) if isinstance(key, tuple)
                 else "fallback" if key is None else str(key)),
@@ -52,6 +54,11 @@ def plan_provenance(key: Any, plan: Any) -> Dict[str, Any]:
         d.update(num_splits=plan.num_splits, tuned=plan.tuned,
                  table_version=plan.table_version, policy=plan.policy,
                  bucket=plan.bucket)
+        if plan.seq_shard_axis is not None:
+            d.update(mesh_splits=plan.mesh_splits,
+                     seq_shard_axis=(plan.seq_shard_axis
+                                     if plan.seq_shard_mesh is not None
+                                     else None))
         w = plan.workload
         if w is not None:
             d["kv_dtype"] = w.kv_dtype_name

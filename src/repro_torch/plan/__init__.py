@@ -8,6 +8,7 @@ from repro_torch.plan.cache import (  # noqa: F401
     CacheInfo,
     PlanCache,
     PlanCacheStats,
+    merge_stats_snapshots,
 )
 from repro_torch.plan.plan import LaunchPlan  # noqa: F401
 from repro_torch.plan.planner import Planner  # noqa: F401

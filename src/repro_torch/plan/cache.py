@@ -201,5 +201,56 @@ class PlanCache:
     def keys(self):
         return self._entries.keys()
 
+    def values(self):
+        return self._entries.values()
+
     def items(self):
         return self._entries.items()
+
+
+# keys of PlanCacheStats.to_json() that merge by summation (everything
+# the per-shard engines count independently)
+_MERGE_SUM_KEYS = (
+    "hits", "misses", "total_launches", "fallback_launches",
+    "measured_lookups", "measured_fallbacks", "spec_steps",
+    "spec_proposed", "spec_accepted", "spec_emitted", "spec_disabled",
+    "table_registry_fallbacks",
+)
+
+
+def merge_stats_snapshots(snaps: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Merge per-shard :meth:`PlanCacheStats.to_json` snapshots into one
+    (the ``repro_torch.shard`` engine's stats dump carries both the
+    per-shard sections and this merge).  Counters sum; launches sum per
+    key; ``seen_buckets`` is the union (``distinct_buckets`` its size);
+    traces concatenate in shard order, trimmed to ``TRACE_CAP``; the
+    speculation rates are recomputed from the summed counters.  Other
+    keys a caller added to a snapshot (``policy``, ``shard``, ...) are
+    ignored."""
+    out: Dict[str, Any] = {k: 0 for k in _MERGE_SUM_KEYS}
+    launches: Dict[str, int] = {}
+    seen: Set[str] = set()
+    fallback_trace: List[list] = []
+    measured_fallback_trace: List[list] = []
+    for s in snaps:
+        for k in _MERGE_SUM_KEYS:
+            out[k] += int(s.get(k, 0))
+        for k, v in s.get("launches", {}).items():
+            launches[k] = launches.get(k, 0) + int(v)
+        seen.update(s.get("seen_buckets", ()))
+        fallback_trace.extend(s.get("fallback_trace", ()))
+        measured_fallback_trace.extend(s.get("measured_fallback_trace", ()))
+    cap = PlanCacheStats.TRACE_CAP
+    out["launches"] = launches
+    out["seen_buckets"] = sorted(seen)
+    out["distinct_buckets"] = len(seen)
+    out["fallback_trace"] = fallback_trace[-cap:]
+    out["measured_fallback_trace"] = measured_fallback_trace[-cap:]
+    out["spec_acceptance_rate"] = round(
+        out["spec_accepted"] / out["spec_proposed"]
+        if out["spec_proposed"] else 0.0, 4)
+    out["spec_tokens_per_step"] = round(
+        out["spec_emitted"] / out["spec_steps"]
+        if out["spec_steps"] else 0.0, 4)
+    out["shards"] = len(snaps)
+    return out

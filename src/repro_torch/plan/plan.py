@@ -14,10 +14,18 @@ fallback policy did.  ``pack_gqa`` is the reference's flag; the port's
 decode kernels pack the G query heads of a KV head into one CTA either
 way, and only the cost model reads it.
 
-The reference's TPU-only fields are not ported: ``impl`` and
-``block_k`` (the Pallas kernel's choice and KV block), the mesh fields
-(``mesh_splits``, ``min_splits``, ``seq_shard_mesh``,
-``seq_shard_axis``) and ``split_constraint``.
+The mesh fields are the paper's decision over devices in place of SMs
+(``Planner.mesh_plan``): ``mesh_splits`` is how many ways the ``model``
+axis sequence-shards the KV cache, ``seq_shard_axis`` the axis the plan
+was made for (None on a plan made without a mesh, where the reference
+defaults to ``"model"``), and ``seq_shard_mesh`` the shard's device
+grid (:class:`repro_torch.launch.mesh.EngineMesh`) that a decode plan
+realizes them over: set, the decode op runs one partials launch a
+device over its chunk and merges them with the combine kernel
+(``kernels.ops.decode_seqsharded``).  ``min_splits`` is carried as the
+reference's.  The reference's ``impl`` and ``block_k`` (the Pallas
+kernel's choice and KV block) and ``split_constraint`` (a GSPMD layout
+hook) have no counterpart: the kernel follows the tensor's device.
 """
 from __future__ import annotations
 
@@ -40,6 +48,11 @@ class LaunchPlan:
     bucket: Optional[int] = None          # cache-length bucket covered
     tuned: bool = False                   # a SplitTable cell decided
     table_version: Optional[str] = None   # the SplitTable that decided
+    # --- mesh-level realization (Planner.mesh_plan) ------------------------
+    mesh_splits: int = 1                  # ways the model axis seq-shards KV
+    min_splits: int = 1                   # kernel split rounded up to this
+    seq_shard_mesh: Optional[Any] = None  # the shard's EngineMesh
+    seq_shard_axis: Optional[str] = None  # the axis a mesh plan was made for
 
     @property
     def frozen(self) -> bool:
@@ -66,6 +79,7 @@ class LaunchPlan:
         d: Dict[str, Any] = {
             "kind": self.kind, "policy": self.policy,
             "num_splits": self.num_splits, "pack_gqa": self.pack_gqa,
+            "mesh_splits": self.mesh_splits,
         }
         if self.num_cores is not None:
             d["num_cores"] = self.num_cores

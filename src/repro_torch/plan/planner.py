@@ -11,17 +11,22 @@ table=...)``), and its plans record ``tuned`` / ``table_version``.
 ``impl`` names the table family a measured plan looks up.  The port has
 no implementation knob, so ``None`` means its own family, ``"cuda"``
 (``repro_torch.tune.table.PORT_IMPL``); ``"xla"`` reads a reference
-table's cells.  The reference's ``block_k`` and mesh planning
-(``mesh_plan``) are TPU-only and not ported.
+table's cells.  :meth:`Planner.mesh_plan` adds the mesh-level decision
+of a sequence-sharded topology: whether the ``model`` axis shards the
+KV cache's sequence, the paper's decision with devices in place of SMs.
+The reference's ``block_k`` (the Pallas kernel's KV block) has no
+counterpart.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
 from repro_torch.core.split_policy import (
     DEFAULT_NUM_CORES,
     analytic_policies,
+    choose_mesh_splits,
     choose_num_splits,
     get_policy,
 )
@@ -86,3 +91,37 @@ class Planner:
         the launch with this planner's backend."""
         return LaunchPlan(kind=kind, policy=self.policy,
                           num_cores=self.num_cores, **overrides)
+
+    # --- mesh-level planning -----------------------------------------------
+
+    def mesh_plan(self, spec: AttentionSpec, *, axis_size: int,
+                  axis: str = "model",
+                  bucket: Optional[int] = None) -> LaunchPlan:
+        """Kernel plan plus the mesh-level sequence-shard decision.
+
+        Two reasons shard the cache over ``axis`` (``mesh_splits`` = the
+        axis size): (a) the occupancy policy finds the axis starved, the
+        paper's grid starvation with devices in place of SMs; or (b)
+        storage: H_KV does not divide the axis, so head sharding would
+        replicate, and the kernel plan takes the axis size as its forced
+        split.  The kernel plan is made with ``num_cores`` = the axis
+        size, as the reference's.  The split is binary on a fixed mesh:
+        any split shards the whole axis.  ``bucket`` passes through to
+        :meth:`plan`, so the serving engine's bucket-keyed plans carry
+        the mesh provenance."""
+        w = spec.workload()
+        mesh_spec = dataclasses.replace(spec, mesh_axis=axis,
+                                        mesh_axis_size=axis_size)
+        planner = dataclasses.replace(self, num_cores=axis_size)
+        if spec.num_heads_kv % axis_size != 0:      # storage-driven (b)
+            planner = dataclasses.replace(planner,
+                                          num_splits_override=axis_size)
+            p = planner.plan(mesh_spec, bucket=bucket)
+            return dataclasses.replace(p, mesh_splits=axis_size,
+                                       seq_shard_axis=axis)
+        p = planner.plan(mesh_spec, bucket=bucket)
+        s_mesh = choose_mesh_splits(w, axis_size, policy=self.policy,
+                                    table=self.table, impl=self.impl)
+        return dataclasses.replace(
+            p, mesh_splits=axis_size if s_mesh > 1 else 1,
+            seq_shard_axis=axis)

@@ -8,6 +8,7 @@ kinds.  A spec says WHAT is launched (kind and shapes); the
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 from repro_torch.core.split_policy import KV_BLOCK, KV_DTYPES, DecodeWorkload
 
@@ -27,7 +28,8 @@ def bucket_seqlen(seqlen_k: int, bucket: int = KV_BLOCK) -> int:
 @dataclass(frozen=True)
 class AttentionSpec:
     """One attention launch: the paper's (Batch, L_Q, L_K, H_Q, H_KV, D)
-    plus the launch kind and the KV-cache dtype name."""
+    plus the launch kind, the KV-cache dtype name, and the mesh axis the
+    launch may sequence-shard over (set by ``Planner.mesh_plan``)."""
     kind: str                           # one of KINDS
     batch: int
     seqlen_q: int
@@ -36,6 +38,8 @@ class AttentionSpec:
     num_heads_kv: int
     head_dim: int = 128
     kv_dtype: str = "bfloat16"          # a KV_DTYPES name
+    mesh_axis: Optional[str] = None     # sharding axis name (mesh plans)
+    mesh_axis_size: int = 1
 
     def __post_init__(self):
         if self.kind not in KINDS:

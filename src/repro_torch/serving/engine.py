@@ -1,6 +1,7 @@
 """Request-lifecycle serving engine: submit / step / stream / drain.
 
-Counterpart of ``repro.serving.engine`` on one device.  A fixed pool of
+Counterpart of ``repro.serving.engine``, on one device or as one shard
+of a mesh-native topology (``mesh=``, below).  A fixed pool of
 ``B`` decode slots runs in lockstep; each slot carries its own position.
 
 - :meth:`ServingEngine.submit` enqueues a :class:`Request` and returns a
@@ -88,6 +89,22 @@ nothing is synchronized for it.  :meth:`ServingEngine.drain` writes the
 artifacts (:meth:`dump_obs`).  Disabled, the engine holds
 ``NULL_OBSERVER`` and each site costs one attribute read.
 
+Mesh-native serving (``repro_torch.shard``): with ``mesh=`` the engine
+is one shard of a :class:`~repro_torch.shard.ShardedServingEngine`, bound
+to its ``(1, sp)`` grid (:class:`~repro_torch.launch.mesh.EngineMesh`).
+Its weights and every non-attention op live on the grid's lead device.
+With ``sp > 1`` (``seq_shards``) the dense cache is held in ``sp``
+chunks of rows, one a device (:class:`~repro_torch.kernels.ops.
+SeqShards`); the paged pool stays on the lead device and each launch's
+gathered view is cut into ``sp`` chunks.  Every plan is frozen through
+``Planner.mesh_plan`` (``mesh_splits`` provenance), and a decode plan
+with ``mesh_splits`` above 1 launches one partials launch a device over
+its chunk at one split, merged by one combine-kernel launch.  Verify
+steps run on the chunks joined on the lead device.  ``plan_cache``
+shares one PlanCache across same-topology engines (its steps take the
+engine as an argument, so a shared entry serves any of them);
+``shard_id`` labels the cache manager.
+
 :class:`DecodeEngine` is the batch-synchronous facade
 (``generate(requests) -> completions``): loop admission and greedy
 sampling, as the reference's.
@@ -104,6 +121,7 @@ import torch
 
 from repro_torch.configs.base import ServeConfig
 from repro_torch.core.split_policy import KV_DTYPES, get_policy
+from repro_torch.kernels import ops
 from repro_torch.models.registry import DeviceLike, Model, resolve_device
 from repro_torch.obs import atomic_write_json, resolve_obs
 from repro_torch.plan import LaunchPlan, PlanCacheStats, Planner
@@ -128,7 +146,7 @@ PREFILL_MODES = ("auto", "fused", "loop")
 
 class ServingEngine:
     """Request-lifecycle engine over one device (the card unless
-    ``device="cpu"`` is passed)."""
+    ``device="cpu"`` is passed), or over one shard's grid ``mesh``."""
 
     def __init__(self, model: Model, scfg: ServeConfig, *,
                  max_len: int = 256, batch_slots: int = 4,
@@ -138,17 +156,57 @@ class ServingEngine:
                  tune_table: Optional[Any] = None,
                  tune_impl: Optional[str] = None,
                  device: DeviceLike = None,
+                 mesh: Optional[Any] = None,
+                 plan_cache: Optional[Any] = None,
+                 shard_id: Optional[int] = None,
+                 param_policy: str = "replicated",
                  obs: Optional[Any] = None):
-        self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(f"model lives on {model.device}, engine on "
-                             f"{self.device}")
+        from repro_torch.shard.spec import PARAM_POLICIES
+        if param_policy not in PARAM_POLICIES:
+            raise ValueError(f"unknown param_policy {param_policy!r}; "
+                             f"known: {PARAM_POLICIES}")
+        if param_policy == "tp":
+            raise NotImplementedError(
+                "param_policy='tp' (weights tensor-parallel over the "
+                "model axis) is not ported yet: it comes with the tensor- "
+                "and expert-parallel slice; use 'replicated'")
+        self.mesh = mesh
+        self.shard_id = shard_id
+        self.param_policy = param_policy
+        self.seq_shards = int(mesh.shape["model"]) if mesh is not None \
+            else 1
+        if mesh is not None:
+            # the shard's lead device runs every non-attention op
+            if device is not None and resolve_device(device) != mesh.lead:
+                raise ValueError(f"device {device} is not the lead device "
+                                 f"{mesh.lead} of the shard's grid")
+            self.device = mesh.lead
+            if model.device != self.device:
+                model = Model(model.cfg, self.device)
+        else:
+            self.device = resolve_device(device)
+            if model.device != self.device:
+                raise ValueError(f"model lives on {model.device}, engine "
+                                 f"on {self.device}")
         self.model = model
         self.cfg = model.cfg
         self.policy = policy or scfg.split_policy
         self.max_len = max_len
         self.B = batch_slots
         self.use_metadata = scfg.use_scheduler_metadata
+        if self.seq_shards > 1:
+            if not self.use_metadata:
+                raise ValueError(
+                    "sequence-sharded decode rides the metadata-enabled "
+                    "plan path (the sharded launches are pinned on frozen "
+                    "plans); set use_scheduler_metadata=True or a model "
+                    "axis of 1")
+            if self.cfg.family not in ("dense", "moe", "mla"):
+                raise ValueError(
+                    f"{self.cfg.family} models cannot sequence-shard "
+                    "their decode (needs a position-linear k/v cache "
+                    "consumed by the split-KV combine); use a model axis "
+                    "of 1")
         self._stats_path = scfg.stats_path
         # an injected observer wins, and its injector owns the artifact
         # dumps; otherwise the config's paths resolve one, NULL_OBSERVER
@@ -232,6 +290,19 @@ class ServingEngine:
                     raise ValueError(
                         f"cache_page_size ({scfg.cache_page_size}) must "
                         f"divide the plan bucket widths (got {width})")
+        if self.seq_shards > 1:
+            # the sharded decode cuts the cache's L dim: max_len (dense),
+            # the gathered view, a page multiple (paged)
+            if layout == "paged":
+                if scfg.cache_page_size % self.seq_shards:
+                    raise ValueError(
+                        f"cache_page_size ({scfg.cache_page_size}) must "
+                        f"divide over the model axis ({self.seq_shards}) "
+                        "for sequence-sharded paged decode")
+            elif max_len % self.seq_shards:
+                raise ValueError(
+                    f"max_len ({max_len}) must divide over the model axis "
+                    f"({self.seq_shards}) for sequence-sharded decode")
         self.share_prefix = scfg.share_prefix
         if self.share_prefix:
             if layout != "paged":
@@ -252,7 +323,9 @@ class ServingEngine:
                               page_size=scfg.cache_page_size,
                               page_budget=scfg.cache_page_budget,
                               share_prefix=scfg.share_prefix,
-                              prefix_capacity=scfg.prefix_capacity)
+                              prefix_capacity=scfg.prefix_capacity,
+                              label=(f"shard{shard_id}"
+                                     if shard_id is not None else ""))
         # residency bookkeeping and the layout; load() makes a fresh one
         # together with fresh storage
         self.cache = model.cache_manager(self.B, self.max_len,
@@ -270,7 +343,8 @@ class ServingEngine:
             prefill_bucket=scfg.prefill_bucket,
             plan_capacity=scfg.plan_cache_capacity,
             kv_dtype=self.kv_dtype, table=self.tune_table,
-            table_impl=tune_impl)
+            table_impl=tune_impl, mesh=self.mesh,
+            seq_shards=self.seq_shards, plans=plan_cache)
         if self._table_registry_fallback:
             self.stats.table_registry_fallbacks += 1
             if self._obs.enabled:
@@ -340,16 +414,35 @@ class ServingEngine:
 
     def load(self, params) -> None:
         """Bind weights and allocate fresh zeroed storage with fresh
-        residency and page tables (a new session)."""
+        residency and page tables (a new session).  A shard keeps the
+        weights on its lead device (a copy where they live elsewhere) and
+        its dense storage sequence-sharded over its grid."""
         dev = next(params.parameters()).device
-        if dev.type != self.device.type:
+        if self.mesh is not None:
+            params = self._place_params(params)
+        elif dev.type != self.device.type:
             raise ValueError(f"params live on {dev}, engine on "
                              f"{self.device}")
         self._params = params
         self.cache = self.model.cache_manager(self.B, self.max_len,
                                               **self._cache_kw)
         self._caches = self.cache.init_storage()
+        if self.seq_shards > 1 and not self.cache.is_paged:
+            self._caches = {name: ops.SeqShards.place(
+                t, self.mesh.rows[0], dim=2)
+                for name, t in self._caches.items()}
         self._state = self.sampler.init_state(self.B)
+
+    def _place_params(self, params):
+        """The weights on the lead device: the same module when they are
+        there already (a grid that repeats a device holds one copy),
+        else a copy.  The other devices of the grid hold cache chunks
+        and run the partials launches, which read no weight."""
+        if next(params.parameters()).device == self.device:
+            return params
+        copy = type(params)(self.cfg, self.device)
+        copy.load_state_dict(params.state_dict())
+        return copy
 
     # --- bound steps --------------------------------------------------------
 
@@ -365,11 +458,29 @@ class ServingEngine:
         lay = self.cache.layout
         table = self.cache.table_device()
         t = lay.decode_positions(t, num_pages)
-        view = lay.gather_view(self._caches, table, num_pages)
+        view, joined = self._whole(
+            lay.gather_view(self._caches, table, num_pages), plan)
         logits = self.model.decode_step(self._params, view, token, t,
                                         plan=plan, side_plans=side_plans)
+        if joined:
+            self._put_back(view)
         lay.write_token(self._caches, view, table, t, num_pages)
         return self.sampler.sample(logits, self._state, self._pos)
+
+    def _whole(self, view, plan: LaunchPlan):
+        """(``view``, False), or, where the dense storage is held in
+        sequence chunks and ``plan`` does not run sequence-sharded (a
+        verify plan, or a decode plan whose ``mesh_splits`` is 1), (the
+        chunks joined on the lead device, True): :meth:`_put_back`
+        returns the rows the step writes."""
+        if plan.seq_shard_mesh is not None or not ops.seq_sharded(view):
+            return view, False
+        return {name: leaf.join(self.device)
+                for name, leaf in view.items()}, True
+
+    def _put_back(self, view) -> None:
+        for name, leaf in self._caches.items():
+            leaf.copy_(view[name])
 
     def _prefill_impl(self, tokens: torch.Tensor, slot: int, length: int,
                       plan: LaunchPlan, num_pages: int) -> int:
@@ -419,9 +530,12 @@ class ServingEngine:
         rolls ``kv_len`` back over the rejected rows."""
         lay = self.cache.layout
         table = self.cache.table_device()
-        view = lay.gather_view(self._caches, table, num_pages)
+        view, joined = self._whole(
+            lay.gather_view(self._caches, table, num_pages), plan)
         logits = self.model.verify_step(self._params, view, tokens, t,
                                         plan=plan)
+        if joined:
+            self._put_back(view)
         row = torch.arange(tokens.shape[1] - 1, device=tokens.device)
         draft = torch.where(row < dlen[:, None], tokens[:, 1:], -1)
         toks, acc = self.sampler.verify(logits, draft, self._state,
@@ -433,8 +547,10 @@ class ServingEngine:
 
     def _build(self, impl, plan: LaunchPlan, **kw):
         # plan.bucket spans the whole view: the resident length for
-        # decode, the prompt for prefill and suffix prefill
-        return functools.partial(impl, plan=plan,
+        # decode, the prompt for prefill and suffix prefill.  The step
+        # takes the engine as its first argument, so a PlanCache shared
+        # by same-topology engines serves each of them its own storage.
+        return functools.partial(impl.__func__, plan=plan,
                                  num_pages=self.cache.spec.view_pages(
                                      plan.bucket), **kw)
 
@@ -587,9 +703,11 @@ class ServingEngine:
         return done
 
     def stats_snapshot(self) -> Dict[str, Any]:
-        """``PlanCacheStats.to_json()`` plus the engine's policy and, with
-        a table, its version."""
+        """``PlanCacheStats.to_json()`` plus the engine's policy, its shard
+        index in a sharded topology and, with a table, its version."""
         snap = self.stats.to_json()
+        if self.shard_id is not None:
+            snap["shard"] = self.shard_id
         snap["policy"] = self.policy
         if self.tune_table is not None:
             snap["table_version"] = self.tune_table.version
@@ -674,7 +792,7 @@ class ServingEngine:
             toks[:n] = prompt
             args = (torch.from_numpy(toks).to(self.device), i, n)
         t0 = self._obs.now_us() if self._obs.enabled else 0
-        tok = entry.step(*args)         # its host int waits for the launch
+        tok = entry.step(self, *args)   # its host int waits for the launch
         if self._obs.enabled:
             self._obs.on_launch("sprefill" if shared else "prefill",
                                 entry.key, entry.plan, t0)
@@ -721,7 +839,7 @@ class ServingEngine:
         t_max = max(int(self._pos[i]) for i, _ in live)
         if self.use_metadata:
             entry = self.sched.decode_entry(t_max, self._build_decode)
-            step = entry.step
+            step = functools.partial(entry.step, self)
         else:
             # dense only (paged needs the metadata path): the whole cache
             entry = None
@@ -818,7 +936,7 @@ class ServingEngine:
                 torch.from_numpy(self._pos).to(dev),
                 torch.from_numpy(dlen).to(dev))
         t0 = self._obs.now_us() if self._obs.enabled else 0
-        out, acc = entry.step(*args)
+        out, acc = entry.step(self, *args)
         out, acc = out.cpu().numpy(), acc.cpu().numpy()
         if self._obs.enabled:
             self._obs.on_launch("verify", entry.key, entry.plan, t0,

@@ -1,6 +1,6 @@
 """Scheduler: slot admission, per-slot request state, bucketed plans.
 
-Counterpart of ``repro.serving.scheduler`` (single device).  It
+Counterpart of ``repro.serving.scheduler``.  It
 owns the fixed pool of decode slots, the pending queue, and, through the
 :class:`~repro_torch.plan.Planner` and one
 :class:`~repro_torch.plan.PlanCache`, every launch-plan decision the
@@ -22,13 +22,20 @@ engine consumes:
   step is built, so no decode step evaluates the policy.
 
 ``num_cores`` is the machine the policy plans for: the card's SM count
-when the engine runs on one.  ``table`` is the calibrated
+when the engine runs on one.  In a sequence-sharded shard of a
+mesh-native topology (``seq_shards > 1``) every plan goes through
+``Planner.mesh_plan``, so it carries ``mesh_splits`` provenance, and a
+decode plan whose ``mesh_splits`` is above 1 is realized over the
+shard's grid ``mesh`` (``seq_shard_mesh``): its launches run one
+partials launch a device, merged.  ``plans`` lets the shards of one
+topology share a PlanCache.  ``table`` is the calibrated
 :class:`~repro_torch.tune.SplitTable` the ``measured`` policy decides
 from (``table_impl`` its family, ``None`` the port's own); its lookups
 and fallbacks are counted in the plan cache's stats.
 """
 from __future__ import annotations
 
+import dataclasses
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
@@ -89,23 +96,48 @@ class Scheduler:
                  plan_capacity: Optional[int] = None,
                  kv_dtype: str = "bfloat16",
                  table: Optional[Any] = None,
-                 table_impl: Optional[str] = None):
+                 table_impl: Optional[str] = None,
+                 mesh: Optional[Any] = None,
+                 seq_shards: int = 1,
+                 plans: Optional[PlanCache] = None):
         self.cfg = cfg
         self.B = batch_slots
         self.max_len = max_len
         self.bucket_width = bucket_width
         self.prefill_bucket_width = prefill_bucket or bucket_width
         self.kv_dtype = kv_dtype
+        self.mesh = mesh
+        self.seq_shards = seq_shards
         self.planner = Planner(policy=policy, num_cores=num_cores,
                                num_splits_override=num_splits_override,
                                impl=table_impl, table=table)
-        self.plans = PlanCache(plan_capacity)
+        self.plans = plans if plans is not None else PlanCache(plan_capacity)
         if table is not None:
             # measured lookups land in the same stats as plan-cache hits
             table.attach_stats(self.plans.stats)
         self.slots: List[Optional[SlotState]] = [None] * batch_slots
         self.pending: Deque[SlotState] = deque()
         self._side: Optional[Dict[str, LaunchPlan]] = None
+
+    # --- planning core ------------------------------------------------------
+
+    def _plan(self, spec: AttentionSpec, bucket: int) -> LaunchPlan:
+        """The planner entry of every plan family: in a sequence-sharded
+        shard, ``Planner.mesh_plan`` over its ``seq_shards`` devices."""
+        if self.seq_shards > 1:
+            return self.planner.mesh_plan(spec, axis_size=self.seq_shards,
+                                          bucket=bucket)
+        return self.planner.plan(spec, bucket=bucket)
+
+    def _realize(self, plan: LaunchPlan) -> LaunchPlan:
+        """A decode plan whose ``mesh_splits`` is above 1 runs sequence-
+        sharded over the shard's grid.  Verify and prefill plans keep
+        their provenance and run whole on the shard's lead device."""
+        if self.mesh is not None and plan.mesh_splits > 1:
+            return dataclasses.replace(plan, min_splits=1,
+                                       seq_shard_mesh=self.mesh,
+                                       seq_shard_axis="model")
+        return plan
 
     # --- admission ----------------------------------------------------------
 
@@ -182,7 +214,7 @@ class Scheduler:
     def decode_plan(self, t_max: int) -> LaunchPlan:
         """Compute (not cache) the frozen decode plan for ``t_max``."""
         bucket = self.decode_bucket(t_max)
-        return self.planner.plan(self.decode_spec(bucket), bucket=bucket)
+        return self._realize(self._plan(self.decode_spec(bucket), bucket))
 
     def decode_entry(self, t_max: int,
                      build: Callable[[LaunchPlan], Any]) -> PlanEntry:
@@ -190,7 +222,8 @@ class Scheduler:
         bucket = self.decode_bucket(t_max)
 
         def miss() -> PlanEntry:
-            plan = self.planner.plan(self.decode_spec(bucket), bucket=bucket)
+            plan = self._realize(self._plan(self.decode_spec(bucket),
+                                            bucket))
             return PlanEntry(bucket, plan, build(plan))
 
         return self.plans.get_or_build(bucket, miss)
@@ -248,8 +281,7 @@ class Scheduler:
         key = ("verify", k, bucket)
 
         def miss() -> PlanEntry:
-            plan = self.planner.plan(self.verify_spec(k, bucket),
-                                     bucket=bucket)
+            plan = self._plan(self.verify_spec(k, bucket), bucket)
             return PlanEntry(key, plan, build(plan))
 
         return self.plans.get_or_build(key, miss)
@@ -275,7 +307,7 @@ class Scheduler:
         key = ("prefill", bucket)
 
         def miss() -> PlanEntry:
-            plan = self.planner.plan(self.prefill_spec(bucket), bucket=bucket)
+            plan = self._plan(self.prefill_spec(bucket), bucket)
             return PlanEntry(key, plan, build(plan))
 
         return self.plans.get_or_build(key, miss)
@@ -297,7 +329,7 @@ class Scheduler:
             cfg = self.cfg
             spec = AttentionSpec("prefill", 1, mb, vb, cfg.num_heads,
                                  self._kv_heads(), cfg.resolved_head_dim)
-            plan = self.planner.plan(spec, bucket=vb)
+            plan = self._plan(spec, vb)
             return PlanEntry(key, plan, build(plan))
 
         return self.plans.get_or_build(key, miss)

@@ -97,6 +97,32 @@ def test_run_serving_reports_the_reference_counts(kw):
             **plain)] == [c.tokens for c in outs]
 
 
+@pytest.mark.parametrize("kw", [dict(), dict(cache_layout="paged")],
+                         ids=["dense", "paged"])
+def test_run_serving_mesh_reports_the_reference_counts(kw):
+    """``run_serving(mesh="1,1")``, the port's over a grid of the CPU and
+    the reference's over its one host device: the same prompts and
+    completion lengths, the same summary lines, and the same topology
+    and per-shard lines but for the fingerprint's device part."""
+    from repro.launch.serve import run_serving as j_run_serving
+    from repro_torch.launch.serve import run_serving
+    kw = {"num_requests": 5, "max_new": 4, "d_model": 64, "mesh": "1,1",
+          "batch_slots": 2, **kw}
+    jlines, lines = [], []
+    jouts = j_run_serving("qwen2.5-3b", log_fn=jlines.append, **kw)
+    outs = run_serving("qwen2.5-3b", device="cpu", log_fn=lines.append, **kw)
+    assert [c.prompt for c in outs] == [c.prompt for c in jouts]
+    assert [len(c.tokens) for c in outs] == [len(c.tokens) for c in jouts]
+    assert _summary(lines) == _summary(jlines)
+
+    def shard_lines(log):
+        out = [x for x in log if x.startswith(("shard topology", "  shard"))]
+        return [re.sub(r"(shard\.[0-9a-f]{12})\.[^)]*\)", r"\1)", x)
+                for x in out]
+    assert len(shard_lines(lines)) == 2
+    assert shard_lines(lines) == shard_lines(jlines)
+
+
 @pytest.mark.parametrize("kw", [dict(), dict(cache_layout="paged",
                                             kv_quant="int8")],
                          ids=["dense", "paged_int8"])
@@ -165,10 +191,11 @@ def test_run_serving_measured_policy_writes_stats(tmp_path):
 
 def test_serve_module_runs_and_refuses_unported_flags(tmp_path):
     """``python -m repro_torch.launch.serve`` runs on the CPU and prints
-    the reference's summary wording, also sampled and speculating; the
-    flag for what the port does not serve yet (the mesh) is not in its
-    parser, and ``--policy measured --tune-table --stats-path`` serves
-    from a table and writes the snapshot."""
+    the reference's summary wording, also sampled and speculating;
+    ``--policy measured --tune-table --stats-path`` serves from a table
+    and writes the snapshot; ``--mesh`` serves a topology over the
+    repeated ``--device`` and refuses a malformed one with the
+    reference's message."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     base = [sys.executable, "-m", "repro_torch.launch.serve",
             "--arch", "qwen2.5-3b", "--device", "cpu", "--requests", "3",
@@ -197,10 +224,17 @@ def test_serve_module_runs_and_refuses_unported_flags(tmp_path):
     assert "measured policy: table 2.2cfa2296473e, " in out.stdout
     assert json.loads((tmp_path / "s.json").read_text())["policy"] == \
         "measured"
-    bad = subprocess.run(base + ["--mesh", "1,1"], capture_output=True,
+    out = subprocess.run(base + ["--mesh", "2,2", "--slots", "1"],
+                         capture_output=True, text=True, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "policy=paper: 3 requests, 9 tokens" in out.stdout
+    assert "shard topology dp=2 x sp=2 (2 slots over 4 devices" \
+        in out.stdout
+    bad = subprocess.run(base + ["--mesh", "2,2,2"], capture_output=True,
                          text=True, env=env, timeout=120)
-    assert bad.returncode == 2
-    assert "unrecognized arguments" in bad.stderr
+    assert bad.returncode == 1
+    assert "positional shard topology takes 'dp' or 'dp,sp'" in bad.stderr
 
 
 def test_serve_module_writes_trace_and_metrics_for_moe(tmp_path):

@@ -1388,3 +1388,139 @@ def test_side_plan_engines_on_the_card(cuda, arch, d_model):
     assert ops.policy_eval_count() == 0
     assert tokens["cuda"] == tokens["cpu"]
 
+
+
+# --- the sequence-sharded decode (mesh-native serving) ----------------------
+
+
+def _seq_shards(x, n):
+    return ops.SeqShards.split(x, [torch.device("cuda", 0)] * n, 1)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_sequence_sharded_decode_equals_the_fused_kernel_bits(cuda, kv_dtype,
+                                                             n):
+    """Over a 4096-row cache cut into n chunks, whose bounds are the fused
+    kernel's split bounds at S = n: one partials launch a chunk at one
+    split, then one combine launch, give the bits of one fused launch at
+    S n over the whole view (bf16, and int8 on the quantized cache's
+    kernel), and are within the tolerance of the plain version.  A slot
+    whose kv_len ends before the last chunks leaves them empty."""
+    from repro_torch.kernels.flash_decode import split_bounds
+    b, hkv, g, d, L = 2, 2, 8, 128, 4096
+    assert [split_bounds(L, n, i) for i in range(n)] == \
+        [(i * L // n, (i + 1) * L // n) for i in range(n)]
+    q = _rand(cuda, (b, hkv * g, d))
+    k, v = _rand(cuda, (b, L, hkv, d)), _rand(cuda, (b, L, hkv, d))
+    lens = torch.tensor([4000, 900], device="cuda", dtype=torch.int32)
+    qp = (q.float() * d ** -0.5).to(q.dtype).reshape(b, hkv, g, d)
+    ops.reset_launch_counts()
+    if kv_dtype is None:
+        got = ops.decode_seqsharded(q, _seq_shards(k, n), _seq_shards(v, n),
+                                    lens)
+        part = "flash_decode"
+        fused = flash_decode(qp, k, v, lens, num_splits=n)
+        want = decode_plain(qp, k, v, lens, num_splits=n)
+        tol = 2e-2
+    else:
+        qz = Quantizer.from_kv_dtype(kv_dtype)
+        (kq, ks), (vq, vs) = qz.quantize(k), qz.quantize(v)
+        got = ops.decode_seqsharded(
+            q, _seq_shards(kq, n), _seq_shards(vq, n), lens,
+            k_scale=_seq_shards(ks, n), v_scale=_seq_shards(vs, n))
+        part = "flash_decode_quant"
+        fused = flash_decode_quant(qp, kq, vq, ks, vs, lens, num_splits=n)
+        want = decode_quant_plain(qp, kq, vq, ks, vs, lens, num_splits=n)
+        tol = AB_ATOL[kv_dtype]
+    counts = ops.launch_counts()
+    assert counts[part] == n + 1 and counts["flash_combine"] == 1
+    assert ops.launch_counts_by_key(part) == {(L // n, 1): n,
+                                              (L, n): 1}
+    got = got.reshape(fused.shape)
+    assert torch.equal(got, fused)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_a_shard_holding_no_row_gives_the_empty_partial(cuda, kv_dtype):
+    """kv_len 0 over a chunk (a prompt that ends before it): acc 0, l 0,
+    m NEG_INF exactly, as ``ref.decode_partial``; a row beside it with
+    rows keeps its own partial."""
+    b, hkv, g, d, c = 2, 2, 8, 128, 1024
+    q = _rand(cuda, (b, hkv, g, d))
+    k, v = _rand(cuda, (b, c, hkv, d)), _rand(cuda, (b, c, hkv, d))
+    lens = torch.tensor([0, 300], device="cuda", dtype=torch.int32)
+    if kv_dtype is None:
+        acc, l, m = flash_decode_partials(q, k, v, lens, num_splits=1)
+        _, _, want_m = decode_partials_plain(q, k, v, lens, num_splits=1)
+    else:
+        qz = Quantizer.from_kv_dtype(kv_dtype)
+        (kq, ks), (vq, vs) = qz.quantize(k), qz.quantize(v)
+        acc, l, m = flash_decode_quant_partials(q, kq, vq, ks, vs, lens,
+                                                num_splits=1)
+        _, _, want_m = decode_quant_partials_plain(q, kq, vq, ks, vs, lens,
+                                                   num_splits=1)
+    assert torch.equal(acc[:, 0], torch.zeros_like(acc[:, 0]))
+    assert torch.equal(l[:, 0], torch.zeros_like(l[:, 0]))
+    assert torch.equal(m[:, 0], torch.full_like(m[:, 0], ref.NEG_INF))
+    assert (l[:, 1] > 0).all()
+    torch.testing.assert_close(m[:, 1], want_m[:, 1], rtol=2e-2, atol=2e-2)
+
+
+def test_combine_over_empty_partials_is_zero(cuda):
+    """A dead slot whose every shard is empty: the combine kernel merges
+    S partials of acc 0, l 0, m NEG_INF into exact zeros, not NaN, as
+    ``combine_plain`` does; a live slot beside it is merged as usual."""
+    s, b, hkv, g, d = 4, 2, 2, 8, 128
+    acc = torch.randn((s, b, hkv, g, d), generator=cuda, device="cuda")
+    l = torch.rand((s, b, hkv, g), generator=cuda, device="cuda") + 0.5
+    m = torch.randn((s, b, hkv, g), generator=cuda, device="cuda")
+    acc[:, 0], l[:, 0], m[:, 0] = 0.0, 0.0, ref.NEG_INF
+    for dt in (torch.float32, torch.bfloat16):
+        out = flash_combine(acc, l, m, out_dtype=dt)
+        assert torch.equal(out[0], torch.zeros_like(out[0]))
+        torch.testing.assert_close(out.float(), combine_plain(
+            acc, l, m, out_dtype=dt).float(), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("layout,kv_quant", [("dense", None),
+                                             ("paged", None),
+                                             ("dense", "int8")])
+def test_sharded_engines_on_the_card(cuda, layout, kv_quant):
+    """Reduced qwen2.5-3b (head_dim 128) in float32 at dp 1 x sp 2 on
+    ``[cuda:0] * 2`` and on ``[cpu] * 2``: the same streams; on the card
+    every layer of every decode step launches the partials twice at one
+    split and the combine once, and the policy never runs in a step."""
+    from repro_torch.shard import ShardedServingEngine, ShardSpec
+    cfg = reduced_config("qwen2.5-3b", d_model=512).replace(
+        dtype="float32", param_dtype="float32")
+    kw = dict(cache_layout=layout, kv_quant=kv_quant,
+              kv_cache_dtype="float32")
+    params = build_model(cfg, device="cpu").init_params(0)
+    reqs = [Request(i, [(7 * i + j) % 250 + 1 for j in range(n)],
+                    max_new_tokens=6) for i, n in enumerate((3, 150, 40))]
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        eng = ShardedServingEngine(
+            model, ServeConfig(model=cfg, **kw),
+            spec=ShardSpec(sp=2, slots_per_shard=2), max_len=256,
+            devices=[torch.device(dev, 0) if dev == "cuda"
+                     else torch.device(dev)] * 2)
+        eng.load(params.to(dev))
+        ops.reset_launch_counts()
+        ops.reset_policy_eval_count()
+        for r in reqs:
+            eng.submit(r)
+        tokens[dev] = [c.tokens for c in eng.drain()]
+    core = eng.cores[0]
+    steps = sum(v for k, v in core.stats.launches.items()
+                if isinstance(k, int))
+    part = "flash_decode_quant" if kv_quant else "flash_decode"
+    counts = ops.launch_counts()
+    assert counts[part] == 2 * cfg.num_layers * steps
+    assert counts["flash_combine"] == cfg.num_layers * steps
+    assert ops.policy_eval_count() == 0
+    assert tokens["cuda"] == tokens["cpu"]

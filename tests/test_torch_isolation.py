@@ -61,7 +61,13 @@ def test_no_module_imports_jax_or_repro():
                  "repro_torch.configs.paligemma_3b",
                  "repro_torch.models.encdec", "repro_torch.models.rglru",
                  "repro_torch.configs.whisper_large_v3",
-                 "repro_torch.configs.recurrentgemma_9b"):
+                 "repro_torch.configs.recurrentgemma_9b",
+                 "repro_torch.models.ssd",
+                 "repro_torch.configs.mamba2_780m",
+                 "repro_torch.shard", "repro_torch.shard.spec",
+                 "repro_torch.shard.resolver", "repro_torch.shard.engine",
+                 "repro_torch.sharding", "repro_torch.sharding.rules",
+                 "repro_torch.sharding.ctx", "repro_torch.launch.mesh"):
         assert want in res["modules"]
 
 
@@ -86,3 +92,33 @@ def test_entry_points_raise_without_cuda():
     assert len(run_serving("qwen2.5-3b", num_requests=1, max_new=1,
                            d_model=64, device="cpu",
                            log_fn=lambda line: None)) == 1
+
+
+def test_mesh_entry_points_raise_without_cuda():
+    """The mesh-native entry points take the visible CUDA devices unless
+    given a device list, and never fall back to the CPU: the grid, the
+    resolver, the sharded engine and the CLI's ``--mesh`` raise without a
+    card, and serve over an explicit CPU list."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.launch.mesh import make_engine_mesh
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.models import build_model
+    from repro_torch.shard import ShardedServingEngine, ShardResolver, \
+        ShardSpec
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_engine_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardResolver(ShardSpec()).resolve(max_len=64)
+    cfg = reduced_config("qwen2.5-3b")
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedServingEngine(model, ServeConfig(model=cfg, shard="1,1"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_serving("qwen2.5-3b", num_requests=1, max_new=1, mesh="1,1",
+                    d_model=64)
+    eng = ShardedServingEngine(model, ServeConfig(model=cfg, shard="2,1"),
+                               devices=[torch.device("cpu")] * 2)
+    assert eng.plan.mesh.devices == (torch.device("cpu"),) * 2

@@ -299,7 +299,7 @@ def test_plan_provenance_always_carries_acceptance_keys():
     assert d["num_splits"] == plan.num_splits
     assert d["kv_dtype"] == "bfloat16"
     assert d["policy"] == "paper" and d["bucket"] == 256
-    # one device, no mesh fields on the port's plans: null, not absent
+    # a plan made without a mesh: null, not absent
     assert d["mesh_splits"] is None and d["seq_shard_axis"] is None
     assert "table_version" in d
     d0 = plan_provenance(None, None)
@@ -544,9 +544,9 @@ def test_registry_fallback_warning_fires_exactly_once(pair, tmp_path):
 
 # launch-span args the two packages may stamp differently, with why
 ALLOWED_ARG_DIFFS = {
-    # the reference's LaunchPlan carries mesh fields, 1 on one device;
-    # the port's plans have none, so plan_provenance stamps null
-    "mesh_splits": "the port's LaunchPlan has no mesh fields",
+    # the reference stamps a plan's mesh_splits, 1 on one device; the
+    # port stamps it only on a plan made for a mesh, null otherwise
+    "mesh_splits": "the port stamps mesh_splits on mesh plans only",
 }
 
 

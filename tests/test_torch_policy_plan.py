@@ -168,12 +168,9 @@ def test_planner_fields_and_context_match_the_reference():
             want = JPlanner(**kw).plan(JAttentionSpec(kind, *shape),
                                        bucket=shape[2])
             assert got.pack_gqa == want.pack_gqa, (kind, shape, pack)
-            want_d = want.describe()
-            want_d.pop("mesh_splits")
-            assert got.describe() == want_d
-            assert got.context_only().describe() == {
-                k: v for k, v in want.context_only().describe().items()
-                if k != "mesh_splits"}
+            assert got.describe() == want.describe()
+            assert got.context_only().describe() == \
+                want.context_only().describe()
     ctx, jctx = (P(policy="fa3_baseline", num_cores=8).context(
         "decode", bucket=256) for P in (Planner, JPlanner))
     assert (ctx.frozen, ctx.policy, ctx.num_cores, ctx.bucket) == \
