@@ -31,6 +31,9 @@ Run from the repository root, on a machine with the card and nvcc:
     python3 chip_smoke.py --phase ssm     # build + mamba2-780m
     python3 chip_smoke.py --phase shard   # build + qwen2.5-3b at dp 4
                                           # and sequence-sharded at sp 4
+    python3 chip_smoke.py --phase tp      # build + tensor- and expert-
+                                          # parallel serving, the frozen
+                                          # mesh step builders
 
 Phases, each fatal on failure.  A phase run alone (``--phase``) serves
 its models at full width and depth; the default run, to stay well inside
@@ -38,7 +41,7 @@ its 1200 s call on a slow host, serves every model after the main
 path's phases (3, 4 and Table 1 keep qwen2.5-3b's 36 layers, as do 4c
 and 4j) at full width and the depth of ``DEFAULT_RUN_LAYERS``:
 qwen2.5-3b 18 layers in 4b, 4e and 4f, codeqwen1.5-7b, stablelm-12b and
-granite-moe-3b-a800m 16, minicpm3-4b 16, paligemma-3b 9,
+granite-moe-3b-a800m 16 (in 4m too), minicpm3-4b 16, paligemma-3b 9,
 whisper-large-v3 16 + 16, recurrentgemma-9b 11 (3 windowed); mamba2-780m
 keeps its 48.
 
@@ -280,6 +283,38 @@ keeps its 48.
    plain version over the whole view in float64 and bit for bit against
    one fused launch at S 4 (whose launches are taken back out of the
    counts), each prefill launch as ``checked_kernels`` does.
+4m. Tensor- and expert-parallel serving and the frozen mesh step
+   builders (``phase_tp``, after 4j, every grid ``[cuda:0] * n``):
+   (a) qwen2.5-3b at full depth at dp 1 x sp 2, ``params="tp"``,
+   max_len 2048, the serving cell's 300- and 1000-token prompts, 16 new
+   tokens, bf16 then int8: each device's weight bytes against
+   ``spec_for``'s slices; fed the replicated sp 2 engine's greedy
+   streams, every admission's and step's embedding (bit for bit), layers
+   (2e-2 normwise) and unembedding (the f32 sum's bound) against the
+   replicated weights' on the same input, every decode and prefill
+   launch against its plain version in float64, the launches against
+   the plans, no policy evaluation; the logits' gap and the divergence
+   by layer (measured); the TP and the replicated sp 2 engines' step
+   times.  (b) granite-moe-3b-a800m at dp 1 x sp 4 (16 layers in
+   the default run, 32 under ``--phase tp``), ``params="tp"``, prompts
+   of 300 and 450 tokens: every MoE layer's expert-parallel output at
+   admission against the float64 plain EP, the rows gather would have
+   given differently, every decode gather over the sharded experts bit
+   for bit the replicated one's.  (c) The paper's cell over a model axis
+   of 2: ``build_prefill_step`` of a 480-token prompt, then 32 steps of
+   ``build_mesh_decode_step`` (qwen2.5-3b, B 1, seq_len 512) under
+   ``fa3_baseline`` (head-sharded: 2 decode launches a layer, one KV
+   head a device), ``paper`` fused (2 partials over 256-row chunks + the
+   combine) and ``paper`` auto (one launch at S 4), the ``paper`` arms
+   fed ``fa3_baseline``'s greedy stream: plans, launches by key, every
+   launch against its plain version, the prefill's and every step's
+   embedding, layers (over a dense copy of the cache) and unembedding
+   against the replicated weights' on the same input, step times, the
+   logits' gap (measured), the arms' own streams held to each other
+   while every arm's top-2 logit margin is above 0.1.  (d) ``build_prefill_step`` over a model axis of 3 (16 heads do
+   not divide): 3 prefill launches a layer over 128-row chunks at
+   q_offset 0 / 128 / 256, each layer bit for bit one whole launch and
+   against the float64 plain version.
 4k. The ssm family (``phase_ssm``, after 4i): mamba2-780m (48 SSD
    layers, d_model 1536, 48 heads of P 64, N 128) at full width and
    depth, bf16, loop admission of the serving cell's first two prompts,
@@ -327,7 +362,13 @@ keeps its 48.
    the combine kernel over 4 partials (S 4, B 1, H_KV 2, G 8, D 128)
    with the sp 4 bf16 run's launches, the first serving launches it
    has, and the decode kernel's and the quantized one's partials-only
-   epilogue over one 1024-row chunk at S 1 with the sp 4 runs' launches.
+   epilogue over one 1024-row chunk at S 1 with the sp 4 runs' launches;
+   phase 4m's shapes: the decode kernel over one device's KV head (B 1,
+   H_KV 1, G 8, view 512, S 1) and at S 4, its partials over a 256-row
+   chunk and the combine kernel over 2 of them, the prefill kernel over
+   a 128-row chunk against 384 keys at q_offset 0, 128 and 256, and,
+   where 4m(a)'s plans shard the sequence, the combine kernel at B 2 and
+   the quantized partials over a 1024-row chunk.
    Every phase prints its wall seconds.
 
 ``--phase admission`` times the serving cell's admission
@@ -353,6 +394,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import cProfile
 import functools
 import gc
@@ -364,6 +406,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -376,7 +419,7 @@ if str(SRC) not in sys.path:
     sys.path.insert(0, str(SRC))
 
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.configs.base import ServeConfig  # noqa: E402
+from repro_torch.configs.base import ServeConfig, ShapeConfig  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_decode as fdec  # noqa: E402
 from repro_torch.kernels.flash_combine import (  # noqa: E402
@@ -398,9 +441,10 @@ from repro_torch.kernels.flash_prefill import (  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import mla as mla_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssd as ssd_mod  # noqa: E402
 from repro_torch.models.common import embed_tokens, rms_norm  # noqa: E402
-from repro_torch.plan import AttentionSpec, Planner  # noqa: E402
+from repro_torch.plan import AttentionSpec, LaunchPlan, Planner  # noqa: E402
 from repro_torch.quant import (  # noqa: E402
     AB_ATOL,
     QUANT_DTYPES,
@@ -415,6 +459,15 @@ from repro_torch.serving import (  # noqa: E402
 )
 from repro_torch.serving.scheduler import Scheduler  # noqa: E402
 from repro_torch.shard import ShardedServingEngine, ShardSpec  # noqa: E402
+from repro_torch.launch.mesh import make_engine_mesh  # noqa: E402
+from repro_torch.serving.decode_step import (  # noqa: E402
+    build_mesh_decode_step,
+    build_prefill_step,
+    join_caches,
+)
+from repro_torch.sharding import place as place_mod  # noqa: E402
+from repro_torch.sharding import activation_mesh, device_coords, \
+    local_slices  # noqa: E402
 from repro_torch.core.split_policy import (  # noqa: E402
     DecodeWorkload,
     choose_num_splits,
@@ -5161,6 +5214,978 @@ def phase_shard(model, params, cfg, seed: int):
                                   kv_quant="int8")}
 
 
+# ---------------------------------------------------------------------------
+# tensor- and expert-parallel serving, the frozen mesh step builders
+# ---------------------------------------------------------------------------
+
+
+TP_NEW = 16                    # new tokens a request in (a) and (b)
+TP_PROMPTS = (300, 1000)       # (a): the serving cell's prompts
+EP_PROMPTS = (300, 450)        # (b): buckets 384 and 512, both / 4
+CELL_PROMPT, CELL_SEQ, CELL_STEPS = 480, 512, 32   # (c)
+CELL_MARGIN = 0.1              # (c): streams agree while top-2 logits
+                               # stay this far apart in every arm
+SEQPAR_LEN, SEQPAR_AXIS = 384, 3   # (d): 16 heads do not divide 3
+PREFILL_ROW_TILE = 64          # the prefill kernel's query rows a CTA
+
+
+def tp_devices(n: int):
+    """A grid of ``n`` devices on the one card."""
+    return [torch.device(DEVICE, 0)] * n
+
+
+def copy_leaf(leaf):
+    """A copy of a cache leaf (a tensor or a sequence / head chunking)."""
+    if isinstance(leaf, ops.Shards):
+        return type(leaf)([c.clone() for c in leaf.chunks], leaf.dim)
+    return leaf.clone()
+
+
+def spec_param_bytes(params, mesh):
+    """Each device's weight bytes by ``spec_for``'s slices over ``mesh``:
+    its slice of every cut dim, the whole of every other."""
+    specs = place_mod.param_specs(params, mesh)
+    n = mesh.shape["model"]
+    out = [0] * n
+    for name, t in params.state_dict().items():
+        for s in range(n):
+            sl = local_slices(tuple(t.shape), specs[name], mesh,
+                              device_coords(mesh, s))
+            out[s] += int(np.prod([ln for _, ln in sl])) * t.element_size()
+    return out
+
+
+F32_UNIT = 2.0 ** -24           # f32 unit roundoff
+
+
+@contextlib.contextmanager
+def checked_tp_layers(tp, params, acc, dense: bool = False):
+    """Within the block, every piece of the placed tree ``tp`` that runs
+    is held against the same piece of the replicated weights ``params``
+    on the same input: the embedding bit for bit (a masked lookup a
+    device, the parts summed with zeros); each block (prefill or decode)
+    on a copy of the same cache, max |got - want| within DECODE_TOL of
+    the block output's largest magnitude (normwise: the residual stream
+    sums bf16 terms of tens, so an output near zero carries their
+    rounding, which an elementwise relative bound would charge to it);
+    the unembedding's f32 logits within 2 d u (|x| |W|) elementwise,
+    twice the worst case of an f32 sum of d products (u = 2^-24).  With
+    ``dense``, the replicated block decodes a dense copy of the cache
+    (sharded leaves joined) under a one-launch plan, so that a step over
+    a head- or sequence-sharded cache is held against the unsharded one.
+    The comparison's launches leave the counts as they were (its kernel
+    calls are still held to their plain versions by any enclosing
+    check)."""
+    ref = {id(b): o for b, o in zip(tp.layers, params.layers)}
+    dec, pre = lm_mod.block_decode, lm_mod.block_prefill
+    emb, unemb = lm_mod.embed_tokens, lm_mod.unembed
+    acc.update(checks=0, max_abs_err=0.0, max_tol_ratio=0.0,
+               embed_checks=0, unembed_checks=0, unembed_max_tol_ratio=0.0)
+
+    def quiet(fn, *a, **kw):
+        saved = build.LAUNCHES.copy()
+        out = fn(*a, **kw)
+        build.LAUNCHES.clear()
+        build.LAUNCHES.update(saved)
+        return out
+
+    def note(got, want):
+        g, w = got.float(), want.float()
+        check(bool(torch.isfinite(g).all()), "non-finite layer output")
+        err = float((g - w).abs().max())
+        limit = DECODE_TOL * max(1.0, float(w.abs().max()))
+        check(err <= limit, f"layer output max abs err {err:.4g} over "
+              f"{limit:.4g}")
+        acc["max_abs_err"] = max(acc["max_abs_err"], err)
+        acc["max_tol_ratio"] = max(acc["max_tol_ratio"], err / limit)
+        acc["checks"] += 1
+
+    def block_decode(block, cfg, x, cache, t, rope, **kw):
+        other = ref.get(id(block))
+        if other is None:
+            return dec(block, cfg, x, cache, t, rope, **kw)
+        rkw = kw
+        if dense:
+            copy = {n: leaf.join(x.device) if isinstance(leaf, ops.Shards)
+                    else leaf.clone() for n, leaf in cache.items()}
+            rkw = dict(kw, plan=LaunchPlan(num_splits=1))
+        else:
+            copy = {n: copy_leaf(leaf) for n, leaf in cache.items()}
+        out = dec(block, cfg, x, cache, t, rope, **kw)
+        note(out, quiet(dec, other, cfg, x, copy, t, rope, **rkw))
+        return out
+
+    def block_prefill(block, cfg, x, rope, kv_dtype, ring=None):
+        other = ref.get(id(block))
+        out = pre(block, cfg, x, rope, kv_dtype, ring)
+        if other is not None:
+            note(out[0], quiet(pre, other, cfg, x, rope, kv_dtype,
+                               ring)[0])
+        return out
+
+    def embed_tokens_checked(p, tokens):
+        out = emb(p, tokens)
+        if p is tp.embed:
+            check(torch.equal(out, emb(params.embed, tokens)),
+                  "the placed embedding differs from the replicated one")
+            acc["embed_checks"] += 1
+        return out
+
+    def unembed_checked(p, x):
+        out = unemb(p, x)
+        if p is tp.embed:
+            e = params.embed
+            w = e.unembed if "unembed" in e.specs else e.tok.T
+            want = unemb(e, x)
+            bound = 2 * x.shape[-1] * F32_UNIT * (x.float().abs()
+                                                 @ w.float().abs())
+            ratio = float(((out - want).abs() / bound.clamp_min(
+                torch.finfo(torch.float32).tiny)).max())
+            check(ratio <= 1.0, f"unembedding off the replicated one by "
+                  f"{ratio:.4g} of twice the f32 sum's bound")
+            acc["unembed_checks"] += 1
+            acc["unembed_max_tol_ratio"] = max(
+                acc["unembed_max_tol_ratio"], ratio)
+        return out
+
+    lm_mod.block_decode, lm_mod.block_prefill = block_decode, block_prefill
+    lm_mod.embed_tokens, lm_mod.unembed = embed_tokens_checked, \
+        unembed_checked
+    try:
+        yield acc
+    finally:
+        lm_mod.block_decode, lm_mod.block_prefill = dec, pre
+        lm_mod.embed_tokens, lm_mod.unembed = emb, unemb
+
+
+class RecordingSampler(GreedySampler):
+    """Greedy sampling that keeps every call's logits and tokens in
+    ``calls``; with ``forced`` (another run's ``calls``), call j returns
+    that run's call-j tokens instead of its own argmax: teacher forcing,
+    so an engine scores another engine's token streams step for step
+    (the schedule, which follows the token counts alone, is the same)."""
+
+    def __init__(self, forced=None):
+        self.calls, self.forced = [], forced
+
+    def sample(self, logits, state, pos):
+        tok = super().sample(logits, state, pos)
+        if self.forced is not None:
+            tok = self.forced[len(self.calls)][1].to(tok.device)
+        self.calls.append((logits, tok))
+        return tok
+
+
+def tp_engine(model, cfg, params, sp: int, policy: str, kv_quant=None,
+              max_len: int = 2048, sampler=None):
+    eng = ShardedServingEngine(
+        model, ServeConfig(model=cfg, kv_quant=kv_quant),
+        spec=ShardSpec(sp=sp, slots_per_shard=2, params=policy),
+        max_len=max_len, sampler=sampler or GreedySampler(),
+        devices=tp_devices(sp))
+    eng.load(params)
+    return eng
+
+
+def depth_divergence(model, tp, params, tokens, max_len: int):
+    """How far the placed tree ``tp``'s prefill of ``tokens`` (1, L) lies
+    from the replicated weights' after each layer: ||got - want|| /
+    ||want|| of the layer output (measured, not held): where each layer
+    on the same input lies within DECODE_TOL, the gap a layer passes on
+    grows with the depth on random weights."""
+    outs, pre = {}, lm_mod.block_prefill
+    for key, p in (("tp", tp), ("replicated", params)):
+        got = []
+
+        def block_prefill(*a, **kw):
+            out = pre(*a, **kw)
+            got.append(out[0].float())
+            return out
+
+        lm_mod.block_prefill = block_prefill
+        try:
+            model.prefill(p, {"tokens": tokens}, max_len)
+        finally:
+            lm_mod.block_prefill = pre
+        outs[key] = got
+    return [float((g - w).norm() / w.norm())
+            for g, w in zip(outs["tp"], outs["replicated"])]
+
+
+def tp_serving(model, params, cfg, seed: int, kv_quant=None):
+    """(a) qwen2.5-3b at dp 1 x sp 2, ``params="tp"``, max_len 2048, the
+    serving cell's 300- and 1000-token prompts, TP_NEW new tokens: each
+    device's weight bytes against ``spec_for``'s slices; a checked run
+    fed the replicated sp 2 engine's greedy streams (so that it runs the
+    same admissions and steps on the same tokens), in which the
+    embedding, every layer and the unembedding of every admission and
+    step are held against the replicated weights' on the same input
+    (``checked_tp_layers``), every sequence-sharded decode against the
+    float64 plain version and the fused kernel's bits at S 2, every
+    other decode and prefill launch against its plain version; whose
+    decode launches follow its plans (a plan with ``mesh_splits`` 2: 2
+    partials at (1024, S1) and 1 combine a layer and step; one with 1:
+    one launch a layer over the chunks joined on the lead, at the plan's
+    (bucket, S)) and whose policy evaluations are 0; how far its logits
+    lie from the replicated engine's (``logits_apart``); then one
+    unchecked run each of the TP and the replicated sp 2 engines, timed
+    step by step."""
+    label = f"tp dp1 x sp2 {cfg.name} {kv_quant or 'bf16'}"
+    rng = np.random.default_rng(seed + 26)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in TP_PROMPTS]
+    reqs = [Request(i, p, max_new_tokens=TP_NEW)
+            for i, p in enumerate(prompts)]
+    rec = RecordingSampler()
+    rep = tp_engine(model, cfg, params, 2, "replicated", kv_quant,
+                    sampler=rec)
+    for r in reqs:
+        rep.submit(r)
+    timed_steps(rep)
+    del rep
+    forced = RecordingSampler(forced=rec.calls)
+    eng = tp_engine(model, cfg, params, 2, "tp", kv_quant, sampler=forced)
+    core = eng.cores[0]
+    tp = core._params
+    held = place_mod.device_param_bytes(tp)
+    want_bytes = spec_param_bytes(params, core.mesh)
+    check(held == want_bytes, f"{label}: device weight bytes {held}, "
+          f"spec_for's slices {want_bytes}")
+    part = "flash_decode_quant" if kv_quant else "flash_decode"
+    lacc, sacc, kacc = {}, {}, {}
+    for r in reqs:
+        eng.submit(r)
+    ops.reset_launch_counts()
+    ops.reset_policy_eval_count()
+    with checked_tp_layers(tp, params, lacc), checked_seqsharded(sacc), \
+            checked_kernels(kacc):
+        done, _ = timed_steps(eng)
+    counts = ops.launch_counts()
+    by_key = ops.launch_counts_by_key(part)
+    plans = {k: e.plan for k, e in core.sched.plans.items()
+             if isinstance(k, int)}
+    steps = sum(core.stats.launches[k] for k in plans)
+    sharded = sum(core.stats.launches[k] for k, p in plans.items()
+                  if p.mesh_splits > 1)
+    L = cfg.num_layers
+    want = {}
+    for k, p in plans.items():
+        key = (1024, 1) if p.mesh_splits > 1 else (p.bucket, p.num_splits)
+        n = core.stats.launches[k] * L * (2 if p.mesh_splits > 1 else 1)
+        if n:
+            want[key] = want.get(key, 0) + n
+    # the whole-view launches by (bucket, S): the kernels line times them
+    whole = {}
+    for k, p in plans.items():
+        if p.mesh_splits == 1:
+            key = f"{p.bucket} S{p.num_splits}"
+            whole[key] = whole.get(key, 0) + core.stats.launches[k] * L
+    check(by_key == want and counts["flash_combine"] == L * sharded,
+          f"{label}: {part} launches {by_key} (want {want}), combine "
+          f"{counts['flash_combine']} over {steps} steps, plans "
+          f"{[p.describe() for p in plans.values()]}")
+    check(ops.policy_eval_count() == 0, f"{label}: policy evaluated")
+    admissions = len(reqs)
+    check(lacc["checks"] == L * (steps + admissions)
+          and lacc["embed_checks"] == steps + admissions
+          and lacc["unembed_checks"] == steps + admissions,
+          f"{label}: layer checks {lacc}")
+    # the layer checks' replicated runs are checked too: twice each
+    check(sacc["checks"] == 2 * L * sharded
+          and sacc["bits_equal"] == sacc["checks"]
+          and kacc[part]["checks"] == 2 * L * (steps - sharded),
+          f"{label}: decode checks {sacc} {kacc[part]}")
+    check(all(len(c.tokens) == TP_NEW for c in done),
+          f"{label}: completions")
+    apart = logits_apart([w for w, _ in rec.calls],
+                         [g for g, _ in forced.calls], label)
+    del rec, forced
+    with activation_mesh(core.mesh):
+        depth = depth_divergence(model, tp, params, torch.tensor(
+            [prompts[0]], device=DEVICE), 512)
+    runs = {}
+    for policy in ("tp", "replicated"):
+        e = tp_engine(model, cfg, params, 2, policy, kv_quant)
+        for r in reqs:
+            e.submit(r)
+        got, ms = timed_steps(e)
+        runs[policy] = {"streams": {c.request_id: c.tokens for c in got},
+                        "admission_ms": ms[:admissions],
+                        "decode_step_ms": median(ms[admissions:])}
+    same = sum(runs["tp"]["streams"][i] == runs["replicated"]["streams"][i]
+               for i in range(len(reqs)))
+    res = {"device_param_bytes": held, "steps": steps,
+           "sharded_steps": sharded, "launches": counts,
+           "whole_launches": whole,
+           "plans": {k: p.describe() for k, p in plans.items()},
+           "partials_launches": {f"{v} S{s}": n
+                                 for (v, s), n in by_key.items()},
+           "layer_checks": lacc, "logits_apart": apart,
+           "depth_divergence": depth,
+           "seqsharded_checks": sacc,
+           "prefill_checks": kacc["flash_prefill"],
+           "decode_step_ms": runs["tp"]["decode_step_ms"],
+           "replicated_decode_step_ms":
+               runs["replicated"]["decode_step_ms"],
+           "admission_ms": runs["tp"]["admission_ms"],
+           "replicated_admission_ms": runs["replicated"]["admission_ms"],
+           "streams_equal_replicated": same}
+    whole = sum(t.numel() * t.element_size() for t in params.parameters())
+    keys = [(k, p.mesh_splits, p.num_splits) for k, p in plans.items()]
+    print(f"{label}: weight bytes a device {held} (spec_for's slices; the "
+          f"unplaced weights {whole}); plans {keys} (bucket, mesh_splits, "
+          f"num_splits); {steps} decode steps "
+          f"({sharded} sequence-sharded), launches {json.dumps(counts)}, "
+          f"{part} by (view, S) {res['partials_launches']}; "
+          f"{lacc['checks']} "
+          f"layers against the replicated weights' on the same input: max "
+          f"abs err {lacc['max_abs_err']:.4g} (share of {DECODE_TOL}: "
+          f"{lacc['max_tol_ratio']:.4g}); {sacc['checks']} sharded decodes"
+          f" (max abs err {sacc['max_abs_err']:.4g}, bit for bit the "
+          f"fused kernel's at S 2) and {kacc[part]['checks']} whole-view "
+          f"decodes (max abs err {kacc[part]['max_abs_err']:.4g}) against"
+          f" the float64 plain version; {lacc['embed_checks']} "
+          f"embeddings bit for bit and {lacc['unembed_checks']} "
+          f"unembeddings within {lacc['unembed_max_tol_ratio']:.4g} of "
+          f"the f32 bound; fed the replicated engine's streams, its "
+          f"logits {apart['max_rel']:.4g} of the largest apart at worst, "
+          f"argmax equal on {apart['argmax_equal']} of {apart['rows']} "
+          f"rows (not held: the depth multiplies rounding; a "
+          f"{TP_PROMPTS[0]}-token prefill's layer outputs lie apart by "
+          f"{', '.join(f'{x:.3g}' for x in depth[:3])} ... "
+          f"{depth[-1]:.3g} of their norm after layers 1, 2, 3 ... "
+          f"{len(depth)}); "
+          f"median decode step "
+          f"{res['decode_step_ms']:.3f} ms (the "
+          f"replicated sp 2 engine's {res['replicated_decode_step_ms']:.3f}"
+          f" ms); {same} of {len(reqs)} streams equal the replicated "
+          f"engine's")
+    return res
+
+
+def ep_serving(seed: int, layers=None):
+    """(b) granite-moe-3b-a800m at full width (``layers`` deep) at dp 1 x
+    sp 4, ``params="tp"`` (10 experts a device), the serving cell's first
+    two prompts (buckets 384 and 512, both divisible by 4), TP_NEW new
+    tokens: every MoE layer's expert-parallel output at admission against
+    the float64 plain EP on the same input at PREFILL_TOL (and the rows
+    gather would have given differently counted); every decode step's
+    gather over the sharded experts bit for bit the replicated gather's."""
+    cfg = cut_depth(get_arch("granite-moe-3b-a800m"), layers)
+    model = build_model(cfg, device=DEVICE)
+    params = model.init_params(seed)
+    label = f"ep dp1 x sp4 {cfg.name}"
+    rng = np.random.default_rng(seed + 27)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=TP_NEW)
+            for i, n in enumerate(EP_PROMPTS)]
+    eng = tp_engine(model, cfg, params, 4, "tp")
+    tp = eng.cores[0]._params
+    ref = {id(b.ffn): o.ffn for b, o in zip(tp.layers, params.layers)}
+    ep_run, gather_run = moe_mod._moe_ep_shard_map, moe_mod._moe_gather
+    acc = {"ep_checks": 0, "ep_max_abs_err": 0.0, "ep_max_tol_ratio": 0.0,
+           "rows": 0, "rows_gather_differs": 0, "gather_checks": 0,
+           "gather_bits_equal": 0}
+
+    def ep(p, cfg_, x, mesh, axis="model"):
+        out = ep_run(p, cfg_, x, mesh, axis)
+        saved = build.LAUNCHES.copy()
+        plain = types.SimpleNamespace(**{
+            n: moe_mod.whole(p, n).double()
+            for n in ("router", "wi_gate", "wi_up", "wo")})
+        want = ep_run(plain, cfg_, x.double(), mesh, axis)
+        cap = moe_mod._capacity(x.shape[1], cfg_.moe.num_experts,
+                                cfg_.moe.top_k, cfg_.moe.capacity_factor)
+        gathered = gather_run(p, cfg_, x, cap)
+        build.LAUNCHES.clear()
+        build.LAUNCHES.update(saved)
+        acc["ep_max_abs_err"] = max(acc["ep_max_abs_err"],
+                                    max_err(out, want, PREFILL_TOL))
+        acc["ep_max_tol_ratio"] = max(acc["ep_max_tol_ratio"],
+                                      tol_ratio(out, want, PREFILL_TOL))
+        diff = (gathered.float() - out.float()).abs()
+        rows = diff.amax(-1) > PREFILL_TOL * (1 + out.float().abs().amax(-1))
+        acc["rows"] += rows.numel()
+        acc["rows_gather_differs"] += int(rows.sum())
+        acc["ep_checks"] += 1
+        return out
+
+    def gather(p, cfg_, x, capacity):
+        out = gather_run(p, cfg_, x, capacity)
+        other = ref.get(id(p))
+        if other is not None:
+            same = torch.equal(out, gather_run(other, cfg_, x, capacity))
+            acc["gather_checks"] += 1
+            acc["gather_bits_equal"] += int(same)
+        return out
+
+    for r in reqs:
+        eng.submit(r)
+    ops.reset_launch_counts()
+    moe_mod._moe_ep_shard_map, moe_mod._moe_gather = ep, gather
+    try:
+        done, ms = timed_steps(eng)
+    finally:
+        moe_mod._moe_ep_shard_map, moe_mod._moe_gather = ep_run, gather_run
+    counts = ops.launch_counts()
+    L = cfg.num_layers
+    decode_steps = len(ms) - 1
+    check(acc["ep_checks"] == L * len(reqs), f"{label}: EP checks {acc}")
+    check(acc["gather_checks"] >= L * decode_steps
+          and acc["gather_bits_equal"] == acc["gather_checks"],
+          f"{label}: decode gather over sharded experts {acc}")
+    check(all(len(c.tokens) == TP_NEW for c in done),
+          f"{label}: completions")
+    res = dict(acc, launches=counts, steps=len(ms),
+               device_param_bytes=place_mod.device_param_bytes(tp),
+               admission_ms=ms[0], decode_step_ms=median(ms[1:]))
+    print(f"{label}: {acc['ep_checks']} MoE layers ran expert parallel at "
+          f"admission, against the float64 plain EP: max abs err "
+          f"{acc['ep_max_abs_err']:.4g} (share of {PREFILL_TOL}: "
+          f"{acc['ep_max_tol_ratio']:.4g}); gather would have given "
+          f"{acc['rows_gather_differs']} of {acc['rows']} rows "
+          f"differently; {acc['gather_bits_equal']} of "
+          f"{acc['gather_checks']} decode gathers over the sharded experts "
+          f"bit for bit the replicated gather's; weight bytes a device "
+          f"{res['device_param_bytes']}; launches {json.dumps(counts)}; "
+          f"median decode step {res['decode_step_ms']:.3f} ms")
+    del model, params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def cell_arm(model, params, cfg, toks, policy: str, impl: str,
+             forced=None):
+    """One arm of (c): ``build_prefill_step`` of the CELL_PROMPT-token
+    prompt, then CELL_STEPS steps of ``build_mesh_decode_step`` (B 1,
+    seq_len CELL_SEQ, model 2), checked (the prefill's and every step's
+    embedding, layers and unembedding against the replicated weights' on
+    the same input, each step's layers over a dense copy of the cache,
+    ``checked_tp_layers``; every decode launch against its plain version
+    in float64, every sequence-sharded decode also bit for bit the fused
+    kernel's) and then timed from the same caches.  The checked run
+    keeps the prefill's and every step's logits; with ``forced``
+    (another arm's ``stream``) step i is fed that stream's token i
+    instead of the arm's own (teacher forcing: the arms run one token
+    stream).  The timed run decodes the arm's own greedy stream."""
+    mesh = make_engine_mesh(1, 2, tp_devices(2))[0]
+    pcfg = ServeConfig(model=cfg, shape=ShapeConfig(
+        "p", CELL_PROMPT, 1, "prefill"), split_policy=policy,
+        decode_impl=impl)
+    dcfg = dataclasses.replace(pcfg, shape=ShapeConfig(
+        "d", CELL_SEQ, 1, "decode"))
+    pb = build_prefill_step(model, pcfg, mesh)
+    db = build_mesh_decode_step(model, dcfg, mesh)
+    placed = db.place_params(params)
+    logits, prefill, decode = [], model.prefill, model.decode_step
+
+    def prefill_logged(*a, **kw):
+        out = prefill(*a, **kw)
+        logits.append(out[0])
+        return out
+
+    def decode_logged(*a, **kw):
+        out = decode(*a, **kw)
+        logits.append(out)
+        return out
+
+    pacc, lacc = {}, {}
+    model.prefill = prefill_logged
+    try:
+        with checked_tp_layers(placed[0], params, pacc, dense=True):
+            first, caches = pb.step(placed, {"tokens": toks})
+    finally:
+        del model.prefill
+    dense = join_caches(caches, torch.device(DEVICE, 0))
+    full = model.init_cache(1, db.max_len)
+    for name, c in dense.items():
+        full[name][:, :, :c.shape[2]] = c
+
+    def run(feed=None):
+        c = db.place_caches({n: t.clone() for n, t in full.items()})
+        tok, out, ms = first, [int(first[0])], []
+        for i in range(CELL_STEPS):
+            if feed is not None:
+                tok = torch.tensor([feed[i]], device=first.device)
+            t0 = time.perf_counter()
+            tok, c = db.step(placed, c, tok, CELL_PROMPT + i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(int(tok[0]))
+        return out, ms
+
+    kacc, sacc = {}, {}
+    ops.reset_launch_counts()
+    ops.reset_policy_eval_count()
+    model.decode_step = decode_logged
+    try:
+        with checked_tp_layers(placed[0], params, lacc, dense=True), \
+                checked_kernels(kacc), checked_seqsharded(sacc):
+            stream, _ = run(forced)
+    finally:
+        del model.decode_step
+    counts = ops.launch_counts()
+    by_key = {f"{v} S{s}": n for (v, s), n in
+              ops.launch_counts_by_key("flash_decode").items()}
+    free, ms = run()
+    L = cfg.num_layers
+    return {"plan": db.plan.describe() | {"min_splits": db.plan.min_splits},
+            "mesh_splits": db.mesh_splits, "stream": stream,
+            "free_stream": free, "logits": logits, "launches": counts,
+            "by_key": by_key, "policy_evals": ops.policy_eval_count(),
+            "decode_checks": kacc["flash_decode"],
+            "seqsharded_checks": sacc, "prefill_layer_checks": pacc,
+            "layer_checks": lacc, "layers": L,
+            "step_ms": median(ms)}
+
+
+def margins(logits) -> list:
+    """Each step's smallest top-2 logit margin over its rows."""
+    out = []
+    for x in logits:
+        top = x.float().topk(2, dim=-1).values
+        out.append(float((top[..., 0] - top[..., 1]).min()))
+    return out
+
+
+def logits_apart(want, got, label: str):
+    """Two runs fed one token stream (teacher forcing), step by step: the
+    same number of steps, the same logits shapes and the same finite
+    rows (checked), and how far apart the logits are (measured: max
+    |got - want| over the step's largest |want|, and the rows whose
+    argmax agree).  Not held to a bound: on random weights each layer
+    multiplies a difference in rounding, so two orders of summation that
+    each layer holds within DECODE_TOL part completely within the
+    depth; ``checked_tp_layers`` holds every piece on the same input."""
+    check(len(got) == len(want), f"{label}: {len(got)} steps against "
+          f"{len(want)}")
+    acc = {"steps": 0, "rows": 0, "argmax_equal": 0, "max_rel": 0.0}
+    for j, (w, g) in enumerate(zip(want, got)):
+        w, g = w.float().reshape(-1, w.shape[-1]), \
+            g.float().reshape(-1, g.shape[-1])
+        check(w.shape == g.shape, f"{label}: step {j} logits {g.shape} "
+              f"against {w.shape}")
+        live = torch.isfinite(w).all(-1)
+        check(torch.equal(live, torch.isfinite(g).all(-1)) and
+              bool(live.any()), f"{label}: step {j} finite rows differ")
+        w, g = w[live], g[live]
+        acc["steps"] += 1
+        acc["rows"] += w.shape[0]
+        acc["argmax_equal"] += int((w.argmax(-1) == g.argmax(-1)).sum())
+        acc["max_rel"] = max(acc["max_rel"], float(
+            (g - w).abs().max() / w.abs().max().clamp_min(1.0)))
+    return acc
+
+
+def mesh_cell(model, params, cfg, seed: int):
+    """(c) The paper's cell over a model axis of 2 (qwen2.5-3b at full
+    depth, B 1, seq_len CELL_SEQ): ``fa3_baseline`` head-shards (2 K1
+    launches a layer and step, each over one device's KV head: 1 CTA),
+    ``paper`` fused sequence-shards (2 partials over 256-row chunks + 1
+    combine), ``paper`` auto runs one K1 on the lead at S 4.  The two
+    ``paper`` arms are fed ``fa3_baseline``'s greedy stream, so the three
+    run one token stream, and in each arm the prefill's and every one of
+    the CELL_STEPS steps' pieces are held against the replicated weights'
+    over a dense cache (``cell_arm``); how far the ``paper`` arms' logits
+    lie from ``fa3_baseline``'s is measured (``logits_apart``); the three
+    arms' own greedy streams agree up to the first step where an arm's
+    top-2 logit margin falls under CELL_MARGIN."""
+    rng = np.random.default_rng(seed + 28)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (1, CELL_PROMPT)),
+                        device=DEVICE)
+    L, n = cfg.num_layers, CELL_STEPS
+    want = {("fa3_baseline", "fused"): ({"512 S1": 2 * L * n}, 0),
+            ("paper", "fused"): ({"256 S1": 2 * L * n}, L * n),
+            ("paper", "auto"): ({"512 S4": L * n}, 0)}
+    arms, base = {}, None
+    for (policy, impl), (keys, combines) in want.items():
+        label = f"mesh cell {policy} {impl}"
+        a = cell_arm(model, params, cfg, toks, policy, impl,
+                     forced=None if base is None else base["stream"])
+        arms[f"{policy}_{impl}"] = a
+        check(a["by_key"] == keys
+              and a["launches"]["flash_combine"] == combines,
+              f"{label}: launches {a['by_key']} {a['launches']}")
+        check(a["policy_evals"] == 0, f"{label}: policy evaluated")
+        fused = a["seqsharded_checks"]["checks"]
+        # the layer checks' dense references add one K1 a layer and step
+        check(a["decode_checks"]["checks"] == sum(keys.values())
+              - (2 * L * n if combines else 0) + L * n and fused == (
+                  L * n if combines else 0)
+              and a["seqsharded_checks"]["bits_equal"] == fused,
+              f"{label}: checks {a['decode_checks']} "
+              f"{a['seqsharded_checks']}")
+        pl, dl = a["prefill_layer_checks"], a["layer_checks"]
+        check(pl["checks"] == L and pl["embed_checks"] == 1
+              and pl["unembed_checks"] == 1 and dl["checks"] == L * n
+              and dl["embed_checks"] == n and dl["unembed_checks"] == n,
+              f"{label}: layer checks {pl} {dl}")
+        apart = ""
+        if base is None:
+            base = a
+        else:
+            a["logits_apart"] = h = logits_apart(base["logits"],
+                                                 a["logits"], label)
+            apart = (f"; fed fa3_baseline's stream, its logits "
+                     f"{h['max_rel']:.4g} of the largest from "
+                     f"fa3_baseline's at worst, argmax equal on "
+                     f"{h['argmax_equal']} of {h['rows']} steps")
+        unembed = max(pl["unembed_max_tol_ratio"],
+                      dl["unembed_max_tol_ratio"])
+        print(f"{label}: plan {a['plan']}, launches {a['by_key']} + "
+              f"{combines} combine, {a['decode_checks']['checks']} K1 "
+              f"launches against the float64 plain version (max abs err "
+              f"{a['decode_checks']['max_abs_err']:.4g}), {fused} "
+              f"sequence-sharded decodes (max abs err "
+              f"{a['seqsharded_checks'].get('max_abs_err', 0.0):.4g}); "
+              f"{pl['checks'] + dl['checks']} layers against the "
+              f"replicated weights' over a dense cache (share of "
+              f"{DECODE_TOL}: "
+              f"{max(pl['max_tol_ratio'], dl['max_tol_ratio']):.4g}), "
+              f"{pl['unembed_checks'] + dl['unembed_checks']} "
+              f"embeddings bit for bit and unembeddings within "
+              f"{unembed:.4g} of the f32 bound; median step "
+              f"{a['step_ms']:.3f} ms"
+              f"{apart}")
+    names = list(arms)
+    # token i comes from logits i (the prefill's, the same launches in
+    # every arm, then step i - 1's); an arm's checked-run logits are its
+    # own greedy run's while the tokens fed so far are its own, that is,
+    # up to where the streams may part
+    gaps = {k: margins(arms[k]["logits"]) for k in names}
+    agree = 0
+    for i in range(CELL_STEPS + 1):
+        if i and min(gaps[k][i] for k in names) < CELL_MARGIN:
+            break
+        toks_i = {arms[k]["free_stream"][i] for k in names}
+        check(len(toks_i) == 1, f"mesh cell: streams part at token {i} "
+              f"with margins {[gaps[k][i] for k in names]}"
+              if i else "mesh cell: the prefill tokens differ")
+        agree = i + 1
+    for a in arms.values():
+        del a["logits"]
+    print(f"mesh cell: the three streams agree on their first {agree} "
+          f"tokens (up to the first margin under {CELL_MARGIN})")
+    return {"arms": arms, "tokens_agreed": agree}
+
+
+def seqpar_prefill(model, params, cfg, seed: int):
+    """(d) ``build_prefill_step`` of qwen2.5-3b over a model axis of 3
+    (its 16 query heads do not divide), SEQPAR_LEN rows at B 1: each
+    layer's attention runs sequence-parallel, 3 prefill launches over
+    128-row chunks at q_offset 0 / 128 / 256, and their joined output is
+    held bit for bit against one whole-sequence launch where every chunk
+    starts on a multiple of the kernel's row tile, and against the
+    float64 plain version in every case."""
+    mesh = make_engine_mesh(1, SEQPAR_AXIS, tp_devices(SEQPAR_AXIS))[0]
+    scfg = ServeConfig(model=cfg, shape=ShapeConfig(
+        "p", SEQPAR_LEN, 1, "prefill"))
+    pb = build_prefill_step(model, scfg, mesh)
+    check(pb.plan.seq_shard_mesh is not None, "seqpar: no sequence-"
+          "parallel plan")
+    rng = np.random.default_rng(seed + 29)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (1, SEQPAR_LEN)),
+                        device=DEVICE)
+    run, prefill = ops._attention_seqpar, ops.flash_prefill
+    acc = {"checks": 0, "bits_equal": 0, "aligned": 0, "max_abs_err": 0.0,
+           "offsets": []}
+
+    def launch(q, k, v, **kw):
+        acc["offsets"].append((q.shape[1], kw.get("q_offset", 0)))
+        return prefill(q, k, v, **kw)
+
+    def seqpar(q, k, v, *, causal, window, q_offset, mesh):
+        out = run(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                  mesh=mesh)
+        saved = build.LAUNCHES.copy()
+        qs = (q.float() * q.shape[-1] ** -0.5).to(q.dtype)
+        whole = prefill(qs, k, v, causal=causal, window=window,
+                        q_offset=q_offset)
+        want = prefill_plain(f64(qs), f64(k), f64(v), causal=causal,
+                             window=window, q_offset=q_offset)
+        build.LAUNCHES.clear()
+        build.LAUNCHES.update(saved)
+        chunk = q.shape[1] // mesh.shape["model"]
+        aligned = chunk % PREFILL_ROW_TILE == 0
+        same = torch.equal(out, whole)
+        check(same or not aligned, "seqpar: tile-aligned chunks differ "
+              "from one whole launch")
+        acc["max_abs_err"] = max(acc["max_abs_err"],
+                                 max_err(out, want, PREFILL_TOL))
+        acc["checks"] += 1
+        acc["bits_equal"] += int(same)
+        acc["aligned"] += int(aligned)
+        return out
+
+    placed = pb.place_params(params)
+    ops.reset_launch_counts()
+    ops._attention_seqpar, ops.flash_prefill = seqpar, launch
+    try:
+        t0 = time.perf_counter()
+        tok, caches = pb.step(placed, {"tokens": toks})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ops._attention_seqpar, ops.flash_prefill = run, prefill
+    L, c = cfg.num_layers, SEQPAR_LEN // SEQPAR_AXIS
+    by_key = ops.launch_counts_by_key("flash_prefill")
+    check(acc["checks"] == L and acc["bits_equal"] == L,
+          f"seqpar: checks {acc['checks']}, bits equal {acc['bits_equal']}")
+    check(acc["offsets"] == [(c, i * c) for i in range(SEQPAR_AXIS)] * L,
+          f"seqpar: launches (Lq, q_offset) {acc['offsets'][:6]}")
+    check(by_key == {("bfloat16", c): SEQPAR_AXIS * L},
+          f"seqpar: prefill launches by key {by_key}")
+    check(bool(torch.isfinite(join_caches(caches, toks.device)["k"].float()
+                              ).all()), "seqpar: caches")
+    res = {"checks": acc["checks"], "bits_equal": acc["bits_equal"],
+           "max_abs_err": acc["max_abs_err"],
+           "launches": {f"{d} {lq}": n for (d, lq), n in by_key.items()},
+           "step_ms": ms}
+    print(f"seqpar prefill {cfg.name} over {SEQPAR_AXIS} devices: "
+          f"{SEQPAR_AXIS} prefill launches a layer over {c}-row chunks at "
+          f"q_offset {[i * c for i in range(SEQPAR_AXIS)]}, launches "
+          f"{res['launches']}; {acc['bits_equal']} of {acc['checks']} "
+          f"layers bit for bit one whole launch; max abs err against the "
+          f"float64 plain version {acc['max_abs_err']:.4g}; step {ms:.3f} "
+          f"ms (first call, unwarmed)")
+    return res
+
+
+def phase_tp(model, params, cfg, seed: int, moe_layers=None):
+    """Tensor- and expert-parallel serving and the frozen mesh step
+    builders on ``[cuda:0] * n``: (a) ``tp_serving`` bf16 and int8, (b)
+    ``ep_serving``, (c) ``mesh_cell``, (d) ``seqpar_prefill``."""
+    res = {"tp_bf16": tp_serving(model, params, cfg, seed),
+           "tp_int8": tp_serving(model, params, cfg, seed,
+                                 kv_quant="int8")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["cell"] = mesh_cell(model, params, cfg, seed)
+    res["seqpar"] = seqpar_prefill(model, params, cfg, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["ep"] = ep_serving(seed, moe_layers)
+    res["layers"] = cfg.num_layers
+    return res
+
+
+def tp_kernel_rows(gen, sms: int, tp):
+    """The kernels line's rows of this slice's launch shapes, each with
+    its launches in ``phase_tp``: K1 over one device's KV head (H_KV 1, G
+    8, view 512, S1: the mesh cell's head-sharded arm) and over both
+    heads at S 4 (its ``auto`` arm, the chunks joined on the lead), with
+    SDPA; K1's partials over a 256-row chunk of both heads and K2
+    merging 2 of them (its fused arm); K2 merging 2 partials at B 2 and
+    K4's partials over a 1024-row int8 chunk where the TP serving runs'
+    plans shard the sequence, else K1 (with SDPA) and K4 fused over the
+    joined chunks at the plans' (bucket, S); K3 over a 128-row chunk
+    against 384 keys at q_offset 0, 128 and 256 (the sequence-parallel
+    prefill), with SDPA."""
+    g, d = 8, 128
+    arms = tp["cell"]["arms"]
+    lens = torch.tensor([CELL_PROMPT + 1], device=DEVICE, dtype=torch.int32)
+    kv_rows = CELL_PROMPT + 1
+    mask = torch.arange(CELL_SEQ, device=DEVICE)[None] < lens[:, None]
+
+    def case(hkv):
+        q = rand(gen, (1, hkv, g, d))
+        k = rand(gen, (1, CELL_SEQ, hkv, d))
+        v = rand(gen, (1, CELL_SEQ, hkv, d))
+        sdpa = functools.partial(
+            F.scaled_dot_product_attention, q.reshape(1, hkv * g, 1, d),
+            k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask[:, None, None, :], scale=1.0, enable_gqa=True)
+        return q, k, v, sdpa
+
+    rows = []
+    for hkv, s, arm, what in (
+            (1, 1, "fa3_baseline_fused", "one device's KV head of 2, "
+             "head-sharded"),
+            (2, 4, "paper_auto", "auto: the chunks joined, S rounded up "
+             "to the axis")):
+        q, k, v, sdpa = case(hkv)
+        rows.append(dict(
+            name="flash_decode",
+            shape=f"B1 view {CELL_SEQ} S{s} Hkv{hkv} G{g} D{d} {what}",
+            fn=functools.partial(fdec.flash_decode, q, k, v, lens,
+                                 num_splits=s),
+            plain=functools.partial(fdec.decode_plain, q, k, v, lens,
+                                    num_splits=s),
+            lib=sdpa, nbytes=2 * kv_rows * hkv * d * 2 + 2 * q.numel() * 2,
+            flops=4 * kv_rows * hkv * g * d,
+            err=max_err(fdec.flash_decode(q, k, v, lens, num_splits=s),
+                        fdec.decode_plain(f64(q), f64(k), f64(v), lens,
+                                          num_splits=s), DECODE_TOL),
+            launches=arms[arm]["by_key"].get(f"{CELL_SEQ} S{s}", 0)))
+    hkv, c = 2, CELL_SEQ // 2
+    q, k, v, _ = case(hkv)
+    parts = [flash_decode_partials(q, k[:, i * c:(i + 1) * c],
+                                   v[:, i * c:(i + 1) * c],
+                                   (lens - i * c).clamp(0, c), num_splits=1)
+             for i in range(2)]
+    acc, l, m = (torch.cat(x) for x in zip(*parts))
+    want = fdec.decode_plain(f64(q), f64(k), f64(v), lens, num_splits=2)
+    fused = arms["paper_fused"]
+    rows.append(dict(
+        name="flash_decode",
+        shape=f"B1 view {c} S1 Hkv{hkv} G{g} D{d} partials only, one "
+              f"sequence shard of 2",
+        fn=functools.partial(flash_decode_partials, q, k[:, :c], v[:, :c],
+                             lens.clamp(max=c), num_splits=1),
+        plain=functools.partial(fdec.decode_partials_plain, q, k[:, :c],
+                                v[:, :c], lens.clamp(max=c), num_splits=1),
+        lib=None, nbytes=2 * c * hkv * d * 2 + q.numel() * 2
+        + hkv * g * (d + 2) * 4, flops=4 * c * hkv * g * d,
+        err=max_err(combine_plain(acc, l, m, out_dtype=torch.float32),
+                    want, DECODE_TOL),
+        launches=fused["by_key"].get(f"{c} S1", 0)))
+    rows.append(dict(
+        name="flash_combine",
+        shape=f"S2 B1 Hkv{hkv} G{g} D{d} sequence-sharded merge (mesh "
+              f"cell)",
+        fn=lambda: flash_combine(acc, l, m, out_dtype=torch.bfloat16),
+        plain=lambda: combine_plain(acc, l, m, out_dtype=torch.bfloat16),
+        lib=None, nbytes=2 * hkv * g * (d + 2) * 4 + hkv * g * d * 2,
+        flops=6 * 2 * hkv * g * d,
+        err=max_err(flash_combine(acc, l, m, out_dtype=torch.bfloat16),
+                    want, DECODE_TOL),
+        launches=fused["launches"]["flash_combine"]))
+    # the TP serving run's shapes: B 2, H_KV 2, G 8, two 1024-row chunks
+    hkv2, b, cc = 2, 2, 1024
+    q2 = rand(gen, (b, hkv2, g, d))
+    k2 = rand(gen, (b, 2 * cc, hkv2, d))
+    v2 = rand(gen, (b, 2 * cc, hkv2, d))
+    lens2 = torch.tensor([n + TP_NEW for n in TP_PROMPTS], device=DEVICE,
+                         dtype=torch.int32)
+    p2 = [flash_decode_partials(q2, k2[:, i * cc:(i + 1) * cc],
+                                v2[:, i * cc:(i + 1) * cc],
+                                (lens2 - i * cc).clamp(0, cc),
+                                num_splits=1) for i in range(2)]
+    a2, l2, m2 = (torch.cat(x) for x in zip(*p2))
+    tp_rows = []
+    tp_rows.append(dict(
+        name="flash_combine",
+        shape=f"S2 B{b} Hkv{hkv2} G{g} D{d} sequence-sharded merge (TP "
+              f"serving)",
+        fn=lambda: flash_combine(a2, l2, m2, out_dtype=torch.bfloat16),
+        plain=lambda: combine_plain(a2, l2, m2, out_dtype=torch.bfloat16),
+        lib=None, nbytes=2 * b * hkv2 * g * (d + 2) * 4
+        + b * hkv2 * g * d * 2, flops=6 * 2 * b * hkv2 * g * d,
+        err=max_err(flash_combine(a2, l2, m2, out_dtype=torch.bfloat16),
+                    fdec.decode_plain(f64(q2), f64(k2), f64(v2), lens2,
+                                      num_splits=2), DECODE_TOL),
+        launches=tp["tp_bf16"]["launches"]["flash_combine"]))
+    qz = Quantizer.from_kv_dtype("int8")
+    kq, ks = qz.quantize(k2[:, cc:])
+    vq, vs = qz.quantize(v2[:, cc:])
+    l1 = (lens2 - cc).clamp(0, cc)
+    tp_rows.append(dict(
+        name="flash_decode_quant",
+        shape=f"B{b} view {cc} S1 Hkv{hkv2} G{g} D{d} int8 partials only, "
+              f"one sequence shard of 2 (TP serving)",
+        fn=functools.partial(flash_decode_quant_partials, q2, kq, vq, ks,
+                             vs, l1, num_splits=1),
+        plain=functools.partial(decode_quant_partials_plain, q2, kq, vq,
+                                ks, vs, l1, num_splits=1),
+        lib=None, nbytes=2 * int(l1.sum()) * hkv2 * (d + 4)
+        + q2.numel() * 2 + b * hkv2 * g * (d + 2) * 4,
+        flops=4 * int(l1.sum()) * hkv2 * g * d
+        + 2 * int(l1.sum()) * hkv2 * d, peak=INT8_OPS_PER_S,
+        err=max_err(combine_plain(*flash_decode_quant_partials(
+            q2, kq, vq, ks, vs, l1, num_splits=1),
+            out_dtype=torch.float32), fdq.decode_quant_plain(
+            f64(q2), kq, vq, f64(ks), f64(vs), l1, num_splits=1),
+            QUANT_TOL),
+        launches=tp["tp_int8"]["sharded_steps"] * 2 * tp["layers"]))
+    # the TP serving runs' whole-view launches (plans whose mesh_splits
+    # is 1: the chunks joined on the lead, one fused launch a layer at the
+    # plan's split)
+    kq2, ks2 = qz.quantize(k2)
+    vq2, vs2 = qz.quantize(v2)
+    for run, name in (("tp_bf16", "flash_decode"),
+                      ("tp_int8", "flash_decode_quant")):
+        for key, n in tp[run]["whole_launches"].items():
+            view, s = (int(x) for x in key.split(" S"))
+            lens = lens2.clamp(max=view)
+            rows_kv = int(lens.sum())
+            if name == "flash_decode":
+                args = (q2, k2[:, :view], v2[:, :view], lens)
+                plain = fdec.decode_plain
+                want = fdec.decode_plain(*(f64(x) for x in args[:3]), lens,
+                                         num_splits=s)
+                mask = (torch.arange(view, device=DEVICE)[None]
+                        < lens[:, None])
+                lib = functools.partial(
+                    F.scaled_dot_product_attention,
+                    q2.reshape(b, hkv2 * g, 1, d),
+                    k2[:, :view].transpose(1, 2),
+                    v2[:, :view].transpose(1, 2),
+                    attn_mask=mask[:, None, None, :], scale=1.0,
+                    enable_gqa=True)
+                nbytes, flops, peak, tol = (
+                    2 * rows_kv * hkv2 * d * 2 + 2 * q2.numel() * 2,
+                    4 * rows_kv * hkv2 * g * d, BF16_FLOPS_PER_S,
+                    DECODE_TOL)
+            else:
+                args = (q2, kq2[:, :view], vq2[:, :view], ks2[:, :view],
+                        vs2[:, :view], lens)
+                plain = fdq.decode_quant_plain
+                want = fdq.decode_quant_plain(
+                    f64(q2), args[1], args[2], f64(args[3]), f64(args[4]),
+                    lens, num_splits=s)
+                lib = None
+                nbytes, flops, peak, tol = (
+                    2 * rows_kv * hkv2 * (d + 4) + 2 * q2.numel() * 2,
+                    4 * rows_kv * hkv2 * g * d + 2 * rows_kv * hkv2 * d,
+                    INT8_OPS_PER_S, QUANT_TOL)
+            fn = fdec.flash_decode if name == "flash_decode" \
+                else fdq.flash_decode_quant
+            rows.append(dict(
+                name=name,
+                shape=f"B{b} view {view} kv_len {lens.tolist()} S{s} "
+                      f"Hkv{hkv2} G{g} D{d} fused combine, over the "
+                      f"chunks joined (TP serving, mesh_splits 1)",
+                fn=functools.partial(fn, *args, num_splits=s),
+                plain=functools.partial(plain, *args, num_splits=s),
+                lib=lib, nbytes=nbytes, flops=flops, peak=peak,
+                err=max_err(fn(*args, num_splits=s), want, tol),
+                tol=tol, launches=n))
+    # the sequence-sharded shapes, where the TP serving runs' plans shard
+    # the sequence
+    rows += [r for r in tp_rows if r["launches"]]
+    # K3 as the sequence-parallel prefill runs it: a 128-row chunk of 16
+    # heads against 384 keys at each chunk's offset
+    c3 = SEQPAR_LEN // SEQPAR_AXIS
+    for off in range(0, SEQPAR_LEN, c3):
+        pq, pk, pv = prefill_case(gen, 1, c3, SEQPAR_LEN, 16, 2, d)
+        kw = dict(causal=True, q_offset=off)
+        mask3 = (torch.arange(SEQPAR_LEN, device=DEVICE)[None]
+                 <= off + torch.arange(c3, device=DEVICE)[:, None])
+        rows.append(dict(
+            name="flash_prefill",
+            shape=f"B1 Lq={c3} Lk={SEQPAR_LEN} q_offset={off} Hq16 Hkv2 "
+                  f"D{d} causal bf16, sequence-parallel chunk",
+            fn=functools.partial(flash_prefill, pq, pk, pv, **kw),
+            plain=functools.partial(prefill_plain, pq, pk, pv, **kw),
+            lib=functools.partial(
+                F.scaled_dot_product_attention,
+                *(t.transpose(1, 2) for t in (pq, pk, pv)),
+                attn_mask=mask3, scale=1.0, enable_gqa=True),
+            # the causal frontier: K / V rows [0, off + c3) are read,
+            # as the flops count them
+            nbytes=2 * (2 * pq.numel() + (pk.numel() + pv.numel())
+                        * min(off + c3, SEQPAR_LEN) // SEQPAR_LEN),
+            flops=4 * 16 * d * sum(min(off + i + 1, SEQPAR_LEN)
+                                   for i in range(c3)),
+            err=max_err(flash_prefill(pq, pk, pv, **kw),
+                        prefill_plain(f64(pq), f64(pk), f64(pv), **kw),
+                        PREFILL_TOL),
+            launches=tp["seqpar"]["launches"].get(f"bfloat16 {c3}", 0)
+            // SEQPAR_AXIS))
+    return rows
+
+
 def phase_paged_all(model, params, cfg, seed: int):
     """The slice's paths, each fatal on failure: paged against dense, the
     prefix cell (bf16 and int8), DecodeEngine, the serving CLI."""
@@ -5190,7 +6215,8 @@ def main(argv=None) -> int:
                     choices=("all", "kernels", "digests", "admission",
                              "times", "table1", "shapes", "paged", "spec",
                              "archs", "tune", "moe", "obs", "mla",
-                             "vlm", "encdec", "hybrid", "ssm", "shard"),
+                             "vlm", "encdec", "hybrid", "ssm", "shard",
+                             "tp"),
                     default="all",
                     help="'kernels' stops after build and kernel parity; "
                          "'digests' builds, then runs the main path's "
@@ -5221,7 +6247,10 @@ def main(argv=None) -> int:
                          "and runs a prefill past its ring; 'ssm' builds, "
                          "then serves mamba2-780m and checks its scan; "
                          "'shard' builds, then serves qwen2.5-3b at dp 4 "
-                         "and sequence-sharded at sp 4")
+                         "and sequence-sharded at sp 4; 'tp' builds, then "
+                         "serves qwen2.5-3b tensor-parallel and "
+                         "granite-moe-3b-a800m expert-parallel and runs "
+                         "the frozen mesh step builders")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -5268,7 +6297,7 @@ def main(argv=None) -> int:
         res = timed(args.phase, fn, args.seed, sms)
         print(json.dumps({args.phase: res, "card": card}))
         return 0
-    if args.phase not in ("paged", "spec", "tune", "obs", "shard"):
+    if args.phase not in ("paged", "spec", "tune", "obs", "shard", "tp"):
         wide_gen = torch.Generator(device=DEVICE).manual_seed(args.seed + 17)
         errs = timed("parity", phase_parity, gen, sms, wide_gen)
     if args.phase == "kernels":
@@ -5306,6 +6335,10 @@ def main(argv=None) -> int:
         shard = timed("shard", phase_shard, model, params, cfg, args.seed)
         print(json.dumps({"shard": shard, "card": card}))
         return 0
+    if args.phase == "tp":
+        tp = timed("tp", phase_tp, model, params, cfg, args.seed)
+        print(json.dumps({"tp": tp, "card": card}))
+        return 0
     counts, serving, bf16 = timed("serving bf16", phase_serving, model,
                                   params, cfg, args.seed)
     qcounts, qserving, _ = timed("serving int8", phase_serving, model,
@@ -5332,6 +6365,8 @@ def main(argv=None) -> int:
     qprofile = timed("profile int8", phase_profile, model, params, cfg,
                      args.seed, kv_quant="int8")
     shard = timed("shard", phase_shard, model, params, cfg, args.seed)
+    tp = timed("tp", phase_tp, model, params, cfg, args.seed,
+               DEFAULT_RUN_LAYERS["moe"])
     # speculation keeps the full depth: how many verify steps its cell
     # takes depends on the streams, and its check counts 4 of them
     spec = timed("spec", phase_spec, model, params, cfg, args.seed)
@@ -5366,7 +6401,7 @@ def main(argv=None) -> int:
         gen, sms, archs) + arch_kernel_rows(gen, sms, moe) + \
         single_kv_head_rows(gen, sms, mla, vlm) + \
         side_shape_rows(gen, sms, encdec, hybrid) + \
-        shard_kernel_rows(gen, sms, shard)
+        shard_kernel_rows(gen, sms, shard) + tp_kernel_rows(gen, sms, tp)
     kernels = timed("kernels line", phase_kernels_line, gen, sms, errs,
                     counts, flush, serving["prefill_launches"],
                     serving["decode_launches"], qserving["decode_launches"],
@@ -5380,7 +6415,8 @@ def main(argv=None) -> int:
                       "spec": spec, "tune": tune, "obs": obs,
                       "archs": archs, "moe": moe, "mla": mla,
                       "vlm": vlm, "encdec": encdec, "hybrid": hybrid,
-                      "ssm": ssm, "shard": shard, "table1": table1,
+                      "ssm": ssm, "shard": shard, "tp": tp,
+                      "table1": table1,
                       "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

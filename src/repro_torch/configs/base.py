@@ -37,8 +37,8 @@ class MoEConfig:
     aux_loss_weight: float = 0.01      # load-balance loss
     # token dispatch: "gather" (slot buffers, no one-hot matmuls) |
     # "einsum" (Switch-style one-hot dispatch and combine) |
-    # "ep_shard_map" (expert parallelism over a mesh; on one device it
-    # runs as "gather", as the reference's does without a mesh)
+    # "ep_shard_map" (expert parallelism over a bound activation mesh
+    # whose model axis divides L; elsewhere "gather", as the reference's)
     dispatch: str = "gather"
 
 
@@ -137,8 +137,29 @@ def check_ported(cfg: ModelConfig) -> None:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """One workload shape: its sequence length, global batch and kind
+    (the reference's)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+
+
+@dataclass(frozen=True)
 class ServeConfig:
     model: ModelConfig
+    # the workload shape the frozen mesh step builders
+    # (repro_torch.serving.decode_step) compile for: global batch and
+    # sequence length
+    shape: ShapeConfig = DECODE_32K
     # fa3_baseline | paper | tpu_adaptive | measured (the policies in
     # repro_torch.core.split_policy)
     split_policy: str = "paper"
@@ -180,6 +201,12 @@ class ServeConfig:
     # metadata path).  False: the policy runs inside every launch on the
     # padded cache length (the internal-heuristic baseline).
     use_scheduler_metadata: bool = True
+    # mesh-level split realization of the frozen decode step builder
+    # (repro_torch.serving.decode_step): "fused" = one partials launch a
+    # device over its sequence chunk, merged by the combine kernel;
+    # "auto" = one launch on the lead device whose split is rounded up
+    # to a multiple of the model axis
+    decode_impl: str = "fused"
     # storage dtype of the K/V cache, independent of the model's
     # activation dtype (a KV_DTYPES name)
     kv_cache_dtype: str = "bfloat16"

@@ -5,7 +5,8 @@
 
 Counterpart of ``repro.configs.granite_moe_3b_a800m``.  G = 3 query heads
 per KV head at head_dim 64.  ``dispatch="ep_shard_map"`` is the
-reference's choice; on one device it runs as ``gather``.
+reference's choice: expert parallel under a grid whose model axis
+divides L, ``gather`` elsewhere.
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig, register_arch
 

@@ -25,6 +25,11 @@ row ``j`` of slot ``b`` is split-KV decode over ``pos[b] + j + 1`` keys,
 each row one launch of the decode kernel at the verify plan's split
 count.
 
+``decode_update_headsharded`` is the head-sharded decode of the frozen
+mesh decode step: the cache's KV heads cut into one chunk a device
+(:class:`HeadShards`), each device launching the decode kernel over its
+own heads.
+
 ``decode_seqsharded`` is the sequence-sharded decode of a mesh-native
 shard (a plan whose ``seq_shard_mesh`` is set): the cache's sequence is
 cut into one chunk a device (:class:`SeqShards`), each device launches
@@ -233,10 +238,69 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q is scaled by ``D ** -0.5`` (q's width, also where v is narrower, as
     the reference's ``flash_attention_xla`` does) in f32 and rounded to
-    its dtype before the kernel, as the reference's Pallas path does."""
+    its dtype before the kernel, as the reference's Pallas path does.
+
+    An ambient prefill-kind plan (:func:`~repro_torch.plan.plan_scope`)
+    whose ``seq_shard_mesh`` is set runs :func:`_attention_seqpar` under
+    the reference's conditions: an int ``q_offset``, and Lq divisible by
+    the grid's ``model`` axis ``n`` with Lq >= 2 n."""
+    scope = current_plan("prefill")
+    if (scope is not None and scope.seq_shard_mesh is not None
+            and isinstance(q_offset, int)):
+        mesh = scope.seq_shard_mesh
+        n = mesh.shape["model"]
+        if q.shape[1] % n == 0 and q.shape[1] >= 2 * n:
+            return _attention_seqpar(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, mesh=mesh)
     qs = (q.float() * q.shape[-1] ** -0.5).to(q.dtype)
     return flash_prefill(qs, k, v, causal=causal, window=window,
                          q_offset=q_offset)
+
+
+def _attention_seqpar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: Optional[int], q_offset: int,
+                      mesh) -> torch.Tensor:
+    """Sequence-parallel prefill attention over ``mesh``'s ``model``
+    axis (n devices): the reference's ``_attention_seqpar``, its
+    ``shard_map`` made explicit.  Device ``i`` of a grid row runs the
+    prefill kernel over its chunk of C = Lq / n query rows against the
+    whole K / V, at ``q_offset + i C``, and the chunks join on q's
+    device.  The batch rides the rows where their count divides B
+    (row ``r`` its B / rows), else the first row takes it all, as
+    replicated.  Where the reference runs XLA's flash here, the port
+    runs its kernel, as this op does everywhere."""
+    B, Lq = q.shape[:2]
+    n = mesh.shape["model"]
+    C = Lq // n
+    qs = (q.float() * q.shape[-1] ** -0.5).to(q.dtype)
+    rows = mesh.rows if B % len(mesh.rows) == 0 else mesh.rows[:1]
+    b = B // len(rows)
+    out = []
+    for r, devices in enumerate(rows):
+        kr, vr = k[r * b:(r + 1) * b], v[r * b:(r + 1) * b]
+        parts = []
+        for i, dev in enumerate(devices):
+            qc = qs[r * b:(r + 1) * b, i * C:(i + 1) * C]
+            o = flash_prefill(qc.to(dev), kr.to(dev), vr.to(dev),
+                              causal=causal, window=window,
+                              q_offset=q_offset + i * C)
+            parts.append(o.to(q.device))
+        out.append(torch.cat(parts, dim=1))
+    return torch.cat(out, dim=0)
+
+
+def _splits(plan: LaunchPlan, length: int) -> int:
+    """The split count a launch over ``length`` rows runs: the plan's,
+    clamped to [1, length], rounded up to a multiple of the plan's (or
+    the ambient decode plan's) ``min_splits``, as the reference rounds
+    a mesh-level split so the split axis cuts evenly over the devices,
+    and clamped again."""
+    s = max(1, min(plan.num_splits, length))
+    scope = current_plan("decode")
+    m = max(plan.min_splits, scope.min_splits if scope is not None else 1)
+    if m > 1:
+        s = min(-(-s // m) * m, length)
+    return s
 
 
 def decode_attention(
@@ -286,7 +350,7 @@ def decode_attention(
         if k_scale is not None:
             k_scale = k_scale[:, :plan.bucket]
             v_scale = v_scale[:, :plan.bucket]
-    s = max(1, min(plan.num_splits, k.shape[1]))
+    s = _splits(plan, k.shape[1])
     sc = D ** -0.5 if scale is None else scale
     qp = (q.float() * sc).to(q.dtype).reshape(B, Hkv, Hq // Hkv, D)
     if k_scale is None:
@@ -364,12 +428,13 @@ def verify_attention(
 # ---------------------------------------------------------------------------
 
 
-class SeqShards:
-    """A cache tensor held as ``n`` equal chunks of its sequence dim
-    ``dim``: chunk ``i`` holds rows ``[i * C, (i + 1) * C)`` on its own
-    device (the devices may repeat).  Indexing an integer takes one layer
-    of a layer-stacked tensor, chunk by chunk, as indexing a tensor's
-    first dim does, so ``caches[name][layer]`` works on either."""
+class Shards:
+    """A cache tensor held as ``n`` equal chunks of its dim ``dim``,
+    chunk ``i`` on its own device (the devices may repeat).  Indexing an
+    integer takes one layer of a layer-stacked tensor, chunk by chunk, as
+    indexing a tensor's first dim does, so ``caches[name][layer]`` works
+    on either.  Which dim is cut is the subclass's: :class:`SeqShards`
+    cuts the sequence, :class:`HeadShards` the KV heads."""
 
     def __init__(self, chunks: Sequence[torch.Tensor], dim: int):
         self.chunks = tuple(chunks)
@@ -377,13 +442,13 @@ class SeqShards:
 
     @classmethod
     def split(cls, x: torch.Tensor, devices: Sequence[torch.device],
-              dim: int) -> "SeqShards":
+              dim: int):
         """Cut ``x`` into ``len(devices)`` chunks along ``dim``, chunk i
         moved to ``devices[i]``: a view where the device is x's own (a
         paged view cut per launch), else a copy."""
         n = len(devices)
         if x.shape[dim] % n:
-            raise ValueError(f"sequence length {x.shape[dim]} does not "
+            raise ValueError(f"dim {dim} of size {x.shape[dim]} does not "
                              f"divide over {n} shards")
         c = x.shape[dim] // n
         return cls([x.narrow(dim, i * c, c).to(d)
@@ -391,7 +456,7 @@ class SeqShards:
 
     @classmethod
     def place(cls, x: torch.Tensor, devices: Sequence[torch.device],
-              dim: int) -> "SeqShards":
+              dim: int):
         """Like :meth:`split`, each chunk a contiguous tensor of its own
         (dense storage, physically chunked)."""
         return cls([ch.clone(memory_format=torch.contiguous_format)
@@ -405,23 +470,29 @@ class SeqShards:
     def dtype(self) -> torch.dtype:
         return self.chunks[0].dtype
 
-    def __getitem__(self, i: int) -> "SeqShards":
-        return SeqShards([c[i] for c in self.chunks], self.dim - 1)
-
-    def cols(self, width: int) -> "SeqShards":
-        """Each chunk's first ``width`` columns of its last dim (MLA's V,
-        a column view of its latent K)."""
-        return SeqShards([c[..., :width] for c in self.chunks], self.dim)
+    def __getitem__(self, i: int):
+        return type(self)([c[i] for c in self.chunks], self.dim - 1)
 
     def join(self, device: torch.device) -> torch.Tensor:
         """The whole tensor on ``device``."""
         return torch.cat([c.to(device) for c in self.chunks], self.dim)
 
     def copy_(self, x: torch.Tensor) -> None:
-        """Overwrite every chunk with its rows of the whole tensor ``x``."""
+        """Overwrite every chunk with its part of the whole tensor ``x``."""
         c = self.chunk_len
         for i, ch in enumerate(self.chunks):
             bit_view(ch).copy_(bit_view(x.narrow(self.dim, i * c, c)))
+
+
+class SeqShards(Shards):
+    """A cache tensor held as ``n`` equal chunks of its sequence dim
+    ``dim``: chunk ``i`` holds rows ``[i * C, (i + 1) * C)`` on its own
+    device."""
+
+    def cols(self, width: int) -> "SeqShards":
+        """Each chunk's first ``width`` columns of its last dim (MLA's V,
+        a column view of its latent K)."""
+        return SeqShards([c[..., :width] for c in self.chunks], self.dim)
 
     def write_slot(self, slot: int, lo: int, rows: torch.Tensor) -> None:
         """Layer-stacked storage (layers, B, L, ...): write ``rows``
@@ -440,7 +511,14 @@ class SeqShards:
             ch[:, slot].zero_()
 
 
-CacheLeaf = Union[torch.Tensor, SeqShards]
+class HeadShards(Shards):
+    """A cache tensor held as ``n`` equal chunks of its KV-head dim
+    ``dim``, chunk ``i`` on its own device: the head-sharded layout of the
+    frozen mesh decode step (``cache_rules(False)``), where each device
+    attends its own KV heads."""
+
+
+CacheLeaf = Union[torch.Tensor, Shards]
 
 
 def _write_row(leaf: SeqShards, t: torch.Tensor, new: torch.Tensor) -> None:
@@ -528,6 +606,9 @@ def decode_update_seqsharded(q: torch.Tensor, cache: Dict[str, CacheLeaf],
         if isinstance(leaf, SeqShards):
             _write_row(leaf, t, new[name])
             shards[name] = leaf
+        elif isinstance(leaf, Shards):
+            raise TypeError(f"{name}: a {type(leaf).__name__} cache is not "
+                            "cut on its sequence")
         else:
             bit_view(leaf)[rows, t] = bit_view(new[name].to(leaf.dtype))
             shards[name] = SeqShards.split(leaf, devices, 1)
@@ -538,6 +619,45 @@ def decode_update_seqsharded(q: torch.Tensor, cache: Dict[str, CacheLeaf],
     return decode_seqsharded(q, shards["k"], shards["v"], kv_len,
                              k_scale=shards.get("k_s"),
                              v_scale=shards.get("v_s"), scale=scale)
+
+
+def decode_update_headsharded(q: torch.Tensor,
+                              cache: Dict[str, HeadShards],
+                              new: Dict[str, torch.Tensor], t: torch.Tensor,
+                              kv_len: torch.Tensor, *,
+                              plan: Optional[LaunchPlan] = None
+                              ) -> torch.Tensor:
+    """Decode attention over a head-sharded cache: each device writes its
+    KV heads' part of every slot's new row, then launches
+    :func:`decode_attention` (the quantized cache's kernel where ``k_s``
+    / ``v_s`` are present) over its heads, with its query heads (the G
+    of each of its KV heads), at the plan's split.  The outputs join on
+    q's device in head order.
+
+    q (B, Hq, D); ``cache`` one layer's ``k`` / ``v`` (``k_s`` / ``v_s``)
+    :class:`HeadShards` of (B, L, Hkv, ...) cut on dim 2; ``new`` the
+    rows (B, Hkv, ...) under the same names.  Returns (B, Hq, Dv)."""
+    B, Hq, D = q.shape
+    k = cache["k"]
+    hl = k.chunks[0].shape[2]
+    gl = Hq // len(k.chunks)
+    outs = []
+    for i, kc in enumerate(k.chunks):
+        dev = kc.device
+        rows = torch.arange(B, device=dev)
+        ti = t.to(dev)
+        local = {}
+        for name, leaf in cache.items():
+            ch = leaf.chunks[i]
+            part = new[name][:, i * hl:(i + 1) * hl]
+            bit_view(ch)[rows, ti] = bit_view(part.to(ch.dtype)).to(dev)
+            local[name] = ch
+        out = decode_attention(
+            q[:, i * gl:(i + 1) * gl].to(dev), local["k"], local["v"],
+            kv_len.to(dev), k_scale=local.get("k_s"),
+            v_scale=local.get("v_s"), plan=plan)
+        outs.append(out.to(q.device))
+    return torch.cat(outs, dim=1)
 
 
 def seq_sharded(storage: Dict[str, CacheLeaf]) -> bool:

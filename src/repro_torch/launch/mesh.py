@@ -11,8 +11,10 @@ shard's launches on one card.
 ``planner_for_mesh`` gives the :class:`~repro_torch.plan.Planner` whose
 machine is one axis of a grid: the policy's ``num_cores`` becomes the
 device count on that axis, the paper's decision with devices in place of
-SMs.  The reference's ``make_production_mesh`` / ``make_host_mesh``
-(the TPU pod of its dry run) come with the tools.
+SMs.  :func:`make_host_mesh` is a grid over the visible devices (or a
+given list), as the reference's is over its host's.  The reference's
+``make_production_mesh`` (the TPU pod of its dry run) comes with the
+tools.
 """
 from __future__ import annotations
 
@@ -89,6 +91,20 @@ def make_engine_mesh(dp: int, sp: int,
     mesh = EngineMesh(tuple(tuple(devs[d * sp:(d + 1) * sp])
                             for d in range(dp)))
     return mesh, tuple(mesh.sub(d) for d in range(dp))
+
+
+def make_host_mesh(model_axis: int = 1,
+                   devices: Optional[Sequence] = None) -> EngineMesh:
+    """A ``(data, model_axis)`` grid over ``devices`` (None: the visible
+    CUDA devices, :func:`visible_devices`), ``data = n // model_axis``:
+    the reference's ``make_host_mesh``.  The list may repeat a device."""
+    devs = (list(visible_devices()) if devices is None
+            else [torch.device(d) for d in devices])
+    data = len(devs) // model_axis
+    if model_axis < 1 or data < 1:
+        raise ValueError(f"a model axis of {model_axis} does not fit "
+                         f"{len(devs)} devices")
+    return make_engine_mesh(data, model_axis, devs)[0]
 
 
 def mesh_name(mesh: EngineMesh) -> str:

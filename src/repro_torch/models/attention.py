@@ -25,7 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import ParamSpec, Rope, SpecModule, \
-    apply_rope
+    apply_rope, sharded, tp_join, tp_sum
 from repro_torch.plan import LaunchPlan
 from repro_torch.quant import QUANT_DTYPES, QuantizedKV, Quantizer
 
@@ -40,15 +40,19 @@ class Attention(SpecModule):
         d, hd = cfg.d_model, cfg.resolved_head_dim
         hq, hkv = cfg.num_heads, cfg.num_kv_heads
         specs = {
-            "wq": ParamSpec((d, hq, hd)),
-            "wk": ParamSpec((d, hkv, hd)),
-            "wv": ParamSpec((d, hkv, hd)),
-            "wo": ParamSpec((hq, hd, d), fan_in=hq * hd),
+            "wq": ParamSpec((d, hq, hd), ("embed", "heads", "head_dim")),
+            "wk": ParamSpec((d, hkv, hd), ("embed", "kv_heads", "head_dim")),
+            "wv": ParamSpec((d, hkv, hd), ("embed", "kv_heads", "head_dim")),
+            "wo": ParamSpec((hq, hd, d), ("heads", "head_dim", "embed"),
+                            fan_in=hq * hd),
         }
         if cfg.qkv_bias:
-            specs["bq"] = ParamSpec((hq, hd), init="zeros")
-            specs["bk"] = ParamSpec((hkv, hd), init="zeros")
-            specs["bv"] = ParamSpec((hkv, hd), init="zeros")
+            specs["bq"] = ParamSpec((hq, hd), ("heads", "head_dim"),
+                                    init="zeros")
+            specs["bk"] = ParamSpec((hkv, hd), ("kv_heads", "head_dim"),
+                                    init="zeros")
+            specs["bv"] = ParamSpec((hkv, hd), ("kv_heads", "head_dim"),
+                                    init="zeros")
         super().__init__(specs, dtype, device)
 
 
@@ -58,22 +62,44 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, -1)).view(B, L, w.shape[1], w.shape[2])
 
 
+def _heads(p: Attention, x: torch.Tensor, w: str,
+           b: Optional[str]) -> torch.Tensor:
+    """x (B, L, d) through weight ``w`` (d, H, D) plus bias ``b``: (B, L,
+    H, D) (also MLA's up projections from a rank-r input).  Over
+    heads-sharded weights each device projects its heads and the heads
+    join on the lead device; else the lead projects them all."""
+    def one(mod, xs):
+        y = _proj(xs, getattr(mod, w))
+        return y + getattr(mod, b).to(y.dtype) if b else y
+    if sharded(p, w) is None:
+        return one(p, x)
+    return tp_join(p, one, x, dim=2)
+
+
 def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                  rope: Rope
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, L, d) -> q (B, L, Hq, D), k / v (B, L, Hkv, D), RoPE applied
-    (``rope`` from :func:`~repro_torch.models.common.rope_angles`)."""
-    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
-    if cfg.qkv_bias:
-        q = q + p.bq.to(q.dtype)
-        k = k + p.bk.to(k.dtype)
-        v = v + p.bv.to(v.dtype)
+    (``rope`` from :func:`~repro_torch.models.common.rope_angles`).
+    Tensor-parallel weights project each device's heads there
+    (:func:`_heads`); K / V heads the axis does not divide are projected
+    once, on the lead device."""
+    bias = cfg.qkv_bias
+    q = _heads(p, x, "wq", "bq" if bias else None)
+    k = _heads(p, x, "wk", "bk" if bias else None)
+    v = _heads(p, x, "wv", "bv" if bias else None)
     return apply_rope(q, rope), apply_rope(k, rope), v
 
 
 def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
-    """einsum("...hk,hkd->...d") as one matmul."""
-    return out.flatten(-2) @ p.wo.reshape(-1, p.wo.shape[-1])
+    """einsum("...hk,hkd->...d") as one matmul.  Over heads-sharded
+    ``wo`` each device multiplies its heads' outputs and the partial
+    (..., d) sum on the lead device in device order."""
+    def one(mod, o):
+        return o.flatten(-2) @ mod.wo.reshape(-1, mod.wo.shape[-1])
+    if sharded(p, "wo") is None:
+        return one(p, out)
+    return tp_sum(p, one, out, split=(out.dim() - 2,))
 
 
 def plan_for_length(plan: LaunchPlan, length: int) -> LaunchPlan:
@@ -147,7 +173,11 @@ def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     fused-dequant kernel.  Under a plan whose ``seq_shard_mesh`` is set
     (a sequence-sharded shard) the write and the attention go through
     :func:`repro_torch.kernels.ops.decode_update_seqsharded`, one
-    partials launch a device of the shard, merged.  With a ``window`` the
+    partials launch a device of the shard, merged; over a head-sharded
+    cache (:class:`~repro_torch.kernels.ops.HeadShards`, the frozen mesh
+    decode step's) through :func:`repro_torch.kernels.ops.
+    decode_update_headsharded`, a launch a device over its KV heads.
+    With a ``window`` the
     cache is a ring of W rows: the row lands at ``t % W`` and attention
     reads ``min(t + 1, W)`` rows, every resident one (RoPE was applied at
     absolute positions, so ring order does not matter), over the whole
@@ -158,15 +188,24 @@ def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     rows = torch.arange(B, device=x.device)
     kv_len = t + 1
     qz = Quantizer.for_cache(cache)
-    if plan is not None and plan.seq_shard_mesh is not None:
-        # a sequence-sharded shard: one partials launch a device, merged
+    head_sharded = isinstance(cache["k"], ops.HeadShards)
+    if head_sharded or (plan is not None
+                        and plan.seq_shard_mesh is not None):
         new = {"k": k_new[:, 0], "v": v_new[:, 0]}
         if qz is not None:
             new["k"], new["k_s"] = qz.quantize(k_new[:, 0])
             new["v"], new["v_s"] = qz.quantize(v_new[:, 0])
-        out = ops.decode_update_seqsharded(
-            q[:, 0], cache, new, t, kv_len,
-            devices=plan.seq_shard_mesh.rows[0])
+        if head_sharded:
+            # the frozen step's head-sharded cache: a launch a device
+            # over its KV heads
+            out = ops.decode_update_headsharded(q[:, 0], cache, new, t,
+                                                kv_len, plan=plan)
+        else:
+            # a sequence-sharded shard: one partials launch a device,
+            # merged
+            out = ops.decode_update_seqsharded(
+                q[:, 0], cache, new, t, kv_len,
+                devices=plan.seq_shard_mesh.rows[0])
         return _out_proj(p, out)[:, None]
     extra = {}
     if window is not None:

@@ -85,7 +85,8 @@ class EncDec(SpecModule):
     def __init__(self, cfg: ModelConfig, device):
         dtype = getattr(torch, cfg.param_dtype)
         d = cfg.d_model
-        super().__init__({"pos_dec": ParamSpec((max_dec_positions(cfg), d))},
+        super().__init__({"pos_dec": ParamSpec((max_dec_positions(cfg), d),
+                                                  ("seq", "embed"))},
                          dtype, device)
         self.embed = Embed(cfg.vocab_size, d, cfg.tie_embeddings, dtype,
                            device)

@@ -166,7 +166,7 @@ class LM(SpecModule):
         specs = {}
         if cfg.frontend.kind == "vision":
             specs["patch_proj"] = ParamSpec((cfg.frontend.embed_dim,
-                                             cfg.d_model))
+                                             cfg.d_model), (None, "embed"))
         super().__init__(specs, dtype, device)
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.tie_embeddings,
                            dtype, device)

@@ -16,6 +16,12 @@ latent stream per layer:
   whole latent row (288 wide) and V its first ``kv_lora_rank`` columns
   (256), a column view of the same cache.
 
+Under tensor parallelism (``param_policy="tp"``) the per-head weights
+(``q_up``, ``k_up``, ``v_up``, ``wo``) are heads-sharded: each device
+runs its heads' up projections and absorptions, and the output
+projection's partials sum on the lead device; the down projections and
+the latent stay whole on the lead.
+
 As in the reference, the latent cache is bfloat16 whatever the cache
 dtype asked for (``Model.cache_shapes``): ``kv_quant`` leaves it
 unquantized, so decode reads it through the bf16 decode kernel.
@@ -28,8 +34,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import ParamSpec, Rope, SpecModule, \
-    apply_rope, rms_norm
+    apply_rope, rms_norm, sharded, tp_join, tp_sum
 from repro_torch.plan import LaunchPlan
 
 LayerCache = Dict[str, torch.Tensor]
@@ -47,27 +54,26 @@ class MLA(SpecModule):
         dqk = m.qk_nope_head_dim + m.qk_rope_head_dim
         r = m.kv_lora_rank
         super().__init__({
-            "q_down": ParamSpec((d, m.q_lora_rank)),
-            "q_norm": ParamSpec((m.q_lora_rank,), init="ones"),
+            "q_down": ParamSpec((d, m.q_lora_rank), ("embed", None)),
+            "q_norm": ParamSpec((m.q_lora_rank,), (None,), init="ones"),
             "q_up": ParamSpec((m.q_lora_rank, h, dqk),
+                              (None, "heads", "head_dim"),
                               fan_in=m.q_lora_rank),
-            "kv_down": ParamSpec((d, r + m.qk_rope_head_dim)),
-            "kv_norm": ParamSpec((r,), init="ones"),
-            "k_up": ParamSpec((r, h, m.qk_nope_head_dim), fan_in=r),
-            "v_up": ParamSpec((r, h, m.v_head_dim), fan_in=r),
-            "wo": ParamSpec((h, m.v_head_dim, d), fan_in=h * m.v_head_dim),
+            "kv_down": ParamSpec((d, r + m.qk_rope_head_dim), ("embed", None)),
+            "kv_norm": ParamSpec((r,), (None,), init="ones"),
+            "k_up": ParamSpec((r, h, m.qk_nope_head_dim),
+                              (None, "heads", "head_dim"), fan_in=r),
+            "v_up": ParamSpec((r, h, m.v_head_dim),
+                              (None, "heads", "head_dim"), fan_in=r),
+            "wo": ParamSpec((h, m.v_head_dim, d),
+                            ("heads", "head_dim", "embed"),
+                            fan_in=h * m.v_head_dim),
         }, dtype, device)
 
 
 def latent_width(cfg: ModelConfig) -> int:
     """Columns of one latent cache row: ``kv_lora_rank + qk_rope``."""
     return cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
-
-
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("blr,rhk->blhk") as one matmul."""
-    B, L, r = x.shape
-    return (x @ w.reshape(r, -1)).view(B, L, w.shape[1], w.shape[2])
 
 
 def _latents(p: MLA, cfg: ModelConfig, x: torch.Tensor, rope: Rope
@@ -86,7 +92,7 @@ def _queries(p: MLA, cfg: ModelConfig, x: torch.Tensor, rope: Rope
     """-> (q_nope (B, L, H, nope), q_rope (B, L, H, rope) rotated)."""
     dn = cfg.mla.qk_nope_head_dim
     ql = rms_norm(x @ p.q_down, p.q_norm, cfg.norm_eps)
-    q = _proj(ql, p.q_up)
+    q = attn_mod._heads(p, ql, "q_up", None)
     return q[..., :dn], apply_rope(q[..., dn:], rope)
 
 
@@ -101,14 +107,14 @@ def mla_prefill(p: MLA, cfg: ModelConfig, x: torch.Tensor, rope: Rope
     m = cfg.mla
     q_nope, q_rope = _queries(p, cfg, x, rope)
     c_kv, k_rope = _latents(p, cfg, x, rope)
-    k_nope = _proj(c_kv, p.k_up)
-    v = _proj(c_kv, p.v_up)
+    k_nope = attn_mod._heads(p, c_kv, "k_up", None)
+    v = attn_mod._heads(p, c_kv, "v_up", None)
     B, L, H, _ = q_nope.shape
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(
         B, L, H, m.qk_rope_head_dim)], dim=-1)
     out = ops.attention(q, k, v.contiguous(), causal=True)
-    y = out.flatten(-2) @ p.wo.reshape(-1, p.wo.shape[-1])
+    y = attn_mod._out_proj(p, out)
     latent = torch.cat([c_kv, k_rope], dim=-1)[:, :, None]
     return y, {"latent": latent.to(getattr(torch, cfg.dtype))}
 
@@ -132,7 +138,7 @@ def mla_decode(p: MLA, cfg: ModelConfig, x: torch.Tensor, cache: LayerCache,
     lat = cache["latent"]
     row = torch.cat([c_kv, k_rope], dim=-1)
     # absorb W_uk into q: q_nope . (c W_uk) = (q_nope W_uk^T) . c
-    q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p.k_up)
+    q_lat = _absorb_q(p, q_nope[:, 0])
     q_cat = torch.cat([q_lat, q_rope[:, 0]], dim=-1)          # (B, H, w)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     if plan is not None and plan.seq_shard_mesh is not None:
@@ -146,5 +152,25 @@ def mla_decode(p: MLA, cfg: ModelConfig, x: torch.Tensor, cache: LayerCache,
         out_lat = ops.decode_attention(q_cat * scale, lat,
                                        lat[..., :m.kv_lora_rank], t + 1,
                                        scale=1.0, plan=plan)  # (B, H, r)
-    out = torch.einsum("bhr,rhk->bhk", out_lat, p.v_up)      # absorb W_uv
-    return torch.einsum("bhk,hkd->bd", out, p.wo)[:, None]
+    return _absorb_out(p, out_lat)[:, None]
+
+
+def _absorb_q(p: MLA, q_nope: torch.Tensor) -> torch.Tensor:
+    """q_nope (B, H, nope) -> q_nope W_uk^T (B, H, r), each device's
+    heads there under heads-sharded weights."""
+    def one(mod, q):
+        return torch.einsum("bhk,rhk->bhr", q, mod.k_up)
+    if sharded(p, "k_up") is None:
+        return one(p, q_nope)
+    return tp_join(p, one, q_nope, dim=1, split=(1,))
+
+
+def _absorb_out(p: MLA, out_lat: torch.Tensor) -> torch.Tensor:
+    """The latent outputs (B, H, r) through ``W_uv`` then ``wo``: (B,
+    d), summed over the devices' heads under heads-sharded weights."""
+    def one(mod, o):
+        out = torch.einsum("bhr,rhk->bhk", o, mod.v_up)      # absorb W_uv
+        return torch.einsum("bhk,hkd->bd", out, mod.wo)
+    if sharded(p, "v_up") is None:
+        return one(p, out_lat)
+    return tp_sum(p, one, out_lat, split=(1,))

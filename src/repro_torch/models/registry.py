@@ -31,7 +31,7 @@ from repro_torch.models import lm as lm_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
-from repro_torch.models.common import init_params
+from repro_torch.models.common import init_params, logical_axes
 from repro_torch.plan import LaunchPlan
 from repro_torch.quant import QUANT_DTYPES
 
@@ -68,6 +68,37 @@ class Model:
             gen.manual_seed(int(seed))
         cls = encdec_mod.EncDec if self.cfg.family == "encdec" else lm_mod.LM
         return init_params(cls(self.cfg, self.device), gen)
+
+    def param_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Every parameter's logical axes, keyed by its name in the
+        weights' ``state_dict`` (:func:`~repro_torch.models.common.
+        logical_axes`; the module is built on the meta device, so nothing
+        is allocated).  The reference's layer stacks add a leading
+        ``layers`` axis to its per-layer leaves."""
+        cls = encdec_mod.EncDec if self.cfg.family == "encdec" else lm_mod.LM
+        return logical_axes(cls(self.cfg, torch.device("meta")))
+
+    def cache_axes(self, batch: int, max_len: int,
+                   kv_dtype: str = "bfloat16"
+                   ) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Every cache tensor's logical axes, keyed as
+        :meth:`cache_shapes`: the reference's cache specs' axes, the layer
+        stack first."""
+        out = {}
+        for name, (shape, _) in self.cache_shapes(batch, max_len,
+                                                  kv_dtype).items():
+            if name in ("k_s", "v_s"):
+                axes = ("layers", "batch", "seq", "kv_heads")
+            elif name == "state" and self.cfg.family == "ssm":
+                axes = ("layers", "batch", "heads", "head_dim", None)
+            elif name == "state":
+                axes = ("layers", "batch", "state")
+            elif name == "conv":
+                axes = ("layers", "batch", None, "state")
+            else:                 # k, v, latent, cross_k, cross_v
+                axes = ("layers", "batch", "seq", "kv_heads", "head_dim")
+            out[name] = axes
+        return out
 
     def cache_shapes(self, batch: int, max_len: int,
                      kv_dtype: str = "bfloat16"

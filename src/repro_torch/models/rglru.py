@@ -43,16 +43,16 @@ class RGLRU(SpecModule):
         d, w = cfg.d_model, lru_width(cfg)
         cw = cfg.hybrid.conv_width
         super().__init__({
-            "w_in_a": ParamSpec((d, w)),
-            "w_in_b": ParamSpec((d, w)),
-            "conv_w": ParamSpec((cw, w), fan_in=cw),
-            "conv_b": ParamSpec((w,), init="zeros"),
-            "lam": ParamSpec((w,), init="ones"),
-            "w_gate_i": ParamSpec((w, w)),
-            "b_gate_i": ParamSpec((w,), init="zeros"),
-            "w_gate_r": ParamSpec((w, w)),
-            "b_gate_r": ParamSpec((w,), init="zeros"),
-            "w_out": ParamSpec((w, d)),
+            "w_in_a": ParamSpec((d, w), ("embed", "state")),
+            "w_in_b": ParamSpec((d, w), ("embed", "state")),
+            "conv_w": ParamSpec((cw, w), (None, "state"), fan_in=cw),
+            "conv_b": ParamSpec((w,), ("state",), init="zeros"),
+            "lam": ParamSpec((w,), ("state",), init="ones"),
+            "w_gate_i": ParamSpec((w, w), ("state", None)),
+            "b_gate_i": ParamSpec((w,), ("state",), init="zeros"),
+            "w_gate_r": ParamSpec((w, w), ("state", None)),
+            "b_gate_r": ParamSpec((w,), ("state",), init="zeros"),
+            "w_out": ParamSpec((w, d), ("state", "embed")),
         }, dtype, device)
 
 

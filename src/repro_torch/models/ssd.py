@@ -41,14 +41,15 @@ def ssd_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d_inner, nheads, conv_dim = _dims(cfg)
     d_in_proj = 2 * d_inner + 2 * s.ngroups * s.state_dim + nheads
     return {
-        "in_proj": ParamSpec((d, d_in_proj)),
-        "conv_w": ParamSpec((s.conv_width, conv_dim), fan_in=s.conv_width),
-        "conv_b": ParamSpec((conv_dim,), init="zeros"),
-        "A_log": ParamSpec((nheads,), init="zeros"),
-        "D": ParamSpec((nheads,), init="ones"),
-        "dt_bias": ParamSpec((nheads,), init="zeros"),
-        "norm": ParamSpec((d_inner,), init="ones"),
-        "out_proj": ParamSpec((d_inner, d)),
+        "in_proj": ParamSpec((d, d_in_proj), ("embed", "state")),
+        "conv_w": ParamSpec((s.conv_width, conv_dim), (None, "state"),
+                            fan_in=s.conv_width),
+        "conv_b": ParamSpec((conv_dim,), ("state",), init="zeros"),
+        "A_log": ParamSpec((nheads,), ("heads",), init="zeros"),
+        "D": ParamSpec((nheads,), ("heads",), init="ones"),
+        "dt_bias": ParamSpec((nheads,), ("heads",), init="zeros"),
+        "norm": ParamSpec((d_inner,), ("state",), init="ones"),
+        "out_proj": ParamSpec((d_inner, d), ("state", "embed")),
     }
 
 

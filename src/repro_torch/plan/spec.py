@@ -28,8 +28,10 @@ def bucket_seqlen(seqlen_k: int, bucket: int = KV_BLOCK) -> int:
 @dataclass(frozen=True)
 class AttentionSpec:
     """One attention launch: the paper's (Batch, L_Q, L_K, H_Q, H_KV, D)
-    plus the launch kind, the KV-cache dtype name, and the mesh axis the
-    launch may sequence-shard over (set by ``Planner.mesh_plan``)."""
+    plus the launch kind, a sliding ``window`` and MLA's ``v_width``
+    (the reference's launch extras), the KV-cache dtype name, and the
+    mesh axis the launch may sequence-shard over (set by
+    ``Planner.mesh_plan``)."""
     kind: str                           # one of KINDS
     batch: int
     seqlen_q: int
@@ -37,6 +39,8 @@ class AttentionSpec:
     num_heads_q: int
     num_heads_kv: int
     head_dim: int = 128
+    window: Optional[int] = None        # sliding window: L_K = min(w, L)
+    v_width: Optional[int] = None       # MLA latent: v = k[..., :v_width]
     kv_dtype: str = "bfloat16"          # a KV_DTYPES name
     mesh_axis: Optional[str] = None     # sharding axis name (mesh plans)
     mesh_axis_size: int = 1
@@ -51,8 +55,11 @@ class AttentionSpec:
                 f"known: {sorted(KV_DTYPES)}")
 
     def workload(self) -> DecodeWorkload:
-        """The policy-facing shape tuple."""
-        return DecodeWorkload(self.batch, self.seqlen_q, self.seqlen_k,
+        """The policy-facing shape tuple (a windowed launch reads at most
+        ``window`` rows)."""
+        lk = self.seqlen_k if self.window is None \
+            else min(self.window, self.seqlen_k)
+        return DecodeWorkload(self.batch, self.seqlen_q, lk,
                               self.num_heads_q, self.num_heads_kv,
                               self.head_dim,
                               dtype_bytes=KV_DTYPES[self.kv_dtype],

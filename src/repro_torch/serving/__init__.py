@@ -1,5 +1,20 @@
 """Serving (counterpart of ``repro.serving``): the request-lifecycle
-engine, its scheduler, sampling and events."""
+engine, its scheduler, sampling and events, and the frozen mesh step
+builders (``decode_step``)."""
+from repro_torch.serving.decode_step import (  # noqa: F401
+    PrefillStepBundle,
+    ServeStepBundle,
+    attention_spec,
+    build_mesh_decode_step,
+    build_prefill_step,
+    build_serve_step,
+    decode_workload,
+    effective_kv_heads,
+    mesh_launch_plan,
+    mesh_plan,
+    mesh_split_decision,
+    serve_param_rules,
+)
 from repro_torch.serving.engine import (  # noqa: F401
     DecodeEngine,
     ServingEngine,

@@ -91,8 +91,14 @@ artifacts (:meth:`dump_obs`).  Disabled, the engine holds
 
 Mesh-native serving (``repro_torch.shard``): with ``mesh=`` the engine
 is one shard of a :class:`~repro_torch.shard.ShardedServingEngine`, bound
-to its ``(1, sp)`` grid (:class:`~repro_torch.launch.mesh.EngineMesh`).
-Its weights and every non-attention op live on the grid's lead device.
+to its ``(1, sp)`` grid (:class:`~repro_torch.launch.mesh.EngineMesh`),
+which every model call binds as the activation mesh (so a MoE model's
+``ep_shard_map`` dispatch runs expert parallelism where L divides the
+axis, as the reference's does).  Its weights live on the grid's lead
+device (``param_policy="replicated"``) or tensor-parallel over its
+devices (``"tp"``: :func:`repro_torch.sharding.place.place_params`,
+each device its slices, the projections' parts joined or summed on the
+lead); every other non-attention op runs on the lead device.
 With ``sp > 1`` (``seq_shards``) the dense cache is held in ``sp``
 chunks of rows, one a device (:class:`~repro_torch.kernels.ops.
 SeqShards`); the paged pool stays on the lead device and each launch's
@@ -137,6 +143,7 @@ from repro_torch.serving.events import (
 )
 from repro_torch.serving.sampling import CategoricalSampler, \
     GreedySampler, Sampler
+from repro_torch.sharding import activation_mesh
 from repro_torch.serving.scheduler import Completion, Request, Scheduler, \
     SlotState
 from repro_torch.spec import Drafter, SpecConfig, get_drafter
@@ -165,11 +172,6 @@ class ServingEngine:
         if param_policy not in PARAM_POLICIES:
             raise ValueError(f"unknown param_policy {param_policy!r}; "
                              f"known: {PARAM_POLICIES}")
-        if param_policy == "tp":
-            raise NotImplementedError(
-                "param_policy='tp' (weights tensor-parallel over the "
-                "model axis) is not ported yet: it comes with the tensor- "
-                "and expert-parallel slice; use 'replicated'")
         self.mesh = mesh
         self.shard_id = shard_id
         self.param_policy = param_policy
@@ -434,10 +436,15 @@ class ServingEngine:
         self._state = self.sampler.init_state(self.B)
 
     def _place_params(self, params):
-        """The weights on the lead device: the same module when they are
-        there already (a grid that repeats a device holds one copy),
-        else a copy.  The other devices of the grid hold cache chunks
-        and run the partials launches, which read no weight."""
+        """Land the weights on the shard's grid, as the reference's
+        ``_place_params``: tensor-parallel over the model axis under
+        ``param_policy="tp"`` (:func:`repro_torch.sharding.place.
+        place_params` by ``serve_param_rules``), else on the lead device:
+        the same module when they are there already (a grid that repeats
+        a device holds one copy), else a copy."""
+        if self.param_policy == "tp":
+            from repro_torch.sharding.place import place_params
+            return place_params(params, self.mesh)
         if next(params.parameters()).device == self.device:
             return params
         copy = type(params)(self.cfg, self.device)
@@ -460,8 +467,9 @@ class ServingEngine:
         t = lay.decode_positions(t, num_pages)
         view, joined = self._whole(
             lay.gather_view(self._caches, table, num_pages), plan)
-        logits = self.model.decode_step(self._params, view, token, t,
-                                        plan=plan, side_plans=side_plans)
+        with activation_mesh(self.mesh):
+            logits = self.model.decode_step(self._params, view, token, t,
+                                            plan=plan, side_plans=side_plans)
         if joined:
             self._put_back(view)
         lay.write_token(self._caches, view, table, t, num_pages)
@@ -485,9 +493,10 @@ class ServingEngine:
     def _prefill_impl(self, tokens: torch.Tensor, slot: int, length: int,
                       plan: LaunchPlan, num_pages: int) -> int:
         """Fused single-slot prefill; the layout lands the rows."""
-        logits, view = self.model.prefill_slot_view(
-            self._params, tokens, length, caches=self._caches, slot=slot,
-            plan=plan, kv_dtype=self.kv_dtype)
+        with activation_mesh(self.mesh):
+            logits, view = self.model.prefill_slot_view(
+                self._params, tokens, length, caches=self._caches,
+                slot=slot, plan=plan, kv_dtype=self.kv_dtype)
         self.cache.layout.write_slot(self._caches, view,
                                      self.cache.table_device(), slot,
                                      num_pages)
@@ -505,9 +514,10 @@ class ServingEngine:
         lay = self.cache.layout
         table = self.cache.table_device()
         view = lay.slot_view(self._caches, table, slot, num_pages)
-        logits = self.model.prefill_suffix_view(
-            self._params, view, tokens, start, length, plan=plan,
-            kv_dtype=self.kv_dtype)
+        with activation_mesh(self.mesh):
+            logits = self.model.prefill_suffix_view(
+                self._params, view, tokens, start, length, plan=plan,
+                kv_dtype=self.kv_dtype)
         lay.write_slot(self._caches, view, table, slot, num_pages,
                        first_page=start // self.cache.spec.page_size)
         return self._sample_row(logits, slot, length - 1)
@@ -532,8 +542,9 @@ class ServingEngine:
         table = self.cache.table_device()
         view, joined = self._whole(
             lay.gather_view(self._caches, table, num_pages), plan)
-        logits = self.model.verify_step(self._params, view, tokens, t,
-                                        plan=plan)
+        with activation_mesh(self.mesh):
+            logits = self.model.verify_step(self._params, view, tokens, t,
+                                            plan=plan)
         if joined:
             self._put_back(view)
         row = torch.arange(tokens.shape[1] - 1, device=tokens.device)

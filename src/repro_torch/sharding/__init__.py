@@ -9,8 +9,12 @@ from repro_torch.sharding.rules import (  # noqa: F401
     activation_rules,
     batch_spec,
     cache_rules,
+    device_coords,
+    dim_slice,
+    local_slices,
     param_rules,
     replicated,
     serve_param_rules,
     spec_for,
+    tree_specs,
 )

@@ -9,7 +9,9 @@ a tuple of axis names, where the reference builds a ``PartitionSpec``.
 
 A dim is sharded only if its size divides the product of the axes it
 takes, and each mesh axis is used at most once per tensor (the first dim
-in order wins); otherwise the dim stays replicated.
+in order wins); otherwise the dim stays replicated.  :func:`tree_specs`
+gives every leaf's spec, and :func:`dim_slice` / :func:`local_slices`
+the part of each dim a device holds under a spec.
 
 - **Params**: ``param_rules`` is FSDP + TP (training, with the tools);
   ``serve_param_rules`` is the inference layout, TP on ``model``.
@@ -22,7 +24,8 @@ in order wins); otherwise the dim stays replicated.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, \
+    Union
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[MeshAxes, ...]
@@ -71,6 +74,58 @@ def spec_for(shape: Tuple[int, ...], logical: Tuple[Optional[str], ...],
     while out and out[-1] is None:
         out.pop()
     return tuple(out)
+
+
+def tree_specs(mesh, shapes: Mapping[str, Any],
+               axes: Mapping[str, Tuple[Optional[str], ...]],
+               rules: ShardingRules) -> Dict[str, Spec]:
+    """:func:`spec_for` of every leaf: the counterpart of the reference's
+    ``tree_shardings``.  ``shapes`` maps a leaf name to its shape (or to
+    anything with a ``shape``), ``axes`` the same names to their logical
+    axes; a leaf without axes raises rather than falling back to
+    replicated."""
+    out = {}
+    for name, leaf in shapes.items():
+        if name not in axes:
+            raise KeyError(f"no logical axes for {name!r}")
+        shape = tuple(getattr(leaf, "shape", leaf))
+        out[name] = spec_for(shape, axes[name], rules, mesh)
+    return out
+
+
+def device_coords(mesh, i: int) -> Dict[str, int]:
+    """Device ``i`` of ``mesh``, counted row by row, as its index along
+    each axis."""
+    coords = {}
+    for a in reversed(mesh.axis_names):
+        i, coords[a] = divmod(i, mesh.shape[a])
+    return coords
+
+
+def dim_slice(size: int, entry: MeshAxes, mesh,
+              coords: Mapping[str, int]) -> Tuple[int, int]:
+    """(start, length) of the part of a dim of ``size`` that the device
+    at ``coords`` holds, for the dim's spec ``entry``: the whole dim for
+    None, else ``size`` cut into as many equal parts as the product of
+    the entry's axes, the first axis major, as a ``PartitionSpec``
+    cuts."""
+    axes = () if entry is None else \
+        (entry,) if isinstance(entry, str) else tuple(entry)
+    index, parts = 0, 1
+    for a in axes:
+        index = index * mesh.shape[a] + coords[a]
+        parts *= mesh.shape[a]
+    length = size // parts
+    return index * length, length
+
+
+def local_slices(shape: Tuple[int, ...], spec: Spec, mesh,
+                 coords: Mapping[str, int]) -> Tuple[Tuple[int, int], ...]:
+    """:func:`dim_slice` of every dim of a tensor of ``shape`` under
+    ``spec`` (whose trailing unsharded dims may be dropped)."""
+    entries = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(dim_slice(n, e, mesh, coords)
+                 for n, e in zip(shape, entries))
 
 
 # ---------------------------------------------------------------------------

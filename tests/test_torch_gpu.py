@@ -39,7 +39,7 @@ from repro_torch.kernels.flash_decode_quant import (
 )
 from repro_torch.kernels.flash_prefill import flash_prefill, prefill_plain
 from repro_torch.models import build_model
-from repro_torch.plan import AttentionSpec, LaunchPlan, Planner
+from repro_torch.plan import AttentionSpec, LaunchPlan, Planner, plan_scope
 from repro_torch.quant import AB_ATOL, QuantizedKV, Quantizer
 from repro_torch.serving import CategoricalSampler, Request, ServingEngine
 
@@ -1524,3 +1524,119 @@ def test_sharded_engines_on_the_card(cuda, layout, kv_quant):
     assert counts["flash_combine"] == cfg.num_layers * steps
     assert ops.policy_eval_count() == 0
     assert tokens["cuda"] == tokens["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism and the frozen mesh step builders
+# ---------------------------------------------------------------------------
+
+
+def _grid(n):
+    from repro_torch.launch.mesh import make_engine_mesh
+    return make_engine_mesh(1, n, [torch.device("cuda", 0)] * n)[0]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_head_sharded_decode_equals_the_whole_launchs_heads(cuda, kv_dtype):
+    """The frozen step's head-sharded decode (qwen2.5-3b's shape at model
+    2: H_KV 1 and G 8 a device, view 512, S 1): each device's launch over
+    its KV head gives, bit for bit, that head's rows of one launch over
+    both heads, bf16 and over an int8 cache; the op writes each device's
+    part of the new row and launches the kernel once a device."""
+    b, hkv, g, d, L = 1, 2, 8, 128, 512
+    q = _rand(cuda, (b, hkv * g, d))
+    k, v = _rand(cuda, (b, L, hkv, d)), _rand(cuda, (b, L, hkv, d))
+    new_k, new_v = _rand(cuda, (b, hkv, d)), _rand(cuda, (b, hkv, d))
+    t = torch.tensor([300], device="cuda")
+    plan = LaunchPlan(num_splits=1)
+    cache = {"k": k.clone(), "v": v.clone()}
+    new = {"k": new_k, "v": new_v}
+    part = "flash_decode"
+    if kv_dtype is not None:
+        qz = Quantizer.from_kv_dtype(kv_dtype)
+        (cache["k"], cache["k_s"]), (cache["v"], cache["v_s"]) = \
+            qz.quantize(k), qz.quantize(v)
+        (new["k"], new["k_s"]), (new["v"], new["v_s"]) = \
+            qz.quantize(new_k), qz.quantize(new_v)
+        part = "flash_decode_quant"
+    whole = {name: x.clone() for name, x in cache.items()}
+    rows = torch.arange(b, device="cuda")
+    for name, x in whole.items():
+        ops.bit_view(x)[rows, t] = ops.bit_view(new[name])
+    want = ops.decode_attention(q, whole["k"], whole["v"], t + 1,
+                                k_scale=whole.get("k_s"),
+                                v_scale=whole.get("v_s"), plan=plan)
+    devices = _grid(2).rows[0]
+    shards = {name: ops.HeadShards.place(x, devices, dim=2)
+              for name, x in cache.items()}
+    ops.reset_launch_counts()
+    got = ops.decode_update_headsharded(q, shards, new, t, t + 1, plan=plan)
+    assert ops.launch_counts()[part] == 2
+    assert ops.launch_counts_by_key(part) == {(L, 1): 2}
+    assert torch.equal(got, want)
+    for name, x in whole.items():
+        assert torch.equal(ops.bit_view(shards[name].join(x.device)),
+                           ops.bit_view(x))
+
+
+def test_sequence_parallel_prefill_equals_the_whole_launch(cuda):
+    """The prefill kernel over 3 chunks of 128 query rows (q_offset 0,
+    128, 256) against all 384 keys, joined, gives one whole launch's
+    bits (every chunk starts on the kernel's 64-row tile); over 4
+    chunks of 96 rows (off the tile) it stays within 3e-2 of it; both
+    through ``ops.attention`` under a sequence-parallel prefill plan."""
+    q = _rand(cuda, (1, 384, 16, 128))
+    k, v = _rand(cuda, (1, 384, 2, 128)), _rand(cuda, (1, 384, 2, 128))
+    whole = ops.attention(q, k, v, causal=True)
+    want = prefill_plain(
+        (q.float() * 128 ** -0.5).to(q.dtype).double(), k.double(),
+        v.double(), causal=True)
+    for n, bits in ((3, True), (4, False)):
+        ops.reset_launch_counts()
+        with plan_scope(LaunchPlan(kind="prefill",
+                                   seq_shard_mesh=_grid(n))):
+            got = ops.attention(q, k, v, causal=True)
+        assert ops.launch_counts_by_key("flash_prefill") == {
+            ("bfloat16", 384 // n): n}
+        if bits:
+            assert torch.equal(got, whole)
+        torch.testing.assert_close(got.float(), whole.float(), rtol=3e-2,
+                                   atol=3e-2)
+        torch.testing.assert_close(got.double(), want, rtol=3e-2,
+                                   atol=3e-2)
+
+
+def test_tp_layer_on_the_card(cuda):
+    """One tensor-parallel layer of reduced qwen2.5-3b (head_dim 128) in
+    bf16 over ``[cuda:0] * 2``, prefill then a decode step, against the
+    unsharded layer on the same inputs within 2e-2 of the output's
+    largest magnitude."""
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models.common import rope_angles
+    from repro_torch.sharding.place import place_params
+    cfg = reduced_config("qwen2.5-3b", d_model=512, num_layers=1)
+    params = build_model(cfg, device="cuda").init_params(0)
+    tp = place_params(params, _grid(2))
+    x = _rand(cuda, (1, 96, cfg.d_model))
+    rope = rope_angles(torch.arange(96, device="cuda")[None],
+                       cfg.resolved_head_dim, cfg.rope_theta)
+    got, rows = lm_mod.block_prefill(tp.layers[0], cfg, x, rope, "bfloat16")
+    want, wrows = lm_mod.block_prefill(params.layers[0], cfg, x, rope,
+                                       "bfloat16")
+    tol = 2e-2 * max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    cache = {n: torch.zeros((1, 128) + r.shape[2:], dtype=r.dtype,
+                            device="cuda") for n, r in rows.items()}
+    for n in cache:
+        cache[n][:, :96] = wrows[n]
+    copy = {n: c.clone() for n, c in cache.items()}
+    t = torch.tensor([96], device="cuda")
+    xt = _rand(cuda, (1, 1, cfg.d_model))
+    rope = rope_angles(t[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+    plan = LaunchPlan(num_splits=1)
+    got = lm_mod.block_decode(tp.layers[0], cfg, xt, cache, t, rope,
+                              plan=plan)
+    want = lm_mod.block_decode(params.layers[0], cfg, xt, copy, t, rope,
+                               plan=plan)
+    tol = 2e-2 * max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= tol

@@ -67,7 +67,9 @@ def test_no_module_imports_jax_or_repro():
                  "repro_torch.shard", "repro_torch.shard.spec",
                  "repro_torch.shard.resolver", "repro_torch.shard.engine",
                  "repro_torch.sharding", "repro_torch.sharding.rules",
-                 "repro_torch.sharding.ctx", "repro_torch.launch.mesh"):
+                 "repro_torch.sharding.ctx", "repro_torch.launch.mesh",
+                 "repro_torch.sharding.place",
+                 "repro_torch.serving.decode_step"):
         assert want in res["modules"]
 
 

@@ -561,9 +561,9 @@ def test_same_topology_engines_share_one_plan_cache(qwen):
 
 def test_engine_refusals(qwen):
     """The reference's refusals: no topology; sp without the metadata
-    path; max_len or the page size not dividing over sp; and
-    ``param_policy="tp"``, validated as the reference does, then refused
-    by name."""
+    path; max_len or the page size not dividing over sp; an unknown
+    ``param_policy``.  ``"tp"``, validated as the reference does, is
+    served (``tests/test_torch_tp.py`` holds its streams)."""
     cfg, model = qwen[3], qwen[4]
     with pytest.raises(ValueError, match="no topology"):
         ShardedServingEngine(model, ServeConfig(model=cfg))
@@ -586,11 +586,10 @@ def test_engine_refusals(qwen):
     with pytest.raises(ValueError, match="unknown param_policy"):
         ServingEngine(model, ServeConfig(model=cfg), mesh=sub,
                       param_policy="fsdp")
-    with pytest.raises(NotImplementedError, match="tensor- and expert-"
-                                                  "parallel slice"):
-        ShardedServingEngine(model, ServeConfig(model=cfg),
-                             spec=ShardSpec(params="tp"), max_len=64,
-                             devices=[CPU])
+    tp = ShardedServingEngine(model, ServeConfig(model=cfg),
+                              spec=ShardSpec(params="tp"), max_len=64,
+                              devices=[CPU])
+    assert tp.cores[0].param_policy == "tp"
 
 
 def test_sharded_verify_and_sampling_keep_the_streams(qwen):
