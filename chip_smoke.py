@@ -34,16 +34,20 @@ Run from the repository root, on a machine with the card and nvcc:
     python3 chip_smoke.py --phase tp      # build + tensor- and expert-
                                           # parallel serving, the frozen
                                           # mesh step builders
+    python3 chip_smoke.py --phase train   # build + training qwen2.5-3b
+                                          # at full width on K3 and K3b
 
 Phases, each fatal on failure.  A phase run alone (``--phase``) serves
 its models at full width and depth; the default run, to stay well inside
 its 1200 s call on a slow host, serves every model after the main
 path's phases (3, 4 and Table 1 keep qwen2.5-3b's 36 layers, as do 4c
 and 4j) at full width and the depth of ``DEFAULT_RUN_LAYERS``:
-qwen2.5-3b 18 layers in 4b, 4e and 4f, codeqwen1.5-7b, stablelm-12b and
-granite-moe-3b-a800m 16 (in 4m too), minicpm3-4b 16, paligemma-3b 9,
+qwen2.5-3b 12 layers in 4b, 4e and 4f, codeqwen1.5-7b, stablelm-12b and
+granite-moe-3b-a800m 12 (in 4m too), minicpm3-4b 12, paligemma-3b 9,
 whisper-large-v3 16 + 16, recurrentgemma-9b 11 (3 windowed); mamba2-780m
-keeps its 48.
+keeps its 48.  (qwen2.5-3b went from 18 to 12 layers and the configs
+from 16 to 12 to make room for the training phase, 4l, which keeps full
+depth.)
 
 1. Environment and build: the card's name and power limit, CUDA version,
    SM count; all kernels built from ``src/repro_torch/csrc`` (one nvcc per
@@ -295,7 +299,7 @@ keeps its 48.
    launch against its plain version in float64, the launches against
    the plans, no policy evaluation; the logits' gap and the divergence
    by layer (measured); the TP and the replicated sp 2 engines' step
-   times.  (b) granite-moe-3b-a800m at dp 1 x sp 4 (16 layers in
+   times.  (b) granite-moe-3b-a800m at dp 1 x sp 4 (12 layers in
    the default run, 32 under ``--phase tp``), ``params="tp"``, prompts
    of 300 and 450 tokens: every MoE layer's expert-parallel output at
    admission against the float64 plain EP, the rows gather would have
@@ -326,6 +330,29 @@ keeps its 48.
    of its largest entry), and ``Model.prefill``'s layer-0 state against
    512 decode steps of that layer (within 2e-2); peak memory and the
    median step are printed.
+4l. Training (``phase_train``, in the default run right after 4j frees
+   the serving model; alone as ``--phase train``): (a) qwen2.5-3b at full
+   width and depth (36 layers, bf16 weights, f32 AdamW moments) trained
+   6 steps (AdamW, constant lr 1e-4 after one warmup step, clip 1.0,
+   remat ``nothing_saveable``) on one SyntheticLM batch of 2 x 1024
+   tokens, repeated; per step the loss, grad_norm, ms and
+   ``torch.cuda.max_memory_allocated``, and the launches (zeroed just
+   before the step, read just after): K3 72 (36 forward with its LSE,
+   36 recomputed), K3b 36 calls of ``BWD_LAUNCHES_PER_CALL`` launches,
+   nothing else.  (b) At step 0 every layer's K3 output and LSE and K3b's
+   dq, dk, dv, on the model's own inputs, against the float64 plain
+   versions, normwise (``TRAIN_OUT_TOL``, ``TRAIN_LSE_TOL``,
+   ``TRAIN_GRAD_TOL``).  (f) The loss after the 6 steps is below step
+   0's.  At 2 layers and full width: (c) every gradient leaf against the
+   same model whose attention runs the float64 plain forward and
+   backward (``TRAIN_LEAF_TOL``); (d) remat ``nothing_saveable`` against
+   ``none`` bit for bit, 2 microbatches against 1 (``TRAIN_MICRO_TOL``);
+   (e) ``resumable_train_loop`` crashed at step 2 and resumed from the
+   step-1 checkpoint (written to a temporary directory, removed after),
+   its losses and grad norms bit for bit the uninterrupted run's.  (g) K3
+   with its LSE and K3b timed at the training cell, rows of the kernels
+   line (K3b's library time: SDPA's forward and backward less its
+   forward).
 5. One JSON ``kernels`` line: per kernel its error (a decode row's at
    that row's own inputs, over NaN/Inf tails), launches on the main
    path (the bf16 run's; the quantized decode and the combine kernels'
@@ -403,8 +430,10 @@ import json
 import os
 import pstats
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -419,7 +448,15 @@ if str(SRC) not in sys.path:
     sys.path.insert(0, str(SRC))
 
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.configs.base import ServeConfig, ShapeConfig  # noqa: E402
+from repro_torch.configs.base import OptimizerConfig, ServeConfig, \
+    ShapeConfig, TrainConfig  # noqa: E402
+from repro_torch.data.synthetic import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.fault.elastic import resumable_train_loop  # noqa: E402
+from repro_torch.training.train_step import (  # noqa: E402
+    build_train_step,
+    lm_loss,
+    param_tree,
+)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_decode as fdec  # noqa: E402
 from repro_torch.kernels.flash_combine import (  # noqa: E402
@@ -434,7 +471,9 @@ from repro_torch.kernels.flash_decode_quant import (  # noqa: E402
     decode_quant_partials_plain,
     flash_decode_quant_partials,
 )
+from repro_torch.kernels import flash_prefill as fprefill  # noqa: E402
 from repro_torch.kernels.flash_prefill import (  # noqa: E402
+    BWD_LAUNCHES_PER_CALL,
     flash_prefill,
     prefill_plain,
 )
@@ -490,6 +529,10 @@ REPLACES = {
     "flash_combine": "src/repro/kernels/flash_combine.py:28",
     "flash_prefill": "src/repro/kernels/flash_prefill.py:31",
     "flash_decode_quant": "src/repro/kernels/flash_decode.py:186",
+    # K3b replaces no Pallas kernel: it is the gradient of the function
+    # the reference trains through, ref.flash_attention_xla, which XLA
+    # differentiates
+    "flash_prefill_bwd": "src/repro/kernels/ref.py:97",
 }
 TOLS = {"flash_decode": DECODE_TOL, "flash_combine": DECODE_TOL,
         "flash_prefill": PREFILL_TOL, "flash_decode_quant": QUANT_TOL}
@@ -2569,9 +2612,9 @@ MLA_ARCH, VLM_ARCH = "minicpm3-4b", "paligemma-3b"
 # the depth the default run serves each path after the main path's at,
 # every width kept, so that the whole run stays well inside its 1200 s
 # call on a slow host (a phase run alone serves every layer): qwen2.5-3b
-# 18 of 36 in the paged, prefix, tune and obs paths; the configs' phases
+# 12 of 36 in the paged, prefix, tune and obs paths; the configs' phases
 # as named (recurrentgemma-9b 11 layers: 3 windowed)
-DEFAULT_RUN_LAYERS = {"qwen": 18, "archs": 16, "moe": 16, "mla": 16,
+DEFAULT_RUN_LAYERS = {"qwen": 12, "archs": 12, "moe": 12, "mla": 12,
                       "vlm": 9, "encdec": 16, "hybrid": 11}
 
 
@@ -4199,6 +4242,14 @@ def phase_kernels_line(gen, sms: int, errs, counts, flush,
         launches=suffix_launches.get(f"bfloat16 {lq}", 0)))
     out += table1_rows
     out += list(extra_rows)
+    return kernel_line(out, flush, counts, errs)
+
+
+def kernel_line(out, flush, counts=None, errs=None):
+    """The kernels line's entries of rows ``out`` (each timed here, its
+    plain version and library call too, beside its bound); a row without
+    ``launches`` / ``err`` / ``tol`` takes ``counts`` / ``errs`` /
+    ``TOLS`` by its kernel's name."""
     # the method's floor: one one-element fill_, timed the same way
     tiny = torch.empty(1, device=DEVICE)
     floor_ms = time_ms(lambda: tiny.fill_(1.0), 100, flush)
@@ -4211,13 +4262,15 @@ def phase_kernels_line(gen, sms: int, errs, counts, flush,
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "shape": row["shape"],
-            "launches": row.get("launches", counts[name]),
-            "max_abs_err": row.get("err", errs[name]),
-            "tol": row.get("tol", TOLS[name]),
+            "launches": (row["launches"] if "launches" in row
+                         else counts[name]),
+            "max_abs_err": row["err"] if "err" in row else errs[name],
+            "tol": row["tol"] if "tol" in row else TOLS[name],
             "ms": time_ms(row["fn"], 100, flush),
             "plain_ms": time_ms(row["plain"], 10, flush),
             "bound_ms": bms, "bound_by": by,
-            "library_ms": time_ms(lib, 100, flush) if lib else None,
+            "library_ms": (row["library_ms"] if "library_ms" in row
+                           else time_ms(lib, 100, flush) if lib else None),
             "floor_ms": floor_ms})
         print(f"kernel {name} {row['shape']}: {kernels[-1]['ms']:.6f} ms, "
               f"bound {bms:.6f} ms ({by}), library "
@@ -5596,7 +5649,7 @@ def ep_serving(seed: int, layers=None):
         want = ep_run(plain, cfg_, x.double(), mesh, axis)
         cap = moe_mod._capacity(x.shape[1], cfg_.moe.num_experts,
                                 cfg_.moe.top_k, cfg_.moe.capacity_factor)
-        gathered = gather_run(p, cfg_, x, cap)
+        gathered = gather_run(p, cfg_, x, cap)[0]
         build.LAUNCHES.clear()
         build.LAUNCHES.update(saved)
         acc["ep_max_abs_err"] = max(acc["ep_max_abs_err"],
@@ -5611,13 +5664,13 @@ def ep_serving(seed: int, layers=None):
         return out
 
     def gather(p, cfg_, x, capacity):
-        out = gather_run(p, cfg_, x, capacity)
+        out, aux = gather_run(p, cfg_, x, capacity)
         other = ref.get(id(p))
         if other is not None:
-            same = torch.equal(out, gather_run(other, cfg_, x, capacity))
+            same = torch.equal(out, gather_run(other, cfg_, x, capacity)[0])
             acc["gather_checks"] += 1
             acc["gather_bits_equal"] += int(same)
-        return out
+        return out, aux
 
     for r in reqs:
         eng.submit(r)
@@ -6201,6 +6254,464 @@ def phase_paged_all(model, params, cfg, seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase train: qwen2.5-3b trained at full width, attention on K3 and K3b
+# ---------------------------------------------------------------------------
+
+# the training cell: B 2 x 1024 tokens, 6 AdamW steps (constant lr 1e-4
+# after one warmup step), remat nothing_saveable
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 2, 6, 1e-4
+# normwise tolerances against the float64 plain versions, on the model's
+# own inputs: K3's output and K3b's dq, dk, dv are bf16 (one rounding is
+# 2^-9 of a value), K3's LSE is f32 from scores summed in f32
+TRAIN_OUT_TOL, TRAIN_LSE_TOL, TRAIN_GRAD_TOL = 1e-2, 1e-5, 1e-2
+# the whole gradient at cut depth against the same model with attention
+# in float64, each leaf normwise (floored at 1e-3 of the whole
+# gradient's norm): within TRAIN_LEAF_TOL, or, upstream of a softmax,
+# within TRAIN_COND_RATIO times the distance of the plain float32
+# attention's gradient from float64.  On these random weights the rows
+# are nearly one-hot, so dS = P (dP - delta) cancels to a small fraction
+# of its terms, and every leaf upstream of the scores (the q and k paths
+# and all lower layers) moves by 25-35% under a change of attention's
+# rounding alone (a CPU run at full width, vocabulary cut to 4096: plain
+# float32 against float64 attention).  Microbatches 2 against 1: bf16
+# products over 1024 rows against 2048 round apart, normwise.
+TRAIN_LEAF_TOL, TRAIN_COND_RATIO, TRAIN_MICRO_TOL = 5e-2, 2.0, 2e-2
+TRAIN_CUT_LAYERS = 2
+
+
+def normwise(got, want) -> float:
+    """||got - want|| / ||want||, in float64."""
+    w = want.double()
+    return float((got.double() - w).norm() / w.norm().clamp_min(1e-300))
+
+
+def train_config(cfg, remat: str = "nothing_saveable", micro: int = 1):
+    return TrainConfig(
+        model=cfg, shape=ShapeConfig("train_1k", TRAIN_SEQ, TRAIN_BATCH,
+                                     "train"),
+        optimizer=OptimizerConfig(lr=TRAIN_LR, warmup_steps=1,
+                                  total_steps=TRAIN_STEPS,
+                                  schedule="constant"),
+        microbatches=micro, remat_policy=remat)
+
+
+@contextlib.contextmanager
+def train_attention(lse_fn, bwd_fn):
+    """Within the block, the prefill kernel's autograd form
+    (``FlashPrefillFn``) calls ``lse_fn`` for its forward and ``bwd_fn``
+    for its backward, in place of ``flash_prefill_lse`` and
+    ``flash_prefill_bwd`` (same signatures)."""
+    saved = fprefill.flash_prefill_lse, fprefill.flash_prefill_bwd
+    fprefill.flash_prefill_lse, fprefill.flash_prefill_bwd = lse_fn, bwd_fn
+    try:
+        yield
+    finally:
+        fprefill.flash_prefill_lse, fprefill.flash_prefill_bwd = saved
+
+
+def checked_train_attention(acc):
+    """(lse_fn, bwd_fn) for ``train_attention`` that run the kernels and
+    hold each call against the float64 plain versions on the same inputs
+    (normwise, TRAIN_*_TOL), keeping the worst ratios in ``acc``."""
+    lse_k, bwd_k = fprefill.flash_prefill_lse, fprefill.flash_prefill_bwd
+
+    def lse_fn(q, k, v, **kw):
+        out, lse = lse_k(q, k, v, **kw)
+        e_out = normwise(out, fprefill.prefill_plain(f64(q), f64(k), f64(v),
+                                                     **kw))
+        e_lse = normwise(lse, fprefill.prefill_lse_plain(f64(q), f64(k),
+                                                         **kw))
+        acc["out"] = max(acc["out"], e_out)
+        acc["lse"] = max(acc["lse"], e_lse)
+        acc["forward_checks"] += 1
+        check(e_out <= TRAIN_OUT_TOL and e_lse <= TRAIN_LSE_TOL,
+              f"training forward attention: output {e_out:.3e} "
+              f"(tol {TRAIN_OUT_TOL}), LSE {e_lse:.3e} (tol "
+              f"{TRAIN_LSE_TOL})")
+        return out, lse
+
+    def bwd_fn(q, k, v, o, lse, do, **kw):
+        got = bwd_k(q, k, v, o, lse, do, **kw)
+        want = fprefill.prefill_backward_plain(
+            *(f64(t) for t in (q, k, v, o, lse, do)), **kw)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            e = normwise(g, w)
+            acc[name] = max(acc[name], e)
+            check(e <= TRAIN_GRAD_TOL, f"training backward attention: "
+                  f"{name} {e:.3e} (tol {TRAIN_GRAD_TOL})")
+        acc["backward_checks"] += 1
+        return got
+
+    return lse_fn, bwd_fn
+
+
+def plain_attention(dtype):
+    """(lse_fn, bwd_fn) for ``train_attention`` that compute on the plain
+    versions in ``dtype`` (float64: the reference point of the
+    whole-gradient check; float32: its conditioning floor) and round
+    the outputs to the inputs' dtype."""
+    def lse_fn(q, k, v, **kw):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        return (fprefill.prefill_plain(qd, kd, vd, **kw).to(q.dtype),
+                fprefill.prefill_lse_plain(qd, kd, **kw).float())
+
+    def bwd_fn(q, k, v, o, lse, do, **kw):
+        return tuple(t.to(q.dtype) for t in fprefill.prefill_backward_plain(
+            *(t.to(dtype) for t in (q, k, v, o, lse, do)), **kw))
+
+    return lse_fn, bwd_fn
+
+
+def train_counts(layers: int, forwards: int, backwards: int,
+                 what: str) -> dict:
+    """Check the launches of the run just driven: K3 ``forwards`` times a
+    layer, K3b's call ``backwards`` times a layer (BWD_LAUNCHES_PER_CALL
+    launches each), all at one (dtype, Lq), nothing else; returns the
+    counts."""
+    counts = ops.launch_counts()
+    by = {k: ops.launch_counts_by_key(k) for k in
+          ("flash_prefill", "flash_prefill_bwd")}
+    want = {"flash_prefill": forwards * layers,
+            "flash_prefill_bwd": BWD_LAUNCHES_PER_CALL * backwards * layers}
+    check(all(counts[k] == want.get(k, 0) for k in counts),
+          f"{what}: launches {counts}, want {want}")
+    lq = {key[1] for key in by["flash_prefill"]}
+    check(len(lq) == 1 and len(by["flash_prefill_bwd"]) == 1,
+          f"{what}: launches by key {by}")
+    return counts
+
+
+def leafwise(got: dict, want: dict, label: str = "") -> tuple:
+    """(the worst leaf's normwise error, floored at 1e-3 of the whole
+    gradient's norm, its name; the whole tree's normwise error).  With a
+    ``label``, prints the six worst leaves (error, |want|, |got - want|)."""
+    whole = sum(float(w.double().square().sum()) for w in want.values())
+    floor = 1e-3 * whole ** 0.5
+    rows, diff = [], 0.0
+    for n, w in want.items():
+        d = float((got[n].double() - w.double()).norm())
+        diff += d * d
+        norm = float(w.double().norm())
+        rows.append((d / max(norm, floor), n, norm, d))
+    rows.sort(reverse=True)
+    if label:
+        print(f"{label}: whole gradient norm {whole ** 0.5:.4e}; worst "
+              "leaves " + "; ".join(f"{n} {e:.3e} (|g| {norm:.3e}, "
+                                    f"|diff| {d:.3e})"
+                                    for e, n, norm, d in rows[:6]))
+    return rows[0][0], rows[0][1], (diff / whole) ** 0.5
+
+
+def phase_train(seed: int, flush):
+    """Training at full width: qwen2.5-3b at its 36 layers, AdamW, remat
+    nothing_saveable, TRAIN_STEPS steps on one repeated SyntheticLM batch
+    of 2 x 1024 tokens, every step's launches checked (K3 72, K3b 72) and
+    step 0's attention checked layer by layer against float64; then at 2
+    layers (full width) the whole gradient against float64 attention,
+    remat and microbatches, and a crash and resume; then K3 with its LSE
+    and K3b timed at the training cell."""
+    out = {}
+    cfg = get_arch("qwen2.5-3b")
+    L = cfg.num_layers
+    model = build_model(cfg, device=DEVICE)
+    bundle = build_train_step(model, train_config(cfg))
+    t0 = time.perf_counter()
+    params, opt_state = bundle.init(seed)
+    torch.cuda.synchronize()
+    tree = param_tree(params)
+    wbytes = sum(p.numel() * p.element_size() for p in tree.values())
+    mbytes = sum(m.numel() * 4 for m in opt_state["m"].values()) * 2
+    print(f"train {cfg.name}: {L} layers d_model {cfg.d_model}, "
+          f"{sum(p.numel() for p in tree.values())} params, {wbytes} B of "
+          f"weights, {mbytes} B of f32 moments, init "
+          f"{time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, lr {TRAIN_LR} constant, remat nothing_saveable")
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                  seed=seed))
+    batch = bundle.to_device(data.batch_at(0))
+    acc = {"out": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0,
+           "forward_checks": 0, "backward_checks": 0}
+    steps, launches = [], {"flash_prefill": 0, "flash_prefill_bwd": 0}
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(TRAIN_STEPS):
+        route = (train_attention(*checked_train_attention(acc)) if step == 0
+                 else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        with route:
+            m = bundle.step(params, opt_state, batch)[2]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        counts = train_counts(L, 2, 1, f"train step {step}")
+        for k in launches:
+            launches[k] += counts[k]
+        rec = {"step": step, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+               "ms": ms, "max_memory_allocated":
+               torch.cuda.max_memory_allocated()}
+        check(np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"]),
+              f"train step {step}: non-finite {rec}")
+        steps.append(rec)
+        print(f"train step {step}: loss {rec['loss']:.6f} grad_norm "
+              f"{rec['grad_norm']:.6f} lr {rec['lr']:.3g} {ms:.1f} ms"
+              f"{' (with the layer checks)' if step == 0 else ''}, "
+              f"max_memory_allocated {rec['max_memory_allocated']} B, "
+              f"launches K3 {counts['flash_prefill']} K3b "
+              f"{counts['flash_prefill_bwd']}")
+    check(acc["forward_checks"] == 2 * L and acc["backward_checks"] == L,
+          f"layer checks: {acc}")
+    print(f"train layer checks at step 0 ({acc['forward_checks']} forward, "
+          f"{acc['backward_checks']} backward calls) against float64, "
+          f"normwise: output {acc['out']:.3e} lse {acc['lse']:.3e} dq "
+          f"{acc['dq']:.3e} dk {acc['dk']:.3e} dv {acc['dv']:.3e}")
+    with torch.no_grad():
+        _, after = lm_loss(model, params, batch)
+    loss_after = float(after["loss"])
+    check(loss_after < steps[0]["loss"],
+          f"loss after {TRAIN_STEPS} steps on the repeated batch "
+          f"{loss_after} is not below step 0's {steps[0]['loss']}")
+    print(f"train loss on the repeated batch: step 0 {steps[0]['loss']:.6f}"
+          f", after {TRAIN_STEPS} steps {loss_after:.6f}")
+    # where a step's time goes: one more step under torch.profiler
+    with profiled() as (prof, wall):
+        bundle.step(params, opt_state, batch)
+    kernels, device_ops = device_kernels(prof)
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    profile = {"wall_ms": wall[0], "device_busy_ms": busy,
+               "idle_share": 1 - busy / wall[0], "device_ops": device_ops,
+               "top_kernels_ms": {k[:80]: v for k, v in top}}
+    print(f"train step profiled: wall {wall[0]:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share {profile['idle_share']:.3f}, "
+          f"{device_ops} device ops (profiler on)")
+    for name, ms in profile["top_kernels_ms"].items():
+        print(f"  {ms:.3f} ms  {name}")
+    out["full"] = {"steps": steps, "loss_after": loss_after,
+                   "layer_checks": acc, "launches": launches,
+                   "weight_bytes": wbytes, "moment_bytes": mbytes,
+                   "step_ms_mean_1_on": sum(s["ms"] for s in steps[1:])
+                   / (len(steps) - 1),
+                   "peak_bytes": max(s["max_memory_allocated"]
+                                     for s in steps), "profile": profile}
+    del params, opt_state, tree, bundle, model, batch, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cut"] = phase_train_cut(cfg, seed, data)
+    # the timed rows draw from a generator of their own, so the default
+    # run's later phases see the inputs they saw before this phase
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 27)
+    out["times"], rows = train_kernel_rows(gen, flush, launches)
+    return out, rows
+
+
+def phase_train_cut(cfg, seed: int, data):
+    """At TRAIN_CUT_LAYERS layers and full width: (c) every gradient leaf
+    against the same model whose attention runs the float64 plain forward
+    and backward; (d) remat nothing_saveable against none, and 2
+    microbatches against 1; (e) a crash at step 2 and the resume from the
+    step-1 checkpoint against the uninterrupted run."""
+    out = {}
+    cut = cut_depth(cfg, TRAIN_CUT_LAYERS)
+    n = cut.num_layers
+    model = build_model(cut, device=DEVICE)
+    b_none = build_train_step(model, train_config(cut, remat="none"))
+    params = b_none.init(seed)[0]
+    batch = b_none.to_device(data.batch_at(0))
+    ops.reset_launch_counts()
+    total, _, g_kernel = b_none.grads(params, batch)
+    torch.cuda.synchronize()
+    train_counts(n, 1, 1, "cut depth, remat none")
+    plain = {}
+    for dtype in (torch.float64, torch.float32):
+        with train_attention(*plain_attention(dtype)):
+            ops.reset_launch_counts()
+            plain[dtype] = b_none.grads(params, batch)
+            torch.cuda.synchronize()
+            check(sum(ops.launch_counts().values()) == 0,
+                  f"plain attention launched {ops.launch_counts()}")
+    total64, _, g_plain = plain[torch.float64]
+    g32 = plain[torch.float32][2]
+    _, _, whole = leafwise(g_kernel, g_plain, "train cut: kernels against "
+                           "float64 attention")
+    _, _, whole32 = leafwise(g32, g_plain, "train cut: plain float32 "
+                             "attention against float64")
+    worst, leaf = 0.0, None
+    floor = 1e-3 * sum(float(x.double().square().sum())
+                       for x in g_plain.values()) ** 0.5
+    for name, w in g_plain.items():
+        norm = max(float(w.double().norm()), floor)
+        e_k = float((g_kernel[name].double() - w.double()).norm()) / norm
+        e_32 = float((g32[name].double() - w.double()).norm()) / norm
+        ratio = e_k / max(TRAIN_LEAF_TOL, TRAIN_COND_RATIO * e_32)
+        if ratio >= worst:
+            worst, leaf = ratio, (name, e_k, e_32)
+    check(worst <= 1.0, f"gradient leaf {leaf[0]}: {leaf[1]:.3e} from "
+          f"float64 attention's, plain float32 attention {leaf[2]:.3e} "
+          f"(tol max({TRAIN_LEAF_TOL}, {TRAIN_COND_RATIO} x that))")
+    out["whole_gradient"] = {"worst_leaf": leaf[0], "worst_ratio": worst,
+                             "leaf_kernel": leaf[1], "leaf_plain32": leaf[2],
+                             "whole": whole, "whole_plain32": whole32,
+                             "loss": float(total),
+                             "loss_float64_attention": float(total64)}
+    print(f"train cut {n} layers: gradient against float64 attention's, "
+          f"whole tree {whole:.3e} (plain float32 attention {whole32:.3e});"
+          f" the worst leaf against its tolerance {leaf[0]} {worst:.3f} "
+          f"({leaf[1]:.3e}, plain float32 {leaf[2]:.3e}); loss "
+          f"{float(total):.6f} / {float(total64):.6f}")
+    b_ns = build_train_step(model, train_config(cut))
+    ops.reset_launch_counts()
+    t_ns, _, g_ns = b_ns.grads(params, batch)
+    torch.cuda.synchronize()
+    train_counts(n, 2, 1, "cut depth, remat nothing_saveable")
+    same = [k for k in g_kernel if not torch.equal(g_kernel[k], g_ns[k])]
+    worst_ns, leaf_ns, whole_ns = leafwise(g_ns, g_kernel,
+                                           "train cut: nothing_saveable "
+                                           "against none")
+    check(torch.equal(t_ns, total) and not same,
+          f"remat nothing_saveable against none: loss {float(t_ns)} / "
+          f"{float(total)}, {len(same)} leaves differ ({same[:4]}), worst "
+          f"{leaf_ns} {worst_ns:.3e}")
+    b_m2 = build_train_step(model, train_config(cut, remat="none", micro=2))
+    ops.reset_launch_counts()
+    t_m2, _, g_m2 = b_m2.grads(params, batch)
+    torch.cuda.synchronize()
+    train_counts(n, 2, 2, "cut depth, 2 microbatches")
+    _, _, whole_m2 = leafwise(g_m2, g_kernel, "train cut: 2 microbatches "
+                              "against 1")
+    rel_loss = abs(float(t_m2) / float(total) - 1)
+    check(whole_m2 <= TRAIN_MICRO_TOL and rel_loss <= 1e-3,
+          f"2 microbatches against 1: gradient {whole_m2:.3e} (tol "
+          f"{TRAIN_MICRO_TOL}), loss {rel_loss:.3e} (tol 1e-3)")
+    out["remat"] = {"bit_for_bit": True}
+    out["microbatches"] = {"whole": whole_m2, "loss_rel": rel_loss}
+    print(f"train cut: remat nothing_saveable gives none's loss and "
+          f"gradients bit for bit; 2 microbatches against 1: gradient "
+          f"{whole_m2:.3e} normwise (tol {TRAIN_MICRO_TOL}), loss "
+          f"{rel_loss:.3e}")
+    del params, g_kernel, g_plain, g32, plain, g_ns, g_m2
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["resume"] = phase_train_resume(b_ns, data)
+    return out
+
+
+def phase_train_resume(bundle, data):
+    """(e) 3 steps with a checkpoint after step 1 (keep 1, synchronous),
+    uninterrupted; then crashed at step 2 and resumed from that
+    checkpoint: every step's loss and grad_norm against the uninterrupted
+    run's, bit for bit (the same kernels on the same restored bits)."""
+    rec = {}
+
+    def recording(label):
+        def step(p, o, b):
+            p, o, m = bundle.step(p, o, b)
+            rec.setdefault(label, []).append(
+                (float(m["loss"]), float(m["grad_norm"])))
+            return p, o, m
+        return dataclasses.replace(bundle, step=step)
+
+    root = Path(tempfile.mkdtemp(prefix="train_ckpt_"))
+    kw = dict(total_steps=3, ckpt_every=2, keep=1, async_ckpt=False,
+              log_fn=lambda line: None)
+    t0 = time.perf_counter()
+    try:
+        resumable_train_loop(recording("whole"), data,
+                             ckpt_dir=str(root / "whole"), **kw)
+        shutil.rmtree(root / "whole")
+        try:
+            resumable_train_loop(recording("crash"), data,
+                                 ckpt_dir=str(root / "crash"),
+                                 fail_at_step=2, **kw)
+            check(False, "the injected failure did not fire")
+        except RuntimeError as e:
+            check("injected failure at step 2" in str(e), str(e))
+        lines = []
+        resumable_train_loop(recording("resumed"), data,
+                             ckpt_dir=str(root / "crash"),
+                             **dict(kw, log_fn=lines.append))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(lines and lines[0].startswith("[elastic] resumed at step 2"),
+          f"resume: {lines[:1]}")
+    got = rec["crash"] + rec["resumed"]
+    check(got == rec["whole"], f"crash and resume {got} against "
+          f"uninterrupted {rec['whole']}")
+    print(f"train cut: crashed at step 2, resumed from the step-1 "
+          f"checkpoint: losses and grad norms {got} equal the "
+          f"uninterrupted run's bit for bit "
+          f"({time.perf_counter() - t0:.1f} s with the checkpoints)")
+    return {"whole": rec["whole"], "crash_then_resumed": got,
+            "bit_for_bit": True}
+
+
+def train_kernel_rows(gen, flush, launches):
+    """(g) K3 with its LSE and K3b at the training cell (B 2, Lq = Lk
+    1024, Hq 16, Hkv 2, D 128, causal, bf16): the kernels line's rows,
+    with their launches in the full-width run, and a check of each
+    against float64.  K3b's library time is SDPA's forward and backward
+    less its forward (K / V expanded to the query heads, a yardstick the
+    port never calls)."""
+    b, lq, hq, hkv, d = TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128
+    q, k, v = prefill_case(gen, b, lq, lq, hq, hkv, d)
+    do = rand(gen, (b, lq, hq, d))
+    o, lse = fprefill.flash_prefill_lse(q, k, v, causal=True)
+    got = fprefill.flash_prefill_bwd(q, k, v, o, lse, do, causal=True)
+    want = fprefill.prefill_backward_plain(
+        *(f64(t) for t in (q, k, v, o, lse, do)), causal=True)
+    errs = [normwise(g, w) for g, w in zip(got, want)]
+    check(max(errs) <= TRAIN_GRAD_TOL, f"K3b at the training cell: {errs}")
+    bwd_err = max(float((g.double() - w).abs().max())
+                  for g, w in zip(got, want))
+    fwd_err = max_err(o, fprefill.prefill_plain(f64(q), f64(k), f64(v),
+                                                causal=True), PREFILL_TOL)
+    fwd_flops = 4 * b * hq * d * lq * (lq + 1) / 2
+    qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (
+        q, k.repeat_interleave(hq // hkv, dim=2),
+        v.repeat_interleave(hq // hkv, dim=2), do))
+    leaves = [t.detach().requires_grad_(True) for t in (qs, ks, vs)]
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              scale=1.0)
+
+    fb_ms = time_ms(lambda: torch.autograd.grad(sdpa_fwd(), leaves, dos),
+                    100, flush)
+    f_ms = time_ms(sdpa_fwd, 100, flush)
+    shape = (f"B{b} Lq=Lk={lq} Hq{hq} Hkv{hkv} D{d} causal bf16, training "
+             f"cell")
+    rows = [dict(
+        name="flash_prefill", shape=shape + ", with its LSE",
+        fn=functools.partial(fprefill.flash_prefill_lse, q, k, v,
+                             causal=True),
+        plain=lambda: (prefill_plain(q, k, v, causal=True),
+                       fprefill.prefill_lse_plain(q, k, causal=True)),
+        lib=functools.partial(F.scaled_dot_product_attention,
+                              *(t.transpose(1, 2) for t in (q, k, v)),
+                              is_causal=True, scale=1.0, enable_gqa=True),
+        nbytes=2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel(),
+        flops=fwd_flops, err=fwd_err,
+        launches=launches["flash_prefill"]), dict(
+        name="flash_prefill_bwd", shape=shape,
+        fn=functools.partial(fprefill.flash_prefill_bwd, q, k, v, o, lse, do,
+                             causal=True),
+        plain=functools.partial(fprefill.prefill_backward_plain, q, k, v, o,
+                                lse, do, causal=True),
+        lib=None, library_ms=fb_ms - f_ms,
+        # q, k, v, o, do and the LSE read; dq, dk, dv written
+        nbytes=2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                    + do.numel()) + 4 * lse.numel(),
+        flops=2.5 * fwd_flops, err=bwd_err, tol=TRAIN_GRAD_TOL,
+        launches=launches["flash_prefill_bwd"])]
+    print(f"K3b at the training cell against float64, normwise: dq "
+          f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (tol "
+          f"{TRAIN_GRAD_TOL}); SDPA forward+backward {fb_ms:.4f} ms, "
+          f"forward {f_ms:.4f} ms")
+    return {"k3b_normwise": errs, "sdpa_fwd_bwd_ms": fb_ms,
+            "sdpa_fwd_ms": f_ms}, rows
+
+
 def timed(name: str, fn, *args, **kw):
     """``fn(*args, **kw)``, printing the phase's wall seconds."""
     t0 = time.perf_counter()
@@ -6216,7 +6727,7 @@ def main(argv=None) -> int:
                              "times", "table1", "shapes", "paged", "spec",
                              "archs", "tune", "moe", "obs", "mla",
                              "vlm", "encdec", "hybrid", "ssm", "shard",
-                             "tp"),
+                             "tp", "train"),
                     default="all",
                     help="'kernels' stops after build and kernel parity; "
                          "'digests' builds, then runs the main path's "
@@ -6250,7 +6761,9 @@ def main(argv=None) -> int:
                          "and sequence-sharded at sp 4; 'tp' builds, then "
                          "serves qwen2.5-3b tensor-parallel and "
                          "granite-moe-3b-a800m expert-parallel and runs "
-                         "the frozen mesh step builders")
+                         "the frozen mesh step builders; 'train' builds, "
+                         "then trains qwen2.5-3b at full width on the "
+                         "prefill kernel and its backward")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -6290,6 +6803,16 @@ def main(argv=None) -> int:
     if args.phase == "moe":
         moe = timed("moe", phase_moe, args.seed)
         print(json.dumps({"moe": moe, "card": card}))
+        return 0
+    if args.phase == "train":
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+        train, rows = timed("train", phase_train, args.seed, flush)
+        print(json.dumps({"train": train, "card": card}))
+        print(card)
+        print(json.dumps({"kernels": kernel_line(rows, flush)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
     if args.phase in ("mla", "vlm", "encdec", "hybrid", "ssm"):
         fn = {"mla": phase_mla, "vlm": phase_vlm, "encdec": phase_encdec,
@@ -6370,10 +6893,12 @@ def main(argv=None) -> int:
     # speculation keeps the full depth: how many verify steps its cell
     # takes depends on the streams, and its check counts 4 of them
     spec = timed("spec", phase_spec, model, params, cfg, args.seed)
-    # the later qwen2.5-3b paths on a model cut in depth, from the seed
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
+    # training at full width and depth, once the serving model is freed
+    train, train_rows = timed("train", phase_train, args.seed, flush)
+    # the later qwen2.5-3b paths on a model cut in depth, from the seed
     cut = cut_depth(cfg, DEFAULT_RUN_LAYERS["qwen"])
     model = build_model(cut, device=DEVICE)
     params = model.init_params(args.seed)
@@ -6401,7 +6926,8 @@ def main(argv=None) -> int:
         gen, sms, archs) + arch_kernel_rows(gen, sms, moe) + \
         single_kv_head_rows(gen, sms, mla, vlm) + \
         side_shape_rows(gen, sms, encdec, hybrid) + \
-        shard_kernel_rows(gen, sms, shard) + tp_kernel_rows(gen, sms, tp)
+        shard_kernel_rows(gen, sms, shard) + tp_kernel_rows(gen, sms, tp) + \
+        train_rows
     kernels = timed("kernels line", phase_kernels_line, gen, sms, errs,
                     counts, flush, serving["prefill_launches"],
                     serving["decode_launches"], qserving["decode_launches"],
@@ -6416,7 +6942,7 @@ def main(argv=None) -> int:
                       "archs": archs, "moe": moe, "mla": mla,
                       "vlm": vlm, "encdec": encdec, "hybrid": hybrid,
                       "ssm": ssm, "shard": shard, "tp": tp,
-                      "table1": table1,
+                      "train": train, "table1": table1,
                       "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

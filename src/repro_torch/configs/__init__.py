@@ -5,8 +5,11 @@ from repro_torch.configs.base import (  # noqa: F401
     MLAConfig,
     ModelConfig,
     MoEConfig,
+    OptimizerConfig,
     SSMConfig,
     ServeConfig,
+    ShapeConfig,
+    TrainConfig,
     get_arch,
     register_arch,
 )

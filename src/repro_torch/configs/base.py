@@ -17,6 +17,8 @@ mesh-native topology (``shard``).
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
@@ -150,7 +152,47 @@ class ShapeConfig:
         return self.kind == "decode"
 
 
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
 DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW's settings, field for field the reference's."""
+    name: str = "adamw"
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    schedule: str = "cosine"           # cosine | linear | constant
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip_norm: float = 1.0
+    # none | int8_ef (int8 + error feedback): the reference's train step
+    # reads it nowhere (only its multi-device tests compress gradients),
+    # and neither does the port's
+    grad_compression: str = "none"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """A training run: the reference's fields but its ``mesh``.  The port
+    trains on one device (mesh training is ROADMAP Queue 1's next item),
+    so it has no ``MeshConfig``."""
+    model: ModelConfig
+    shape: ShapeConfig = TRAIN_4K
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    microbatches: int = 1              # gradient accumulation steps
+    remat_policy: str = "nothing_saveable"   # see training/remat.py
+    seed: int = 0
+    # the reference's /tmp/repro_ckpt, under the process's temp directory
+    checkpoint_dir: str = field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "repro_ckpt"))
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    async_checkpoint: bool = True
+    log_every: int = 10
 
 
 @dataclass(frozen=True)

@@ -21,6 +21,10 @@
 //    Lk are masked here, so the caller pads nothing.
 //  - Online softmax in f32; the output is acc / max(l, 1e-30), as in the
 //    reference, so a row with no valid key is 0.
+//  - On request (a non-null lse, the training path's forward) each row's
+//    log-sum-exp of the scaled scores, natural base, goes to an f32 (B, Hq,
+//    Lq) buffer for the backward (flash_prefill_bwd.cu); +inf on a row with
+//    no valid key.  Serving passes null and writes nothing more.
 //
 // bf16 (prefill_kernel_tc): FA3's forward on the tensor cores.
 //  - CTA = 1 consumer warpgroup (64 query rows) + 1 producer warp.  The
@@ -99,6 +103,7 @@ prefill_kernel_simt(const T* __restrict__ q,   // (B, Lq, Hq, D), pre-scaled
                     const T* __restrict__ k,   // (B, Lk, Hkv, D)
                     const T* __restrict__ v,
                     T* __restrict__ out,       // (B, Lq, Hq, D)
+                    float* __restrict__ lse,   // (B, Hq, Lq) or null
                     int Lq, int Lk, int Hq, int Hkv, int causal, int window,
                     int q_offset) {
     constexpr int kBQ = kSimtBQ, kBK = kSimtBK, kThreads = kSimtThreads;
@@ -277,13 +282,16 @@ prefill_kernel_simt(const T* __restrict__ q,   // (B, Lq, Hq, D), pre-scaled
 #pragma unroll
         for (int c = 0; c < kDV; ++c)
             obase[row * q_row + tx * kDV + c] = from_float<T>(o[i][c] / den);
+        if (lse != nullptr && tx == 0)
+            lse[(static_cast<long long>(b) * Hq + h) * Lq + row] =
+                l_r[i] > 0.f ? m_r[i] + logf(l_r[i]) : INFINITY;
     }
 }
 
 template <int D>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
-                        void* out, int B, int Lq, int Lk, int Hq, int Hkv,
-                        int causal, int window, int q_offset,
+                        void* out, float* lse, int B, int Lq, int Lk, int Hq,
+                        int Hkv, int causal, int window, int q_offset,
                         cudaStream_t stream) {
     auto kernel = prefill_kernel_simt<float, D>;
     constexpr size_t smem = simt_smem_bytes<D>();
@@ -295,8 +303,8 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
     dim3 grid((Lq + kSimtBQ - 1) / kSimtBQ, Hq, B);
     kernel<<<grid, kSimtThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), Lq, Lk, Hq,
-        Hkv, causal, window, q_offset);
+        static_cast<const float*>(v), static_cast<float*>(out), lse, Lq, Lk,
+        Hq, Hkv, causal, window, q_offset);
     return cudaGetLastError();
 }
 
@@ -310,6 +318,7 @@ constexpr int kStages = 2;                 // K/V slots in the ring
 constexpr int kThreads = 128 + 32;         // consumer warpgroup + producer
 constexpr int kBox = 64 * 128;             // one 64-row x 64-column bf16 box
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // A row of D columns is ceil(D / 64) boxes of 64; at D = 160 (and at
 // MLA's DK = 96) the last box's last 32 columns lie past the tensor, so
@@ -342,6 +351,7 @@ prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,DK)
                   const __grid_constant__ CUtensorMap tk,   // (B,Lk,Hkv,DK)
                   const __grid_constant__ CUtensorMap tv,   // (B,Lk,Hkv,DV)
                   __nv_bfloat16* __restrict__ out,          // (B,Lq,Hq,DV)
+                  float* __restrict__ lse,                  // (B,Hq,Lq)|null
                   int Lq, int Lk, int Hq, int Hkv, int causal, int window,
                   int q_offset) {
     using S = TcShape<DK, DV>;
@@ -598,6 +608,11 @@ prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,DK)
                     __floats2bfloat162_rn(o[hf][i] * inv[r],
                                           o[hf][i + 1] * inv[r]);
             }
+        // the row's log-sum-exp of the scaled scores, natural base, from
+        // the base-2 running max and sum; +inf where no key was valid
+        if (lse != nullptr && lane % 4 == 0)
+            lse[(static_cast<long long>(b) * Hq + h) * Lq + row] =
+                l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : INFINITY;
     }
 }
 
@@ -651,8 +666,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int H, int D) {
 
 template <int DK, int DV = DK>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
-                      int B, int Lq, int Lk, int Hq, int Hkv, int causal,
-                      int window, int q_offset, cudaStream_t stream) {
+                      float* lse, int B, int Lq, int Lk, int Hq, int Hkv,
+                      int causal, int window, int q_offset,
+                      cudaStream_t stream) {
     using S = TcShape<DK, DV>;
     auto kernel = prefill_kernel_tc<DK, DV>;
     // opt in to more than 48 KB of dynamic shared memory, once per kernel
@@ -666,8 +682,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
         return cudaErrorInvalidValue;
     dim3 grid(Hq, B, (Lq + kBQ - 1) / kBQ);
     kernel<<<grid, kThreads, S::kSmem, stream>>>(
-        tq, tk, tv, static_cast<__nv_bfloat16*>(out), Lq, Lk, Hq, Hkv, causal,
-        window, q_offset);
+        tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, Lq, Lk, Hq, Hkv,
+        causal, window, q_offset);
     return cudaGetLastError();
 }
 
@@ -690,29 +706,34 @@ cudaError_t launch_d(int D, Args... args) {
 }  // namespace
 
 // q (B, Lq, Hq, D), k (B, Lk, Hkv, D), v (B, Lk, Hkv, Dv) and out (B, Lq,
-// Hq, Dv), contiguous.  Dv = D, or (D, Dv) = (96, 64) in bf16.
+// Hq, Dv), contiguous.  Dv = D, or (D, Dv) = (96, 64) in bf16.  lse, when
+// not null, receives each (b, query head, row)'s log-sum-exp of the scaled
+// scores in the natural base, (B, Hq, Lq) f32, for the backward
+// (flash_prefill_bwd.cu); serving passes null.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              void* out, int B, int Lq, int Lk, int Hq,
                              int Hkv, int D, int Dv, int causal, int window,
-                             int q_offset, int dtype, void* stream) {
+                             int q_offset, int dtype, void* lse_out,
+                             void* stream) {
     if (B < 1 || Lq < 1 || Lk < 1 || Hkv < 1 || Hq % Hkv != 0 ||
         B > 65535 || (Lq + 63) / 64 > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    float* lse = static_cast<float*>(lse_out);
     if (Dv != D) {
         if (dtype == REPRO_DTYPE_BF16 && D == 96 && Dv == 64)
             return static_cast<int>(launch_tc<96, 64>(
-                q, k, v, out, B, Lq, Lk, Hq, Hkv, causal, window, q_offset,
-                st));
+                q, k, v, out, lse, B, Lq, Lk, Hq, Hkv, causal, window,
+                q_offset, st));
         return static_cast<int>(cudaErrorInvalidValue);
     }
     if (dtype == REPRO_DTYPE_BF16)
         return static_cast<int>(launch_d<true>(
-            D, q, k, v, out, B, Lq, Lk, Hq, Hkv, causal, window, q_offset,
-            st));
+            D, q, k, v, out, lse, B, Lq, Lk, Hq, Hkv, causal, window,
+            q_offset, st));
     if (dtype == REPRO_DTYPE_F32)
         return static_cast<int>(launch_d<false>(
-            D, q, k, v, out, B, Lq, Lk, Hq, Hkv, causal, window, q_offset,
-            st));
+            D, q, k, v, out, lse, B, Lq, Lk, Hq, Hkv, causal, window,
+            q_offset, st));
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -30,6 +30,10 @@ in layer order), an ssm model's ``{"state", "conv"}``; or encdec's
 (dtype name ``bfloat16``) are read through a ``uint16`` view and
 float8_e4m3fn ones through a ``uint8`` view, so neither JAX nor
 ``ml_dtypes`` is imported.
+``params_to_numpy(params, cfg)`` is ``params_from_numpy``'s inverse: the
+reference's tree from the port's weights, or from a dict of tensors
+under the weights' names (their gradients), each group's layers stacked
+again; bfloat16 leaves come back as the float32 of the same values.
 """
 from __future__ import annotations
 
@@ -126,6 +130,71 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     module.load_state_dict({k: v.to(want[k].dtype)
                             for k, v in state.items()})
     return module
+
+
+def _nest(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """Dotted names -> nested dicts (``mix.wq`` -> {"mix": {"wq": ..}})."""
+    out: Dict[str, Any] = {}
+    for name, arr in flat.items():
+        *path, leaf = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+    return out
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bfloat16 becomes float32,
+    which holds every bfloat16 value exactly (numpy has no bfloat16), so
+    :func:`params_from_numpy`'s cast to bfloat16 gives the same bits
+    back."""
+    t = t.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def params_to_numpy(params: Any, cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`: the reference's param tree
+    of numpy arrays from the port's weights (an :class:`LM` or
+    :class:`EncDec`), or from any dict keyed by their ``state_dict``
+    names (gradients, for one).  Each scan group's layers are stacked
+    back along a leading axis, ``groups[g][k]`` for pattern position k
+    (encdec: ``enc_layers`` and ``dec_layers``), and the result is a
+    nested dict with a tuple of tuples under ``groups``.  bfloat16
+    leaves come back as float32 of the same values (exact); float32 ones
+    as float32."""
+    flat = (params.state_dict() if isinstance(params, torch.nn.Module)
+            else dict(params))
+    flat = {n: tensor_to_numpy(t) for n, t in flat.items()}
+    top = {n: a for n, a in flat.items() if not n.startswith(
+        ("layers.", "enc_layers.", "dec_layers."))}
+    tree = _nest(top)
+
+    def stacked(prefix: str, layer_ids) -> Dict[str, Any]:
+        names = sorted({n.split(".", 2)[2] for n in flat
+                        if n.startswith(f"{prefix}.{layer_ids[0]}.")})
+        return _nest({name: np.stack([flat[f"{prefix}.{li}.{name}"]
+                                      for li in layer_ids])
+                      for name in names})
+
+    if cfg.family == "encdec":
+        tree["enc_layers"] = stacked("enc_layers",
+                                     list(range(cfg.num_encoder_layers)))
+        tree["dec_layers"] = stacked("dec_layers",
+                                     list(range(cfg.num_layers)))
+        return tree
+    groups = []
+    first = 0
+    for pattern, reps in layer_groups(cfg):
+        groups.append(tuple(
+            stacked("layers", [first + r * len(pattern) + k
+                               for r in range(reps)])
+            for k in range(len(pattern))))
+        first += reps * len(pattern)
+    tree["groups"] = tuple(groups)
+    return tree
 
 
 def cache_from_numpy(tree: Any, cfg: ModelConfig,

@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
 KERNELS = ("flash_decode", "flash_combine", "flash_prefill",
-           "flash_decode_quant")
+           "flash_decode_quant", "flash_prefill_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -130,6 +130,17 @@ def ring_rows(x: torch.Tensor, ring: int) -> torch.Tensor:
     return x[:, src]
 
 
+def attention_train(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                    rope: Rope, *, window: Optional[int] = None
+                    ) -> torch.Tensor:
+    """Causal (with a ``window``, local) attention over a whole sequence,
+    x (B, L, d) -> (B, L, d): the training path, the reference's
+    ``attention_train``.  It runs ``ops.attention``, which differentiates
+    through the prefill kernel and its backward on the card."""
+    q, k, v = _project_qkv(p, cfg, x, rope)
+    return _out_proj(p, ops.attention(q, k, v, causal=True, window=window))
+
+
 def attention_prefill(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                       rope: Rope, *, kv_dtype: str = "bfloat16",
                       window: Optional[int] = None,

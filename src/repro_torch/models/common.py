@@ -67,8 +67,11 @@ class SpecModule(nn.Module):
     """A module whose parameters are declared by ParamSpecs.  Parameters
     are allocated uninitialised, in the spec's dtype when it names one
     (the MoE router's float32) and in ``dtype`` otherwise;
-    :func:`init_params` or a state dict fills them.  They are inference
-    weights: no gradients."""
+    :func:`init_params` or a state dict fills them.  They are created
+    frozen (``requires_grad=False``): serving's weights never need a
+    gradient.  The training path makes its own copy trainable
+    (:meth:`repro_torch.models.registry.Model.trainable`, called by the
+    train bundle's ``init``)."""
 
     def __init__(self, specs: Dict[str, ParamSpec], dtype: torch.dtype,
                  device: torch.device):

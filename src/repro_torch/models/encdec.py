@@ -116,7 +116,6 @@ def _ffn(block, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                          cfg.mlp_kind)
 
 
-@torch.no_grad()
 def encode(params: EncDec, cfg: ModelConfig,
            frames: torch.Tensor) -> torch.Tensor:
     """frames (B, T, d_model) stub embeddings -> the encoder output (B, T,
@@ -180,11 +179,13 @@ def _cross_rows(cross: Caches, slot: slice = slice(None)):
                        "v": cross["cross_v"][li, slot]}
 
 
-@torch.no_grad()
 def encdec_forward(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
                    frames: torch.Tensor) -> torch.Tensor:
-    """The teacher-forced pass: encode ``frames``, then the decoder over
-    ``tokens`` (B, L).  Returns the logits (B, L, vocab) f32."""
+    """The teacher-forced pass, the training path: encode ``frames``,
+    then the decoder over ``tokens`` (B, L).  Returns the logits (B, L,
+    vocab) f32.  It runs with grad (the reference differentiates through
+    the encoder and the decoder); serving's prefill and decode steps run
+    under ``no_grad``."""
     cross = build_cross_caches(params, cfg, encode(params, cfg, frames))
     x, _ = _decoder_prefill(params, cfg, _embed(params, tokens),
                             _cross_rows(cross))

@@ -14,7 +14,8 @@ is a gated MLP (swiglu, or geglu for gemma-style configs) or a
 are the rows each step passes: the padded prompt bucket in prefill, the
 padded suffix bucket in suffix prefill, one token per slot in decode,
 k + 1 rows per slot in verify).  Serving discards the MoE load-balance
-loss, as the reference does.  A ``vlm`` config (PaliGemma) adds the
+loss, as the reference does; the training forward (:func:`lm_forward`,
+:func:`block_train`) returns it.  A ``vlm`` config (PaliGemma) adds the
 ``patch_proj`` weight: :func:`lm_prefill` projects a vision stub's patch
 embeddings and prepends them to the text.  Layers are an
 ``nn.ModuleList`` walked by a Python loop (the reference scans a
@@ -32,7 +33,7 @@ rows.  Decode, suffix prefill and verify update them in place.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -182,6 +183,75 @@ def _ffn(block: Block, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.moe is not None:
         return x + moe_mod.apply_moe(block.ffn, cfg, h2)
     return x + apply_mlp(block.ffn, h2, cfg.mlp_kind)
+
+
+def block_train(block: Block, cfg: ModelConfig, x: torch.Tensor,
+                rope: Rope) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block over a whole sequence, the training path (the
+    reference's ``block_train``): (x, the block's auxiliary loss, f32;
+    a MoE FFN's load-balance loss, else 0)."""
+    h = rms_norm(x, block.ln1.scale, cfg.norm_eps)
+    if block.kind == "mla":
+        mix = mla_mod.mla_train(block.mix, cfg, h, rope)
+    elif block.kind == "rglru":
+        mix = rglru_mod.apply_rglru_train(block.mix, cfg, h)
+    elif block.kind == "ssd":
+        mix = ssd_mod.apply_ssd_train(block.mix, cfg, h)
+    else:
+        mix = attn_mod.attention_train(
+            block.mix, cfg, h, rope,
+            window=cfg.hybrid.window if block.kind == "attn_window"
+            else None)
+    x = x + mix
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not has_mlp(block.kind):
+        return x, aux
+    h2 = rms_norm(x, block.ln2.scale, cfg.norm_eps)
+    if cfg.moe is not None:
+        y, aux = moe_mod.apply_moe_train(block.ffn, cfg, h2)
+    else:
+        y = apply_mlp(block.ffn, h2, cfg.mlp_kind)
+    return x + y, aux
+
+
+def lm_forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
+               patches: Optional[torch.Tensor] = None,
+               block_wrapper: Optional[Callable] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward (the reference's ``lm_forward``): tokens (B,
+    L_text), a vision config's ``patches`` (B, P, embed_dim) projected by
+    ``patch_proj`` and prepended, then every block.  Returns (logits (B,
+    L_total, vocab) f32, the summed auxiliary loss).  Layers run in the
+    reference's scan groups (:func:`layer_groups`): one repetition of a
+    group's pattern is one body, which ``block_wrapper`` (a remat policy,
+    :func:`repro_torch.training.remat.block_wrapper`) wraps, as the
+    reference wraps its scan body."""
+    x = embed_tokens(params.embed, tokens)
+    if cfg.frontend.kind == "vision":
+        if patches is None:
+            raise ValueError("a vision config's forward needs patches")
+        pp = patches.to(x.dtype) @ params.patch_proj.to(x.dtype)
+        x = torch.cat([pp, x], dim=1)
+    L = x.shape[1]
+    rope = rope_angles(torch.arange(L, device=x.device)[None],
+                       rope_dim(cfg), cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body_of(blocks):
+        def body(xc, auxc):
+            for block in blocks:
+                xc, a = block_train(block, cfg, xc, rope)
+                auxc = auxc + a
+            return xc, auxc
+        return block_wrapper(body) if block_wrapper is not None else body
+
+    first = 0
+    for pattern, reps in layer_groups(cfg):
+        for _ in range(reps):
+            blocks = params.layers[first:first + len(pattern)]
+            x, aux = body_of(blocks)(x, aux)
+            first += len(pattern)
+    return _logits(params, cfg, x), aux
 
 
 def block_prefill(block: Block, cfg: ModelConfig, x: torch.Tensor,

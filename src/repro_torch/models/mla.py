@@ -96,14 +96,19 @@ def _queries(p: MLA, cfg: ModelConfig, x: torch.Tensor, rope: Rope
     return q[..., :dn], apply_rope(q[..., dn:], rope)
 
 
-def mla_prefill(p: MLA, cfg: ModelConfig, x: torch.Tensor, rope: Rope
-                ) -> Tuple[torch.Tensor, LayerCache]:
-    """Causal MLA over a whole prompt (the reference's ``mla_train``)
-    plus the prompt's latent rows.  Returns (y (B, L, d), ``{"latent":
-    (B, L, 1, r + rope)}`` in the model's dtype; the caller's write
-    casts it to the cache's bfloat16).  ``rope`` holds the angles at
-    width ``qk_rope_head_dim``.  Attention runs at q / k width nope +
-    rope and v width ``v_head_dim``, scaled by the q width ** -0.5."""
+def mla_train(p: MLA, cfg: ModelConfig, x: torch.Tensor, rope: Rope
+              ) -> torch.Tensor:
+    """Causal MLA over a whole sequence, x (B, L, d) -> (B, L, d): the
+    reference's ``mla_train``.  K and V are rebuilt from the latent;
+    attention runs at q / k width nope + rope and v width ``v_head_dim``,
+    scaled by the q width ** -0.5.  ``rope`` holds the angles at width
+    ``qk_rope_head_dim``."""
+    return _mla_attend(p, cfg, x, rope)[0]
+
+
+def _mla_attend(p: MLA, cfg: ModelConfig, x: torch.Tensor, rope: Rope
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(:func:`mla_train`'s output, c_kv, k_rope)."""
     m = cfg.mla
     q_nope, q_rope = _queries(p, cfg, x, rope)
     c_kv, k_rope = _latents(p, cfg, x, rope)
@@ -114,7 +119,15 @@ def mla_prefill(p: MLA, cfg: ModelConfig, x: torch.Tensor, rope: Rope
     k = torch.cat([k_nope, k_rope[:, :, None].expand(
         B, L, H, m.qk_rope_head_dim)], dim=-1)
     out = ops.attention(q, k, v.contiguous(), causal=True)
-    y = attn_mod._out_proj(p, out)
+    return attn_mod._out_proj(p, out), c_kv, k_rope
+
+
+def mla_prefill(p: MLA, cfg: ModelConfig, x: torch.Tensor, rope: Rope
+                ) -> Tuple[torch.Tensor, LayerCache]:
+    """:func:`mla_train` plus the prompt's latent rows: (y (B, L, d),
+    ``{"latent": (B, L, 1, r + rope)}`` in the model's dtype; the
+    caller's write casts it to the cache's bfloat16)."""
+    y, c_kv, k_rope = _mla_attend(p, cfg, x, rope)
     latent = torch.cat([c_kv, k_rope], dim=-1)[:, :, None]
     return y, {"latent": latent.to(getattr(torch, cfg.dtype))}
 

@@ -102,7 +102,7 @@ def load_balance_loss(probs: torch.Tensor, experts: torch.Tensor,
                       num_experts: int) -> torch.Tensor:
     """The Switch load-balance loss of one routing, as the reference's
     ``_route`` returns it: E * sum_e(fraction of top-1 choices * mean
-    probability).  Serving does not need it; training will."""
+    probability).  Serving discards it; training adds it to the loss."""
     frac = F.one_hot(experts[..., 0], num_experts).float().mean(dim=(0, 1))
     return num_experts * (frac * probs.mean(dim=(0, 1))).sum()
 
@@ -146,13 +146,13 @@ def _expert_ffn(p: MoE, xin: torch.Tensor) -> torch.Tensor:
 
 
 def _moe_einsum(p: MoE, cfg: ModelConfig, x: torch.Tensor, capacity: int
-                ) -> torch.Tensor:
-    """x: (G, S, d) -> (G, S, d).  One-hot dispatch and
-    combine, one (G, S, E, C) tensor per k."""
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (G, S, d) -> ((G, S, d), the load-balance loss).  One-hot
+    dispatch and combine, one (G, S, E, C) tensor per k."""
     moe = cfg.moe
     G, S, d = x.shape
     E, C = moe.num_experts, capacity
-    gates, experts, _ = _route(p, cfg, x)
+    gates, experts, probs = _route(p, cfg, x)
     onehot, pos = _positions_in_expert(experts, E)
     keep = pos < C
     xin = x.new_zeros(G, E, C, d)
@@ -170,19 +170,20 @@ def _moe_einsum(p: MoE, cfg: ModelConfig, x: torch.Tensor, capacity: int
     for ki, disp_k in enumerate(disp):
         comb = disp_k * gates[:, :, ki, None, None].to(x.dtype)
         out = out + torch.einsum("gsec,gecd->gsd", comb, xout)
-    return out
+    return out, load_balance_loss(probs, experts, E)
 
 
 def _moe_gather(p: MoE, cfg: ModelConfig, x: torch.Tensor, capacity: int
-                ) -> torch.Tensor:
-    """x: (G, S, d) -> (G, S, d).  Kept assignments are copied
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (G, S, d) -> ((G, S, d), the load-balance loss).  Kept
+    assignments are copied
     to slot ``expert * C + pos`` of a per-group buffer; dropped ones go to
     its extra last row, which no expert reads and which combines as
     zeros."""
     moe = cfg.moe
     G, S, d = x.shape
     E, C, K = moe.num_experts, capacity, moe.top_k
-    gates, experts, _ = _route(p, cfg, x)
+    gates, experts, probs = _route(p, cfg, x)
     _, pos = _positions_in_expert(experts, E)
     slot = torch.where(pos < C, experts * C + pos, E * C).reshape(G, S * K)
     rows = torch.arange(G, device=x.device)[:, None]
@@ -191,7 +192,8 @@ def _moe_gather(p: MoE, cfg: ModelConfig, x: torch.Tensor, capacity: int
     xout = _expert_ffn(p, buf[:, :E * C].reshape(G, E, C, d))
     xout = torch.cat([xout.reshape(G, E * C, d), x.new_zeros(G, 1, d)], 1)
     picked = xout[rows, slot].reshape(G, S, K, d)               # combine
-    return (picked * gates[..., None].to(x.dtype)).sum(2)
+    return ((picked * gates[..., None].to(x.dtype)).sum(2),
+            load_balance_loss(probs, experts, E))
 
 
 def _expert_group(p: MoE, j: int, g: int, device: torch.device
@@ -292,21 +294,44 @@ def ep_applies(x: torch.Tensor) -> bool:
 def apply_moe(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
               dispatch: Optional[str] = None, group_size: int = 0
               ) -> torch.Tensor:
-    """MoE FFN over (B, L, d) activations -> (B, L, d).
+    """MoE FFN over (B, L, d) activations -> (B, L, d), serving's form:
+    :func:`apply_moe_train` without the load-balance loss, which serving
+    discards, as the reference's serving paths do.
 
     Groups are the (B, L) rows by default; ``group_size`` < L cuts each
     row into groups of that many tokens.  ``dispatch`` defaults to the
-    config's.  The reference also returns the load-balance loss, which
-    serving discards; ``load_balance_loss`` computes it from ``_route``."""
-    B, L, d = x.shape
-    moe = cfg.moe
-    dispatch = dispatch or moe.dispatch
+    config's."""
+    dispatch = _dispatch(cfg, dispatch)
+    if dispatch == "ep_shard_map" and ep_applies(x):
+        return _moe_ep_shard_map(p, cfg, x, current_mesh())
+    return apply_moe_train(p, cfg, x, dispatch=dispatch,
+                           group_size=group_size)[0]
+
+
+def _dispatch(cfg: ModelConfig, dispatch: Optional[str]) -> str:
+    dispatch = dispatch or cfg.moe.dispatch
     if dispatch not in DISPATCHES:
         raise ValueError(f"unknown MoE dispatch {dispatch!r}; known: "
                          f"{DISPATCHES}")
+    return dispatch
+
+
+def apply_moe_train(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
+                    dispatch: Optional[str] = None, group_size: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN over (B, L, d) -> (out (B, L, d), the Switch load-balance
+    loss, float32), the reference's ``apply_moe``: the training path's
+    form.  Expert parallelism over a bound mesh (``ep_shard_map`` where
+    :func:`ep_applies`) belongs to mesh training, which is not ported;
+    elsewhere ``ep_shard_map`` runs ``gather``, as the reference's."""
+    B, L, d = x.shape
+    moe = cfg.moe
+    dispatch = _dispatch(cfg, dispatch)
     if dispatch == "ep_shard_map":
         if ep_applies(x):
-            return _moe_ep_shard_map(p, cfg, x, current_mesh())
+            raise NotImplementedError(
+                "expert-parallel MoE with its load-balance loss is mesh "
+                "training (ROADMAP Queue 1, mesh training)")
         dispatch = "gather"
     if group_size and group_size < L:
         xg = x.reshape(B * (L // group_size), group_size, d)
@@ -316,4 +341,5 @@ def apply_moe(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     cap = _capacity(group_size, moe.num_experts, moe.top_k,
                     moe.capacity_factor)
     fn = _moe_gather if dispatch == "gather" else _moe_einsum
-    return fn(p, cfg, xg, cap).reshape(B, L, d)
+    out, aux = fn(p, cfg, xg, cap)
+    return out.reshape(B, L, d), aux

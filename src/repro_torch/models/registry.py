@@ -19,7 +19,7 @@ card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -220,19 +220,34 @@ class Model:
         return CacheManager(self, self.cache_spec(batch, max_len, kv_dtype,
                                                   **layout_kw), label=label)
 
-    def forward(self, params, batch: Dict[str, torch.Tensor]
+    def forward(self, params, batch: Dict[str, torch.Tensor], *,
+                block_wrapper: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Teacher-forced logits (B, L, vocab) f32 and the auxiliary loss
-        (0), for the encdec family: ``batch`` holds ``tokens`` and
-        ``frames``.  The decoder-only families' train path comes with
-        training (ROADMAP Queue 1 item 7)."""
-        if self.cfg.family != "encdec":
-            raise NotImplementedError(
-                f"the {self.cfg.family} family's train-path forward is not "
-                "ported yet")
-        logits = encdec_mod.encdec_forward(params, self.cfg,
-                                           batch["tokens"], batch["frames"])
-        return logits, torch.zeros((), device=logits.device)
+        """The training forward: (logits (B, L_total, vocab) f32, the
+        auxiliary loss f32), the reference's ``Model.forward``.  ``batch``
+        holds ``tokens`` (B, L_text) and, for a vision config,
+        ``patches``, or, for an encdec config, ``frames``.
+        ``block_wrapper`` wraps each repetition of a layer group's
+        pattern (a remat policy); encdec takes none, as the reference's
+        does.  It builds an autograd graph where the weights require
+        gradients (:meth:`trainable`)."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            logits = encdec_mod.encdec_forward(params, cfg, batch["tokens"],
+                                               batch["frames"])
+            return logits, torch.zeros((), device=logits.device)
+        return lm_mod.lm_forward(params, cfg, batch["tokens"],
+                                 patches=batch.get("patches"),
+                                 block_wrapper=block_wrapper)
+
+    @staticmethod
+    def trainable(params: torch.nn.Module) -> torch.nn.Module:
+        """Mark every weight of ``params`` as needing a gradient, in place,
+        and return it.  Weights are created frozen for serving; only the
+        training path calls this, on a copy of its own."""
+        for p in params.parameters():
+            p.requires_grad_(True)
+        return params
 
     def prefill(self, params, batch: Dict[str, torch.Tensor],
                 max_len: int, kv_dtype: str = "bfloat16"

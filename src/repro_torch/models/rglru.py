@@ -93,12 +93,12 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t h_{t-1} + b_t`` along dim 1 from ``h_{-1} = 0``, for
     every t at once: ceil(log2 L) rounds of the associative combine
     ``(a_l, b_l) . (a_r, b_r) = (a_l a_r, b_l a_r + b_r)``, each a few
-    elementwise ops over the whole sequence."""
-    a, b = a.clone(), b.clone()
+    elementwise ops over the whole sequence.  Each round builds new
+    tensors (no in-place write), so autograd differentiates the scan."""
     off, L = 1, a.shape[1]
     while off < L:
-        b[:, off:] = a[:, off:] * b[:, :-off] + b[:, off:]
-        a[:, off:] = a[:, off:] * a[:, :-off]
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]], 1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], 1)
         off *= 2
     return b
 

@@ -10,6 +10,10 @@ every pytest worker collects the same tests.
 
 Tolerances: bf16 2e-2 for decode and 3e-2 for prefill (both kernels'
 tensor-core bodies carry P as two bf16 terms in P V),
+the prefill backward's dq, dk, dv normwise against the float64 plain
+backward: 1e-2 in bf16 (its outputs round to bf16, 2^-9 a value), 1e-5
+in float32; the prefill kernel's LSE within 1e-4 of the largest
+|LSE| (scores summed in f32 on the tensor cores against float64),
 float32 2e-5 for the combine, the f32 decode and the f32 prefill (one
 fixed-order sum against another order), ``AB_ATOL`` (2e-2) for the
 quantized decode (its tensor-core body also carries P, times each key's
@@ -37,7 +41,15 @@ from repro_torch.kernels.flash_decode_quant import (
     flash_decode_quant,
     flash_decode_quant_partials,
 )
-from repro_torch.kernels.flash_prefill import flash_prefill, prefill_plain
+from repro_torch.kernels.flash_prefill import (
+    BWD_LAUNCHES_PER_CALL,
+    flash_prefill,
+    flash_prefill_bwd,
+    flash_prefill_lse,
+    prefill_backward_plain,
+    prefill_lse_plain,
+    prefill_plain,
+)
 from repro_torch.models import build_model
 from repro_torch.plan import AttentionSpec, LaunchPlan, Planner, plan_scope
 from repro_torch.quant import AB_ATOL, QuantizedKV, Quantizer
@@ -1640,3 +1652,128 @@ def test_tp_layer_on_the_card(cuda):
                                plan=plan)
     tol = 2e-2 * max(1.0, float(want.float().abs().max()))
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+# The prefill backward's shapes: the training cell, every head width the
+# forward takes (MLA's 96 / 64 pair too), causal, windowed and not,
+# cross attention's Lq != Lk, q_offset, ragged edges, groups of 1 to 8.
+BWD_CASES = [
+    (2, 1024, 1024, 16, 2, 128, 128, None, 0, True),   # the training cell
+    (1, 37, 37, 16, 2, 128, 128, None, 0, True),       # ragged
+    (1, 200, 200, 8, 8, 128, 128, None, 0, True),      # MHA
+    (1, 256, 256, 4, 1, 64, 64, 100, 0, True),         # D 64, window
+    (1, 300, 300, 6, 2, 64, 64, None, 0, False),       # not causal, G 3
+    (2, 100, 356, 8, 1, 160, 160, None, 256, True),    # q_offset, D 160
+    (1, 300, 300, 8, 2, 256, 256, 100, 0, True),       # D 256, window
+    (1, 200, 1500, 4, 4, 64, 64, None, 0, False),      # cross attention
+    (1, 256, 256, 8, 8, 96, 64, None, 0, True),        # MLA's widths
+    (1, 130, 130, 5, 1, 128, 128, None, 0, True),      # G 5
+]
+BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+def _normwise(got, want):
+    return float((got.double() - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _bwd_inputs(gen, b, lq, lk, hq, hkv, d, dv, dtype, scale=(1.0, 1.0)):
+    q = (_rand(gen, (b, lq, hq, d), torch.float32) * d ** -0.5).to(dtype)
+    k = (_rand(gen, (b, lk, hkv, d), torch.float32) * scale[0]).to(dtype)
+    v = (_rand(gen, (b, lk, hkv, dv), torch.float32) * scale[1]).to(dtype)
+    do = _rand(gen, (b, lq, hq, dv), dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,lq,lk,hq,hkv,d,dv,window,offset,causal",
+                         BWD_CASES)
+def test_prefill_backward_matches_plain(cuda, b, lq, lk, hq, hkv, d, dv,
+                                        window, offset, causal, dtype):
+    """The backward kernel's dq, dk, dv against the float64 plain backward
+    on the same inputs (o and lse from the plain forward), normwise; the
+    same inputs give the same bits."""
+    q, k, v, do = _bwd_inputs(cuda, b, lq, lk, hq, hkv, d, dv, dtype)
+    kw = dict(causal=causal, window=window, q_offset=offset)
+    o = prefill_plain(q, k, v, **kw).contiguous()
+    lse = prefill_lse_plain(q, k, **kw).float()
+    got = flash_prefill_bwd(q, k, v, o, lse, do, **kw)
+    want = prefill_backward_plain(*(t.double() for t in (q, k, v, o, lse,
+                                                         do)), **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        err = _normwise(g, w)
+        assert err <= BWD_TOL[dtype], (name, err)
+    again = flash_prefill_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("b,lq,lk,offset", [(2, 1024, 1024, 0),
+                                            (1, 64, 320, 256)])
+def test_prefill_backward_over_large_values(cuda, b, lq, lk, offset):
+    """K x 10, V x 100 (the full-width model's regime) in bf16: the
+    kernel's LSE and its gradient against the float64 plain versions."""
+    q, k, v, do = _bwd_inputs(cuda, b, lq, lk, 16, 2, 128, 128,
+                              torch.bfloat16, scale=(10.0, 100.0))
+    out, lse = flash_prefill_lse(q, k, v, causal=True, q_offset=offset)
+    want_lse = prefill_lse_plain(q.double(), k.double(), causal=True,
+                                 q_offset=offset)
+    assert float((lse.double() - want_lse).abs().max()) \
+        <= 1e-4 * max(1.0, float(want_lse.abs().max()))
+    got = flash_prefill_bwd(q, k, v, out, lse, do, causal=True,
+                            q_offset=offset)
+    want = prefill_backward_plain(*(t.double() for t in (q, k, v, out, lse,
+                                                         do)),
+                                  causal=True, q_offset=offset)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _normwise(g, w) <= BWD_TOL[torch.bfloat16], name
+
+
+# the forward takes unequal widths (MLA's 96 / 64) in bf16 only
+LSE_CASES = [(*c, dtype) for c in BWD_CASES
+             for dtype in (torch.bfloat16, torch.float32)
+             if c[5] == c[6] or dtype == torch.bfloat16]
+
+
+@pytest.mark.parametrize("b,lq,lk,hq,hkv,d,dv,window,offset,causal,dtype",
+                         LSE_CASES)
+def test_prefill_lse_matches_plain_and_keeps_the_output_bits(
+        cuda, b, lq, lk, hq, hkv, d, dv, window, offset, causal, dtype):
+    """The forward's LSE output against the float64 plain LSE, and the
+    output bits with and without it (serving passes no LSE buffer)."""
+    q, k, v, _ = _bwd_inputs(cuda, b, lq, lk, hq, hkv, d, dv, dtype)
+    kw = dict(causal=causal, window=window, q_offset=offset)
+    out, lse = flash_prefill_lse(q, k, v, **kw)
+    assert torch.equal(out, flash_prefill(q, k, v, **kw))
+    want = prefill_lse_plain(q.double(), k.double(), **kw)
+    assert lse.shape == (b, hq, lq) and lse.dtype == torch.float32
+    assert float((lse.double() - want).abs().max()) \
+        <= 1e-4 * max(1.0, float(want.abs().max()))
+
+
+def test_autograd_runs_both_kernels(cuda):
+    """flash_prefill under autograd on the card: one forward launch with
+    the LSE, BWD_LAUNCHES_PER_CALL backward launches, and the gradients
+    the backward kernel gives when called directly."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 256, 256, 16, 2, 128, 128,
+                              torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launch_counts()
+    out = flash_prefill(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    counts = ops.launch_counts()
+    assert counts["flash_prefill"] == 1
+    assert counts["flash_prefill_bwd"] == BWD_LAUNCHES_PER_CALL
+    assert ops.launch_counts_by_key("flash_prefill_bwd") == {
+        ("bfloat16", 256): BWD_LAUNCHES_PER_CALL}
+    o, lse = flash_prefill_lse(q, k, v, causal=True)
+    assert torch.equal(out.detach(), o)
+    direct = flash_prefill_bwd(q, k, v, o, lse, do, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(grads, direct))
+
+
+def test_prefill_backward_refuses_what_it_does_not_take(cuda):
+    """A width the kernels do not take raises under autograd, as it does
+    without: nothing falls back to the plain version."""
+    q, k, v, do = _bwd_inputs(cuda, 1, 64, 64, 4, 2, 32, 32, torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_prefill(q.requires_grad_(True), k, v, causal=True)

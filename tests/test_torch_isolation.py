@@ -69,7 +69,15 @@ def test_no_module_imports_jax_or_repro():
                  "repro_torch.sharding", "repro_torch.sharding.rules",
                  "repro_torch.sharding.ctx", "repro_torch.launch.mesh",
                  "repro_torch.sharding.place",
-                 "repro_torch.serving.decode_step"):
+                 "repro_torch.serving.decode_step",
+                 "repro_torch.training", "repro_torch.training.optimizer",
+                 "repro_torch.training.remat",
+                 "repro_torch.training.train_step",
+                 "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.fault", "repro_torch.fault.elastic",
+                 "repro_torch.fault.watchdog", "repro_torch.data",
+                 "repro_torch.data.synthetic", "repro_torch.launch.train"):
         assert want in res["modules"]
 
 
@@ -94,6 +102,21 @@ def test_entry_points_raise_without_cuda():
     assert len(run_serving("qwen2.5-3b", num_requests=1, max_new=1,
                            d_model=64, device="cpu",
                            log_fn=lambda line: None)) == 1
+    # training: the launcher and the bundle's model take the card unless
+    # asked for the CPU
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch.train import run_training
+    from repro_torch.training import build_train_step
+    tcfg = TrainConfig(model=cfg, shape=ShapeConfig("t", 16, 2, "train"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_train_step(build_model(cfg), tcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_training("qwen2.5-3b", steps=1, d_model=64)
+    bundle = build_train_step(model, tcfg)
+    params, state = bundle.init(0)
+    assert bundle.device == torch.device("cpu")
+    assert {p.device for p in params.parameters()} == {torch.device("cpu")}
+    assert state["count"].device == torch.device("cpu")
 
 
 def test_mesh_entry_points_raise_without_cuda():
