@@ -52,7 +52,10 @@ depth.)
 1. Environment and build: the card's name and power limit, CUDA version,
    SM count; all kernels built from ``src/repro_torch/csrc`` (one nvcc per
    source, in parallel) with ptxas's registers, shared memory, spills
-   and warnings; any spill fails the run.
+   and warnings; any spill fails the run.  Then K3b's two launches at
+   every width, bf16 and float32: the registers the runtime reports, the
+   dynamic shared memory and threads each launches with, and the dk / dv
+   launch's CTAs a chunk and CTAs an SM.
 2. Kernel parity: each kernel against its plain PyTorch version on the
    same CUDA tensors, at the main path's shapes, in bf16 (decode 2e-2,
    prefill 3e-2), plus a same-split-same-bits check.  The decode kernel
@@ -89,7 +92,12 @@ depth.)
    the prefill kernel at D = 160 and 256 (``PREFILL_WIDE_CASES``: causal,
    windowed, a q_offset with a ragged Lq; bf16, the sharp data, f32); the
    prefill kernel at the suffix prefill's shapes (``SUFFIX_CASES``, with
-   ``q_offset + Lq > Lk``), on random and on the sharp data.
+   ``q_offset + Lq > Lk``), on random and on the sharp data.  Last, K3b
+   (``BWD_PARITY_CASES``, from a generator of its own) in bf16 and
+   float32 on the forward kernel's output and LSE, against the float64
+   plain backward normwise (1e-2, 1e-5), the same bits again, each
+   case's digest in the ``parity digests`` line (float32's keep the
+   bits of the CUDA-core body; bf16's are the tensor-core bodies').
 3. Serving at full width: qwen2.5-3b (36 layers, d_model 2048, 16 query
    heads over 2 KV heads, bf16, seeded random weights) through
    ``ServingEngine`` submit/step/drain: 4 greedy requests, 2 slots, with
@@ -405,8 +413,9 @@ partials kernel followed by the combine kernel (the route of every
 slice before the fused kernel) at the decode shapes of phase 5, the
 quantized decode op (``ops.decode_attention_quant``) and the quantized
 partials kernel followed by the combine kernel there, over int8 and
-fp8, and the bf16 prefill kernel at the main path's buckets, beside
-SDPA and the timing floor.  These two, and ``--phase digests``, use
+fp8, the bf16 prefill kernel at the main path's buckets, beside
+SDPA and the timing floor, and K3b at ``BWD_TIME_SHAPES`` (D 64, and
+MLA's 96 / 64) beside its plain version, SDPA's backward and its bound.  These two, and ``--phase digests``, use
 only calls every slice of the port has, so a copy of this script in an
 older checkout runs that checkout's kernels.  ``--phase table1`` runs
 phase 4's Table 1 alone; ``--phase shapes`` times both decode kernels
@@ -628,6 +637,26 @@ PREFILL_WIDE_SHARP_CASES = [(1, 384, 384, 16, 2, d, None, 0, True)
 SUFFIX_CASES = [(1, 128, 512, 16, 2, 128, None, 448, True),
                 (1, 128, 1024, 16, 2, 128, None, 960, True),
                 (1, 128, 1024, 16, 2, 128, None, 1000, True)]
+# K3b's parity shapes, drawn from a generator of their own (seeded
+# BWD_PARITY_SEED) after every other parity case, so the cases before
+# them keep their inputs: b, lq, lk, hq, hkv, d, dv, window, q_offset,
+# causal.  The training cell (several chunks a key block), every width,
+# a window, q_offset, cross attention's Lq != Lk; float32 too where the
+# forward takes the widths
+BWD_PARITY_SEED = 28
+BWD_PARITY_CASES = [
+    (2, 1024, 1024, 16, 2, 128, 128, None, 0, True),
+    (1, 37, 37, 16, 2, 128, 128, None, 0, True),
+    (1, 256, 256, 4, 1, 64, 64, 100, 0, True),
+    (2, 100, 356, 8, 1, 160, 160, None, 256, True),
+    (1, 300, 300, 8, 1, 256, 256, 100, 0, True),
+    (1, 256, 256, 8, 8, 96, 64, None, 0, True),
+    (1, 200, 1500, 4, 4, 64, 64, None, 0, False),
+]
+# K3b's widths (D, Dv), and its --phase times shapes beside the training
+# cell's: b, l, hq, hkv, d, dv (causal, bf16)
+BWD_WIDTHS = ((64, 64), (128, 128), (160, 160), (256, 256), (96, 64))
+BWD_TIME_SHAPES = [(2, 1024, 16, 2, 64, 64), (1, 1024, 40, 40, 96, 64)]
 
 
 class SmokeFailure(Exception):
@@ -744,7 +773,27 @@ def phase_env_build():
     for name, res in results.items():
         print(f"build {name}: {res.seconds:.1f} s -> {res.path.name}")
         print_ptxas(name, res.log)
+    print_bwd_attrs()
     return card, props.multi_processor_count
+
+
+def print_bwd_attrs() -> None:
+    """K3b's two launches at every width and dtype: the registers the
+    runtime reports, the dynamic shared memory and threads each launches
+    with, and the dk / dv launch's CTAs a chunk (column groups) and CTAs
+    an SM.  A checkout without that query prints nothing."""
+    if not hasattr(fprefill, "bwd_attrs"):
+        return
+    for dtype in (torch.bfloat16, torch.float32):
+        for d, dv in BWD_WIDTHS:
+            a = fprefill.bwd_attrs(d, dv, dtype)
+            print(f"K3b {str(dtype)[6:]} ({d}, {dv}): dq {a['dq_registers']} "
+                  f"registers {a['dq_shared_bytes']} B dynamic shared, dk / "
+                  f"dv {a['dkdv_registers']} registers "
+                  f"{a['dkdv_shared_bytes']} B dynamic shared, "
+                  f"{a['dkdv_ctas_a_chunk']} CTA(s) a chunk, "
+                  f"{a['dkdv_ctas_an_sm']} an SM, {a['threads']} threads a "
+                  f"CTA")
 
 
 def print_ptxas(name: str, log: str) -> None:
@@ -1125,11 +1174,51 @@ def phase_parity(gen, sms: int, wide_gen=None):
             if src is gen:
                 digests.append((label, bits(got)))
             print(f"parity {label}: ok, max abs err {err:.3g}")
+    errs["flash_prefill_bwd"] = parity_bwd(digests)
     torch.cuda.synchronize()
     print(f"parity max abs errors: {json.dumps(errs)}")
     print(f"parity digests of the main path's {len(digests)} cases: "
           f"{json.dumps(digests)}")
     return errs
+
+
+def parity_bwd(digests) -> float:
+    """K3b at BWD_PARITY_CASES, bf16 and float32, on the forward kernel's
+    output and LSE: dq, dk, dv against the float64 plain backward,
+    normwise (TRAIN_GRAD_TOL in bf16, 1e-5 in float32), the same bits
+    again, and a digest of the three outputs each appended to
+    ``digests`` (float32's are the CUDA-core body's; bf16's the
+    tensor-core bodies').  Returns the worst normwise error."""
+    gen = torch.Generator(device=DEVICE).manual_seed(BWD_PARITY_SEED)
+    worst = 0.0
+    for b, lq, lk, hq, hkv, d, dv, window, off, causal in BWD_PARITY_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            if dtype == torch.float32 and d != dv:
+                continue          # the f32 forward takes equal widths only
+            q, k, _ = prefill_case(gen, b, lq, lk, hq, hkv, d, dtype)
+            v = rand(gen, (b, lk, hkv, dv), dtype)
+            do = rand(gen, (b, lq, hq, dv), dtype)
+            kw = dict(causal=causal, window=window, q_offset=off)
+            o, lse = fprefill.flash_prefill_lse(q, k, v, **kw)
+            got = fprefill.flash_prefill_bwd(q, k, v, o, lse, do, **kw)
+            want = fprefill.prefill_backward_plain(
+                *(f64(t) for t in (q, k, v, o, lse, do)), **kw)
+            tol = TRAIN_GRAD_TOL if dtype == torch.bfloat16 else 1e-5
+            errs = [normwise(g, w) for g, w in zip(got, want)]
+            label = (f"prefill_bwd {str(dtype)[6:]} B{b} Lq{lq} Lk{lk} "
+                     f"heads {hq}/{hkv} D{d}/{dv} window {window} q_offset "
+                     f"{off} causal {causal}")
+            check(max(errs) <= tol, f"parity {label}: normwise {errs} "
+                                    f"(tol {tol})")
+            again = fprefill.flash_prefill_bwd(q, k, v, o, lse, do, **kw)
+            check(all(torch.equal(a, g) for a, g in zip(again, got)),
+                  f"parity {label}: same inputs, other bits")
+            digests.append((label, bits(torch.cat([t.reshape(-1)
+                                                   for t in got]))))
+            worst = max(worst, max(errs))
+            print(f"parity {label}: ok, normwise dq {errs[0]:.3e} dk "
+                  f"{errs[1]:.3e} dv {errs[2]:.3e}")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -4348,7 +4437,58 @@ def phase_times(gen, sms: int, flush, iters: int = 200):
         print(f"prefill bf16 B1 Lq=Lk={lq}: kernel {res['kernel_ms']:.6f} "
               f"ms, SDPA {res['sdpa_ms']:.6f} ms")
         out[f"prefill {lq}"] = res
+    for b, lq, hq, hkv, d, dv in BWD_TIME_SHAPES:
+        label = f"prefill_bwd B{b} Lq=Lk={lq} Hq{hq} Hkv{hkv} D{d}/{dv}"
+        out[label] = time_bwd(gen, flush, b, lq, hq, hkv, d, dv, label)
     return out
+
+
+def time_bwd(gen, flush, b, lq, hq, hkv, d, dv, label, iters: int = 100):
+    """K3b at one shape (causal, bf16, the forward kernel's output and
+    LSE), its plain version, SDPA's backward (its forward and backward
+    less its forward, K / V expanded to the query heads; None where SDPA
+    refuses the widths) and the bound, beside K3b's normwise errors
+    against float64."""
+    q, k, _ = prefill_case(gen, b, lq, lq, hq, hkv, d)
+    v = rand(gen, (b, lq, hkv, dv))
+    do = rand(gen, (b, lq, hq, dv))
+    o, lse = fprefill.flash_prefill_lse(q, k, v, causal=True)
+    run = functools.partial(fprefill.flash_prefill_bwd, q, k, v, o, lse, do,
+                            causal=True)
+    want = fprefill.prefill_backward_plain(
+        *(f64(t) for t in (q, k, v, o, lse, do)), causal=True)
+    errs = [normwise(g, w) for g, w in zip(run(), want)]
+    check(max(errs) <= TRAIN_GRAD_TOL, f"K3b {label}: normwise {errs}")
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (
+        q, k.repeat_interleave(hq // hkv, dim=2),
+        v.repeat_interleave(hq // hkv, dim=2))]
+    dos = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              scale=1.0)
+    try:
+        sdpa_bwd = (time_ms(lambda: torch.autograd.grad(sdpa(), leaves, dos),
+                            iters, flush) - time_ms(sdpa, iters, flush))
+    except RuntimeError:
+        sdpa_bwd = None
+    # five products of 2 * (3 d + 2 dv) flops a visible (query, key)
+    # pair; q, k, v, o, do and the LSE read once, dq, dk, dv written once
+    flops = 2 * (3 * d + 2 * dv) * b * hq * lq * (lq + 1) / 2
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + 2 * o.numel()) + 4 * lse.numel()
+    bms, by = bound(nbytes, flops)
+    res = {"kernel_ms": time_ms(run, iters, flush),
+           "plain_ms": time_ms(functools.partial(
+               fprefill.prefill_backward_plain, q, k, v, o, lse, do,
+               causal=True), 10, flush),
+           "sdpa_bwd_ms": sdpa_bwd, "bound_ms": bms, "bound_by": by,
+           "normwise": errs}
+    print(f"{label}: kernel {res['kernel_ms']:.6f} ms, plain "
+          f"{res['plain_ms']:.6f} ms, SDPA backward {sdpa_bwd} ms, bound "
+          f"{bms:.6f} ms ({by}); normwise dq {errs[0]:.3e} dk {errs[1]:.3e} "
+          f"dv {errs[2]:.3e}")
+    return res
 
 
 # the reference configs' attention shapes that only the repair's bodies

@@ -616,54 +616,6 @@ prefill_kernel_tc(const __grid_constant__ CUtensorMap tq,   // (B,Lq,Hq,DK)
     }
 }
 
-// cuTensorMapEncodeTiled, looked up in libcuda through the CUDA runtime
-// (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-    static EncodeTiled fn = [] {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-        cudaError_t err = cudaGetDriverEntryPoint(
-            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-                   ? reinterpret_cast<EncodeTiled>(p)
-                   : nullptr;
-    }();
-    return fn;
-}
-
-// A (B, L, H, D) bf16 tensor as 64-column x 64-row boxes of one head,
-// in the 128-byte swizzle; rows past L read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int H, int D) {
-    EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return false;
-    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                                static_cast<cuuint64_t>(H),
-                                static_cast<cuuint64_t>(L),
-                                static_cast<cuuint64_t>(B)};
-    const cuuint64_t strides[3] = {   // bytes, of dims 1..3
-        static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(H) * D * 2,
-        static_cast<cuuint64_t>(L) * H * D * 2};
-    const cuuint32_t box[4] = {64, 1, 64, 1};
-    const cuuint32_t elem[4] = {1, 1, 1, 1};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                  const_cast<void*>(ptr), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DK, int DV = DK>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       float* lse, int B, int Lq, int Lk, int Hq, int Hkv,
@@ -677,8 +629,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
         static_cast<int>(S::kSmem));
     if (attr != cudaSuccess) return attr;
     CUtensorMap tq, tk, tv;
-    if (!make_map(&tq, q, B, Lq, Hq, DK) ||
-        !make_map(&tk, k, B, Lk, Hkv, DK) || !make_map(&tv, v, B, Lk, Hkv, DV))
+    if (!hopper::make_map(&tq, q, B, Lq, Hq, DK) ||
+        !hopper::make_map(&tk, k, B, Lk, Hkv, DK) ||
+        !hopper::make_map(&tv, v, B, Lk, Hkv, DV))
         return cudaErrorInvalidValue;
     dim3 grid(Hq, B, (Lq + kBQ - 1) / kBQ);
     kernel<<<grid, kThreads, S::kSmem, stream>>>(

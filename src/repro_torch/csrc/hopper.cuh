@@ -1,7 +1,8 @@
-// Inline-PTX wrappers for Hopper (sm_90a): mbarriers, TMA tensor loads,
-// and wgmma with bf16 operands and float32 accumulators (the prefill
-// kernel); cp.async, ldmatrix and mma.sync m16n8k16 (the decode
-// kernels).
+// Inline-PTX wrappers for Hopper (sm_90a): mbarriers, TMA tensor and
+// bulk loads, and wgmma with bf16 operands and float32
+// accumulators (the prefill kernel and its backward); cp.async, ldmatrix
+// and mma.sync m16n8k16 (the decode kernels).  Host side: the tensor maps
+// TMA reads (make_map), shared by the prefill kernel and its backward.
 //
 // Shared-memory tiles read by wgmma here are 64 rows of 128 bytes in the
 // 128-byte swizzle that TMA writes under CU_TENSOR_MAP_SWIZZLE_128B: the
@@ -80,6 +81,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
         :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
            "r"(c0), "r"(c1), "r"(c2), "r"(c3)
         : "memory");
+}
+
+// `bytes` (a multiple of 16) from 16-byte aligned global memory into
+// shared memory; completes `bar`'s transaction count by `bytes`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 // ---- wgmma --------------------------------------------------------------
@@ -235,6 +246,57 @@ __device__ __forceinline__ void mma_m16n8k16_bf16(float (&c)[4],
         "{%0, %1, %2, %3};\n"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- host: tensor maps ----------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up in libcuda through the CUDA runtime
+// (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+    static EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiled>(p)
+                   : nullptr;
+    }();
+    return fn;
+}
+
+// A (B, L, H, D) bf16 tensor as 64-column x 64-row boxes of one head,
+// in the 128-byte swizzle; rows past L read as zeros.
+inline bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int H,
+                     int D) {
+    EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                                static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(L),
+                                static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[3] = {   // bytes, of dims 1..3
+        static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(H) * D * 2,
+        static_cast<cuuint64_t>(L) * H * D * 2};
+    const cuuint32_t box[4] = {64, 1, 64, 1};
+    const cuuint32_t elem[4] = {1, 1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(ptr), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -13,22 +13,30 @@ and an input that needs a gradient, :func:`flash_prefill` runs
 :class:`FlashPrefillFn`: its forward launches the prefill kernel with the
 per-row log-sum-exp (:func:`flash_prefill_lse`) and saves q, k, v, the
 output and the LSE; its backward launches ``csrc/flash_prefill_bwd.cu``
-(:func:`flash_prefill_bwd`, dq, dk, dv in two launches).  That kernel
-replaces no Pallas kernel: the reference trains through
-``ref.flash_attention_xla`` and lets XLA differentiate it.  On a CPU
-tensor autograd differentiates :func:`prefill_plain` itself;
-:func:`prefill_backward_plain` is the backward kernel's plain version,
-for the tests and the card's checks.
+(:func:`flash_prefill_bwd`, dq, dk, dv in two launches: bf16 on the
+tensor cores, float32 on the CUDA cores).  That kernel replaces no Pallas
+kernel: the reference trains through ``ref.flash_attention_xla`` and lets
+XLA differentiate it.  On a CPU tensor autograd differentiates
+:func:`prefill_plain` itself; :func:`prefill_backward_plain` is the
+backward kernel's plain version, for the tests and the card's checks.
+
+The bf16 dk / dv launch runs one CTA per chunk of a key block's walk over
+the (query head, query tile) steps that see it: :func:`dkdv_split` cuts
+the walks so that the launch fills the card's CTA slots (the paper's
+sequence-aware split, applied to the backward), and its table is what the
+kernel runs.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.flash_decode import _workspace
 
 HEAD_DIMS = (64, 128, 160, 256)
 # (q / k width, v width) pairs with v narrower that the bf16 tensor-core
@@ -37,6 +45,143 @@ HEAD_DIMS = (64, 128, 160, 256)
 WIDTH_PAIRS = ((96, 64),)
 # kernel launches of one flash_prefill_bwd call: dq (and delta), then dk, dv
 BWD_LAUNCHES_PER_CALL = 2
+# the bf16 backward's tile: query rows and keys a step (one wgmma M)
+BWD_TILE = 64
+# ints a row of the dk / dv launch's work table (csrc/flash_prefill_bwd.cu
+# kWorkInts): b * Hkv + KV head, key block, first query tile, query tiles,
+# i0, i1, first partial slot (-1 with one chunk), chunk index, chunks
+BWD_WORK_INTS = 9
+
+
+@dataclasses.dataclass(frozen=True)
+class DkdvSplit:
+    """The bf16 dk / dv launch's work: key block ``kb`` of (b, KV head)
+    ``bh`` sees the ``n_qt`` query tiles from ``qt_lo`` in each of the G
+    query heads of its group, a walk of G * n_qt steps (step i: head i //
+    n_qt, tile qt_lo + i % n_qt); ``rows`` cut each walk into chunks of at
+    most ``steps_per_chunk`` steps (BWD_WORK_INTS ints a row, in launch
+    order), one CTA a row and column group, and ``slots`` f32 partials a
+    column group hold the chunks of the key blocks cut in more than
+    one."""
+    steps_per_chunk: int
+    rows: Tuple[Tuple[int, ...], ...]
+    slots: int
+    groups: int
+
+    @property
+    def ctas(self) -> int:
+        return len(self.rows) * self.groups
+
+
+def _key_block_tiles(kb: int, Lq: int, Lk: int, causal: bool, window: int,
+                     q_offset: int) -> Tuple[int, int]:
+    """(first query tile, query tiles) that see a key of block ``kb``: the
+    rows [q_lo, q_hi) under the mask, in tiles of BWD_TILE."""
+    k0 = kb * BWD_TILE
+    k_last = min(k0 + BWD_TILE, Lk) - 1
+    q_lo = max(0, k0 - q_offset) if causal else 0
+    q_hi = min(Lq, k_last + window - q_offset) if window > 0 else Lq
+    if q_hi <= q_lo:
+        return 0, 0
+    first = q_lo // BWD_TILE
+    return first, -(-q_hi // BWD_TILE) - first
+
+
+def bwd_column_groups(D: int, Dv: int) -> int:
+    """CTAs a chunk of the bf16 dk / dv launch runs as: one per two
+    64-column boxes of dK and dV (a warpgroup's registers hold two of
+    each beside S^T and dP^T), 1 up to D 128, 2 at D 160 and 256."""
+    return max(-(-D // 128), -(-Dv // 128))
+
+
+@functools.lru_cache(maxsize=256)
+def dkdv_split(B: int, Hkv: int, G: int, Lq: int, Lk: int, causal: bool,
+               window: int, q_offset: int, cta_slots: int,
+               groups: int = 1) -> DkdvSplit:
+    """The chunks of the bf16 dk / dv launch (``window`` 0: none), each
+    run by ``groups`` CTAs (``bwd_column_groups``), on a card that runs
+    ``cta_slots`` of its CTAs at once (``bwd_cta_slots``: the SM count
+    times the CTAs an SM holds).  Every key block's walk is cut into ceil(steps
+    / T) near-equal chunks (at least one, so a block no query sees still
+    writes its zeros), T the largest chunk length for which the B * Hkv
+    walks give at least ``cta_slots`` CTAs, or 1 when none does: the launch
+    fills the card while the longest chunk, the launch's critical path,
+    stays as short as that allows; a shape with enough key blocks keeps
+    one chunk a block.  Rows are in launch order, the longest chunks
+    first."""
+    n_kb = -(-Lk // BWD_TILE)
+    tiles = [_key_block_tiles(kb, Lq, Lk, causal, window, q_offset)
+             for kb in range(n_kb)]
+    steps = [G * n for _, n in tiles]
+
+    def ctas(t: int) -> int:
+        return groups * B * Hkv * sum(max(1, -(-n // t)) for n in steps)
+
+    lo, hi = 1, max(1, max(steps))      # ctas() falls as t grows
+    if ctas(lo) >= cta_slots:
+        while lo < hi:              # the largest t with ctas(t) >= cta_slots
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if ctas(mid) >= cta_slots else (lo, mid - 1)
+    rows, slots = [], 0
+    for bh in range(B * Hkv):
+        for kb, ((first, n_qt), n) in enumerate(zip(tiles, steps)):
+            chunks = max(1, -(-n // lo))
+            slot0 = slots if chunks > 1 else -1
+            slots += chunks if chunks > 1 else 0
+            rows += [(bh, kb, first, n_qt, j * n // chunks,
+                      (j + 1) * n // chunks, slot0, j, chunks)
+                     for j in range(chunks)]
+    rows.sort(key=lambda r: r[4] - r[5])    # stable: longest first
+    return DkdvSplit(lo, tuple(rows), slots, groups)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_attrs(D: int, Dv: int, dtype: torch.dtype,
+              device: torch.device = torch.device("cuda", 0)) -> Dict[str,
+                                                                    int]:
+    """The backward kernel's two launches at (D, Dv) in ``dtype`` on
+    ``device``: the registers the runtime reports, the dynamic shared
+    memory and threads each launches with, and the dk / dv launch's CTAs
+    a chunk and CTAs an SM holds (the runtime's occupancy)."""
+    fn = build.load("flash_prefill_bwd").flash_prefill_bwd_attrs
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        build.check(fn(D, Dv, build.DTYPE_CODES[dtype],
+                       ctypes.addressof(out)), "flash_prefill_bwd_attrs")
+    return dict(zip(("dq_registers", "dq_shared_bytes", "dkdv_registers",
+                     "dkdv_shared_bytes", "dkdv_ctas_a_chunk", "threads",
+                     "dkdv_ctas_an_sm"), out))
+
+
+def bwd_cta_slots(device: torch.device, D: int, Dv: int) -> int:
+    """How many CTAs of the bf16 dk / dv launch ``device`` runs at once:
+    its SM count times the CTAs an SM holds at (D, Dv)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * bwd_attrs(D, Dv, torch.bfloat16, device)["dkdv_ctas_an_sm"]
+
+
+# The dk / dv launch's work tables on the card, with their splits, by
+# device and shape: copied once, read-only, so every stream shares them.
+_WORK_TABLES: Dict[tuple, Tuple[DkdvSplit, torch.Tensor]] = {}
+
+
+def bwd_work(device: torch.device, B: int, Hkv: int, G: int, Lq: int,
+             Lk: int, causal: bool, window: int, q_offset: int, D: int,
+             Dv: int) -> Tuple[DkdvSplit, torch.Tensor]:
+    """The split the bf16 dk / dv launch runs on ``device`` for this
+    shape (:func:`dkdv_split` at the device's CTA slots and the widths'
+    column groups) and its rows on ``device``."""
+    key = (device, B, Hkv, G, Lq, Lk, causal, window, q_offset, D, Dv)
+    found = _WORK_TABLES.get(key)
+    if found is None:
+        split = dkdv_split(B, Hkv, G, Lq, Lk, causal, window, q_offset,
+                           bwd_cta_slots(device, D, Dv),
+                           bwd_column_groups(D, Dv))
+        found = _WORK_TABLES[key] = (split, torch.tensor(
+            split.rows, dtype=torch.int32).reshape(-1).to(device))
+    return found
 
 
 def _visible(Lq: int, Lk: int, causal: bool, window: Optional[int],
@@ -125,7 +270,7 @@ def _entry():
 @functools.lru_cache(maxsize=None)
 def _bwd_entry():
     fn = build.load("flash_prefill_bwd").flash_prefill_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 \
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 12 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -230,7 +375,10 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of the prefill attention, in q's dtype: the backward
     kernel on CUDA tensors (two launches, :data:`BWD_LAUNCHES_PER_CALL`,
     each counted under ``flash_prefill_bwd`` and ``(name, dtype name,
-    Lq)``), :func:`prefill_backward_plain` on CPU ones.  ``lse`` is the
+    Lq)``; in bf16 the dk / dv launch runs :func:`bwd_work`'s table, its
+    f32 partials and arrival counters in a workspace per (device, stream)
+    that every launch leaves at zero), :func:`prefill_backward_plain` on
+    CPU ones.  ``lse`` is the
     forward's (:func:`flash_prefill_lse`), ``o`` its output and ``do`` the
     output's gradient; dq is the gradient of the pre-scaled q."""
     kw = dict(causal=causal, window=window, q_offset=q_offset)
@@ -253,13 +401,33 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_prefill_bwd takes contiguous o, do, lse")
     build.cuda_args(o, do, lse)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty_like(lse)
+    stream = build.stream_ptr()
+    # delta and the scaled LSE, each (B, Hq, Lq) padded to whole tiles,
+    # written by the dq launch and read by the dk / dv launch
+    stats = _workspace(q.device, stream, "bwd_stats",
+                       2 * B * Hq * -(-Lq // BWD_TILE) * BWD_TILE,
+                       torch.float32)
+    work = (None, None, None)     # float32 runs without the split
+    n_work = 0
+    if q.dtype == torch.bfloat16:
+        split, table = bwd_work(q.device, B, Hkv, Hq // Hkv, Lq, Lk,
+                                bool(causal), window or 0, int(q_offset), D,
+                                Dv)
+        n_work = len(split.rows)
+        # a thread's dK and dV fragments, two 64-column boxes at most each
+        floats = 128 * 32 * (min(2, -(-D // 64)) + min(2, -(-Dv // 64)))
+        cells = max(1, split.slots) * split.groups
+        work = (table.data_ptr(),
+                _workspace(q.device, stream, "bwd_partials", cells * floats,
+                           torch.float32).data_ptr(),
+                _workspace(q.device, stream, "bwd_counters", cells,
+                           torch.int32).data_ptr())
     err = _bwd_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                       delta.data_ptr(), B, Lq, Lk, Hq, Hkv, D, Dv,
-                       int(causal), window or 0, int(q_offset),
-                       build.DTYPE_CODES[q.dtype], build.stream_ptr())
+                       stats.data_ptr(), *work, B, Lq, Lk, Hq, Hkv, D, Dv,
+                       int(causal), window or 0, int(q_offset), n_work,
+                       build.DTYPE_CODES[q.dtype], stream)
     build.check(err, "flash_prefill_bwd")
     build.LAUNCHES["flash_prefill_bwd"] += BWD_LAUNCHES_PER_CALL
     build.LAUNCHES["flash_prefill_bwd", str(q.dtype)[6:], Lq] += \

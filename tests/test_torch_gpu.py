@@ -43,6 +43,8 @@ from repro_torch.kernels.flash_decode_quant import (
 )
 from repro_torch.kernels.flash_prefill import (
     BWD_LAUNCHES_PER_CALL,
+    bwd_cta_slots,
+    bwd_work,
     flash_prefill,
     flash_prefill_bwd,
     flash_prefill_lse,
@@ -1668,6 +1670,13 @@ BWD_CASES = [
     (1, 200, 1500, 4, 4, 64, 64, None, 0, False),      # cross attention
     (1, 256, 256, 8, 8, 96, 64, None, 0, True),        # MLA's widths
     (1, 130, 130, 5, 1, 128, 128, None, 0, True),      # G 5
+    # the tile edges of the bf16 tensor-core bodies (64 x 64 tiles)
+    (1, 100, 227, 8, 2, 128, 128, None, 0, True),      # Lq, Lk off-tile
+    (1, 1, 300, 8, 1, 128, 128, None, 299, True),      # Lq 1
+    (2, 130, 390, 8, 2, 128, 128, None, 260, True),    # q_offset off-tile
+    (1, 300, 300, 16, 2, 128, 128, 70, 0, True),       # window edge in tile
+    (1, 300, 300, 8, 1, 256, 256, 100, 0, True),       # G 8, D 256, window
+    (1, 1024, 1024, 8, 8, 96, 64, None, 0, True),      # MLA's widths, 1024
 ]
 BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
@@ -1726,6 +1735,32 @@ def test_prefill_backward_over_large_values(cuda, b, lq, lk, offset):
                                   causal=True, q_offset=offset)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert _normwise(g, w) <= BWD_TOL[torch.bfloat16], name
+
+
+@pytest.mark.parametrize("b,l,hq,hkv,d,several", [
+    (2, 1024, 16, 2, 128, True),     # the training cell: 18-step chunks
+    (4, 2048, 8, 4, 128, False),     # 512 key blocks: one chunk each
+])
+def test_prefill_backward_split_repeats_its_bits(cuda, b, l, hq, hkv, d,
+                                                 several):
+    """The bf16 dk / dv launch with several chunks a key block (f32
+    partials merged in chunk order by the CTA that arrives last) and with
+    one: against the float64 plain backward, and bit for bit on repeated
+    calls."""
+    dev = torch.device("cuda", 0)
+    split = bwd_work(dev, b, hkv, hq // hkv, l, l, True, 0, 0, d, d)[0]
+    assert (max(r[8] for r in split.rows) > 1) == several
+    assert split.ctas >= bwd_cta_slots(dev, d, d)
+    q, k, v, do = _bwd_inputs(cuda, b, l, l, hq, hkv, d, d, torch.bfloat16)
+    o, lse = flash_prefill_lse(q, k, v, causal=True)
+    got = flash_prefill_bwd(q, k, v, o, lse, do, causal=True)
+    want = prefill_backward_plain(*(t.double() for t in (q, k, v, o, lse,
+                                                         do)), causal=True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _normwise(g, w) <= BWD_TOL[torch.bfloat16], name
+    for _ in range(3):
+        again = flash_prefill_bwd(q, k, v, o, lse, do, causal=True)
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
 # the forward takes unequal widths (MLA's 96 / 64) in bf16 only
