@@ -42,12 +42,15 @@ its models at full width and depth; the default run, to stay well inside
 its 1200 s call on a slow host, serves every model after the main
 path's phases (3, 4 and Table 1 keep qwen2.5-3b's 36 layers, as do 4c
 and 4j) at full width and the depth of ``DEFAULT_RUN_LAYERS``:
-qwen2.5-3b 12 layers in 4b, 4e and 4f, codeqwen1.5-7b, stablelm-12b and
-granite-moe-3b-a800m 12 (in 4m too), minicpm3-4b 12, paligemma-3b 9,
-whisper-large-v3 16 + 16, recurrentgemma-9b 11 (3 windowed); mamba2-780m
+qwen2.5-3b 6 layers in 4b, 4e and 4f, codeqwen1.5-7b and stablelm-12b
+8, granite-moe-3b-a800m 6 (in 4m too), minicpm3-4b 8, paligemma-3b 4,
+whisper-large-v3 12 + 12, recurrentgemma-9b 6 (2 windowed); mamba2-780m
 keeps its 48.  (qwen2.5-3b went from 18 to 12 layers and the configs
 from 16 to 12 to make room for the training phase, 4l, which keeps full
-depth.)
+depth; each path was halved again for the mesh training phase, 4n,
+whose (a) keeps full depth, after a default run took 1182 s of its
+1200 s on a slow host, and the dense configs, minicpm3-4b and whisper
+took back a part when 4n's (d) went to a narrow model.)
 
 1. Environment and build: the card's name and power limit, CUDA version,
    SM count; all kernels built from ``src/repro_torch/csrc`` (one nvcc per
@@ -307,7 +310,7 @@ depth.)
    launch against its plain version in float64, the launches against
    the plans, no policy evaluation; the logits' gap and the divergence
    by layer (measured); the TP and the replicated sp 2 engines' step
-   times.  (b) granite-moe-3b-a800m at dp 1 x sp 4 (12 layers in
+   times.  (b) granite-moe-3b-a800m at dp 1 x sp 4 (6 layers in
    the default run, 32 under ``--phase tp``), ``params="tp"``, prompts
    of 300 and 450 tokens: every MoE layer's expert-parallel output at
    admission against the float64 plain EP, the rows gather would have
@@ -361,6 +364,36 @@ depth.)
    with its LSE and K3b timed at the training cell, rows of the kernels
    line (K3b's library time: SDPA's forward and backward less its
    forward).
+4n. Mesh training (``phase_train_mesh``, in the default run right after
+   4l; alone as ``--phase train_mesh``), every grid over ``[cuda:0] *
+   n``: (a) qwen2.5-3b at full width and depth over (data 2, model 2)
+   (weights and f32 AdamW moments placed by ``param_rules()``: embed cut
+   over the data rows, heads / KV heads / ff / vocab over the model
+   axis), 3 steps on 4l's batch, remat ``nothing_saveable``; per step
+   the loss, grad_norm, ms, peak memory and the launches (K3 2 x 36 x 4,
+   K3b 36 x 4 calls: each device of each data row attends its 8 query
+   and 1 KV heads of its row's batch row); step 0's attention layer by
+   layer against float64 (4l's tolerances); step 0's loss against the
+   one-device loss on the same weights and batch (within
+   ``MESH_LOSS_TOL`` or twice the move float64 attention makes); the
+   weight and moment bytes each device owns; one profiled step (its
+   idle share); at 2 layers and full width in float32, the (2, 2)
+   gradient, joined, against the one-device gradient leaf by leaf (the
+   leaves no softmax separates from the loss within ``MESH_GRAD_TOL``,
+   the rest within ``TRAIN_LEAF_TOL``) and the loss
+   (``MESH_GRAD_LOSS_TOL``).  At 2
+   layers and full width: (b) (data 1, model 3) at L
+   1020: 16 heads do not cut over 3, so attention runs sequence-parallel,
+   K3 / K3b a chunk of 340 query rows at q_offset 0 / 340 / 680, each
+   call against float64 and every gradient leaf against float64
+   attention's (4l (c)'s check); (c) ``build_compressed_dp_grads`` over
+   (4, 1) against the one-device gradient of the batch of 4, every leaf
+   within ``MESH_COMPRESS_TOL`` of its scale.  At 2 layers cut in width
+   (d_model 512, vocabulary 4096): (d) a checkpoint at (2, 2) restored
+   onto (1, 1), its weights and moments and the next step bit for bit
+   those of the joined tree.  K3 and K3b are timed at (a)'s and
+   (b)'s shapes, rows of the kernels line with the launches of (a)'s 3
+   steps and (b)'s gradient.
 5. One JSON ``kernels`` line: per kernel its error (a decode row's at
    that row's own inputs, over NaN/Inf tails), launches on the main
    path (the bf16 run's; the quantized decode and the combine kernels'
@@ -457,10 +490,24 @@ if str(SRC) not in sys.path:
     sys.path.insert(0, str(SRC))
 
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.reduced import reduced_config  # noqa: E402
 from repro_torch.configs.base import OptimizerConfig, ServeConfig, \
     ShapeConfig, TrainConfig  # noqa: E402
 from repro_torch.data.synthetic import DataConfig, SyntheticLM  # noqa: E402
-from repro_torch.fault.elastic import resumable_train_loop  # noqa: E402
+from repro_torch.checkpoint import checkpoint as ckpt_mod  # noqa: E402
+from repro_torch.fault.elastic import (  # noqa: E402
+    elastic_restore,
+    resumable_train_loop,
+)
+from repro_torch.sharding.place import (  # noqa: E402
+    MeshParams,
+    place_trainable,
+)
+from repro_torch.training.compression import (  # noqa: E402
+    build_compressed_dp_grads,
+    init_error_feedback,
+)
+from repro_torch.training.optimizer import adamw_init  # noqa: E402
 from repro_torch.training.train_step import (  # noqa: E402
     build_train_step,
     lm_loss,
@@ -507,7 +554,8 @@ from repro_torch.serving import (  # noqa: E402
 )
 from repro_torch.serving.scheduler import Scheduler  # noqa: E402
 from repro_torch.shard import ShardedServingEngine, ShardSpec  # noqa: E402
-from repro_torch.launch.mesh import make_engine_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_engine_mesh, \
+    make_host_mesh  # noqa: E402
 from repro_torch.serving.decode_step import (  # noqa: E402
     build_mesh_decode_step,
     build_prefill_step,
@@ -2701,10 +2749,12 @@ MLA_ARCH, VLM_ARCH = "minicpm3-4b", "paligemma-3b"
 # the depth the default run serves each path after the main path's at,
 # every width kept, so that the whole run stays well inside its 1200 s
 # call on a slow host (a phase run alone serves every layer): qwen2.5-3b
-# 12 of 36 in the paged, prefix, tune and obs paths; the configs' phases
-# as named (recurrentgemma-9b 11 layers: 3 windowed)
-DEFAULT_RUN_LAYERS = {"qwen": 12, "archs": 12, "moe": 12, "mla": 12,
-                      "vlm": 9, "encdec": 16, "hybrid": 11}
+# 6 of 36 in the paged, prefix, tune and obs paths; the configs' phases
+# as named (recurrentgemma-9b 6 layers: 2 windowed); mesh training's (a)
+# all 36
+DEFAULT_RUN_LAYERS = {"qwen": 6, "archs": 8, "moe": 6, "mla": 8,
+                      "vlm": 4, "encdec": 12, "hybrid": 6,
+                      "train_mesh": None}
 
 
 def cut_depth(cfg, layers):
@@ -3046,7 +3096,7 @@ def phase_hybrid(seed: int, sms: int, layers=None):
     plan.  Then ``Model.prefill`` of HYBRID_TEXT tokens at B 2 (windowed
     K3 at Lq 2100, the ring wrapped) and SIDE_STEPS decode steps over the
     wrapped ring, every windowed layer's K3 and K1 checked.  ``layers``
-    cuts the depth (the pattern kept: 11 layers hold 3 windowed ones)."""
+    cuts the depth (the pattern kept: 6 layers hold 2 windowed ones)."""
     cfg = cut_depth(get_arch(HYBRID_ARCH), layers)
     n_attn = lm_mod.layer_kinds(cfg).count("attn_window")
 
@@ -5781,12 +5831,12 @@ def ep_serving(seed: int, layers=None):
            "gather_bits_equal": 0}
 
     def ep(p, cfg_, x, mesh, axis="model"):
-        out = ep_run(p, cfg_, x, mesh, axis)
+        out, *route = ep_run(p, cfg_, x, mesh, axis)
         saved = build.LAUNCHES.copy()
         plain = types.SimpleNamespace(**{
             n: moe_mod.whole(p, n).double()
             for n in ("router", "wi_gate", "wi_up", "wo")})
-        want = ep_run(plain, cfg_, x.double(), mesh, axis)
+        want = ep_run(plain, cfg_, x.double(), mesh, axis)[0]
         cap = moe_mod._capacity(x.shape[1], cfg_.moe.num_experts,
                                 cfg_.moe.top_k, cfg_.moe.capacity_factor)
         gathered = gather_run(p, cfg_, x, cap)[0]
@@ -5801,16 +5851,17 @@ def ep_serving(seed: int, layers=None):
         acc["rows"] += rows.numel()
         acc["rows_gather_differs"] += int(rows.sum())
         acc["ep_checks"] += 1
-        return out
+        return (out, *route)
 
     def gather(p, cfg_, x, capacity):
-        out, aux = gather_run(p, cfg_, x, capacity)
+        res = gather_run(p, cfg_, x, capacity)
+        out = res[0]
         other = ref.get(id(p))
         if other is not None:
             same = torch.equal(out, gather_run(other, cfg_, x, capacity)[0])
             acc["gather_checks"] += 1
             acc["gather_bits_equal"] += int(same)
-        return out, aux
+        return res
 
     for r in reqs:
         eng.submit(r)
@@ -6418,6 +6469,35 @@ TRAIN_OUT_TOL, TRAIN_LSE_TOL, TRAIN_GRAD_TOL = 1e-2, 1e-5, 1e-2
 # products over 1024 rows against 2048 round apart, normwise.
 TRAIN_LEAF_TOL, TRAIN_COND_RATIO, TRAIN_MICRO_TOL = 5e-2, 2.0, 2e-2
 TRAIN_CUT_LAYERS = 2
+# mesh training (phase_train_mesh): (a)'s grid and steps; (b)'s sequence,
+# 3 x 340 so that 16 heads over a model axis of 3 take the
+# sequence-parallel path; (c)'s batch (a row a replica) and bound (the
+# reference's test's: int8 at a shared scale rounds each replica by at
+# most half a step, 1/254 of the largest replica entry); step 0's loss
+# against the one-device loss, or TRAIN_COND_RATIO times the move that
+# float64 attention alone makes, whichever is larger
+MESH_GRID, MESH_STEPS, MESH_SEQPAR_SEQ = (2, 2), 3, 1020
+MESH_COMPRESS_BATCH, MESH_COMPRESS_TOL, MESH_LOSS_TOL = 4, 0.02, 1e-2
+# (a)'s gradient at TRAIN_CUT_LAYERS and full width, in float32 on the
+# kernels: the (2, 2) step's joined gradient against the one-device
+# step's, each leaf normwise (leafwise's floor), and the loss, relative.
+# The two differ only by how the parts of a cut product and the FSDP
+# gathers round, 2^-24 of a value.  On these random weights attention's
+# scores are large and its rows nearly one-hot (TRAIN_LEAF_TOL's note),
+# so the leaves behind a softmax's gradient amplify that about 1e5-fold:
+# the q / k paths, the lower layers and the embedding move by 1.2-1.5e-2
+# on an H100, with attention on the kernels or in float64 alike, and are
+# held to TRAIN_LEAF_TOL.  The softmax-free leaves (softmax_free) see
+# only the forward softmax, which amplifies it about 1e3-fold (the last
+# layer's wo 5.4e-4 on an H100): MESH_GRAD_TOL.  A dropped or doubled
+# data row, or a weight gathered or a gradient joined out of order,
+# moves the softmax-free leaves by O(1)
+MESH_GRAD_TOL, MESH_GRAD_LOSS_TOL = 5e-3, 1e-5
+# (d)'s model: qwen2.5-3b's wiring at 2 layers, cut in width (4 heads of
+# D 128 over 1 KV head, d_model 512, a vocabulary of 4096): whether a
+# checkpoint's bits cut, join and restore does not depend on width, and
+# at full width its dense npz is 6.2 GB to write and read
+MESH_ELASTIC_WIDTH, MESH_ELASTIC_VOCAB = 512, 4096
 
 
 def normwise(got, want) -> float:
@@ -6646,6 +6726,53 @@ def phase_train(seed: int, flush):
     return out, rows
 
 
+def gradient_against_float64(bundle, params, batch, g_kernel, total,
+                             label: str):
+    """(c) ``g_kernel`` (the kernels' gradient of ``bundle`` at
+    ``params`` and ``batch``, total loss ``total``) against the same
+    model whose attention runs the float64 plain forward and backward,
+    leaf by leaf, each leaf within max(TRAIN_LEAF_TOL, TRAIN_COND_RATIO x
+    plain float32 attention's error); returns (the record, the float64
+    gradient)."""
+    plain = {}
+    for dtype in (torch.float64, torch.float32):
+        with train_attention(*plain_attention(dtype)):
+            ops.reset_launch_counts()
+            plain[dtype] = bundle.grads(params, batch)
+            torch.cuda.synchronize()
+            check(sum(ops.launch_counts().values()) == 0,
+                  f"plain attention launched {ops.launch_counts()}")
+    total64, _, g_plain = plain[torch.float64]
+    g32 = plain[torch.float32][2]
+    _, _, whole = leafwise(g_kernel, g_plain, f"{label}: kernels "
+                           "against float64 attention")
+    _, _, whole32 = leafwise(g32, g_plain, f"{label}: plain "
+                             "float32 attention against float64")
+    worst, leaf = 0.0, None
+    floor = 1e-3 * sum(float(x.double().square().sum())
+                       for x in g_plain.values()) ** 0.5
+    for name, w in g_plain.items():
+        norm = max(float(w.double().norm()), floor)
+        e_k = float((g_kernel[name].double() - w.double()).norm()) / norm
+        e_32 = float((g32[name].double() - w.double()).norm()) / norm
+        ratio = e_k / max(TRAIN_LEAF_TOL, TRAIN_COND_RATIO * e_32)
+        if ratio >= worst:
+            worst, leaf = ratio, (name, e_k, e_32)
+    check(worst <= 1.0, f"gradient leaf {leaf[0]}: {leaf[1]:.3e} from "
+          f"float64 attention's, plain float32 attention {leaf[2]:.3e} "
+          f"(tol max({TRAIN_LEAF_TOL}, {TRAIN_COND_RATIO} x that))")
+    res = {"worst_leaf": leaf[0], "worst_ratio": worst,
+           "leaf_kernel": leaf[1], "leaf_plain32": leaf[2],
+           "whole": whole, "whole_plain32": whole32, "loss": float(total),
+           "loss_float64_attention": float(total64)}
+    print(f"{label}: gradient against float64 attention's, "
+          f"whole tree {whole:.3e} (plain float32 attention {whole32:.3e});"
+          f" the worst leaf against its tolerance {leaf[0]} {worst:.3f} "
+          f"({leaf[1]:.3e}, plain float32 {leaf[2]:.3e}); loss "
+          f"{float(total):.6f} / {float(total64):.6f}")
+    return res, g_plain
+
+
 def phase_train_cut(cfg, seed: int, data):
     """At TRAIN_CUT_LAYERS layers and full width: (c) every gradient leaf
     against the same model whose attention runs the float64 plain forward
@@ -6663,43 +6790,8 @@ def phase_train_cut(cfg, seed: int, data):
     total, _, g_kernel = b_none.grads(params, batch)
     torch.cuda.synchronize()
     train_counts(n, 1, 1, "cut depth, remat none")
-    plain = {}
-    for dtype in (torch.float64, torch.float32):
-        with train_attention(*plain_attention(dtype)):
-            ops.reset_launch_counts()
-            plain[dtype] = b_none.grads(params, batch)
-            torch.cuda.synchronize()
-            check(sum(ops.launch_counts().values()) == 0,
-                  f"plain attention launched {ops.launch_counts()}")
-    total64, _, g_plain = plain[torch.float64]
-    g32 = plain[torch.float32][2]
-    _, _, whole = leafwise(g_kernel, g_plain, "train cut: kernels against "
-                           "float64 attention")
-    _, _, whole32 = leafwise(g32, g_plain, "train cut: plain float32 "
-                             "attention against float64")
-    worst, leaf = 0.0, None
-    floor = 1e-3 * sum(float(x.double().square().sum())
-                       for x in g_plain.values()) ** 0.5
-    for name, w in g_plain.items():
-        norm = max(float(w.double().norm()), floor)
-        e_k = float((g_kernel[name].double() - w.double()).norm()) / norm
-        e_32 = float((g32[name].double() - w.double()).norm()) / norm
-        ratio = e_k / max(TRAIN_LEAF_TOL, TRAIN_COND_RATIO * e_32)
-        if ratio >= worst:
-            worst, leaf = ratio, (name, e_k, e_32)
-    check(worst <= 1.0, f"gradient leaf {leaf[0]}: {leaf[1]:.3e} from "
-          f"float64 attention's, plain float32 attention {leaf[2]:.3e} "
-          f"(tol max({TRAIN_LEAF_TOL}, {TRAIN_COND_RATIO} x that))")
-    out["whole_gradient"] = {"worst_leaf": leaf[0], "worst_ratio": worst,
-                             "leaf_kernel": leaf[1], "leaf_plain32": leaf[2],
-                             "whole": whole, "whole_plain32": whole32,
-                             "loss": float(total),
-                             "loss_float64_attention": float(total64)}
-    print(f"train cut {n} layers: gradient against float64 attention's, "
-          f"whole tree {whole:.3e} (plain float32 attention {whole32:.3e});"
-          f" the worst leaf against its tolerance {leaf[0]} {worst:.3f} "
-          f"({leaf[1]:.3e}, plain float32 {leaf[2]:.3e}); loss "
-          f"{float(total):.6f} / {float(total64):.6f}")
+    out["whole_gradient"], g_plain = gradient_against_float64(
+        b_none, params, batch, g_kernel, total, f"train cut {n} layers")
     b_ns = build_train_step(model, train_config(cut))
     ops.reset_launch_counts()
     t_ns, _, g_ns = b_ns.grads(params, batch)
@@ -6730,7 +6822,7 @@ def phase_train_cut(cfg, seed: int, data):
           f"gradients bit for bit; 2 microbatches against 1: gradient "
           f"{whole_m2:.3e} normwise (tol {TRAIN_MICRO_TOL}), loss "
           f"{rel_loss:.3e}")
-    del params, g_kernel, g_plain, g32, plain, g_ns, g_m2
+    del params, g_kernel, g_plain, g_ns, g_m2
     gc.collect()
     torch.cuda.empty_cache()
     out["resume"] = phase_train_resume(b_ns, data)
@@ -6786,65 +6878,468 @@ def phase_train_resume(bundle, data):
             "bit_for_bit": True}
 
 
-def train_kernel_rows(gen, flush, launches):
-    """(g) K3 with its LSE and K3b at the training cell (B 2, Lq = Lk
-    1024, Hq 16, Hkv 2, D 128, causal, bf16): the kernels line's rows,
-    with their launches in the full-width run, and a check of each
-    against float64.  K3b's library time is SDPA's forward and backward
-    less its forward (K / V expanded to the query heads, a yardstick the
-    port never calls)."""
-    b, lq, hq, hkv, d = TRAIN_BATCH, TRAIN_SEQ, 16, 2, 128
-    q, k, v = prefill_case(gen, b, lq, lq, hq, hkv, d)
+def card_grid(data: int, model: int):
+    """A (data, model) grid every device of which is the card."""
+    return make_host_mesh(model, [torch.device(DEVICE, 0)] * (data * model))
+
+
+@contextlib.contextmanager
+def float64_attention():
+    """Within the block, ``ops.attention`` runs the float64 plain prefill
+    rounded to q's dtype, in place of the kernel (no gradient: the
+    no-grad loss of ``phase_train_mesh``'s conditioning)."""
+    saved = ops.flash_prefill
+
+    def plain64(q, k, v, **kw):
+        return fprefill.prefill_plain(f64(q), f64(k), f64(v),
+                                      **kw).to(q.dtype)
+    ops.flash_prefill = plain64
+    try:
+        yield
+    finally:
+        ops.flash_prefill = saved
+
+
+def phase_train_mesh(seed: int, flush, layers=None):
+    """Mesh training on ``[cuda:0] * n`` grids (4n).  (a) qwen2.5-3b at
+    full width (``layers`` deep, default all 36) over (data 2, model 2),
+    remat nothing_saveable, MESH_STEPS steps on the training cell's
+    batch: per step the launches (K3 2 x layers x 4, K3b's call layers x
+    4: a launch a device over its 8 query and 1 KV heads), loss,
+    grad_norm, ms and peak memory; step 0's attention layer by layer
+    against float64; step 0's loss against the one-device loss on the
+    same weights and batch; the weight and moment bytes each device
+    holds; one profiled step; then at TRAIN_CUT_LAYERS layers and full
+    width in float32, the (2, 2) gradient, joined, against the
+    one-device gradient leaf by leaf (``phase_train_mesh_grads``).  At 2 layers and
+    full width: (b) over
+    (data 1, model 3) at L 1020, sequence-parallel attention (16 heads do
+    not cut over 3): K3 / K3b a chunk of 340 query rows at q_offset 0 /
+    340 / 680, every call checked against float64 and every gradient
+    leaf against float64 attention's; (c) ``build_compressed_dp_grads``
+    over (4, 1) against the exact gradient, each leaf within
+    MESH_COMPRESS_TOL of its scale.  At 2 layers cut in width (d): a
+    checkpoint at (2, 2) restored onto (1, 1) and stepped, bit for bit
+    the same step from the joined tree.  Returns (the record, the kernels
+    line's rows for (a) and (b))."""
+    out = {}
+    cfg = cut_depth(get_arch("qwen2.5-3b"), layers)
+    L = cfg.num_layers
+    D, M = MESH_GRID
+    mesh = card_grid(D, M)
+    model = build_model(cfg, device=DEVICE)
+    tcfg = train_config(cfg)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                  seed=seed))
+    bundle = build_train_step(model, tcfg, mesh)
+    batch = bundle.to_device(data.batch_at(0))
+    t0 = time.perf_counter()
+    dense = model.init_params(seed)
+    with torch.no_grad():
+        loss_one = float(lm_loss(model, dense, batch)[1]["loss"])
+        with float64_attention():
+            loss_64 = float(lm_loss(model, dense, batch)[1]["loss"])
+    params = place_trainable(dense, mesh)
+    opt_state = adamw_init(params.leaves)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    wbytes = params.device_bytes()
+    mbytes = [2 * b for b in params.device_bytes(opt_state["m"])]
+    print(f"train mesh {cfg.name}: {L} layers over (data {D}, model {M}) "
+          f"on the card, {len(params.leaves)} leaves; weight bytes a "
+          f"device {wbytes}, f32 moment bytes a device {mbytes}; init and "
+          f"placement {time.perf_counter() - t0:.1f} s; the one-device "
+          f"loss on the same weights and batch {loss_one:.6f} (float64 "
+          f"attention {loss_64:.6f})")
+    acc = {"out": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0,
+           "forward_checks": 0, "backward_checks": 0}
+    steps, launches = [], {"flash_prefill": 0, "flash_prefill_bwd": 0}
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(MESH_STEPS):
+        route = (train_attention(*checked_train_attention(acc)) if step == 0
+                 else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        with route:
+            m = bundle.step(params, opt_state, batch)[2]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        counts = train_counts(L * D * M, 2, 1, f"train mesh step {step}")
+        for k in launches:
+            launches[k] += counts[k]
+        rec = {"step": step, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+               "ms": ms, "max_memory_allocated":
+               torch.cuda.max_memory_allocated()}
+        check(np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"]),
+              f"train mesh step {step}: non-finite {rec}")
+        steps.append(rec)
+        print(f"train mesh step {step}: loss {rec['loss']:.6f} grad_norm "
+              f"{rec['grad_norm']:.6f} {ms:.1f} ms"
+              f"{' (with the layer checks)' if step == 0 else ''}, "
+              f"max_memory_allocated {rec['max_memory_allocated']} B, "
+              f"launches K3 {counts['flash_prefill']} K3b "
+              f"{counts['flash_prefill_bwd']}")
+    check(acc["forward_checks"] == 2 * L * D * M
+          and acc["backward_checks"] == L * D * M,
+          f"mesh layer checks: {acc}")
+    rel = abs(steps[0]["loss"] / loss_one - 1)
+    cond = abs(loss_64 / loss_one - 1)
+    tol = max(MESH_LOSS_TOL, TRAIN_COND_RATIO * cond)
+    check(rel <= tol, f"mesh step 0 loss {steps[0]['loss']} against the "
+          f"one-device {loss_one}: {rel:.3e} (tol {tol:.3e})")
+    print(f"train mesh layer checks at step 0 ({acc['forward_checks']} "
+          f"forward, {acc['backward_checks']} backward calls) against "
+          f"float64, normwise: output {acc['out']:.3e} lse {acc['lse']:.3e}"
+          f" dq {acc['dq']:.3e} dk {acc['dk']:.3e} dv {acc['dv']:.3e}; "
+          f"step 0 loss against the one-device loss {rel:.3e} (tol "
+          f"{tol:.3e}: float64 attention moves it {cond:.3e})")
+    with profiled() as (prof, wall):
+        bundle.step(params, opt_state, batch)
+    kernels, device_ops = device_kernels(prof)
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    profile = {"wall_ms": wall[0], "device_busy_ms": busy,
+               "idle_share": 1 - busy / wall[0], "device_ops": device_ops,
+               "top_kernels_ms": {k[:80]: v for k, v in top}}
+    print(f"train mesh step profiled: wall {wall[0]:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share {profile['idle_share']:.3f}, "
+          f"{device_ops} device ops (profiler on)")
+    for name, ms in profile["top_kernels_ms"].items():
+        print(f"  {ms:.3f} ms  {name}")
+    out["full"] = {"layers": L, "grid": [D, M], "steps": steps,
+                   "layer_checks": acc, "launches": launches,
+                   "loss_one_device": loss_one,
+                   "loss_one_device_float64_attention": loss_64,
+                   "step0_loss_rel": rel, "step0_loss_tol": tol,
+                   "weight_bytes_by_device": wbytes,
+                   "moment_bytes_by_device": mbytes,
+                   "step_ms_mean_1_on": sum(s["ms"] for s in steps[1:])
+                   / (len(steps) - 1),
+                   "peak_bytes": max(s["max_memory_allocated"]
+                                     for s in steps), "profile": profile}
+    del params, opt_state, bundle, model, batch, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train mesh (a): {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 29)
+    _, rows = train_kernel_rows(gen, flush, launches, b=TRAIN_BATCH // D,
+                                hq=16 // M, hkv=2 // M,
+                                cell=f"mesh training cell, a device of "
+                                     f"({D}, {M})")
+    cut = cut_depth(get_arch("qwen2.5-3b"), TRAIN_CUT_LAYERS)
+    out["gradient"] = timed("train mesh (a) gradient",
+                            phase_train_mesh_grads, cut, seed)
+    out["seqpar"], seq_launches = timed("train mesh (b)",
+                                        phase_train_mesh_seqpar, cut, seed)
+    _, seq_rows = train_kernel_rows(
+        gen, flush, seq_launches, lq=MESH_SEQPAR_SEQ // 3,
+        lk=MESH_SEQPAR_SEQ, q_offset=2 * MESH_SEQPAR_SEQ // 3,
+        cell="sequence-parallel training cell, the last chunk of (1, 3)")
+    out["compressed"] = timed("train mesh (c)",
+                              phase_train_mesh_compressed, cut, seed)
+    narrow = reduced_config(get_arch("qwen2.5-3b"),
+                            num_layers=TRAIN_CUT_LAYERS,
+                            d_model=MESH_ELASTIC_WIDTH,
+                            vocab_size=MESH_ELASTIC_VOCAB)
+    out["elastic"] = timed("train mesh (d)", phase_train_mesh_elastic,
+                           narrow, seed)
+    return out, rows + seq_rows
+
+
+def softmax_free(cfg) -> tuple:
+    """The weights of ``cfg`` (a dense model) between which and the loss
+    no attention softmax lies: the last layer's value and output
+    projections, its MLP and second norm, and the final norm."""
+    last = f"layers.{cfg.num_layers - 1}."
+    return tuple(last + n for n in ("mix.wv", "mix.bv", "mix.wo", "ln2.scale",
+                                    "ffn.wi_gate", "ffn.wi_up", "ffn.wo")
+                 ) + ("final_norm.scale",)
+
+
+def phase_train_mesh_grads(cut, seed: int):
+    """(a) at ``cut``'s depth and full width, weights and activations in
+    float32 (K3 / K3b's float32 kernels, their launches checked), remat
+    none: the (data 2, model 2) gradient of the training cell's batch,
+    joined, against the one-device gradient on the same weights and
+    batch, leaf by leaf, and the loss within MESH_GRAD_LOSS_TOL.  A
+    :func:`softmax_free` leaf within MESH_GRAD_TOL, every other within
+    TRAIN_LEAF_TOL: see MESH_GRAD_TOL's note."""
+    cfg = dataclasses.replace(cut, dtype="float32", param_dtype="float32")
+    n = cfg.num_layers
+    D, M = MESH_GRID
+    model = build_model(cfg, device=DEVICE)
+    tcfg = train_config(cfg, remat="none")
+    one = build_train_step(model, tcfg)
+    dense = one.init(seed)[0]
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                  seed=seed))
+    batch = one.to_device(data.batch_at(0))
+    ops.reset_launch_counts()
+    t_one, _, g_one = one.grads(dense, batch)
+    torch.cuda.synchronize()
+    train_counts(n, 1, 1, "mesh gradient: one device, float32")
+    big = build_train_step(model, tcfg, card_grid(D, M))
+    params = place_trainable(dense, big.mesh)
+    ops.reset_launch_counts()
+    t_mesh, _, g_mesh = big.grads(params, batch)
+    torch.cuda.synchronize()
+    train_counts(n * D * M, 1, 1, f"mesh gradient: ({D}, {M}), float32")
+    joined = params.join(g_mesh)
+    _, _, whole = leafwise(joined, g_one, f"train mesh ({D}, {M}) gradient, "
+                           f"{n} layers, float32, against one device's")
+    free = softmax_free(cfg)
+    check(set(free) <= set(g_one), f"softmax-free leaves {free} not in "
+          f"the gradient's {sorted(g_one)}")
+    floor = 1e-3 * sum(float(w.double().square().sum())
+                       for w in g_one.values()) ** 0.5
+    worst = {True: (0.0, None), False: (0.0, None)}
+    for name, w in g_one.items():
+        e = float((joined[name].double() - w.double()).norm()) / max(
+            float(w.double().norm()), floor)
+        if e >= worst[name in free][0]:
+            worst[name in free] = (e, name)
+    rel = abs(float(t_mesh) / float(t_one) - 1)
+    res = {"worst_softmax_free": worst[True], "worst_other": worst[False],
+           "whole": whole, "loss": float(t_mesh),
+           "loss_one_device": float(t_one), "loss_rel": rel}
+    print(f"train mesh ({D}, {M}) gradient, {n} layers, float32: worst "
+          f"softmax-free leaf {worst[True][1]} {worst[True][0]:.3e} (tol "
+          f"{MESH_GRAD_TOL}), worst other {worst[False][1]} "
+          f"{worst[False][0]:.3e} (tol {TRAIN_LEAF_TOL}), whole tree "
+          f"{whole:.3e}; loss {float(t_mesh):.6f} against {float(t_one):.6f},"
+          f" {rel:.3e} (tol {MESH_GRAD_LOSS_TOL})")
+    check(worst[True][0] <= MESH_GRAD_TOL
+          and worst[False][0] <= TRAIN_LEAF_TOL
+          and rel <= MESH_GRAD_LOSS_TOL,
+          f"mesh gradient against one device's: {res}")
+    return res
+
+
+def phase_train_mesh_seqpar(cut, seed: int):
+    """(b) At (data 1, model 3), L MESH_SEQPAR_SEQ, remat none: the
+    kernels' gradient (every K3 / K3b call checked against float64) leaf
+    by leaf against float64 attention's; the calls a chunk of query rows
+    at its offset against the whole sequence's keys."""
+    n = cut.num_layers
+    model = build_model(cut, device=DEVICE)
+    tcfg = dataclasses.replace(train_config(cut, remat="none"),
+                               shape=ShapeConfig("seqpar", MESH_SEQPAR_SEQ,
+                                                 TRAIN_BATCH, "train"))
+    bundle = build_train_step(model, tcfg, card_grid(1, 3))
+    params = bundle.init(seed)[0]
+    data = SyntheticLM(DataConfig(cut.vocab_size, MESH_SEQPAR_SEQ,
+                                  TRAIN_BATCH, seed=seed))
+    batch = bundle.to_device(data.batch_at(0))
+    acc = {"out": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0,
+           "forward_checks": 0, "backward_checks": 0}
+    lse_fn, bwd_fn = checked_train_attention(acc)
+    calls = []
+
+    def recorded(q, k, v, **kw):
+        calls.append((q.shape[1], k.shape[1], kw["q_offset"]))
+        return lse_fn(q, k, v, **kw)
+
+    ops.reset_launch_counts()
+    with train_attention(recorded, bwd_fn):
+        total, _, g_kernel = bundle.grads(params, batch)
+    torch.cuda.synchronize()
+    counts = train_counts(n * 3, 1, 1, "sequence-parallel training")
+    c = MESH_SEQPAR_SEQ // 3
+    want = [(c, MESH_SEQPAR_SEQ, i * c) for _ in range(n) for i in range(3)]
+    check(calls == want, f"sequence-parallel chunks {calls}, want {want}")
+    check(acc["forward_checks"] == 3 * n and acc["backward_checks"] == 3 * n,
+          f"sequence-parallel layer checks: {acc}")
+    res, _ = gradient_against_float64(
+        bundle, params, batch, g_kernel, total,
+        f"train mesh (1, 3) sequence-parallel, {n} layers, L "
+        f"{MESH_SEQPAR_SEQ}")
+    print(f"train mesh (1, 3): chunks {sorted(set(calls))}, checks against "
+          f"float64: output {acc['out']:.3e} lse {acc['lse']:.3e} dq "
+          f"{acc['dq']:.3e} dk {acc['dk']:.3e} dv {acc['dv']:.3e}")
+    launches = {k: counts[k] for k in ("flash_prefill", "flash_prefill_bwd")}
+    return {"whole_gradient": res, "chunks": sorted(set(calls)),
+            "layer_checks": acc, "launches": launches}, launches
+
+
+def phase_train_mesh_compressed(cut, seed: int):
+    """(c) ``build_compressed_dp_grads`` over (4, 1): the weights
+    replicated, the batch of MESH_COMPRESS_BATCH cut over the rows, each
+    row's gradient of its own mean loss on its device, exchanged as int8
+    with error feedback; every leaf against the one-device gradient of
+    the whole batch within MESH_COMPRESS_TOL of the leaf's largest
+    entry (floored at 1e-3 of the largest entry of any leaf)."""
+    model = build_model(cut, device=DEVICE)
+    tcfg = dataclasses.replace(train_config(cut, remat="none"),
+                               shape=ShapeConfig("compress", TRAIN_SEQ,
+                                                 MESH_COMPRESS_BATCH,
+                                                 "train"))
+    one = build_train_step(model, tcfg)
+    dense = one.init(seed)[0]
+    data = SyntheticLM(DataConfig(cut.vocab_size, TRAIN_SEQ,
+                                  MESH_COMPRESS_BATCH, seed=seed))
+    batch = one.to_device(data.batch_at(0))
+    _, _, exact = one.grads(dense, batch)
+    grid1 = card_grid(1, 1)
+    tree = place_trainable(dense, grid1)
+
+    def loss_fn(weights, part):
+        view = MeshParams(tree.skeleton, grid1, tree.layout, weights)
+        return lm_loss(model, view.view(0), part)
+
+    grad_fn = build_compressed_dp_grads(loss_fn, card_grid(4, 1))
+    ops.reset_launch_counts()
+    loss, grads, ef = grad_fn(tree.leaves, batch,
+                              init_error_feedback(tree.leaves))
+    torch.cuda.synchronize()
+    counts = train_counts(cut.num_layers * 4, 1, 1, "compressed dp grads")
+    top = max(float(g.abs().max()) for g in exact.values())
+    worst, leaf = 0.0, None
+    for name, g in exact.items():
+        scale = max(float(g.abs().max()), 1e-3 * top)
+        err = float((grads[name] - g.float()).abs().max()) / scale
+        if err >= worst:
+            worst, leaf = err, name
+    check(worst <= MESH_COMPRESS_TOL,
+          f"compressed dp gradient leaf {leaf}: {worst:.3e} of its scale "
+          f"(tol {MESH_COMPRESS_TOL})")
+    check(len(ef) == 4, f"{len(ef)} error-feedback buffers")
+    print(f"train mesh compressed dp (4, 1): worst leaf {leaf} {worst:.3e} "
+          f"of its scale (tol {MESH_COMPRESS_TOL}); loss {float(loss):.6f};"
+          f" launches {counts}")
+    return {"worst_leaf": leaf, "worst": worst, "loss": float(loss),
+            "launches": counts}
+
+
+def phase_train_mesh_elastic(cut, seed: int):
+    """(d) On ``cut`` (MESH_ELASTIC_WIDTH wide): one step at (2, 2),
+    checkpointed (a temporary directory, removed after), restored onto
+    (1, 1) by ``elastic_restore``: the weights and moments equal the
+    joined tree bit for bit, and the next step equals the same step from
+    the joined tree loaded directly, loss, grad norm, weights and moments
+    bit for bit."""
+    model = build_model(cut, device=DEVICE)
+    tcfg = train_config(cut)
+    data = SyntheticLM(DataConfig(cut.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                  seed=seed))
+    big = build_train_step(model, tcfg, card_grid(2, 2))
+    params, opt = big.init(seed)
+    big.step(params, opt, big.to_device(data.batch_at(0)))
+    joined = big.checkpoint_tree(params, opt)
+    saved = {k: v.detach().clone() for k, v in ckpt_mod._flatten(joined)}
+    root = Path(tempfile.mkdtemp(prefix="train_mesh_ckpt_"))
+    try:
+        ckpt_mod.save(root, 0, joined)
+        del params, opt, joined
+        one = build_train_step(model, tcfg)
+        start, p1, o1 = elastic_restore(str(root), one)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(start == 1, f"restored at step {start}")
+
+    def same_bits(a: dict, b: dict) -> bool:
+        """Whether two flat trees hold the same bits (compared on the
+        card as integers of each element's width)."""
+        ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}
+
+        def raw(v):
+            v = v.detach().reshape(-1)
+            return v.view(ints[v.element_size()])
+        return a.keys() == b.keys() and all(
+            a[k].dtype == b[k].dtype and torch.equal(raw(a[k]), raw(b[k]))
+            for k in a)
+
+    def bits(tree):
+        return dict(ckpt_mod._flatten(tree))
+    check(same_bits(bits(one.checkpoint_tree(p1, o1)), saved),
+          "the restored (1, 1) tree differs from the saved (2, 2) tree")
+    p2, o2 = one.empty_state()
+    one.load_checkpoint_tree(p2, o2, ckpt_mod._unflatten(
+        one.checkpoint_tree(p2, o2), saved))
+    batch = one.to_device(data.batch_at(1))
+    m1 = {k: float(v) for k, v in one.step(p1, o1, batch)[2].items()}
+    m2 = {k: float(v) for k, v in one.step(p2, o2, batch)[2].items()}
+    same = same_bits(bits(one.checkpoint_tree(p1, o1)),
+                     bits(one.checkpoint_tree(p2, o2)))
+    check(m1 == m2 and same, f"the step after the restore {m1} against the "
+          f"step from the joined tree {m2}, trees equal: {same}")
+    print(f"train mesh elastic: a (2, 2) checkpoint restored onto (1, 1) "
+          f"bit for bit; the next step (loss {m1['loss']:.6f}) equals the "
+          f"step from the joined tree bit for bit")
+    return {"restored_step": start, "next_step": m1, "bit_for_bit": True}
+
+
+def train_kernel_rows(gen, flush, launches, b=TRAIN_BATCH, lq=TRAIN_SEQ,
+                      lk=TRAIN_SEQ, hq=16, hkv=2, d=128, q_offset=0,
+                      cell="training cell"):
+    """(g) K3 with its LSE and K3b at a training cell (by default B 2, Lq
+    = Lk 1024, Hq 16, Hkv 2, D 128, causal, bf16; a mesh step's shapes
+    otherwise: a device's heads, or a chunk of query rows at
+    ``q_offset``): the kernels line's rows, with their launches in the
+    run of that path, and a check of each against float64.  K3b's
+    library time is SDPA's forward and backward less its forward (K / V
+    expanded to the query heads, with an explicit mask where the chunk
+    is offset; a yardstick the port never calls)."""
+    q, k, v = prefill_case(gen, b, lq, lk, hq, hkv, d)
     do = rand(gen, (b, lq, hq, d))
-    o, lse = fprefill.flash_prefill_lse(q, k, v, causal=True)
-    got = fprefill.flash_prefill_bwd(q, k, v, o, lse, do, causal=True)
+    kw = dict(causal=True, q_offset=q_offset)
+    o, lse = fprefill.flash_prefill_lse(q, k, v, **kw)
+    got = fprefill.flash_prefill_bwd(q, k, v, o, lse, do, **kw)
     want = fprefill.prefill_backward_plain(
-        *(f64(t) for t in (q, k, v, o, lse, do)), causal=True)
+        *(f64(t) for t in (q, k, v, o, lse, do)), **kw)
     errs = [normwise(g, w) for g, w in zip(got, want)]
-    check(max(errs) <= TRAIN_GRAD_TOL, f"K3b at the training cell: {errs}")
+    check(max(errs) <= TRAIN_GRAD_TOL, f"K3b at the {cell}: {errs}")
     bwd_err = max(float((g.double() - w).abs().max())
                   for g, w in zip(got, want))
     fwd_err = max_err(o, fprefill.prefill_plain(f64(q), f64(k), f64(v),
-                                                causal=True), PREFILL_TOL)
-    fwd_flops = 4 * b * hq * d * lq * (lq + 1) / 2
+                                                **kw), PREFILL_TOL)
+    # (query, key) pairs under the causal mask at this offset
+    pairs = lq * q_offset + lq * (lq + 1) / 2
+    fwd_flops = 4 * b * hq * d * pairs
+    sdpa = dict(is_causal=True, scale=1.0) if q_offset == 0 and lq == lk \
+        else dict(attn_mask=(torch.arange(lk, device=DEVICE)[None]
+                             <= q_offset + torch.arange(
+                                 lq, device=DEVICE)[:, None]), scale=1.0)
     qs, ks, vs, dos = (t.transpose(1, 2).contiguous() for t in (
         q, k.repeat_interleave(hq // hkv, dim=2),
         v.repeat_interleave(hq // hkv, dim=2), do))
     leaves = [t.detach().requires_grad_(True) for t in (qs, ks, vs)]
 
     def sdpa_fwd():
-        return F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                              scale=1.0)
+        return F.scaled_dot_product_attention(*leaves, **sdpa)
 
     fb_ms = time_ms(lambda: torch.autograd.grad(sdpa_fwd(), leaves, dos),
                     100, flush)
     f_ms = time_ms(sdpa_fwd, 100, flush)
-    shape = (f"B{b} Lq=Lk={lq} Hq{hq} Hkv{hkv} D{d} causal bf16, training "
-             f"cell")
+    shape = (f"B{b} Lq={lq} Lk={lk} Hq{hq} Hkv{hkv} D{d} causal"
+             f"{f' q_offset {q_offset}' if q_offset else ''} bf16, {cell}")
     rows = [dict(
         name="flash_prefill", shape=shape + ", with its LSE",
-        fn=functools.partial(fprefill.flash_prefill_lse, q, k, v,
-                             causal=True),
-        plain=lambda: (prefill_plain(q, k, v, causal=True),
-                       fprefill.prefill_lse_plain(q, k, causal=True)),
+        fn=functools.partial(fprefill.flash_prefill_lse, q, k, v, **kw),
+        plain=lambda: (prefill_plain(q, k, v, **kw),
+                       fprefill.prefill_lse_plain(q, k, **kw)),
         lib=functools.partial(F.scaled_dot_product_attention,
                               *(t.transpose(1, 2) for t in (q, k, v)),
-                              is_causal=True, scale=1.0, enable_gqa=True),
+                              enable_gqa=True, **sdpa),
         nbytes=2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel(),
         flops=fwd_flops, err=fwd_err,
         launches=launches["flash_prefill"]), dict(
         name="flash_prefill_bwd", shape=shape,
         fn=functools.partial(fprefill.flash_prefill_bwd, q, k, v, o, lse, do,
-                             causal=True),
+                             **kw),
         plain=functools.partial(fprefill.prefill_backward_plain, q, k, v, o,
-                                lse, do, causal=True),
+                                lse, do, **kw),
         lib=None, library_ms=fb_ms - f_ms,
         # q, k, v, o, do and the LSE read; dq, dk, dv written
         nbytes=2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
                     + do.numel()) + 4 * lse.numel(),
         flops=2.5 * fwd_flops, err=bwd_err, tol=TRAIN_GRAD_TOL,
         launches=launches["flash_prefill_bwd"])]
-    print(f"K3b at the training cell against float64, normwise: dq "
+    print(f"K3b at the {cell} against float64, normwise: dq "
           f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (tol "
           f"{TRAIN_GRAD_TOL}); SDPA forward+backward {fb_ms:.4f} ms, "
           f"forward {f_ms:.4f} ms")
@@ -6867,7 +7362,7 @@ def main(argv=None) -> int:
                              "times", "table1", "shapes", "paged", "spec",
                              "archs", "tune", "moe", "obs", "mla",
                              "vlm", "encdec", "hybrid", "ssm", "shard",
-                             "tp", "train"),
+                             "tp", "train", "train_mesh"),
                     default="all",
                     help="'kernels' stops after build and kernel parity; "
                          "'digests' builds, then runs the main path's "
@@ -6903,7 +7398,9 @@ def main(argv=None) -> int:
                          "granite-moe-3b-a800m expert-parallel and runs "
                          "the frozen mesh step builders; 'train' builds, "
                          "then trains qwen2.5-3b at full width on the "
-                         "prefill kernel and its backward")
+                         "prefill kernel and its backward; 'train_mesh' "
+                         "builds, then trains it over (data, model) grids "
+                         "of the card")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -6948,6 +7445,16 @@ def main(argv=None) -> int:
         flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
         train, rows = timed("train", phase_train, args.seed, flush)
         print(json.dumps({"train": train, "card": card}))
+        print(card)
+        print(json.dumps({"kernels": kernel_line(rows, flush)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.phase == "train_mesh":
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+        mesh, rows = timed("train mesh", phase_train_mesh, args.seed, flush)
+        print(json.dumps({"train_mesh": mesh, "card": card}))
         print(card)
         print(json.dumps({"kernels": kernel_line(rows, flush)}))
         print(json.dumps({"ok": True, "device": {
@@ -7038,6 +7545,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # training at full width and depth, once the serving model is freed
     train, train_rows = timed("train", phase_train, args.seed, flush)
+    train_mesh, mesh_rows = timed("train mesh", phase_train_mesh, args.seed,
+                                  flush, DEFAULT_RUN_LAYERS["train_mesh"])
     # the later qwen2.5-3b paths on a model cut in depth, from the seed
     cut = cut_depth(cfg, DEFAULT_RUN_LAYERS["qwen"])
     model = build_model(cut, device=DEVICE)
@@ -7067,7 +7576,7 @@ def main(argv=None) -> int:
         single_kv_head_rows(gen, sms, mla, vlm) + \
         side_shape_rows(gen, sms, encdec, hybrid) + \
         shard_kernel_rows(gen, sms, shard) + tp_kernel_rows(gen, sms, tp) + \
-        train_rows
+        train_rows + mesh_rows
     kernels = timed("kernels line", phase_kernels_line, gen, sms, errs,
                     counts, flush, serving["prefill_launches"],
                     serving["decode_launches"], qserving["decode_launches"],
@@ -7082,7 +7591,8 @@ def main(argv=None) -> int:
                       "archs": archs, "moe": moe, "mla": mla,
                       "vlm": vlm, "encdec": encdec, "hybrid": hybrid,
                       "ssm": ssm, "shard": shard, "tp": tp,
-                      "train": train, "table1": table1,
+                      "train": train, "train_mesh": train_mesh,
+                      "table1": table1,
                       "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -18,8 +18,11 @@ leaves a half checkpoint where :func:`latest_step` looks.
 a worker thread while training goes on.
 
 The reference's restore re-shards leaves onto a new mesh; the port's
-places them on one device, the restoring tree's (the one-card
-counterpart), and casts each to the restoring leaf's dtype.
+places each leaf on the restoring tree's device and casts it to that
+leaf's dtype.  A training grid's weights and moments are checkpointed
+dense (joined) and cut onto the restoring bundle's grid, which may be
+another than the one that saved them
+(:func:`repro_torch.fault.elastic.elastic_restore`).
 """
 from __future__ import annotations
 

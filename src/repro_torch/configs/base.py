@@ -177,9 +177,11 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """A training run: the reference's fields but its ``mesh``.  The port
-    trains on one device (mesh training is ROADMAP Queue 1's next item),
-    so it has no ``MeshConfig``."""
+    """A training run: the reference's fields but its ``mesh``.  The
+    port's grid is an explicit device list
+    (:func:`~repro_torch.launch.mesh.make_host_mesh`), given to
+    ``build_train_step`` beside the config, so it has no
+    ``MeshConfig``."""
     model: ModelConfig
     shape: ShapeConfig = TRAIN_4K
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)

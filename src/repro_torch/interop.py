@@ -46,6 +46,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM, layer_groups
 from repro_torch.models.registry import DeviceLike, resolve_device
+from repro_torch.sharding.place import MeshParams, place_trainable
 
 
 # dtypes numpy knows only through ml_dtypes: read as raw bits of equal
@@ -104,10 +105,12 @@ def _grouped_layers(groups: Any, cfg: ModelConfig
 
 
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
-                      device: DeviceLike = None):
+                      device: DeviceLike = None, mesh=None):
     """The port's parameters from the reference's numpy param tree, cast
     to ``cfg.param_dtype`` on ``device`` (the card unless asked): an
-    :class:`EncDec` for an encdec config, else an :class:`LM`."""
+    :class:`EncDec` for an encdec config, else an :class:`LM`; with a
+    training ``mesh``, those weights cut onto it by ``param_rules()``
+    (:func:`~repro_torch.sharding.place.place_trainable`)."""
     state: Dict[str, torch.Tensor] = {}
     stacks = ("enc_layers", "dec_layers") if cfg.family == "encdec" \
         else ("groups",)
@@ -129,6 +132,8 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     want = module.state_dict()
     module.load_state_dict({k: v.to(want[k].dtype)
                             for k, v in state.items()})
+    if mesh is not None:
+        return place_trainable(module, mesh)
     return module
 
 
@@ -158,15 +163,17 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 def params_to_numpy(params: Any, cfg: ModelConfig) -> Dict[str, Any]:
     """The inverse of :func:`params_from_numpy`: the reference's param tree
     of numpy arrays from the port's weights (an :class:`LM` or
-    :class:`EncDec`), or from any dict keyed by their ``state_dict``
-    names (gradients, for one).  Each scan group's layers are stacked
-    back along a leading axis, ``groups[g][k]`` for pattern position k
+    :class:`EncDec`, or a :class:`~repro_torch.sharding.place.MeshParams`,
+    whose leaves are joined), or from any dict keyed by their
+    ``state_dict`` names (gradients, for one).  Each scan group's layers
+    are stacked back along a leading axis, ``groups[g][k]`` for pattern
+    position k
     (encdec: ``enc_layers`` and ``dec_layers``), and the result is a
     nested dict with a tuple of tuples under ``groups``.  bfloat16
     leaves come back as float32 of the same values (exact); float32 ones
     as float32."""
-    flat = (params.state_dict() if isinstance(params, torch.nn.Module)
-            else dict(params))
+    flat = (params.state_dict() if isinstance(
+        params, (torch.nn.Module, MeshParams)) else dict(params))
     flat = {n: tensor_to_numpy(t) for n, t in flat.items()}
     top = {n: a for n, a in flat.items() if not n.startswith(
         ("layers.", "enc_layers.", "dec_layers."))}

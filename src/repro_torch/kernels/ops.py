@@ -268,7 +268,11 @@ def _attention_seqpar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     device.  The batch rides the rows where their count divides B
     (row ``r`` its B / rows), else the first row takes it all, as
     replicated.  Where the reference runs XLA's flash here, the port
-    runs its kernel, as this op does everywhere."""
+    runs its kernel, as this op does everywhere.  It is differentiable:
+    under autograd each chunk runs the kernel with its LSE and its
+    backward (``flash_prefill``'s autograd form) and K / V's gradients
+    add over the chunks, which is how mesh training runs attention
+    where the model axis does not divide the query heads."""
     B, Lq = q.shape[:2]
     n = mesh.shape["model"]
     C = Lq // n
@@ -280,7 +284,7 @@ def _attention_seqpar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kr, vr = k[r * b:(r + 1) * b], v[r * b:(r + 1) * b]
         parts = []
         for i, dev in enumerate(devices):
-            qc = qs[r * b:(r + 1) * b, i * C:(i + 1) * C]
+            qc = qs[r * b:(r + 1) * b, i * C:(i + 1) * C].contiguous()
             o = flash_prefill(qc.to(dev), kr.to(dev), vr.to(dev),
                               causal=causal, window=window,
                               q_offset=q_offset + i * C)

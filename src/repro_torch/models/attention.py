@@ -136,7 +136,19 @@ def attention_train(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     """Causal (with a ``window``, local) attention over a whole sequence,
     x (B, L, d) -> (B, L, d): the training path, the reference's
     ``attention_train``.  It runs ``ops.attention``, which differentiates
-    through the prefill kernel and its backward on the card."""
+    through the prefill kernel and its backward on the card.  Over
+    weights whose query and KV heads the model axis both cuts, each
+    device attends its own heads (the KV heads its query heads read lie
+    on it too) and the partial outputs sum on the lead device, as the
+    reference's head-sharded attention runs a launch a device."""
+    if sharded(p, "wq") is not None and sharded(p, "wk") is not None:
+        def one(mod, xs):
+            r = None if rope is None else tuple(t.to(xs.device)
+                                                for t in rope)
+            q, k, v = _project_qkv(mod, cfg, xs, r)
+            return _out_proj(mod, ops.attention(q, k, v, causal=True,
+                                                window=window))
+        return tp_sum(p, one, x)
     q, k, v = _project_qkv(p, cfg, x, rope)
     return _out_proj(p, ops.attention(q, k, v, causal=True, window=window))
 

@@ -13,9 +13,9 @@ is a gated MLP (swiglu, or geglu for gemma-style configs) or a
 :class:`~repro_torch.models.moe.MoE` (``cfg.moe`` set; routing groups
 are the rows each step passes: the padded prompt bucket in prefill, the
 padded suffix bucket in suffix prefill, one token per slot in decode,
-k + 1 rows per slot in verify).  Serving discards the MoE load-balance
-loss, as the reference does; the training forward (:func:`lm_forward`,
-:func:`block_train`) returns it.  A ``vlm`` config (PaliGemma) adds the
+k + 1 rows per slot in verify).  Serving discards the MoE routing
+stats, as the reference discards its load-balance loss; the training
+forward (:func:`lm_forward`, :func:`block_train`) returns them.  A ``vlm`` config (PaliGemma) adds the
 ``patch_proj`` weight: :func:`lm_prefill` projects a vision stub's patch
 embeddings and prepends them to the text.  Layers are an
 ``nn.ModuleList`` walked by a Python loop (the reference scans a
@@ -186,10 +186,12 @@ def _ffn(block: Block, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def block_train(block: Block, cfg: ModelConfig, x: torch.Tensor,
-                rope: Rope) -> Tuple[torch.Tensor, torch.Tensor]:
+                rope: Rope) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block over a whole sequence, the training path (the
-    reference's ``block_train``): (x, the block's auxiliary loss, f32;
-    a MoE FFN's load-balance loss, else 0)."""
+    reference's ``block_train``): (x, a MoE FFN's
+    :func:`~repro_torch.models.moe.routing_stats` (g, 2, E) f32, whose
+    :func:`~repro_torch.models.moe.balance_loss` is the reference's
+    auxiliary loss; None for another block)."""
     h = rms_norm(x, block.ln1.scale, cfg.norm_eps)
     if block.kind == "mla":
         mix = mla_mod.mla_train(block.mix, cfg, h, rope)
@@ -203,15 +205,13 @@ def block_train(block: Block, cfg: ModelConfig, x: torch.Tensor,
             window=cfg.hybrid.window if block.kind == "attn_window"
             else None)
     x = x + mix
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not has_mlp(block.kind):
-        return x, aux
+        return x, None
     h2 = rms_norm(x, block.ln2.scale, cfg.norm_eps)
     if cfg.moe is not None:
-        y, aux = moe_mod.apply_moe_train(block.ffn, cfg, h2)
-    else:
-        y = apply_mlp(block.ffn, h2, cfg.mlp_kind)
-    return x + y, aux
+        y, stats = moe_mod.apply_moe_train(block.ffn, cfg, h2)
+        return x + y, stats
+    return x + apply_mlp(block.ffn, h2, cfg.mlp_kind), None
 
 
 def lm_forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -221,11 +221,13 @@ def lm_forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
     """The training forward (the reference's ``lm_forward``): tokens (B,
     L_text), a vision config's ``patches`` (B, P, embed_dim) projected by
     ``patch_proj`` and prepended, then every block.  Returns (logits (B,
-    L_total, vocab) f32, the summed auxiliary loss).  Layers run in the
-    reference's scan groups (:func:`layer_groups`): one repetition of a
-    group's pattern is one body, which ``block_wrapper`` (a remat policy,
-    :func:`repro_torch.training.remat.block_wrapper`) wraps, as the
-    reference wraps its scan body."""
+    L_total, vocab) f32, the MoE layers' routing stats stacked (layers,
+    g, 2, E), empty for a model without MoE); the reference's summed
+    auxiliary loss is their :func:`~repro_torch.models.moe.balance_loss`.
+    Layers run in the reference's scan groups (:func:`layer_groups`): one
+    repetition of a group's pattern is one body, which ``block_wrapper``
+    (a remat policy, :func:`repro_torch.training.remat.block_wrapper`)
+    wraps, as the reference wraps its scan body."""
     x = embed_tokens(params.embed, tokens)
     if cfg.frontend.kind == "vision":
         if patches is None:
@@ -235,23 +237,34 @@ def lm_forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor, *,
     L = x.shape[1]
     rope = rope_angles(torch.arange(L, device=x.device)[None],
                        rope_dim(cfg), cfg.rope_theta)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    stats = []
 
     def body_of(blocks):
-        def body(xc, auxc):
+        def body(xc):
+            st = []
             for block in blocks:
-                xc, a = block_train(block, cfg, xc, rope)
-                auxc = auxc + a
-            return xc, auxc
+                xc, s = block_train(block, cfg, xc, rope)
+                if s is not None:
+                    st.append(s)
+            return (xc, *st)
         return block_wrapper(body) if block_wrapper is not None else body
 
     first = 0
     for pattern, reps in layer_groups(cfg):
         for _ in range(reps):
             blocks = params.layers[first:first + len(pattern)]
-            x, aux = body_of(blocks)(x, aux)
+            x, *st = body_of(blocks)(x)
+            stats += st
             first += len(pattern)
-    return _logits(params, cfg, x), aux
+    if not stats:
+        return _logits(params, cfg, x), no_routing(x.device)
+    return _logits(params, cfg, x), torch.stack(stats)
+
+
+def no_routing(device: torch.device) -> torch.Tensor:
+    """The routing stats of a model without MoE: (0, 1, 2, 0), whose
+    load-balance loss is 0."""
+    return torch.zeros((0, 1, 2, 0), dtype=torch.float32, device=device)
 
 
 def block_prefill(block: Block, cfg: ModelConfig, x: torch.Tensor,

@@ -16,12 +16,13 @@ slots.  Two dispatches compute the same function:
 mesh: it runs exactly where the reference's does, under a bound
 activation mesh (:func:`repro_torch.sharding.activation_mesh`) whose
 ``model`` axis ``n`` is above 1 and divides L, and as ``gather``
-elsewhere (decode's L 1, no mesh).  Its semantics are the reference's
-(:func:`_moe_ep_shard_map`): the experts padded to a multiple of ``n``,
-each device's chunk of L / n tokens routed as one group with its own
-capacity, expert group ``j``'s slabs from every chunk moved to device
-``j``, which runs its experts, and moved back.  So where capacity drops
-tokens it drops other tokens than ``gather`` over the whole row does.
+elsewhere (decode's L 1, no mesh), in serving and in training alike.
+Its semantics are the reference's (:func:`_moe_ep_shard_map`): the
+experts padded to a multiple of ``n``, each device's chunk of L / n
+tokens routed as one group with its own capacity, expert group ``j``'s
+slabs from every chunk moved to device ``j``, which runs its experts,
+and moved back.  So where capacity drops tokens it drops other tokens
+than ``gather`` over the whole row does.
 
 Under tensor parallelism (``param_policy="tp"``) the expert stacks are
 cut over the model axis (:class:`~repro_torch.models.common.TPModule`):
@@ -98,13 +99,35 @@ def _route_with(router: torch.Tensor, top_k: int, x: torch.Tensor
     return gates, experts, probs
 
 
+def routing_stats(probs: torch.Tensor, experts: torch.Tensor
+                  ) -> torch.Tensor:
+    """(g, 2, E): for each of g routings (``probs`` (g, S, E),
+    ``experts`` (g, S, k)), the fraction of top-1 choices and the mean
+    probability of each expert, the two factors of the Switch
+    load-balance loss (:func:`balance_loss`).  The training forward
+    returns them in place of the loss, so that mesh training can join
+    its data rows' routings into the whole batch's, as the reference's
+    loss is over the whole batch."""
+    frac = F.one_hot(experts[..., 0], probs.shape[-1]).float().mean(1)
+    return torch.stack([frac.to(probs.dtype), probs.mean(1)], 1)
+
+
+def balance_loss(stats: torch.Tensor) -> torch.Tensor:
+    """The Switch load-balance loss from :func:`routing_stats` (...,
+    g, 2, E): E * sum_e(fraction of top-1 choices * mean probability)
+    of each routing, averaged over the g routings and summed over the
+    leading dims (the layers).  0 for an empty (model without MoE)."""
+    E = stats.shape[-1]
+    return (E * (stats[..., 0, :] * stats[..., 1, :]).sum(-1)).mean(-1).sum()
+
+
 def load_balance_loss(probs: torch.Tensor, experts: torch.Tensor,
                       num_experts: int) -> torch.Tensor:
-    """The Switch load-balance loss of one routing, as the reference's
-    ``_route`` returns it: E * sum_e(fraction of top-1 choices * mean
-    probability).  Serving discards it; training adds it to the loss."""
-    frac = F.one_hot(experts[..., 0], num_experts).float().mean(dim=(0, 1))
-    return num_experts * (frac * probs.mean(dim=(0, 1))).sum()
+    """The Switch load-balance loss of one routing over ``num_experts``
+    experts, as the reference's ``_route`` returns it."""
+    return balance_loss(routing_stats(
+        probs.reshape(1, -1, num_experts),
+        experts.reshape(1, -1, experts.shape[-1])))
 
 
 def _positions_in_expert(experts: torch.Tensor, num_experts: int
@@ -146,9 +169,10 @@ def _expert_ffn(p: MoE, xin: torch.Tensor) -> torch.Tensor:
 
 
 def _moe_einsum(p: MoE, cfg: ModelConfig, x: torch.Tensor, capacity: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (G, S, d) -> ((G, S, d), the load-balance loss).  One-hot
-    dispatch and combine, one (G, S, E, C) tensor per k."""
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (G, S, d) -> ((G, S, d), the router's probabilities, the
+    experts chosen).  One-hot dispatch and combine, one (G, S, E, C)
+    tensor per k."""
     moe = cfg.moe
     G, S, d = x.shape
     E, C = moe.num_experts, capacity
@@ -170,13 +194,13 @@ def _moe_einsum(p: MoE, cfg: ModelConfig, x: torch.Tensor, capacity: int
     for ki, disp_k in enumerate(disp):
         comb = disp_k * gates[:, :, ki, None, None].to(x.dtype)
         out = out + torch.einsum("gsec,gecd->gsd", comb, xout)
-    return out, load_balance_loss(probs, experts, E)
+    return out, probs, experts
 
 
 def _moe_gather(p: MoE, cfg: ModelConfig, x: torch.Tensor, capacity: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (G, S, d) -> ((G, S, d), the load-balance loss).  Kept
-    assignments are copied
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (G, S, d) -> ((G, S, d), the router's probabilities, the
+    experts chosen).  Kept assignments are copied
     to slot ``expert * C + pos`` of a per-group buffer; dropped ones go to
     its extra last row, which no expert reads and which combines as
     zeros."""
@@ -192,8 +216,7 @@ def _moe_gather(p: MoE, cfg: ModelConfig, x: torch.Tensor, capacity: int
     xout = _expert_ffn(p, buf[:, :E * C].reshape(G, E, C, d))
     xout = torch.cat([xout.reshape(G, E * C, d), x.new_zeros(G, 1, d)], 1)
     picked = xout[rows, slot].reshape(G, S, K, d)               # combine
-    return ((picked * gates[..., None].to(x.dtype)).sum(2),
-            load_balance_loss(probs, experts, E))
+    return (picked * gates[..., None].to(x.dtype)).sum(2), probs, experts
 
 
 def _expert_group(p: MoE, j: int, g: int, device: torch.device
@@ -211,10 +234,13 @@ def _expert_group(p: MoE, j: int, g: int, device: torch.device
 
 
 def _moe_ep_shard_map(p: MoE, cfg: ModelConfig, x: torch.Tensor, mesh,
-                      axis: str = "model") -> torch.Tensor:
+                      axis: str = "model"
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Expert parallelism over ``mesh``'s ``axis`` (size n): the
     reference's ``_moe_ep_shard_map``, its two ``all_to_all``\\ s made
-    explicit moves.  x (B, L, d) on the lead device -> (B, L, d).
+    explicit moves.  x (B, L, d) on the lead device -> ((B, L, d), the
+    router's probabilities (chunks, S, e_pad), the experts chosen
+    (chunks, S, k)).
 
     The batch rides the data rows where their count divides B (row ``r``
     takes B_loc = B / rows of them), else the first row takes all B, the
@@ -229,7 +255,10 @@ def _moe_ep_shard_map(p: MoE, cfg: ModelConfig, x: torch.Tensor, mesh,
     cap, d) in chunk order, runs its experts on them, and its outputs go
     back, each chunk's rows of every group joined in group order, where
     every kept assignment picks its output by slot, weighted by its gate.
-    A pad expert's slab is zeros and reads no weight."""
+    A pad expert's slab is zeros and reads no weight.  Each chunk is a
+    routing of its own (every chunk of every row, in order), whose
+    load-balance loss is over its tokens and the ``e_pad`` experts, as
+    the reference's local estimate that it averages over the devices."""
     moe = cfg.moe
     B, L, d = x.shape
     n = mesh.shape[axis]
@@ -243,13 +272,14 @@ def _moe_ep_shard_map(p: MoE, cfg: ModelConfig, x: torch.Tensor, mesh,
     rows = mesh.rows if B % len(mesh.rows) == 0 else mesh.rows[:1]
     b_loc, lc = B // len(rows), L // n
     cap = _capacity(b_loc * lc, e_pad, K, moe.capacity_factor)
-    out_rows = []
+    out_rows, route = [], []
     for r, devices in enumerate(rows):
         xr = x[r * b_loc:(r + 1) * b_loc]
         bufs, slots, gates_all = [], [], []
         for i in range(n):
             xt = xr[:, i * lc:(i + 1) * lc].reshape(b_loc * lc, d)
-            gates, experts, _ = _route_with(router, K, xt[None])
+            gates, experts, probs = _route_with(router, K, xt[None])
+            route.append((probs[0], experts[0]))
             _, pos = _positions_in_expert(experts, e_pad)
             slot = torch.where(pos < cap, experts * cap + pos,
                                e_pad * cap).reshape(-1)
@@ -278,7 +308,8 @@ def _moe_ep_shard_map(p: MoE, cfg: ModelConfig, x: torch.Tensor, mesh,
             o = (picked * gates_all[i][..., None].to(x.dtype)).sum(1)
             chunks.append(o.reshape(b_loc, lc, d))
         out_rows.append(torch.cat(chunks, dim=1))
-    return torch.cat(out_rows, dim=0)
+    probs, experts = (torch.stack(t) for t in zip(*route))
+    return torch.cat(out_rows, dim=0), probs, experts
 
 
 def ep_applies(x: torch.Tensor) -> bool:
@@ -295,7 +326,7 @@ def apply_moe(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
               dispatch: Optional[str] = None, group_size: int = 0
               ) -> torch.Tensor:
     """MoE FFN over (B, L, d) activations -> (B, L, d), serving's form:
-    :func:`apply_moe_train` without the load-balance loss, which serving
+    :func:`apply_moe_train` without the routing stats, which serving
     discards, as the reference's serving paths do.
 
     Groups are the (B, L) rows by default; ``group_size`` < L cuts each
@@ -303,7 +334,7 @@ def apply_moe(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     config's."""
     dispatch = _dispatch(cfg, dispatch)
     if dispatch == "ep_shard_map" and ep_applies(x):
-        return _moe_ep_shard_map(p, cfg, x, current_mesh())
+        return _moe_ep_shard_map(p, cfg, x, current_mesh())[0]
     return apply_moe_train(p, cfg, x, dispatch=dispatch,
                            group_size=group_size)[0]
 
@@ -319,19 +350,21 @@ def _dispatch(cfg: ModelConfig, dispatch: Optional[str]) -> str:
 def apply_moe_train(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
                     dispatch: Optional[str] = None, group_size: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE FFN over (B, L, d) -> (out (B, L, d), the Switch load-balance
-    loss, float32), the reference's ``apply_moe``: the training path's
-    form.  Expert parallelism over a bound mesh (``ep_shard_map`` where
-    :func:`ep_applies`) belongs to mesh training, which is not ported;
-    elsewhere ``ep_shard_map`` runs ``gather``, as the reference's."""
+    """MoE FFN over (B, L, d) -> (out (B, L, d), the :func:`routing_stats`
+    (g, 2, E) f32), the reference's ``apply_moe`` (whose loss is
+    :func:`balance_loss` of them): the training path's form.  A gather
+    or einsum dispatch is one routing (g 1) over all its groups; expert
+    parallelism over a bound mesh (``ep_shard_map`` where
+    :func:`ep_applies`) gives one a chunk; elsewhere ``ep_shard_map``
+    runs ``gather``, as the reference's."""
     B, L, d = x.shape
     moe = cfg.moe
     dispatch = _dispatch(cfg, dispatch)
     if dispatch == "ep_shard_map":
         if ep_applies(x):
-            raise NotImplementedError(
-                "expert-parallel MoE with its load-balance loss is mesh "
-                "training (ROADMAP Queue 1, mesh training)")
+            out, probs, experts = _moe_ep_shard_map(p, cfg, x,
+                                                    current_mesh())
+            return out, routing_stats(probs, experts)
         dispatch = "gather"
     if group_size and group_size < L:
         xg = x.reshape(B * (L // group_size), group_size, d)
@@ -341,5 +374,7 @@ def apply_moe_train(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     cap = _capacity(group_size, moe.num_experts, moe.top_k,
                     moe.capacity_factor)
     fn = _moe_gather if dispatch == "gather" else _moe_einsum
-    out, aux = fn(p, cfg, xg, cap)
-    return out.reshape(B, L, d), aux
+    out, probs, experts = fn(p, cfg, xg, cap)
+    stats = routing_stats(probs.reshape(1, -1, moe.num_experts),
+                          experts.reshape(1, -1, moe.top_k))
+    return out.reshape(B, L, d), stats

@@ -223,8 +223,11 @@ class Model:
     def forward(self, params, batch: Dict[str, torch.Tensor], *,
                 block_wrapper: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The training forward: (logits (B, L_total, vocab) f32, the
-        auxiliary loss f32), the reference's ``Model.forward``.  ``batch``
+        """The training forward: (logits (B, L_total, vocab) f32, the MoE
+        layers' routing stats (:func:`~repro_torch.models.lm.lm_forward`;
+        empty without MoE)), the reference's ``Model.forward``, whose
+        auxiliary loss is the stats'
+        :func:`~repro_torch.models.moe.balance_loss`.  ``batch``
         holds ``tokens`` (B, L_text) and, for a vision config,
         ``patches``, or, for an encdec config, ``frames``.
         ``block_wrapper`` wraps each repetition of a layer group's
@@ -235,7 +238,7 @@ class Model:
         if cfg.family == "encdec":
             logits = encdec_mod.encdec_forward(params, cfg, batch["tokens"],
                                                batch["frames"])
-            return logits, torch.zeros((), device=logits.device)
+            return logits, lm_mod.no_routing(logits.device)
         return lm_mod.lm_forward(params, cfg, batch["tokens"],
                                  patches=batch.get("patches"),
                                  block_wrapper=block_wrapper)

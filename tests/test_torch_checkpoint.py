@@ -9,7 +9,11 @@ reference's ``tests/test_checkpoint_fault.py`` cases carried over
 dtype cast on restore); the watchdog and straggler detector on a fake
 clock; ``resumable_train_loop`` crashed at a step and resumed, equal to
 the uninterrupted run bit for bit (the same ops on the same restored bits
-on the CPU); and the training CLI on the CPU.
+on the CPU); the training CLI on the CPU; and checkpoints across grids: a
+(2, 2) training grid's checkpoint (dense, its leaves joined) restored
+onto (1, 1) and (1, 4) bit for bit, the next step bit for bit the same
+step from the joined tree, and restored by the reference's ``restore``
+onto its own (2, 2) mesh of 8 forced host devices (a subprocess).
 """
 import json
 import subprocess
@@ -242,3 +246,154 @@ def test_training_cli_on_the_cpu(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.splitlines()[-1].startswith("final: {'loss': ")
     assert ckpt.latest_step(tmp_path) is None   # ckpt_every 50 > 3 steps
+
+
+# ---------------------------------------------------------------------------
+# checkpoints across grids
+# ---------------------------------------------------------------------------
+
+GRID_SEQ, GRID_BATCH = 16, 4
+
+
+def _grid_bundle(grid):
+    """Reduced qwen2.5-3b in float32 over a (data, model) grid of CPU
+    devices ((1, 1): the one-device bundle)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = reduced_config("qwen2.5-3b", num_layers=2, d_model=32).replace(
+        dtype="float32", param_dtype="float32")
+    tcfg = TrainConfig(model=cfg, shape=ShapeConfig("t", GRID_SEQ,
+                                                    GRID_BATCH, "train"),
+                       optimizer=OptimizerConfig(warmup_steps=2,
+                                                 total_steps=30))
+    d, m = grid
+    mesh = make_host_mesh(m, ["cpu"] * (d * m))
+    return build_train_step(build_model(cfg, device="cpu"), tcfg, mesh), cfg
+
+
+def _grid_data(cfg):
+    return SyntheticLM(DataConfig(cfg.vocab_size, GRID_SEQ, GRID_BATCH,
+                                  seed=4))
+
+
+@pytest.fixture(scope="module")
+def grid_checkpoint(tmp_path_factory):
+    """Two steps at (2, 2), checkpointed at step 1: (directory, the joined
+    tree on the host)."""
+    path = tmp_path_factory.mktemp("grid_ckpt")
+    bundle, cfg = _grid_bundle((2, 2))
+    params, opt = bundle.init(0)
+    data = _grid_data(cfg)
+    for step in range(2):
+        bundle.step(params, opt, bundle.to_device(data.batch_at(step)))
+    tree = bundle.checkpoint_tree(params, opt)
+    ckpt.save(path, 1, tree)
+    return path, {k: v.detach().clone() for k, v in ckpt._flatten(tree)}
+
+
+def _bits_of(tree):
+    return {k: _bits(v.detach()) for k, v in ckpt._flatten(tree)}
+
+
+@pytest.mark.parametrize("grid", [(1, 1), (1, 4)])
+def test_a_grid_checkpoint_restores_onto_another_grid(grid_checkpoint,
+                                                      grid):
+    """A (2, 2) checkpoint restored onto (1, 1) and onto (1, 4): every
+    weight and moment (joined) and the count equal the saved tree bit for
+    bit; the next step equals the same step taken on that grid from the
+    joined tree without the checkpoint (loss, grad norm, weights and
+    moments bit for bit); and the resumable loop restarts there, logging
+    the grid."""
+    path, saved = grid_checkpoint
+    bundle, cfg = _grid_bundle(grid)
+    start, params, opt = elastic_restore(str(path), bundle)
+    assert start == 2
+    assert _bits_of(bundle.checkpoint_tree(params, opt)) == \
+        {k: _bits(v) for k, v in saved.items()}
+    if grid == (1, 4):
+        wq = "layers.0.mix.wq"
+        assert params.layout[wq].model_dim == 1
+        for s in range(4):
+            assert torch.equal(params.held(wq, 0, s),
+                               saved[f"params/{wq}"][:, s:s + 1])
+    p2, o2 = bundle.empty_state()
+    bundle.load_checkpoint_tree(
+        p2, o2, ckpt._unflatten(bundle.checkpoint_tree(p2, o2), saved))
+    batch = bundle.to_device(_grid_data(cfg).batch_at(2))
+    _, _, m1 = bundle.step(params, opt, batch)
+    _, _, m2 = bundle.step(p2, o2, batch)
+    assert {k: float(v) for k, v in m1.items()} == \
+        {k: float(v) for k, v in m2.items()}
+    assert _bits_of(bundle.checkpoint_tree(params, opt)) == \
+        _bits_of(bundle.checkpoint_tree(p2, o2))
+    lines = []
+    resumable_train_loop(bundle, _grid_data(cfg), total_steps=3,
+                         ckpt_dir=str(path), ckpt_every=0,
+                         async_ckpt=False, log_fn=lines.append)
+    assert lines[0] == f"[elastic] resumed at step 2 on mesh {grid}"
+
+
+_REFERENCE_RESTORE = r'''
+import json, sys
+import jax, numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.checkpoint import checkpoint as ckpt
+from repro.launch.mesh import make_engine_mesh
+from repro.sharding.rules import param_rules, spec_for
+
+args = json.loads(sys.argv[1])
+mesh = make_engine_mesh(2, 2)[0]
+like, shard = {}, {}
+for key, (shape, dtype, axes) in args["leaves"].items():
+    like[key] = np.zeros(shape, dtype)
+    spec = P() if axes is None else spec_for(tuple(shape), tuple(axes),
+                                             param_rules(), mesh)
+    shard[key] = NamedSharding(mesh, spec)
+step, tree = ckpt.restore(args["path"], like, shardings=shard)
+out, specs = {}, {}
+for key, x in tree.items():
+    out[key] = np.asarray(x)
+    specs[key] = [str(s) for s in x.sharding.spec]
+    for dev, idx in x.sharding.devices_indices_map(x.shape).items():
+        shard_data = [s.data for s in x.addressable_shards
+                      if s.device == dev][0]
+        assert np.array_equal(np.asarray(shard_data), out[key][idx]), key
+np.savez(args["out"], step=step, specs=json.dumps(specs),
+         **{k.replace("/", "__"): v for k, v in out.items()})
+'''
+
+
+@pytest.mark.multidevice
+def test_a_port_grid_checkpoint_restores_in_the_reference(grid_checkpoint,
+                                                          tmp_path):
+    """The port's (2, 2) checkpoint restored by the reference's
+    ``checkpoint.restore`` onto its own (2, 2) mesh (8 forced host
+    devices, a subprocess), each leaf placed by ``param_rules()``: every
+    leaf equals the port's joined tree bit for bit, every device's shard
+    is its slice, and the weights cut as the port's grid cuts them."""
+    import os
+    path, saved = grid_checkpoint
+    bundle, cfg = _grid_bundle((2, 2))
+    axes = bundle.model.param_axes()
+    leaves = {}
+    for key, v in saved.items():
+        name = key.split("/")[-1]
+        leaves[key] = (list(v.shape), str(v.dtype).replace("torch.", ""),
+                       None if key.endswith("count") else list(axes[name]))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    args = {"path": str(path), "leaves": leaves,
+            "out": str(tmp_path / "out.npz")}
+    r = subprocess.run([sys.executable, "-c", _REFERENCE_RESTORE,
+                        json.dumps(args)], capture_output=True, text=True,
+                       env=env, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    with np.load(tmp_path / "out.npz") as f:
+        assert int(f["step"]) == 1
+        specs = json.loads(str(f["specs"]))
+        for key, v in saved.items():
+            assert f[key.replace("/", "__")].tobytes() == \
+                v.numpy().tobytes(), key
+    name = "layers.0.mix.wq"
+    assert specs[f"params/{name}"][:2] == ["data", "model"]
+    assert tuple(s for s in bundle.param_specs[name]) == ("data", "model")

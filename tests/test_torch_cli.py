@@ -3,7 +3,9 @@ the CPU.
 
 Same weights (JAX-initialised, passed through ``repro_torch.interop``)
 or, for the CLI, the reference's own seeded request stream: the
-completions, plan counters and summary lines must be identical.
+completions, plan counters and summary lines must be identical.  The
+training launcher over a CPU grid (crash and resume, and the module as
+a subprocess) and ``examples/quickstart_torch.py`` on the CPU run too.
 """
 import json
 import os
@@ -13,6 +15,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro.configs.base import ServeConfig as JServeConfig
 from repro.serving import DecodeEngine as JDecodeEngine
@@ -301,3 +304,84 @@ def test_run_serving_trace_matches_the_references_shape(tmp_path):
                  "requests_submitted_total"):
         assert snaps[0]["metrics"][name]["series"] == \
             snaps[1]["metrics"][name]["series"]
+
+
+# ---------------------------------------------------------------------------
+# training over a grid, and the examples
+# ---------------------------------------------------------------------------
+
+
+def test_run_training_over_a_grid_resumes(tmp_path):
+    """``run_training`` at model axis 2 over four CPU devices (a (2, 2)
+    grid): three steps, crashed at step 2 and resumed from the step-1
+    checkpoint onto the same grid, end at the uninterrupted run's
+    metrics bit for bit."""
+    from repro_torch.launch.train import run_training
+    kw = dict(steps=3, d_model=32, num_layers=2, seq_len=16,
+              global_batch=4, model_axis=2, devices=["cpu"] * 4,
+              ckpt_every=2, remat_policy="nothing_saveable")
+    whole = run_training("qwen2.5-3b", ckpt_dir=str(tmp_path / "whole"),
+                         log_fn=lambda line: None, **kw)
+    with pytest.raises(RuntimeError, match="injected failure at step 2"):
+        run_training("qwen2.5-3b", ckpt_dir=str(tmp_path / "crash"),
+                     fail_at_step=2, log_fn=lambda line: None, **kw)
+    lines = []
+    resumed = run_training("qwen2.5-3b", ckpt_dir=str(tmp_path / "crash"),
+                           log_fn=lines.append, **kw)
+    assert lines[0] == "[elastic] resumed at step 2 on mesh (2, 2)"
+    assert resumed == whole and set(whole) == {
+        "loss", "aux_loss", "tokens", "total_loss", "grad_norm", "lr"}
+
+
+def test_run_training_grid_takes_its_data_axis(tmp_path, monkeypatch):
+    """With ``data_axis`` set the grid is the first data x model devices
+    of the list (here eight stand-in visible devices: (2, 2), not
+    (4, 2)), and a list that is too short raises."""
+    from repro_torch.launch import train as train_mod
+    monkeypatch.setattr(train_mod, "visible_devices",
+                        lambda: (torch.device("cpu"),) * 8)
+    kw = dict(d_model=32, num_layers=2, seq_len=16, global_batch=4,
+              model_axis=2, data_axis=2, ckpt_every=1,
+              ckpt_dir=str(tmp_path))
+    with pytest.raises(ValueError, match="needs 4 devices, 2 given"):
+        train_mod.run_training("qwen2.5-3b", steps=1,
+                               devices=["cpu"] * 2, **kw)
+    train_mod.run_training("qwen2.5-3b", steps=1, log_fn=lambda line: None,
+                           **kw)
+    lines = []
+    train_mod.run_training("qwen2.5-3b", steps=2, log_fn=lines.append, **kw)
+    assert lines[0] == "[elastic] resumed at step 1 on mesh (2, 2)"
+
+
+def test_train_module_runs_over_a_cpu_grid(tmp_path):
+    """``python -m repro_torch.launch.train --device cpu --data-axis 2
+    --model-axis 2`` trains and prints the final metrics."""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen2.5-3b", "--device", "cpu", "--data-axis", "2",
+         "--model-axis", "2", "--steps", "2", "--d-model", "32",
+         "--num-layers", "2", "--seq-len", "16", "--global-batch", "4",
+         "--ckpt-dir", str(tmp_path)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1].startswith("final: {'loss': ")
+
+
+def test_quickstart_example_runs_on_the_cpu():
+    """``examples/quickstart_torch.py --device cpu``: the policy demo, 4
+    training steps over a (2, 2) CPU grid, then serving, ending with its
+    OK line.  Two intra-op threads: the suite's workers share the
+    machine's cores, and a subprocess that takes them all crawls."""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "2"}
+    out = subprocess.run(
+        [sys.executable, "examples/quickstart_torch.py", "--device", "cpu",
+         "--steps", "4", "--data-axis", "2", "--model-axis", "2"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[-1] == "quickstart OK"
+    assert any(x.startswith("  final loss ") for x in lines)
+    assert sum(x.startswith("  req ") for x in lines) == 5

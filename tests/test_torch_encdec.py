@@ -44,6 +44,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import build_model, encdec
 from repro_torch.models.common import GeluMLP, LayerNorm, apply_mlp, \
     apply_norm, sinusoidal_positions
+from repro_torch.models.moe import balance_loss
 from repro_torch.plan import AttentionSpec, Planner
 from repro_torch.serving import GreedySampler, Request, ServingEngine
 from repro_torch.serving.scheduler import Scheduler
@@ -190,8 +191,8 @@ def test_prefill_then_decode_matches_reference(f32_pair):
     batch = {"tokens": torch.from_numpy(tokens).long(),
              "frames": torch.from_numpy(frames)}
     jfull, _ = jax.jit(jmodel.forward)(jparams, jbatch)
-    full, aux = model.forward(params, batch)
-    assert float(aux) == 0.0
+    full, stats = model.forward(params, batch)
+    assert float(balance_loss(stats)) == 0.0
     scale = float(jnp.max(jnp.abs(jfull)))
     assert np.abs(full.numpy() - np.asarray(jfull)).max() / scale < \
         ENCDEC_TOL

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports ``jax`` or the ``repro`` package; and its entry
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and not the port's examples (``examples/*_torch.py``)
+imports ``jax`` or the ``repro`` package; and its entry
 points refuse to fall back to the CPU when no card is present."""
 import json
 import os
@@ -21,6 +22,11 @@ PROBE = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     import chip_smoke
+    import importlib.util
+    for ex in ("quickstart_torch", "train_100m_torch"):
+        spec = importlib.util.spec_from_file_location(
+            ex, f"examples/{ex}.py")
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.")
                  or m == "repro" or m.startswith("repro."))
@@ -73,6 +79,7 @@ def test_no_module_imports_jax_or_repro():
                  "repro_torch.training", "repro_torch.training.optimizer",
                  "repro_torch.training.remat",
                  "repro_torch.training.train_step",
+                 "repro_torch.training.compression",
                  "repro_torch.checkpoint",
                  "repro_torch.checkpoint.checkpoint",
                  "repro_torch.fault", "repro_torch.fault.elastic",

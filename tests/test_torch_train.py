@@ -44,8 +44,10 @@ from repro_torch.configs.reduced import reduced_config
 from repro_torch.data.synthetic import DataConfig, SyntheticLM
 from repro_torch.interop import params_from_numpy, params_to_numpy
 from repro_torch.kernels import flash_prefill as fp
+from repro_torch.launch.mesh import make_host_mesh as grid
 from repro_torch.launch.train import run_training
 from repro_torch.models import build_model
+from repro_torch.models.moe import balance_loss
 from repro_torch.models.registry import Model
 from repro_torch.training import optimizer as opt
 from repro_torch.training import remat
@@ -175,7 +177,8 @@ def test_adamw_update_matches_reference(clip):
 
 
 class _Fixed:
-    """A model stand-in whose forward returns fixed logits and aux."""
+    """A model stand-in whose forward returns fixed logits and aux (the
+    reference's loss; the port's routing stats)."""
 
     def __init__(self, cfg, logits, aux):
         self.cfg, self._out = cfg, (logits, aux)
@@ -196,7 +199,10 @@ def test_lm_loss_matches_reference(arch):
     labels = rng.integers(0, V, (2, Lt)).astype(np.int32)
     labels[0, 3] = labels[1, 7] = -1
     aux = np.float32(0.37)
-    total, m = lm_loss(_Fixed(cfg, _t(logits), torch.tensor(aux)), None,
+    # one routing over one expert: all top-1 choices, mean probability
+    # aux, whose load-balance loss is aux exactly
+    stats = torch.tensor([[[[1.0], [aux]]]])
+    total, m = lm_loss(_Fixed(cfg, _t(logits), stats), None,
                        {"labels": _t(labels)})
     jtotal, jm = jts.lm_loss(_Fixed(jcfg, jnp.asarray(logits),
                                     jnp.asarray(aux)), None,
@@ -248,7 +254,8 @@ def family(request):
 def test_forward_matches_reference(family):
     name, (cfg, model, params, jmodel, jparams, batch, jbatch) = family
     with torch.no_grad():
-        logits, aux = model.forward(params, batch)
+        logits, stats = model.forward(params, batch)
+        aux = balance_loss(stats)
     jlogits, jaux = jax.jit(jmodel.forward)(jparams, jbatch)
     assert logits.shape == jlogits.shape and logits.dtype == torch.float32
     scale = float(jnp.max(jnp.abs(jlogits)))
@@ -391,8 +398,21 @@ def test_microbatches_match_the_full_batch():
 
 
 def test_build_train_step_refuses_a_model_axis():
+    """The refusals left: a family without a tensor-parallel forward (vlm,
+    encdec, hybrid, ssm) at a model axis above 1, naming ROADMAP; and a
+    model axis the device list does not fit (``make_host_mesh``'s
+    error: one CPU device for a model axis of 2)."""
+    for arch in ("paligemma-3b", "whisper-large-v3", "recurrentgemma-9b",
+                 "mamba2-780m"):
+        cfg = reduced_config(arch)
+        model = build_model(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_train_step(model, TrainConfig(model=cfg),
+                             grid(2, ["cpu"] * 2))
+        build_train_step(model, TrainConfig(model=cfg),
+                         grid(1, ["cpu"] * 2))
     cfg = reduced_config("qwen2.5-3b")
-    with pytest.raises(NotImplementedError, match="mesh training"):
+    with pytest.raises(ValueError, match="model axis of 2 does not fit 1"):
         build_train_step(build_model(cfg, device="cpu"),
                          TrainConfig(model=cfg), model_axis=2)
 
